@@ -5,21 +5,27 @@
 
 Phases, each fatal on failure:
 
-1. build   compile the epilogue kernel (csrc/epilogue.cu) with nvcc for sm_90a;
+1. build   compile the epilogue kernels (csrc/epilogue.cu) with nvcc for sm_90a;
 2. kernel  at each of the 9 epilogue shapes of a 1024^2 forward, batch 8, in
            float32 and bfloat16: run the kernel and the plain PyTorch version
            (ops/fused.py::_reference_epilogue) on the same CUDA tensors, hold
-           max |diff| to its tolerance, time both with CUDA events (device
-           time from CUDA-graph replays, and eager calls); hold it too at
-           ragged shapes that take its scalar (unvectorised) path; check the
-           autograd.Function's gradients against autograd of the plain version;
+           max |diff| to its tolerance and two kernel calls to bitwise
+           equality, print the plan taken (path, cluster, CUDA launches per
+           call), time both with CUDA events (device time from CUDA-graph
+           replays with x warm in L2, and with x and out rotated over more
+           than 100 MB of buffers so that L2 is cold; and eager calls); hold
+           it too at ragged shapes that take its scalar (unvectorised) path;
+           check the autograd.Function's gradients against autograd of the
+           plain version;
 3. slice   build the FFHQ-1024 generator of configs/sample_ffhq_1024.yaml with
            seeded random weights (noise weights included), serve 3 requests of
            batch 8 at 1024^2 through make_serving_fn, check shapes, finiteness
            and 18 kernel calls per forward, and hold the first 2 images of a
            request to the same generator on the CPU (plain path, TF32 off) at
            max |diff| <= 1e-2; profile one more forward (torch.profiler) and
-           write its device-time table by kernel to build/chip_smoke/;
+           write its device-time table by kernel to build/chip_smoke/; each
+           epilogue kernel must show in it as many launches as the wrapper
+           made (26 per forward), each with device time;
 4. cli     save the weights as a JAX-package .npz and run
            `python -m stylegan_torch.cli.generate_samples` on them.
 
@@ -45,6 +51,7 @@ BATCH = 8
 DEPTH = 8                       # 1024^2
 REQUESTS = 3
 PROFILE_TABLE = os.path.join(REPO, "build", "chip_smoke", "profile.txt")
+COLD_BYTES = 128 << 20          # > 2x the H100's 50 MB L2
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM published HBM3 rate
 # (resolution, channels) of the 9 stages; each runs the epilogue twice
 EPILOGUE_SHAPES = [(4, 512), (8, 512), (16, 512), (32, 512), (64, 256),
@@ -98,18 +105,22 @@ def cuda_time_ms(fn, iters=20, warmup=3):
 
 
 def graph_time_ms(fn, calls=10, replays=10):
-    """Device time of one fn() call: `calls` calls captured in a CUDA graph,
-    replayed, median replay time over `calls`.  Leaves out the host's launch
-    overhead, which cuda_time_ms of an eager call includes."""
+    """Device time of one fn(i) call: fn(0) .. fn(calls - 1) captured in a
+    CUDA graph, replayed, median replay time over `calls`.  Leaves out the
+    host's launch overhead, which cuda_time_ms of an eager call includes.
+    The warm-up call runs on the capture's stream, so the kernel wrapper's
+    plan already exists when the capture starts; each captured two-pass
+    call takes a workspace of its own, whose ticket zeroing (a memset of
+    B x chunks int32) the replay times too."""
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
-        fn()
+        fn(0)
     torch.cuda.current_stream().wait_stream(side)
     graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        for _ in range(calls):
-            fn()
+    with torch.cuda.graph(graph, stream=side):
+        for i in range(calls):
+            fn(i)
     ms = cuda_time_ms(graph.replay, iters=replays) / calls
     del graph
     return ms
@@ -122,30 +133,56 @@ def bf16_bound(ref):
     return BF16_ULPS * 2.0 ** (math.floor(math.log2(m)) - 7)
 
 
+def cold_time_ms(fn, x):
+    """Device time of one fn(x') call with x' and its output cold in L2: a
+    graph of calls rotating over copies of x, every output kept alive."""
+    n = max(2, math.ceil(COLD_BYTES / (2 * x.numel() * x.element_size())))
+    xs = [x.clone() for _ in range(n)]
+    keep = []
+
+    def call(i):
+        keep.append(fn(xs[i % n]))
+    ms = graph_time_ms(call, calls=n, replays=5)
+    del xs, keep
+    return ms
+
+
+def epilogue_inputs(g, dev, dtype, res, c):
+    shape = (BATCH, res, res, c)
+    x = (torch.randn(shape, generator=g, device=dev) + 0.5).to(dtype)
+    nw = 0.5 * torch.randn(c, generator=g, device=dev)
+    noise = torch.randn((BATCH, res, res, 1), generator=g,
+                        device=dev).to(dtype)
+    style = 0.5 * torch.randn((BATCH, 2 * c), generator=g, device=dev)
+    return x, nw, noise, style
+
+
 def phase_kernel(dev):
     """Kernel vs plain version at every epilogue shape; returns the summary
-    over the main path's 18 float32 calls."""
+    over the main path's 18 calls (float32, and the same in bfloat16)."""
     from stylegan_torch.ops import fused
     from stylegan_torch.ops.kernels import epilogue as kern
     g = torch.Generator(device=dev).manual_seed(0)
     summary = {"ms": 0.0, "call_ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
-               "max_abs_err": 0.0}
+               "cold_ms": 0.0, "bf16_ms": 0.0, "bf16_cold_ms": 0.0,
+               "bf16_bound_ms": 0.0, "max_abs_err": 0.0,
+               # launches of each kernel in one float32 forward, by the plans
+               "per_forward": dict.fromkeys(kern.KERNEL_NAMES, 0)}
     for dtype in (torch.float32, torch.bfloat16):
         for res, c in EPILOGUE_SHAPES:
-            shape = (BATCH, res, res, c)
-            x = (torch.randn(shape, generator=g, device=dev) + 0.5).to(dtype)
-            nw = 0.5 * torch.randn(c, generator=g, device=dev)
-            noise = torch.randn((BATCH, res, res, 1), generator=g,
-                                device=dev).to(dtype)
-            style = 0.5 * torch.randn((BATCH, 2 * c), generator=g,
-                                      device=dev)
-            args = (x, nw, noise, style)
+            args = epilogue_inputs(g, dev, dtype, res, c)
+            x, nw, noise, style = args
+            shape = tuple(x.shape)
+            plan = kern.plan_for(x)
             with torch.no_grad():
                 got = fused.fused_epilogue(*args)
+                again = fused.fused_epilogue(*args)
                 ref = fused._reference_epilogue(*args)
                 torch.cuda.synchronize()
                 if got.dtype != dtype or got.shape != x.shape:
                     fail(f"kernel output {got.dtype} {tuple(got.shape)}")
+                if not torch.equal(got, again):
+                    fail(f"epilogue {shape} {dtype}: two calls differ")
                 err = float((got.float() - ref.float()).abs().max())
                 tol = F32_TOL if dtype == torch.float32 else bf16_bound(ref)
                 if dtype == torch.bfloat16:
@@ -163,12 +200,14 @@ def phase_kernel(dev):
                              "f32 plain version")
                     del ref32, ulp
 
-                def kernel():
-                    fused.fused_epilogue(*args)
+                def kernel(i=0):
+                    return fused.fused_epilogue(*args)
 
-                def plain():
-                    fused._reference_epilogue(*args)
+                def plain(i=0):
+                    return fused._reference_epilogue(*args)
                 ms, plain_ms = graph_time_ms(kernel), graph_time_ms(plain)
+                cold_ms = cold_time_ms(
+                    lambda xi: fused.fused_epilogue(xi, nw, noise, style), x)
                 call_ms = cuda_time_ms(kernel)
                 plain_call_ms = cuda_time_ms(plain)
             nbytes = kern.bytes_moved(x)
@@ -176,19 +215,31 @@ def phase_kernel(dev):
             name = "f32" if dtype == torch.float32 else "bf16"
             log(json.dumps({"epilogue": f"{BATCH}x{res}x{res}x{c}",
                             "dtype": name, "max_abs_err": err, "tol": tol,
-                            "ms": ms, "plain_ms": plain_ms,
+                            "deterministic": True, "path": plan["path"],
+                            "cluster": plan["cluster"],
+                            "chunk_c": plan["chunk_c"],
+                            "cuda_launches_per_call": plan["launches"],
+                            "ms": ms, "cold_ms": cold_ms, "plain_ms": plain_ms,
                             "call_ms": call_ms, "plain_call_ms": plain_call_ms,
                             "bytes": nbytes, "bound_ms": bound_ms,
-                            "GB_per_s": nbytes / ms / 1e6}))
+                            "GB_per_s": nbytes / ms / 1e6,
+                            "cold_GB_per_s": nbytes / cold_ms / 1e6}))
             if not err <= tol:
                 fail(f"epilogue {shape} {name}: max |diff| {err} > {tol}")
             if dtype == torch.float32:   # the main path: two calls per stage
                 summary["ms"] += 2 * ms
+                summary["cold_ms"] += 2 * cold_ms
                 summary["call_ms"] += 2 * call_ms
                 summary["plain_ms"] += 2 * plain_ms
                 summary["bound_ms"] += 2 * bound_ms
                 summary["max_abs_err"] = max(summary["max_abs_err"], err)
-            del x, noise, got, ref, args, kernel, plain
+                for name in kern.KERNELS_BY_PATH[plan["path"]]:
+                    summary["per_forward"][name] += 2
+            else:
+                summary["bf16_ms"] += 2 * ms
+                summary["bf16_cold_ms"] += 2 * cold_ms
+                summary["bf16_bound_ms"] += 2 * bound_ms
+            del x, noise, got, again, ref, args, kernel, plain
         for b, h, w, c, offset in RAGGED_SHAPES:
             check_ragged(fused, g, dev, dtype, (b, h, w, c), offset)
 
@@ -210,6 +261,7 @@ def phase_kernel(dev):
         log(f"grad {name}: max |diff| {err:.3e} (max |grad| {scale:.3e})")
         if not err <= F32_TOL * max(1.0, scale):
             fail(f"epilogue gradient {name}: max |diff| {err}")
+    log(json.dumps({"epilogue_18_calls": summary}))
     return summary
 
 
@@ -225,7 +277,10 @@ def check_ragged(fused, g, dev, dtype, shape, offset):
             0.5 * torch.randn((b, 2 * c), generator=g, device=dev))
     with torch.no_grad():
         got = fused.fused_epilogue(*args)
+        again = fused.fused_epilogue(*args)
         ref = fused._reference_epilogue(*args)
+    if not torch.equal(got, again):
+        fail(f"epilogue {shape} {dtype} offset {offset}: two calls differ")
     err = float((got.float() - ref.float()).abs().max())
     tol = F32_TOL if dtype == torch.float32 else bf16_bound(ref)
     log(json.dumps({"epilogue": "x".join(map(str, shape)),
@@ -253,7 +308,7 @@ def random_state_dict(generator, seed=0):
     return sd
 
 
-def phase_slice(dev):
+def phase_slice(dev, per_forward):
     from stylegan_torch.config import apply_runtime_knobs, get_default_cfg
     from stylegan_torch.models import Generator, generator_config_from_cfg
     from stylegan_torch.models.synthesis import layer_resolution, make_noise
@@ -283,14 +338,14 @@ def phase_slice(dev):
     serve(zs[-1], 1000)               # warm-up request, not counted
     torch.cuda.synchronize()
 
-    kern.launches = 0
+    kern.launches = kern.cuda_launches = 0
     t0 = time.perf_counter()
     outs = []
     for i in range(REQUESTS):
         outs.append(serve(zs[i], i))
         torch.cuda.synchronize()
     elapsed = time.perf_counter() - t0
-    launches = kern.launches
+    launches, cuda_launches = kern.launches, kern.cuda_launches
     for out in outs:
         if tuple(out.shape) != (BATCH, 1024, 1024, 3):
             fail(f"served shape {tuple(out.shape)}")
@@ -300,7 +355,8 @@ def phase_slice(dev):
         fail(f"epilogue kernel calls {launches}, want {18 * REQUESTS}")
     log(f"served {REQUESTS} requests of batch {BATCH} at 1024^2: "
         f"{elapsed / REQUESTS * 1e3:.2f} ms per forward, "
-        f"{REQUESTS * BATCH / elapsed:.2f} img/s, {launches} epilogue calls, "
+        f"{REQUESTS * BATCH / elapsed:.2f} img/s, {launches} epilogue calls "
+        f"({cuda_launches} CUDA launches), "
         f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
 
     # the same generator on the CPU, plain path, with the request's noise
@@ -317,32 +373,55 @@ def phase_slice(dev):
     if not err <= CPU_TOL:
         fail(f"card vs CPU max |diff| {err} > {CPU_TOL}")
 
-    profile_forward(serve, zs[0], PROFILE_TABLE)
-    return cpu_gen, launches, REQUESTS * BATCH / elapsed
+    epilogue_ms = profile_forward(serve, zs[0], PROFILE_TABLE, kern,
+                                  per_forward)
+    return (cpu_gen, launches, cuda_launches, REQUESTS * BATCH / elapsed,
+            epilogue_ms)
 
 
-def profile_forward(serve, z, path):
+def profile_forward(serve, z, path, kern, per_forward):
+    """Device time of one forward by kernel.  The epilogue's time is read
+    by the wrapper's kernel names; it is fresh only if the profiler shows
+    each kernel as many times as the plans launch it per forward
+    (`per_forward`), all of them the wrapper's CUDA launches, and each with
+    device time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile as tprofile
+    kern.cuda_launches = 0
     with tprofile(activities=[ProfilerActivity.CPU,
                               ProfilerActivity.CUDA]) as prof:
         serve(z, 0)
         torch.cuda.synchronize()
+    wrapper_launches = kern.cuda_launches
     events = prof.key_averages()
     table = events.table(sort_by="cuda_time_total", row_limit=40)
     kernels = [e for e in events if e.device_type == DeviceType.CUDA]
     busy = sum(e.self_device_time_total for e in kernels) / 1e3
-    epilogue = sum(e.self_device_time_total for e in kernels
-                   if any(k in e.key for k in ("stats_kernel",
-                                               "finalize_kernel",
-                                               "apply_kernel"))) / 1e3
+    by_name = {name: [e for e in kernels if name in e.key]
+               for name in kern.KERNEL_NAMES}
+    ms = {name: sum(e.self_device_time_total for e in es) / 1e3
+          for name, es in by_name.items()}
+    count = {name: sum(e.count for e in es) for name, es in by_name.items()}
+    epilogue = sum(ms.values())
     log(json.dumps({"profiled_forward_device_ms": busy,
-                    "epilogue_kernels_device_ms": epilogue}))
+                    "epilogue_kernels_device_ms": epilogue,
+                    "epilogue_by_kernel_ms": ms,
+                    "epilogue_launches_by_kernel": count,
+                    "wrapper_cuda_launches": wrapper_launches}))
     os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
     with open(path, "w") as f:
         f.write(table)
     log(f"profile table: {os.path.relpath(path, REPO)}")
     log(table[:6000])
+    if count != per_forward or sum(count.values()) != wrapper_launches:
+        fail(f"the profiled forward shows epilogue launches {count}; the "
+             f"plans make {per_forward}, the wrapper counted "
+             f"{wrapper_launches}")
+    stale = [name for name in kern.KERNEL_NAMES
+             if per_forward[name] and not ms[name] > 0]
+    if stale:
+        fail(f"the profiled forward shows no device time in {stale}")
+    return epilogue
 
 
 def phase_cli(cpu_gen):
@@ -386,7 +465,8 @@ def main():
     log(f"card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}")
 
     summary = phase_kernel(dev)
-    cpu_gen, launches, img_s = phase_slice(dev)
+    cpu_gen, launches, cuda_launches, img_s, profiled_ms = phase_slice(
+        dev, summary["per_forward"])
     phase_cli(cpu_gen)
 
     kernels = [{
@@ -394,13 +474,21 @@ def main():
         "source": "stylegan_torch/csrc/epilogue.cu",
         "replaces": "stylegan_tpu/ops/pallas/epilogue.py:73",
         "replaces_also": ["stylegan_tpu/ops/pallas/epilogue.py:101"],
-        "launches": launches, "max_abs_err": summary["max_abs_err"],
+        "launches": launches, "cuda_launches": cuda_launches,
+        "max_abs_err": summary["max_abs_err"],
         "ms": summary["ms"], "plain_ms": summary["plain_ms"],
         "bound_ms": summary["bound_ms"], "bound_by": "bytes",
         "library_ms": None, "call_ms": summary["call_ms"],
+        "cold_ms": summary["cold_ms"], "bf16_ms": summary["bf16_ms"],
+        "bf16_cold_ms": summary["bf16_cold_ms"],
+        "bf16_bound_ms": summary["bf16_bound_ms"],
+        "profiled_forward_ms": profiled_ms,
         "shapes": "the 18 float32 calls of one batch-8 1024^2 forward; ms "
-                  "and plain_ms device time (CUDA graph replay), call_ms "
-                  "eager calls with their host launch overhead",
+                  "and plain_ms device time (CUDA graph replay, x warm in "
+                  "L2), cold_ms the same with x and out cold in L2, call_ms "
+                  "eager calls with their host launch overhead, bf16_* the "
+                  "same 18 calls in bfloat16, profiled_forward_ms the "
+                  "kernels' device time inside one profiled forward",
     }]
     log(json.dumps({"serve_img_per_s": img_s, "batch": BATCH,
                     "resolution": 1024, "dtype": "float32"}))

@@ -4,12 +4,18 @@
     y   = leaky_relu(x + noise_weight[c] * noise, 0.2)
     out = (y - mean_hw(y)) * rsqrt(var_hw(y) + 1e-5) * (s0 + 1) + s1
 
-The kernel is ``stylegan_torch/csrc/epilogue.cu`` (see its header for the
-design and what bounds it).  It is compiled with ``nvcc`` for ``sm_90a`` into
-a shared library with a plain C interface at first use, cached under
-``build/stylegan_torch/`` by a hash of the source, and called through
-``ctypes`` on PyTorch's current stream.  The launch geometry is decided in
-the source alone; the wrapper asks it for the size of the workspace.
+The kernels are ``stylegan_torch/csrc/epilogue.cu`` (see its header for the
+design and what bounds it); the plan of a call (path, block shape, chunks,
+cluster, splits, shared memory, workspace) is ``csrc/epilogue_plan.h``.
+Both are compiled with ``nvcc`` for ``sm_90a`` into a shared library with a
+plain C interface at first use, cached under ``build/stylegan_torch/`` by a
+hash of the sources, and called through ``ctypes`` on PyTorch's current
+stream: one call per epilogue, handed the plan.  The plan is made once per
+(dtype, B, H*W, C, 16-byte alignment of x and out).  Its workspace, whose
+ticket counters the kernels leave at zero, is made once per plan, device and
+stream for eager calls; a call made while the stream is captured into a CUDA
+graph takes a workspace of its own from the graph's memory pool, so that a
+graph never shares counters with eager calls or with other graphs.
 
 `kernel_epilogue` is the ``torch.autograd.Function`` around the launch (the
 counterpart of the JAX ``pallas_epilogue`` custom VJP): its backward
@@ -30,13 +36,35 @@ from ..fused import _reference_epilogue
 
 _PKG = Path(__file__).resolve().parents[2]
 SOURCE = _PKG / "csrc" / "epilogue.cu"
+SOURCES = (SOURCE, _PKG / "csrc" / "epilogue_plan.h")
 BUILD_DIR = _PKG.parent / "build" / "stylegan_torch"
 
-# Calls of epilogue_forward that launched the kernel (one per call, whatever
-# number of CUDA launches the call makes).
+# The kernels each path of the plan launches, by the names a profiler
+# reports, one launch each per call.
+KERNELS_BY_PATH = {1: ("onepass_kernel",), 2: ("stats_kernel", "apply_kernel")}
+KERNEL_NAMES = KERNELS_BY_PATH[1] + KERNELS_BY_PATH[2]
+
+# Calls of epilogue_forward that launched the kernels (one per call), and the
+# CUDA launches they made (the plan's `launches`: 1 on path 1, 2 on path 2).
 launches = 0
+cuda_launches = 0
 
 _lib = None
+_plans: dict = {}        # (is_bf16, B, rows, C, aligned) -> Plan
+_workspaces: dict = {}   # (plan key, device, stream) -> eager workspace
+
+
+class Plan(ctypes.Structure):
+    """``SgtPlan`` of epilogue_plan.h."""
+    _fields_ = ([(n, ctypes.c_int) for n in (
+        "path", "vec", "tx", "ty", "chunk_c", "chunks", "cluster", "splits",
+        "launches")]
+        + [(n, ctypes.c_longlong) for n in (
+            "rows_per_rank", "rows_per_split", "rows_per_block", "smem_bytes",
+            "stats_offset", "tickets_offset", "workspace_bytes")])
+
+    def as_dict(self) -> dict:
+        return {n: getattr(self, n) for n, _ in self._fields_}
 
 
 def _nvcc() -> str:
@@ -48,12 +76,12 @@ def _nvcc() -> str:
 
 
 def build() -> tuple[str, str]:
-    """Compile the kernel library if this source has not been built yet.
+    """Compile the kernel library if these sources have not been built yet.
 
     Returns (path of the shared library, nvcc's report: registers, shared
     memory and spills per kernel; empty when the library was cached)."""
-    src = SOURCE.read_bytes()
-    so = BUILD_DIR / f"libepilogue-{hashlib.sha256(src).hexdigest()[:16]}.so"
+    digest = hashlib.sha256(b"".join(p.read_bytes() for p in SOURCES))
+    so = BUILD_DIR / f"libepilogue-{digest.hexdigest()[:16]}.so"
     if so.exists():
         return str(so), ""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
@@ -68,22 +96,56 @@ def build() -> tuple[str, str]:
     return str(so), r.stderr
 
 
+def bind(lib):
+    """Declare the C interface's argument types on a loaded library (the
+    kernel library, or a host-compiled copy of the plan alone)."""
+    p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    # is_bf16 B R C aligned plan
+    lib.sgt_epilogue_plan.argtypes = [i, i, ll, i, i, ctypes.POINTER(Plan)]
+    lib.sgt_epilogue_plan.restype = ctypes.c_int
+    if hasattr(lib, "sgt_epilogue_forward"):
+        lib.sgt_epilogue_forward.argtypes = [
+            p, p, p, p, p,        # x noise noise_weight style out
+            p, ll,                # workspace, its bytes
+            i, i, ll, i,          # is_bf16 B R C
+            ctypes.POINTER(Plan), p]  # plan, stream
+        lib.sgt_epilogue_forward.restype = ctypes.c_int
+    return lib
+
+
 def _library():
     global _lib
     if _lib is None:
         path, _ = build()
-        lib = ctypes.CDLL(path)
-        p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        # is_bf16 B R C x out
-        lib.sgt_epilogue_splits.argtypes = [i, i, ll, i, p, p]
-        lib.sgt_epilogue_splits.restype = ctypes.c_int
-        lib.sgt_epilogue_forward.argtypes = [
-            p, p, p, p, p, p, p,  # x noise nw style out partials stats
-            i, i, ll, i, i,       # is_bf16 B R C splits
-            p]                    # stream
-        lib.sgt_epilogue_forward.restype = ctypes.c_int
-        _lib = lib
+        _lib = bind(ctypes.CDLL(path))
     return _lib
+
+
+def _stream(device: torch.device) -> int:
+    # the handle of PyTorch's current stream, without building a Stream
+    return torch._C._cuda_getCurrentRawStream(device.index)
+
+
+def _capturing() -> bool:
+    # whether the current stream is being captured into a CUDA graph
+    return torch.cuda.is_current_stream_capturing()
+
+
+def make_plan(lib, is_bf16: int, b: int, rows: int, c: int,
+              aligned: int) -> Plan:
+    """The plan of one call, from the library's sgt_epilogue_plan."""
+    plan = Plan()
+    if lib.sgt_epilogue_plan(is_bf16, b, rows, c, aligned, plan) != 0:
+        raise ValueError(f"no epilogue plan for B={b} R={rows} C={c} "
+                         f"bf16={is_bf16} aligned={aligned}")
+    return plan
+
+
+def plan_for(x: torch.Tensor) -> dict:
+    """The plan a call on x would take (with a 16-byte-aligned out)."""
+    b, h, w, c = x.shape
+    return make_plan(_library(), int(x.dtype == torch.bfloat16), b, h * w, c,
+                     int(x.data_ptr() % 16 == 0)).as_dict()
 
 
 def epilogue_forward(x: torch.Tensor, noise_weight: torch.Tensor,
@@ -92,7 +154,6 @@ def epilogue_forward(x: torch.Tensor, noise_weight: torch.Tensor,
     storage), float32 or bfloat16, on a CUDA device; noise (B, H, W, 1) of
     x's dtype; noise_weight (C,) and style (B, 2C) float32.  Raises on
     anything else, never copies."""
-    global launches
     if x.ndim != 4 or x.dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"x must be 4-D float32/bfloat16 NHWC, got "
                          f"{tuple(x.shape)} {x.dtype}")
@@ -110,24 +171,56 @@ def epilogue_forward(x: torch.Tensor, noise_weight: torch.Tensor,
         raise ValueError("x must be contiguous NHWC (channels_last NCHW)")
     if x.device.type != "cuda":
         raise ValueError(f"epilogue kernel needs a CUDA tensor, got {x.device}")
-    rows, is_bf16 = h * w, int(x.dtype == torch.bfloat16)
-    lib = _library()
     out = torch.empty_like(x)
-    splits = lib.sgt_epilogue_splits(is_bf16, b, rows, c, x.data_ptr(),
-                                     out.data_ptr())
-    partials = torch.empty((b, splits, c, 2), dtype=torch.float32,
-                           device=x.device)
-    stats = torch.empty((b, c, 2), dtype=torch.float32, device=x.device)
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = lib.sgt_epilogue_forward(
-            x.data_ptr(), noise.data_ptr(), noise_weight.data_ptr(),
-            style.data_ptr(), out.data_ptr(), partials.data_ptr(),
-            stats.data_ptr(), is_bf16, b, rows, c, splits, stream)
+    if x.device.index != torch.cuda.current_device():
+        with torch.cuda.device(x.device):
+            _launch(x, noise_weight, noise, style, out)
+    else:
+        _launch(x, noise_weight, noise, style, out)
+    return out
+
+
+def _workspace(plan: Plan, device) -> torch.Tensor:
+    """A workspace for `plan` with its ticket counters zeroed (the kernels
+    leave them at zero; the partials and stats need no zeroing)."""
+    ws = torch.empty(plan.workspace_bytes, dtype=torch.uint8, device=device)
+    ws[plan.tickets_offset:].zero_()
+    return ws
+
+
+def _launch(x, noise_weight, noise, style, out):
+    """One ctypes call on x's device, which is the current one."""
+    global launches, cuda_launches
+    b, h, w, c = x.shape
+    rows, is_bf16 = h * w, int(x.dtype == torch.bfloat16)
+    aligned = int((x.data_ptr() | out.data_ptr()) % 16 == 0)
+    lib = _library()
+    key = (is_bf16, b, rows, c, aligned)
+    plan = _plans.get(key)
+    if plan is None:
+        plan = _plans[key] = make_plan(lib, is_bf16, b, rows, c, aligned)
+    stream = _stream(x.device)
+    ws_key, ws_ptr = None, 0
+    if plan.workspace_bytes:      # path 2 only
+        if _capturing():
+            # the graph's own, freed back to its pool in stream order
+            ws = _workspace(plan, x.device)
+        else:
+            ws_key = (key, x.device, stream)
+            ws = _workspaces.get(ws_key)
+            if ws is None:
+                ws = _workspaces[ws_key] = _workspace(plan, x.device)
+        ws_ptr = ws.data_ptr()
+    err = lib.sgt_epilogue_forward(
+        x.data_ptr(), noise.data_ptr(), noise_weight.data_ptr(),
+        style.data_ptr(), out.data_ptr(), ws_ptr, plan.workspace_bytes,
+        is_bf16, b, rows, c, plan, stream)
     if err != 0:
+        # its tickets may be left counting: the next call makes a new one
+        _workspaces.pop(ws_key, None)
         raise RuntimeError(f"epilogue kernel launch failed: cudaError {err}")
     launches += 1
-    return out
+    cuda_launches += plan.launches
 
 
 def bytes_moved(x: torch.Tensor) -> int:
@@ -159,5 +252,11 @@ class _KernelEpilogue(torch.autograd.Function):
 
 
 def kernel_epilogue(x, noise_weight, noise, style):
-    """Differentiable kernel epilogue; same arguments as epilogue_forward."""
-    return _KernelEpilogue.apply(x, noise_weight, noise, style)
+    """Differentiable kernel epilogue; same arguments as epilogue_forward.
+    Where no gradient can flow (inference, or no input requiring one) the
+    launch is called directly, without the autograd.Function's host cost."""
+    if torch.is_grad_enabled() and (
+            x.requires_grad or noise_weight.requires_grad
+            or noise.requires_grad or style.requires_grad):
+        return _KernelEpilogue.apply(x, noise_weight, noise, style)
+    return epilogue_forward(x, noise_weight, noise, style)

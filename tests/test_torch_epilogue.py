@@ -137,6 +137,111 @@ def test_kernel_wrapper_refuses_wrong_dtype_or_layout(case):
         kern.epilogue_forward(*_bad_inputs()[case])
 
 
+class _StubLibrary:
+    """Stands in for the kernel library: a fixed two-pass plan, and the
+    launch recorded instead of run (returning `err`)."""
+
+    def __init__(self, err=0):
+        self.plans, self.forwards, self.err = [], [], err
+
+    def sgt_epilogue_plan(self, is_bf16, b, rows, c, aligned, plan):
+        self.plans.append((is_bf16, b, rows, c, aligned))
+        plan.path, plan.launches = 2, 2
+        plan.tickets_offset, plan.workspace_bytes = 4000, 4096
+        return 0
+
+    def sgt_epilogue_forward(self, *args):
+        self.forwards.append(args)
+        return self.err
+
+
+def _stub(monkeypatch, err=0, stream=1234, capturing=False):
+    stub = _StubLibrary(err)
+    monkeypatch.setattr(kern, "_library", lambda: stub)
+    monkeypatch.setattr(kern, "_stream", lambda device: stream)
+    monkeypatch.setattr(kern, "_capturing", lambda: capturing)
+    monkeypatch.setattr(kern, "_plans", {})
+    monkeypatch.setattr(kern, "_workspaces", {})
+    monkeypatch.setattr(kern, "launches", 0)
+    monkeypatch.setattr(kern, "cuda_launches", 0)
+    return stub
+
+
+def test_kernel_wrapper_plans_once_and_makes_one_call(monkeypatch):
+    """Each epilogue is one call into the library, handed the plan; the plan
+    is made once per (dtype, shape, alignment), its zeroed workspace once per
+    plan, device and stream, and both are reused; the counters count calls
+    and CUDA launches."""
+    stub = _stub(monkeypatch)
+    x, nw, noise, style = map(torch.from_numpy, _inputs((2, 8, 8, 32)))
+    for _ in range(3):
+        kern._launch(x, nw, noise, style, torch.empty_like(x))
+    assert stub.plans == [(0, 2, 64, 32, 1)]
+    assert len(stub.forwards) == 3
+    workspaces = {(a[5], a[6]) for a in stub.forwards}
+    (ptr, nbytes), = workspaces
+    ws, = kern._workspaces.values()
+    plan, = kern._plans.values()
+    assert (ptr, nbytes) == (ws.data_ptr(), 4096)
+    assert bool((ws[4000:] == 0).all())
+    assert all(a[0] == x.data_ptr() and a[7:11] == (0, 2, 64, 32)
+               and a[11] is plan and a[-1] == 1234 for a in stub.forwards)
+    assert (kern.launches, kern.cuda_launches) == (3, 6)
+    # another shape makes its own plan and workspace; another stream its
+    # own workspace, with the same plan
+    x2, nw2, noise2, style2 = map(torch.from_numpy, _inputs((2, 4, 4, 32)))
+    kern._launch(x2, nw2, noise2, style2, torch.empty_like(x2))
+    monkeypatch.setattr(kern, "_stream", lambda device: 99)
+    kern._launch(x, nw, noise, style, torch.empty_like(x))
+    assert len(stub.plans) == 2 and len(kern._plans) == 2
+    assert len(kern._workspaces) == 3
+
+
+def test_kernel_wrapper_capture_takes_its_own_workspace(monkeypatch):
+    """A call captured into a CUDA graph never shares the eager calls'
+    workspace (whose tickets a replay on another stream would race on), and
+    is not kept: the graph's pool owns it.  Its tickets start at zero."""
+    stub = _stub(monkeypatch)
+    x, nw, noise, style = map(torch.from_numpy, _inputs((2, 8, 8, 32)))
+    kern._launch(x, nw, noise, style, torch.empty_like(x))
+    eager, = kern._workspaces.values()
+    make, seen = kern._workspace, []
+
+    def recorded(plan, device):
+        seen.append(make(plan, device))
+        return seen[-1]
+    monkeypatch.setattr(kern, "_workspace", recorded)
+    monkeypatch.setattr(kern, "_capturing", lambda: True)
+    for _ in range(2):
+        kern._launch(x, nw, noise, style, torch.empty_like(x))
+    assert len(seen) == 2
+    assert all(bool((w[4000:] == 0).all()) and w.numel() == 4096
+               for w in seen)
+    captured = [a[5] for a in stub.forwards[1:]]
+    assert eager.data_ptr() not in captured
+    assert captured == [w.data_ptr() for w in seen]
+    assert list(kern._workspaces.values()) == [eager]
+    assert (kern.launches, kern.cuda_launches) == (3, 6)
+
+
+def test_kernel_wrapper_failed_launch_drops_its_workspace(monkeypatch):
+    """A launch that fails raises, counts nothing, and leaves no workspace
+    whose tickets it may have left counting."""
+    _stub(monkeypatch, err=700)
+    x, nw, noise, style = map(torch.from_numpy, _inputs((2, 8, 8, 32)))
+    with pytest.raises(RuntimeError, match="cudaError 700"):
+        kern._launch(x, nw, noise, style, torch.empty_like(x))
+    assert kern._workspaces == {} and len(kern._plans) == 1
+    assert (kern.launches, kern.cuda_launches) == (0, 0)
+
+
+def test_kernel_names_cover_both_paths():
+    """chip_smoke.py reads the in-forward device time by these names."""
+    src = kern.SOURCE.read_text()
+    for name in kern.KERNEL_NAMES:
+        assert f"{name}(" in src
+
+
 def test_bytes_moved_counts_one_read_and_one_write():
     x = torch.empty((8, 1024, 1024, 16))
     assert kern.bytes_moved(x) == 4 * 8 * 1024 ** 2 * 33 + 4 * (16 + 2 * 8 * 16)

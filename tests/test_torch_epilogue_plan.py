@@ -1,0 +1,200 @@
+"""The epilogue kernel's launch plan (stylegan_torch/csrc/epilogue_plan.h),
+compiled with the host C++ compiler into a small shared library and checked
+on the CPU: the kernels themselves run only on the card (chip_smoke.py), but
+the plan decides which rows and channels each block covers, how much shared
+memory it asks for and how large the workspace is.  The plan must cover
+every row and channel exactly once, fit the H100's per-block shared memory,
+use portable cluster sizes, and size the workspace that the wrapper
+allocates."""
+
+import ctypes
+import itertools
+import shutil
+import subprocess
+
+import pytest
+import torch
+
+from stylegan_torch.ops.kernels import epilogue as kern
+
+MAX_SMEM = 232448          # bytes of shared memory one block may use on sm_90
+MAX_CLUSTER = 8            # the portable cluster size
+MIN_BLOCKS = 128           # one-pass grids hold about one block per SM
+BATCH = 8
+# the 9 stages of a 1024^2 forward (resolution, channels), as chip_smoke.py
+MAIN_SHAPES = [(4, 512), (8, 512), (16, 512), (32, 512), (64, 256),
+               (128, 128), (256, 64), (512, 32), (1024, 16)]
+# chip_smoke.py's ragged shapes (B, H, W, C, offset of x in elements)
+RAGGED_SHAPES = [(3, 7, 9, 17, 0), (2, 5, 1, 20, 0), (2, 33, 31, 48, 1)]
+
+
+@pytest.fixture(scope="module")
+def plan_lib(tmp_path_factory):
+    cxx = next((c for c in ("g++", "c++", "clang++") if shutil.which(c)), None)
+    if cxx is None:
+        pytest.skip("no host C++ compiler to build epilogue_plan.h")
+    d = tmp_path_factory.mktemp("epilogue_plan")
+    shim = d / "shim.cc"
+    shim.write_text('#include "epilogue_plan.h"\n')
+    so = d / "libplan.so"
+    subprocess.run([cxx, "-std=c++17", "-O1", "-Wall", "-Wextra", "-Werror",
+                    "-shared", "-fPIC", "-I", str(kern.SOURCE.parent),
+                    "-o", str(so), str(shim)], check=True, capture_output=True)
+    return kern.bind(ctypes.CDLL(str(so)))
+
+
+def _align16(n):
+    return (n + 15) // 16 * 16
+
+
+def _pow2(n):
+    return n > 0 and n & (n - 1) == 0
+
+
+def check_plan(p, b, rows, c, bf16, aligned):
+    elem = 2 if bf16 else 4
+    vec = (8 if bf16 else 4) if c % (8 if bf16 else 4) == 0 and aligned else 1
+    assert p.vec == vec
+    # channels: chunks of chunk_c cover [0, C) once; lanes past C are masked
+    assert _pow2(p.tx) and p.tx <= 32 and _pow2(p.ty)
+    assert p.tx * p.ty <= 256
+    assert p.chunk_c == p.tx * p.vec
+    assert (p.chunks - 1) * p.chunk_c < c <= p.chunks * p.chunk_c
+    assert p.chunks <= 65535
+    if p.path == 1:
+        # rows: the cluster's ranks split [0, R) into non-empty runs
+        assert p.cluster in (1, 2) and p.cluster <= MAX_CLUSTER
+        assert (p.cluster - 1) * p.rows_per_rank < rows
+        assert rows <= p.cluster * p.rows_per_rank
+        # the slab, its noise column, the merge's buffers and the cluster's
+        # exchange fit the shared memory the block asks for, and that fits
+        need = (p.rows_per_rank * p.chunk_c * elem + p.rows_per_rank * elem
+                + p.ty * p.chunk_c * 4 + p.chunk_c * 8)
+        assert need <= p.smem_bytes <= MAX_SMEM
+        assert p.ty >= min(p.rows_per_rank, 256 // p.tx)
+        assert p.launches == 1 and p.workspace_bytes == 0
+        assert p.chunks * p.cluster <= 2 ** 31 - 1
+    else:
+        assert p.path == 2 and p.cluster == 1
+        assert p.tx * p.ty == 256
+        # pass 1: splits cover [0, R) once, each a whole number of row groups
+        assert p.rows_per_split % p.ty == 0
+        assert (p.splits - 1) * p.rows_per_split < rows
+        assert rows <= p.splits * p.rows_per_split
+        # pass 2: blocks of rows_per_block rows
+        assert p.rows_per_block >= p.ty
+        # the last block's merge gives each channel 256 // chunk_c threads
+        assert 256 % p.chunk_c == 0
+        assert b <= 65535
+        assert p.launches == 2
+        # partials, stats, tickets
+        assert p.stats_offset == _align16(b * p.splits * c * 8)
+        assert p.tickets_offset == p.stats_offset + _align16(b * c * 8)
+        assert p.workspace_bytes == (p.tickets_offset
+                                     + _align16(b * p.chunks * 4))
+
+
+def plan(lib, bf16, b, rows, c, aligned=1):
+    return kern.make_plan(lib, bf16, b, rows, c, aligned)
+
+
+@pytest.mark.parametrize("bf16", [0, 1], ids=["f32", "bf16"])
+@pytest.mark.parametrize("res,c", MAIN_SHAPES,
+                         ids=[f"{r}x{r}x{c}" for r, c in MAIN_SHAPES])
+def test_main_path_plans(plan_lib, res, c, bf16):
+    """The 18 epilogue calls of a batch-8 1024^2 forward: planes up to
+    64^2 x 256 stay on chip in one launch with about a block per SM, in
+    clusters of at most 2; the larger ones take two passes in two
+    launches."""
+    p = plan(plan_lib, bf16, BATCH, res * res, c)
+    check_plan(p, BATCH, res * res, c, bf16, 1)
+    if res <= 64:
+        assert p.path == 1 and p.launches == 1
+        assert BATCH * p.chunks * p.cluster >= MIN_BLOCKS
+        assert p.cluster <= 2
+    else:
+        assert p.path == 2 and p.launches == 2
+
+
+@pytest.mark.parametrize("bf16", [0, 1], ids=["f32", "bf16"])
+@pytest.mark.parametrize("shape", RAGGED_SHAPES,
+                         ids=["x".join(map(str, s)) for s in RAGGED_SHAPES])
+def test_ragged_plans(plan_lib, shape, bf16):
+    b, h, w, c, offset = shape
+    aligned = int(offset * (2 if bf16 else 4) % 16 == 0)
+    p = plan(plan_lib, bf16, b, h * w, c, aligned)
+    check_plan(p, b, h * w, c, bf16, aligned)
+    if c % (8 if bf16 else 4) or not aligned:
+        assert p.vec == 1
+
+
+SWEEP_B = [1, 2, 3, 8]
+SWEEP_R = [1, 2, 7, 16, 63, 64, 100, 1000, 1024, 4095, 4096, 16384, 16385,
+           65536, 100003, 262144, 2 ** 20]
+SWEEP_C = [1, 3, 4, 8, 16, 17, 20, 32, 48, 64, 100, 128, 256, 384, 512]
+
+
+@pytest.mark.parametrize("aligned", [1, 0], ids=["aligned", "unaligned"])
+@pytest.mark.parametrize("bf16", [0, 1], ids=["f32", "bf16"])
+def test_plan_sweep(plan_lib, bf16, aligned):
+    """Every (B <= 8, H*W <= 2^20, C <= 512) of the sweep has a plan that
+    covers it, in both dtypes, aligned or not."""
+    paths = set()
+    for b, rows, c in itertools.product(SWEEP_B, SWEEP_R, SWEEP_C):
+        p = plan(plan_lib, bf16, b, rows, c, aligned)
+        check_plan(p, b, rows, c, bf16, aligned)
+        paths.add((p.path, p.cluster))
+    assert {1, 2} <= {path for path, _ in paths}
+    assert {cl for path, cl in paths if path == 1} == {1, 2}
+
+
+@pytest.mark.parametrize("dims", [(0, 16, 16), (1, 0, 16), (1, 16, 0)])
+def test_empty_calls_refused(plan_lib, dims):
+    b, rows, c = dims
+    with pytest.raises(ValueError, match="no epilogue plan"):
+        plan(plan_lib, 0, b, rows, c)
+
+
+class _Recorder:
+    """The kernel library with the plan from the host-compiled header and the
+    launch recorded instead of run."""
+
+    def __init__(self, lib):
+        self.lib = lib
+        self.forward_calls = []
+
+    def sgt_epilogue_plan(self, *args):
+        return self.lib.sgt_epilogue_plan(*args)
+
+    def sgt_epilogue_forward(self, *args):
+        self.forward_calls.append(args)
+        return 0
+
+
+@pytest.mark.parametrize("res,c", [(4, 512), (64, 256), (1024, 16)],
+                         ids=["4x4x512", "64x64x256", "1024x1024x16"])
+def test_wrapper_allocates_the_plans_workspace(plan_lib, monkeypatch, res, c):
+    rec = _Recorder(plan_lib)
+    monkeypatch.setattr(kern, "_library", lambda: rec)
+    monkeypatch.setattr(kern, "_stream", lambda device: 7)
+    monkeypatch.setattr(kern, "_capturing", lambda: False)
+    monkeypatch.setattr(kern, "_plans", {})
+    monkeypatch.setattr(kern, "_workspaces", {})
+    b = 2
+    x = torch.zeros((b, res, res, c))
+    out = torch.empty_like(x)
+    nw, noise, style = torch.zeros(c), torch.zeros((b, res, res, 1)), \
+        torch.zeros((b, 2 * c))
+    kern._launch(x, nw, noise, style, out)
+    p = plan(plan_lib, 0, b, res * res, c)
+    (args,) = rec.forward_calls
+    if p.path == 1:    # one pass needs no workspace
+        assert kern._workspaces == {} and args[5:7] == (0, 0)
+    else:
+        ws, = kern._workspaces.values()
+        assert args[5] == ws.data_ptr() and args[6] == ws.numel()
+        assert ws.numel() == p.workspace_bytes
+        assert bool((ws[p.tickets_offset:] == 0).all())
+    # the launch is handed the cached plan, equal to a fresh one
+    (cached,) = kern._plans.values()
+    assert args[11] is cached and cached.as_dict() == p.as_dict()

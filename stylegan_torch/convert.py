@@ -1,7 +1,7 @@
 """Weight bridge: JAX parameter trees, the JAX package's ``.npz`` files and
-reference ``.pth`` files -> the port's ``Generator`` state_dict (the port's
-copy of the generator half of ``stylegan_tpu/convert/torch_params.py``, the
-``.npz`` layer of ``stylegan_tpu/io/checkpoint.py`` and
+reference ``.pth`` files <-> the port's ``Generator`` and ``Discriminator``
+state_dicts (the port's copy of ``stylegan_tpu/convert/torch_params.py``,
+the ``.npz`` layer of ``stylegan_tpu/io/checkpoint.py`` and
 ``stylegan_tpu/convert/pth_files.py``).
 
 A JAX tree path maps to a reference state_dict key one to one; the only
@@ -17,11 +17,16 @@ renamed component is the epilogue noise weight:
   g_synthesis.blocks.{i}.{conv0_up,conv1}.*      same
   g_synthesis.to_rgb.{i}.{weight,bias}           same
   truncation.avg_latent, class_embedding.weight  same
+  blocks.{i}.{conv0,conv1_down}.*  (D)           same
+  from_rgb.{i}.*, final_block.{conv,dense0,dense1}.*, embeddings.{i}.weight
 
 Layouts: dense JAX (in, out) -> torch (out, in); conv HWIO -> OIHW; the
-const (1, 4, 4, C) -> (1, C, 4, 4); 1-D and the embedding unchanged.
-The reference's blur-kernel buffers (``conv0_up.intermediate.kernel``) are
-static configuration, not weights: ``.pth`` loading drops them.
+const (1, 4, 4, C) -> (1, C, 4, 4); 1-D and the embeddings (G's
+``class_embedding``, D's ``embeddings.{i}``, both (n_classes, dim))
+unchanged.  The reference's blur-kernel buffers (G's
+``conv0_up.intermediate.kernel``, D's ``blocks.{i}.blur.kernel``) are static
+configuration, not weights: ``.pth`` loading drops them, and a D ``.pth``
+written here carries them, as the reference's does.
 """
 
 from __future__ import annotations
@@ -36,7 +41,8 @@ from torch import nn
 
 _NOISE_JAX = re.compile(r"\.(epi[12])\.noise\.weight$")
 _NOISE_TORCH = re.compile(r"\.(epi[12])\.top_epi\.noise\.weight$")
-_BLUR_BUFFER = ".intermediate.kernel"
+_BLUR_BUFFERS = (".intermediate.kernel", ".blur.kernel")
+_EMBEDDING = re.compile(r"(^|\.)(class_embedding|embeddings\.\d+)\.weight$")
 
 
 # axis permutation from the JAX layout to the torch layout, by kind
@@ -48,7 +54,7 @@ def _kind(name: str, ndim: int) -> str:
         return "const"
     if ndim == 4:
         return "conv"
-    if ndim == 2 and name != "class_embedding.weight":
+    if ndim == 2 and not _EMBEDDING.search(name):
         return "dense"
     return "plain"
 
@@ -77,10 +83,13 @@ def flatten_params(tree, prefix: str = "") -> dict:
 
 
 def state_dict_from_flat(flat: dict) -> dict:
-    """{JAX dotted path: array} -> {port key: float32 tensor}."""
+    """{JAX dotted path: array} -> {port key: float32 tensor} (float64
+    arrays stay float64)."""
     sd = {}
     for path, a in flat.items():
-        a = np.asarray(a, dtype=np.float32)
+        a = np.asarray(a)
+        a = a.astype(np.float64 if a.dtype == np.float64 else np.float32,
+                     copy=False)
         name = _NOISE_JAX.sub(r".\1.top_epi.noise.weight", path)
         sd[name] = torch.from_numpy(np.array(
             _to_torch_layout(_kind(name, a.ndim), a), order="C"))
@@ -102,31 +111,70 @@ def flat_from_state_dict(state_dict: dict) -> dict:
     return flat
 
 
-def load_generator_file(generator: nn.Module, path: str) -> nn.Module:
-    """Load a JAX ``.npz`` or a reference ``.pth`` into `generator` (strict)."""
+def discriminator_state_dict_from_jax_params(params) -> dict:
+    """JAX discriminator tree (numpy arrays) -> the port's state_dict."""
+    return state_dict_from_flat(flatten_params(params))
+
+
+def _load_file(module: nn.Module, path: str) -> nn.Module:
+    """Load a JAX ``.npz`` or a reference ``.pth`` into `module` (strict)."""
     if path.endswith(".pth"):
         sd = torch.load(path, map_location="cpu", weights_only=True)
-        sd = {k: v for k, v in sd.items() if not k.endswith(_BLUR_BUFFER)}
+        sd = {k: v for k, v in sd.items() if not k.endswith(_BLUR_BUFFERS)}
     else:
         with np.load(path) as z:
             sd = state_dict_from_flat(
                 {k: z[k] for k in z.files if k != "__metadata__"})
-    generator.load_state_dict(sd, strict=True)
-    return generator
+    module.load_state_dict(sd, strict=True)
+    return module
+
+
+def _write_atomically(path: str, write):
+    """write(file object) into a temp file beside `path`, renamed into
+    place."""
+    d = os.path.dirname(os.path.abspath(path))
+    os.makedirs(d, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(dir=d, suffix=".tmp")
+    try:
+        with os.fdopen(fd, "wb") as f:
+            write(f)
+        os.replace(tmp, path)
+    except BaseException:
+        if os.path.exists(tmp):
+            os.unlink(tmp)
+        raise
+
+
+def load_generator_file(generator: nn.Module, path: str) -> nn.Module:
+    """Load a JAX ``.npz`` or a reference ``.pth`` into `generator` (strict)."""
+    return _load_file(generator, path)
 
 
 def save_generator_file(generator: nn.Module, path: str):
     """Write `generator` as a JAX-package ``.npz`` (dotted paths, JAX
     layouts), atomically: a temp file renamed into place."""
     flat = flat_from_state_dict(generator.state_dict())
-    d = os.path.dirname(os.path.abspath(path))
-    os.makedirs(d, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(dir=d, suffix=".tmp")
-    try:
-        with os.fdopen(fd, "wb") as f:
-            np.savez(f, **flat)
-        os.replace(tmp, path)
-    except BaseException:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
-        raise
+    _write_atomically(path, lambda f: np.savez(f, **flat))
+
+
+def load_discriminator_file(discriminator: nn.Module, path: str) -> nn.Module:
+    """Load a JAX ``.npz`` or a reference ``.pth`` into `discriminator`
+    (strict; a ``.pth``'s ``blocks.{i}.blur.kernel`` buffers are dropped)."""
+    return _load_file(discriminator, path)
+
+
+def save_discriminator_file(discriminator: nn.Module, path: str):
+    """Write `discriminator` atomically: a path ending in ``.pth`` as a
+    reference state_dict (with each block's ``blur.kernel`` buffer, the
+    normalised blur of shape (1, 1, k, k)), any other as a JAX-package
+    ``.npz``."""
+    sd = discriminator.state_dict()
+    if path.endswith(".pth"):
+        sd = {k: v.detach().cpu().clone() for k, v in sd.items()}
+        kernel = discriminator.blur_kernel.detach().cpu()[None, None].clone()
+        for i in range(len(discriminator.blocks)):
+            sd[f"blocks.{i}.blur.kernel"] = kernel
+        _write_atomically(path, lambda f: torch.save(sd, f))
+    else:
+        flat = flat_from_state_dict(sd)
+        _write_atomically(path, lambda f: np.savez(f, **flat))

@@ -56,6 +56,20 @@
 // E[y^2] - mean^2, which cancels over 2^20 post-lrelu values with a positive
 // mean.  No atomics touch a sum, so results are bitwise deterministic.
 //
+// The backward (bwd_sums_kernel, bwd_dx_kernel, below) replaces the custom
+// VJP's _bwd of stylegan_tpu/ops/pallas/epilogue.py:139-142, which is XLA
+// autodiff of the plain composition.  It too is bound by bytes: it must read
+// g, x and noise once and write dx (and dnoise when asked), plus vectors of
+// B x C; at batch 2 in f32 a 1024^2 G backward's 18 calls must move about
+// 1.6 GB, about 0.48 ms at 3.35 TB/s.  This first version takes two passes
+// over g and x (pass 1: the per-(b, c) sums of g and g * yh; pass 2: dx and
+// the dnoise_weight and dnoise reductions), so it moves 5/3 of the bound.
+// The forward saves (mean, rstd) per (b, c) when a gradient may be needed,
+// so the backward never recomputes the statistics.  Its cross-block sums
+// (over up to 2^20 rows per (b, c), and over B x H x W rows for
+// dnoise_weight) take the forward's machinery: per-split partials, a ticket,
+// and a fixed-order merge in the last block; no float atomics.
+//
 // Times on an NVIDIA H100 80GB HBM3 at 700 W are in PERF.md, measured by
 // chip_smoke.py; none is stated here.
 
@@ -97,8 +111,15 @@ __device__ __forceinline__ int64_t min64(int64_t a, int64_t b) {
   return a < b ? a : b;
 }
 
+// u = x + w * z rounded as the plain version rounds it (the product, then
+// the sum; no fused multiply-add), so that the backward takes the lrelu's
+// slope on the same side of 0 as the plain version does.
+__device__ __forceinline__ float noisy(float x, float w, float z) {
+  return __fadd_rn(x, __fmul_rn(w, z));
+}
+
 __device__ __forceinline__ float noisy_lrelu(float x, float w, float z) {
-  const float y = x + w * z;
+  const float y = noisy(x, w, z);
   return y >= 0.f ? y : kSlope * y;
 }
 
@@ -164,8 +185,8 @@ template <typename T, int VEC>
 __global__ void __launch_bounds__(kThreads)
 onepass_kernel(const T* __restrict__ x, const T* __restrict__ noise,
                const float* __restrict__ nw, const float* __restrict__ style,
-               T* __restrict__ out, int64_t R, int C, int cluster,
-               int64_t rpr) {
+               T* __restrict__ out, float2* __restrict__ saved, int64_t R,
+               int C, int cluster, int64_t rpr) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int tx = threadIdx.x, ty = threadIdx.y;
   const int TX = blockDim.x, TY = blockDim.y, tid = ty * TX + tx;
@@ -264,7 +285,10 @@ onepass_kernel(const T* __restrict__ x, const T* __restrict__ noise,
   float scale[VEC], shift[VEC];
 #pragma unroll
   for (int i = 0; i < VEC; ++i) {
-    scale[i] = rsqrtf(m2[i] / (float)R + kEps) * (s0[c0 + i] + 1.f);
+    const float rstd = rsqrtf(m2[i] / (float)R + kEps);
+    if (saved != nullptr && ty == 0 && rank == 0)
+      saved[(size_t)b * C + c0 + i] = make_float2(mean[i], rstd);
+    scale[i] = rstd * (s0[c0 + i] + 1.f);
     shift[i] = s0[C + c0 + i];
   }
   T* ob = out + ((size_t)b * R + r0) * C + c0;
@@ -296,8 +320,8 @@ __global__ void __launch_bounds__(kThreads)
 stats_kernel(const T* __restrict__ x, const T* __restrict__ noise,
              const float* __restrict__ nw, const float* __restrict__ style,
              float2* __restrict__ partials, float2* __restrict__ stats,
-             int* __restrict__ tickets, int64_t R, int C,
-             int64_t rows_per_split) {
+             float2* __restrict__ saved, int* __restrict__ tickets, int64_t R,
+             int C, int64_t rows_per_split) {
   __shared__ float s_mean[kThreads * VEC];
   __shared__ float s_m2[kThreads * VEC];
   __shared__ float s_n[kThreads];
@@ -445,6 +469,8 @@ stats_kernel(const T* __restrict__ x, const T* __restrict__ noise,
     const float rstd = rsqrtf(s_m2[tid] / (float)R + kEps);
     stats[(size_t)b * C + c] =
         make_float2(s_mean[tid], rstd * (style[(size_t)b * 2 * C + c] + 1.f));
+    if (saved != nullptr)
+      saved[(size_t)b * C + c] = make_float2(s_mean[tid], rstd);
   }
   if (tid == 0) *ticket = 0;  // ready for the next call
 }
@@ -493,6 +519,307 @@ apply_kernel(const T* __restrict__ x, const T* __restrict__ noise,
   }
 }
 
+// -------------------------------------------------------------- backward --
+// Given g = d loss / d out, with u = x + nw * n, y = lrelu(u),
+// yh = (y - mean) * r and r = rsqrt(var + eps) saved by the forward:
+//   ds1[b, c] = sum_r g            ds0[b, c] = sum_r g * yh
+//   dy = (s0 + 1) * r * (g - mean_r(g) - yh * mean_r(g * yh))
+//   du = u >= 0 ? dy : 0.2 * dy     (dx = du)
+//   dnw[c] = sum_{b, r} du * n     dn[b, r] = sum_c du * nw[c]
+// Pass 1 (bwd_sums_kernel) takes the per-(b, c) sums; pass 2 (bwd_dx_kernel)
+// writes dx and reduces dnw and dn.  Both run the grid (splits, chunks, B)
+// of blocks (TX, TY), TX * TY == kThreads: thread (tx, ty) owns channels
+// c0 .. c0 + VEC - 1 and rows r0 + ty, r0 + ty + TY, ... of its split.
+
+// Sum over ty of v[VEC] per lane, in a fixed tree order, into red[tx * VEC
+// + i] (red holds kThreads * VEC floats); read by ty == 0 after the call.
+template <int VEC>
+__device__ __forceinline__ void tree_over_rows(const float (&v)[VEC],
+                                               float* red) {
+  const int tx = threadIdx.x, ty = threadIdx.y, TX = blockDim.x;
+  const int tid = ty * TX + tx;
+#pragma unroll
+  for (int i = 0; i < VEC; ++i) red[tid * VEC + i] = v[i];
+  __syncthreads();
+  for (int stride = blockDim.y / 2; stride > 0; stride >>= 1) {
+    if (ty < stride) {
+      const int other = tid + stride * TX;
+#pragma unroll
+      for (int i = 0; i < VEC; ++i) red[tid * VEC + i] += red[other * VEC + i];
+    }
+    __syncthreads();
+  }
+}
+
+// True in every thread of the block that took the last ticket of `ticket`
+// out of `count`; the others may return.  Call after writing the partials.
+__device__ __forceinline__ bool last_block(int* ticket, int count,
+                                           int* s_flag) {
+  __threadfence();
+  __syncthreads();
+  if (threadIdx.x == 0 && threadIdx.y == 0)
+    *s_flag = atomicAdd(ticket, 1) == count - 1;
+  __syncthreads();
+  const bool last = *s_flag != 0;
+  if (last) __threadfence();
+  return last;
+}
+
+// Fixed-order sum of parts[k * stride + c], k < K, for the block's nch
+// channels c = c_base .. c_base + nch - 1 (< C): kThreads / nch groups of
+// threads each add a contiguous run of k, then a tree adds neighbouring runs.
+// The result is in red[lane] for the threads of group 0 (tid < nch).
+template <typename P, typename F>
+__device__ __forceinline__ void fixed_order_sum(const P* parts, int64_t K,
+                                                int64_t stride, int c_base,
+                                                int nch, int C, float* red,
+                                                F field) {
+  const int tid = threadIdx.y * blockDim.x + threadIdx.x;
+  const int G = kThreads / nch, lane = tid % nch, grp = tid / nch;
+  const int c = c_base + lane;
+  const int64_t per = (K + G - 1) / G;
+  const int64_t kb = grp * per, ke = min64(kb + per, K);
+  float acc = 0.f;
+  if (c < C)
+    for (int64_t k = kb; k < ke; ++k)
+      acc += field(__ldcg(parts + k * stride + c));
+  red[tid] = acc;
+  __syncthreads();
+  for (int s = 1; s < G; s *= 2) {
+    if (grp % (2 * s) == 0 && grp + s < G) red[tid] += red[tid + s * nch];
+    __syncthreads();
+  }
+}
+
+// Pass 1: partials (sum g, sum g * (y - mean)) per (b, split, c); the last
+// block of a (b, chunk) adds the splits in a fixed order and writes dstyle
+// (when asked) and coef = (mean, a, a * mean(g), a * r * mean(g * yh)) with
+// a = (s0 + 1) * r, so that pass 2 computes
+// dy = a * g - coef.z - (y - mean) * coef.w.
+template <typename T, int VEC, int UNROLL = VEC == 8 ? 1 : 2>
+__global__ void __launch_bounds__(kThreads)
+bwd_sums_kernel(const T* __restrict__ g, const T* __restrict__ x,
+                const T* __restrict__ noise, const float* __restrict__ nw,
+                const float* __restrict__ style,
+                const float2* __restrict__ saved, float2* __restrict__ parts,
+                float4* __restrict__ coef, float* __restrict__ dstyle,
+                int* __restrict__ tickets, int64_t R, int C,
+                int64_t rows_per_split) {
+  __shared__ float s_g[kThreads * VEC];
+  __shared__ float s_gy[kThreads * VEC];
+  __shared__ int s_flag;
+  const int tx = threadIdx.x, ty = threadIdx.y;
+  const int TX = blockDim.x, TY = blockDim.y;
+  const int split = blockIdx.x, splits = gridDim.x, chunk = blockIdx.y;
+  const int chunks = gridDim.y, b = blockIdx.z;
+  const int c0 = (chunk * TX + tx) * VEC;
+  const bool active = c0 < C;
+  const int64_t r0 = (int64_t)split * rows_per_split;
+  const int64_t r1 = min64(r0 + rows_per_split, R);
+
+  float w[VEC], mean[VEC], sg[VEC], sgy[VEC];
+#pragma unroll
+  for (int i = 0; i < VEC; ++i) {
+    w[i] = active ? nw[c0 + i] : 0.f;
+    mean[i] = active ? saved[(size_t)b * C + c0 + i].x : 0.f;
+    sg[i] = sgy[i] = 0.f;
+  }
+  if (active) {
+    const T* gb = g + (size_t)b * R * C + c0;
+    const T* xb = x + (size_t)b * R * C + c0;
+    const T* nb = noise + (size_t)b * R;
+    for (int64_t r = r0 + ty; r < r1; r += (int64_t)TY * UNROLL) {
+      Pack<T, VEC> pg[UNROLL], px[UNROLL];
+      float z[UNROLL];
+#pragma unroll
+      for (int u = 0; u < UNROLL; ++u) {  // all loads first, then the math
+        const int64_t ru = r + (int64_t)u * TY;
+        if (ru < r1) {
+          pg[u] = *reinterpret_cast<const Pack<T, VEC>*>(gb + ru * C);
+          px[u] = *reinterpret_cast<const Pack<T, VEC>*>(xb + ru * C);
+          z[u] = to_float(nb[ru]);
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < UNROLL; ++u) {
+        if (r + (int64_t)u * TY < r1) {
+#pragma unroll
+          for (int i = 0; i < VEC; ++i) {
+            const float gv = to_float(pg[u].v[i]);
+            const float y = noisy_lrelu(to_float(px[u].v[i]), w[i], z[u]);
+            sg[i] += gv;
+            sgy[i] = fmaf(gv, y - mean[i], sgy[i]);
+          }
+        }
+      }
+    }
+  }
+  tree_over_rows<VEC>(sg, s_g);
+  tree_over_rows<VEC>(sgy, s_gy);
+  if (ty == 0 && active) {
+    float2* o = parts + ((size_t)b * splits + split) * C + c0;
+#pragma unroll
+    for (int i = 0; i < VEC; ++i)
+      o[i] = make_float2(s_g[tx * VEC + i], s_gy[tx * VEC + i]);
+  }
+  int* ticket = tickets + (size_t)b * chunks + chunk;
+  if (!last_block(ticket, splits, &s_flag)) return;
+
+  const int nch = TX * VEC, c_base = chunk * nch;
+  const float2* pb = parts + (size_t)b * splits * C;
+  fixed_order_sum(pb, splits, C, c_base, nch, C, s_g,
+                  [](float2 p) { return p.x; });
+  fixed_order_sum(pb, splits, C, c_base, nch, C, s_gy,
+                  [](float2 p) { return p.y; });
+  const int tid = ty * TX + tx, c = c_base + tid;
+  if (tid < nch && c < C) {
+    const float2 st = saved[(size_t)b * C + c];
+    const float sum_g = s_g[tid], sum_gy = s_gy[tid] * st.y;  // * r: sum g*yh
+    const float* sb = style + (size_t)b * 2 * C;
+    const float a = (sb[c] + 1.f) * st.y;
+    if (dstyle != nullptr) {
+      dstyle[(size_t)b * 2 * C + c] = sum_gy;
+      dstyle[(size_t)b * 2 * C + C + c] = sum_g;
+    }
+    const float inv_r = 1.f / (float)R;
+    coef[(size_t)b * C + c] = make_float4(st.x, a, a * sum_g * inv_r,
+                                          a * sum_gy * inv_r * st.y);
+  }
+  if (tid == 0) *ticket = 0;  // ready for the next call
+}
+
+// Pass 2: dx, and partials of dnw per (b, split, c) and of dn per (chunk, b,
+// r).  The last block of a chunk (over all (b, split)) adds the dnw partials
+// in a fixed order; where C spans several chunks, the last block of a
+// (b, split) (over the chunks) adds the dn partials in chunk order.  Every
+// thread runs the same row iterations, so that the TX lanes of a row can
+// add their channels' dn terms with warp shuffles.
+template <typename T, int VEC, int UNROLL = VEC == 8 ? 1 : 2>
+__global__ void __launch_bounds__(kThreads)
+bwd_dx_kernel(const T* __restrict__ g, const T* __restrict__ x,
+              const T* __restrict__ noise, const float* __restrict__ nw,
+              const float4* __restrict__ coef, T* __restrict__ dx,
+              float* __restrict__ dnw, T* __restrict__ dn,
+              float* __restrict__ dnw_parts, float* __restrict__ dn_parts,
+              int* __restrict__ tickets_w, int* __restrict__ tickets_n,
+              int64_t R, int C, int64_t rows_per_split) {
+  __shared__ float s_w[kThreads * VEC];
+  __shared__ int s_flag;
+  const int tx = threadIdx.x, ty = threadIdx.y;
+  const int TX = blockDim.x, TY = blockDim.y, tid = ty * TX + tx;
+  const int split = blockIdx.x, splits = gridDim.x, chunk = blockIdx.y;
+  const int chunks = gridDim.y, b = blockIdx.z, B = gridDim.z;
+  const int c0 = (chunk * TX + tx) * VEC;
+  const bool active = c0 < C;
+  const int64_t r0 = (int64_t)split * rows_per_split;
+  const int64_t r1 = min64(r0 + rows_per_split, R);
+  const bool want_dn = dn != nullptr;
+
+  float w[VEC], mean[VEC], a[VEC], k0[VEC], k1[VEC], acc[VEC];
+#pragma unroll
+  for (int i = 0; i < VEC; ++i) {
+    const float4 k = active ? coef[(size_t)b * C + c0 + i]
+                            : make_float4(0.f, 0.f, 0.f, 0.f);
+    w[i] = active ? nw[c0 + i] : 0.f;
+    mean[i] = k.x;
+    a[i] = k.y;
+    k0[i] = k.z;
+    k1[i] = k.w;
+    acc[i] = 0.f;
+  }
+  const T* gb = g + (size_t)b * R * C + c0;
+  const T* xb = x + (size_t)b * R * C + c0;
+  T* dxb = dx == nullptr ? nullptr : dx + (size_t)b * R * C + c0;
+  const T* nb = noise + (size_t)b * R;
+  for (int64_t base = r0; base < r1; base += (int64_t)TY * UNROLL) {
+    Pack<T, VEC> pg[UNROLL], px[UNROLL];
+    float z[UNROLL];
+#pragma unroll
+    for (int u = 0; u < UNROLL; ++u) {
+      const int64_t ru = base + ty + (int64_t)u * TY;
+      if (active && ru < r1) {
+        pg[u] = *reinterpret_cast<const Pack<T, VEC>*>(gb + ru * C);
+        px[u] = *reinterpret_cast<const Pack<T, VEC>*>(xb + ru * C);
+        z[u] = to_float(nb[ru]);
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < UNROLL; ++u) {
+      const int64_t ru = base + ty + (int64_t)u * TY;
+      float row = 0.f;  // this thread's channels' share of dn[b, ru]
+      if (active && ru < r1) {
+        Pack<T, VEC> o;
+#pragma unroll
+        for (int i = 0; i < VEC; ++i) {
+          const float uu = noisy(to_float(px[u].v[i]), w[i], z[u]);
+          const float y = uu >= 0.f ? uu : kSlope * uu;
+          const float dy =
+              fmaf(a[i], to_float(pg[u].v[i]), -k0[i]) - (y - mean[i]) * k1[i];
+          const float du = uu >= 0.f ? dy : kSlope * dy;
+          o.v[i] = from_float<T>(du);
+          acc[i] = fmaf(du, z[u], acc[i]);
+          row = fmaf(du, w[i], row);
+        }
+        if (dxb != nullptr) *reinterpret_cast<Pack<T, VEC>*>(dxb + ru * C) = o;
+      }
+      if (want_dn) {
+        // the TX lanes of a row are neighbours in one warp (TX divides 32)
+        for (int off = TX / 2; off > 0; off >>= 1)
+          row += __shfl_xor_sync(0xffffffffu, row, off);
+        if (tx == 0 && ru < r1) {
+          if (chunks == 1)
+            dn[(size_t)b * R + ru] = from_float<T>(row);
+          else
+            dn_parts[((size_t)chunk * B + b) * R + ru] = row;
+        }
+      }
+    }
+  }
+
+  const bool want_dnw = dnw != nullptr;
+  if (want_dnw) {
+    tree_over_rows<VEC>(acc, s_w);
+    if (ty == 0 && active) {
+      float* o = dnw_parts + ((size_t)b * splits + split) * C + c0;
+#pragma unroll
+      for (int i = 0; i < VEC; ++i) o[i] = s_w[tx * VEC + i];
+    }
+  }
+  const bool dn_merge = want_dn && chunks > 1;
+  if (!want_dnw && !dn_merge) return;
+  __threadfence();
+  __syncthreads();
+  if (tid == 0) {
+    int flags = 0;
+    if (want_dnw && atomicAdd(tickets_w + chunk, 1) == B * splits - 1)
+      flags |= 1;
+    if (dn_merge &&
+        atomicAdd(tickets_n + (size_t)b * splits + split, 1) == chunks - 1)
+      flags |= 2;
+    s_flag = flags;
+  }
+  __syncthreads();
+  const int flags = s_flag;
+  if (flags == 0) return;
+  __threadfence();
+  if (flags & 1) {  // dnw[c] over every (b, split), in that order
+    const int nch = TX * VEC, c_base = chunk * nch;
+    fixed_order_sum(dnw_parts, (int64_t)B * splits, C, c_base, nch, C, s_w,
+                    [](float p) { return p; });
+    if (tid < nch && c_base + tid < C) dnw[c_base + tid] = s_w[tid];
+    if (tid == 0) tickets_w[chunk] = 0;
+  }
+  if (flags & 2) {  // dn[b, r] over the chunks, in chunk order
+    for (int64_t r = r0 + tid; r < r1; r += kThreads) {
+      float v = 0.f;
+      for (int k = 0; k < chunks; ++k)
+        v += __ldcg(dn_parts + ((size_t)k * B + b) * R + r);
+      dn[(size_t)b * R + r] = from_float<T>(v);
+    }
+    if (tid == 0) tickets_n[(size_t)b * splits + split] = 0;
+  }
+}
+
 // ------------------------------------------------------------- launching --
 // The one-pass kernel may take up to 227 KB of dynamic shared memory: opted
 // in once per instantiation and device, not per call.
@@ -513,13 +840,14 @@ cudaError_t allow_smem() {
 template <typename T, int VEC>
 cudaError_t launch(const SgtPlan& p, const void* xv, const void* noisev,
                    const void* nwv, const void* stylev, void* outv,
-                   void* workspace, int B, int64_t R, int C,
+                   void* savedv, void* workspace, int B, int64_t R, int C,
                    cudaStream_t stream) {
   const T* x = static_cast<const T*>(xv);
   const T* noise = static_cast<const T*>(noisev);
   const float* nw = static_cast<const float*>(nwv);
   const float* style = static_cast<const float*>(stylev);
   T* out = static_cast<T*>(outv);
+  float2* saved = static_cast<float2*>(savedv);
   const dim3 block(p.tx, p.ty);
   if (p.path == 1) {
     cudaError_t err = allow_smem<T, VEC>();
@@ -537,7 +865,7 @@ cudaError_t launch(const SgtPlan& p, const void* xv, const void* noisev,
     cfg.attrs = attr;
     cfg.numAttrs = p.cluster > 1 ? 1 : 0;
     return cudaLaunchKernelEx(&cfg, onepass_kernel<T, VEC>, x, noise, nw,
-                              style, out, (int64_t)R, C, p.cluster,
+                              style, out, saved, (int64_t)R, C, p.cluster,
                               (int64_t)p.rows_per_rank);
   }
   unsigned char* ws = static_cast<unsigned char*>(workspace);
@@ -545,7 +873,8 @@ cudaError_t launch(const SgtPlan& p, const void* xv, const void* noisev,
   float2* stats = reinterpret_cast<float2*>(ws + p.stats_offset);
   int* tickets = reinterpret_cast<int*>(ws + p.tickets_offset);
   stats_kernel<T, VEC><<<dim3(p.splits, p.chunks, B), block, 0, stream>>>(
-      x, noise, nw, style, partials, stats, tickets, R, C, p.rows_per_split);
+      x, noise, nw, style, partials, stats, saved, tickets, R, C,
+      p.rows_per_split);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   const unsigned row_blocks = (unsigned)sgt::cdiv(R, p.rows_per_block);
@@ -554,10 +883,45 @@ cudaError_t launch(const SgtPlan& p, const void* xv, const void* noisev,
   return cudaGetLastError();
 }
 
+template <typename T, int VEC>
+cudaError_t launch_bwd(const SgtBwdPlan& p, const void* gv, const void* xv,
+                       const void* noisev, const void* nwv,
+                       const void* stylev, const void* savedv, void* dxv,
+                       void* dnwv, void* dnv, void* dstylev, void* workspace,
+                       int B, int64_t R, int C, cudaStream_t stream) {
+  const T* g = static_cast<const T*>(gv);
+  const T* x = static_cast<const T*>(xv);
+  const T* noise = static_cast<const T*>(noisev);
+  const float* nw = static_cast<const float*>(nwv);
+  unsigned char* ws = static_cast<unsigned char*>(workspace);
+  float2* parts = reinterpret_cast<float2*>(ws);
+  float4* coef = reinterpret_cast<float4*>(ws + p.coef_offset);
+  float* dnw_parts = reinterpret_cast<float*>(ws + p.dnw_offset);
+  float* dn_parts = reinterpret_cast<float*>(ws + p.dn_offset);
+  int* tickets = reinterpret_cast<int*>(ws + p.tickets_offset);
+  int* tickets_w = tickets + (size_t)B * p.chunks;
+  int* tickets_n = tickets_w + p.chunks;
+  const dim3 grid(p.splits, p.chunks, B), block(p.tx, p.ty);
+  bwd_sums_kernel<T, VEC><<<grid, block, 0, stream>>>(
+      g, x, noise, nw, static_cast<const float*>(stylev),
+      static_cast<const float2*>(savedv), parts, coef,
+      static_cast<float*>(dstylev), tickets, R, C, p.rows_per_split);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  bwd_dx_kernel<T, VEC><<<grid, block, 0, stream>>>(
+      g, x, noise, nw, coef, static_cast<T*>(dxv), static_cast<float*>(dnwv),
+      static_cast<T*>(dnv), dnw_parts, dn_parts, tickets_w, tickets_n, R, C,
+      p.rows_per_split);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 // Launches one epilogue call on `stream`: the one or two kernels of `plan`,
 // which sgt_epilogue_plan made for this (is_bf16, B, R, C) and alignment.
+// Where `saved` is not null (a call whose gradient may be needed) the
+// kernels also write (mean, rstd) per (b, c) there, (B, C) float2, for the
+// backward; inference passes null.
 // Returns 0 on success, else a cudaError_t (cudaErrorInvalidValue when the
 // plan does not fit the call: vectors over an unaligned pointer, or a
 // workspace short of the plan's).  The caller allocates out (B, R, C) and a
@@ -567,7 +931,7 @@ cudaError_t launch(const SgtPlan& p, const void* xv, const void* noisev,
 extern "C" int sgt_epilogue_forward(
     const void* x, const void* noise, const void* noise_weight,
     const void* style, void* out, void* workspace, long long workspace_bytes,
-    int is_bf16, int B, long long R, int C, const SgtPlan* plan,
+    int is_bf16, int B, long long R, int C, const SgtPlan* plan, void* saved,
     void* stream) {
   const SgtPlan& p = *plan;
   const bool aligned = (((uintptr_t)x | (uintptr_t)out) % 16) == 0;
@@ -575,7 +939,40 @@ extern "C" int sgt_epilogue_forward(
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define SGT_LAUNCH(T, V) \
-  launch<T, V>(p, x, noise, noise_weight, style, out, workspace, B, R, C, s)
+  launch<T, V>(p, x, noise, noise_weight, style, out, saved, workspace, B, R, \
+               C, s)
+  if (!is_bf16 && p.vec == 4) return (int)SGT_LAUNCH(float, 4);
+  if (!is_bf16 && p.vec == 1) return (int)SGT_LAUNCH(float, 1);
+  if (is_bf16 && p.vec == 8) return (int)SGT_LAUNCH(__nv_bfloat16, 8);
+  if (is_bf16 && p.vec == 1) return (int)SGT_LAUNCH(__nv_bfloat16, 1);
+#undef SGT_LAUNCH
+  return (int)cudaErrorInvalidValue;
+}
+
+// Launches the backward of one epilogue call on `stream`: the two kernels of
+// `plan`, which sgt_epilogue_bwd_plan made for this (is_bf16, B, R, C),
+// alignment and want_dn (dn not null).  g, x and dx are (B, R, C), noise and
+// dn (B, R) in the forward's dtype; noise_weight and dnw (C,), style and
+// dstyle (B, 2C), saved (B, C) float2, all float32.  dx, dnw, dn and dstyle
+// may each be null: that gradient is then not written.  The workspace is
+// the plan's workspace_bytes with its tickets (from tickets_offset) zero;
+// the kernels leave them at zero.  Returns 0 or a cudaError_t, as
+// sgt_epilogue_forward does.
+extern "C" int sgt_epilogue_backward(
+    const void* g, const void* x, const void* noise, const void* noise_weight,
+    const void* style, const void* saved, void* dx, void* dnw, void* dn,
+    void* dstyle, void* workspace, long long workspace_bytes, int is_bf16,
+    int B, long long R, int C, const SgtBwdPlan* plan, void* stream) {
+  const SgtBwdPlan& p = *plan;
+  const bool aligned =
+      (((uintptr_t)g | (uintptr_t)x | (uintptr_t)dx) % 16) == 0;
+  if ((p.vec > 1 && !aligned) || p.workspace_bytes > workspace_bytes ||
+      (dn != nullptr && p.chunks > 1 && !p.dn_partials))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define SGT_LAUNCH(T, V)                                                    \
+  launch_bwd<T, V>(p, g, x, noise, noise_weight, style, saved, dx, dnw, dn, \
+                   dstyle, workspace, B, R, C, s)
   if (!is_bf16 && p.vec == 4) return (int)SGT_LAUNCH(float, 4);
   if (!is_bf16 && p.vec == 1) return (int)SGT_LAUNCH(float, 1);
   if (is_bf16 && p.vec == 8) return (int)SGT_LAUNCH(__nv_bfloat16, 8);

@@ -10,8 +10,12 @@
 //   2  two-pass: a stats pass whose last block per (b, chunk) merges the row
 //      splits, then an apply pass; two launches.
 //
-// Exported: sgt_epilogue_plan (defined once, in the translation unit that
-// includes this header: the kernel library or the test's shim).
+// The backward always takes two launches over the two-pass geometry
+// (SgtBwdPlan below).
+//
+// Exported: sgt_epilogue_plan and sgt_epilogue_bwd_plan (defined once, in
+// the translation unit that includes this header: the kernel library or the
+// test's shim).
 
 #ifndef SGT_EPILOGUE_PLAN_H_
 #define SGT_EPILOGUE_PLAN_H_
@@ -40,6 +44,20 @@ struct SgtPlan {
   long long stats_offset;    // path 2: workspace bytes before the stats
   long long tickets_offset;  // path 2: workspace bytes before the tickets
   long long workspace_bytes; // path 2: partials, stats and tickets
+};
+
+// The backward (epilogue.cu's bwd_sums_kernel, then bwd_dx_kernel): both
+// launches take the grid (splits, chunks, B) of (tx, ty) blocks.  Workspace,
+// in this order, each part 16-byte aligned: pass-1 partials (B, splits, C)
+// float2, coefficients (B, C) float4, dnoise_weight partials (B, splits, C)
+// float, dnoise partials (chunks, B, R) float when dn_partials, and the
+// tickets: B * chunks (pass 1), chunks (dnoise_weight), B * splits (dnoise).
+struct SgtBwdPlan {
+  int vec, tx, ty, chunk_c, chunks, splits, launches;
+  int dn_partials;           // dnoise is summed over channel chunks
+  long long rows_per_split;
+  long long coef_offset, dnw_offset, dn_offset, tickets_offset;
+  long long workspace_bytes;
 };
 
 }  // extern "C"
@@ -121,6 +139,20 @@ inline bool one_pass(SgtPlan& p, int elem, int B, long long R, int C,
   return true;
 }
 
+// Rows of one pass-1 block: about kTargetStatsBlocks blocks over the grid
+// (half as many in bf16), at least kMinRowsPerThread rows a thread, a whole
+// number of row groups.
+inline long long split_rows(int vec, int B, long long R, int chunks, int ty) {
+  const long long target =
+      vec == 8 ? kTargetStatsBlocks / 2 : kTargetStatsBlocks;
+  long long want = target / ((long long)B * chunks);
+  if (want < 1) want = 1;
+  long long rps = cdiv(R, want);
+  if (rps < (long long)ty * kMinRowsPerThread)
+    rps = (long long)ty * kMinRowsPerThread;
+  return cdiv(rps, ty) * ty;
+}
+
 // Workspace of path 2, in this order, each part 16-byte aligned: partials
 // (B, splits, C) float2, stats (B, C) float2, tickets (B, chunks) int32.
 inline void two_pass(SgtPlan& p, int B, long long R, int C, int max_tx) {
@@ -129,14 +161,7 @@ inline void two_pass(SgtPlan& p, int B, long long R, int C, int max_tx) {
   p.ty = kThreads / p.tx;
   p.chunk_c = p.tx * p.vec;
   p.chunks = (int)cdiv(C, p.chunk_c);
-  const long long target =
-      p.vec == 8 ? kTargetStatsBlocks / 2 : kTargetStatsBlocks;
-  long long want = target / ((long long)B * p.chunks);
-  if (want < 1) want = 1;
-  long long rps = cdiv(R, want);
-  if (rps < (long long)p.ty * kMinRowsPerThread)
-    rps = (long long)p.ty * kMinRowsPerThread;
-  p.rows_per_split = cdiv(rps, p.ty) * p.ty;
+  p.rows_per_split = split_rows(p.vec, B, R, p.chunks, p.ty);
   p.splits = (int)cdiv(R, p.rows_per_split);
   p.rows_per_block = (long long)p.ty * kMinRowsPerThread;
   p.launches = 2;
@@ -145,21 +170,64 @@ inline void two_pass(SgtPlan& p, int B, long long R, int C, int max_tx) {
   p.workspace_bytes = p.tickets_offset + align16((long long)B * p.chunks * 4);
 }
 
+inline bool valid_call(int B, long long R, int C) {
+  return B >= 1 && R >= 1 && C >= 1 && B <= 65535 && R <= (1LL << 31);
+}
+
+// Elements per 16-byte vector (4 f32, 8 bf16), or 1 where C or a pointer
+// does not allow vectors; and the threads along C: a power of two, at most
+// a warp, at most 128-byte rows.
+inline void lanes(int is_bf16, int C, int aligned, int* vec, int* max_tx) {
+  const int elem = is_bf16 ? 2 : 4;
+  int v = is_bf16 ? 8 : 4;
+  if (C % v != 0 || !aligned) v = 1;
+  int tx = pow2_at_least(cdiv(C, v), 32);
+  while (tx > 1 && tx * v * elem > 128) tx /= 2;
+  *vec = v;
+  *max_tx = tx;
+}
+
 // 0 on success; -1 for an empty or oversized call.
 inline int make_plan(int is_bf16, int B, long long R, int C, int aligned,
                      SgtPlan* out) {
-  if (B < 1 || R < 1 || C < 1 || B > 65535 || R > (1LL << 31)) return -1;
+  if (!valid_call(B, R, C)) return -1;
   SgtPlan p = {};
   const int elem = is_bf16 ? 2 : 4;
-  p.vec = is_bf16 ? 8 : 4;
-  if (C % p.vec != 0 || !aligned) p.vec = 1;
-  // threads along C: a power of two, at most a warp, at most 128-byte rows
-  const int lanes = (int)cdiv(C, p.vec);
-  int max_tx = pow2_at_least(lanes, 32);
-  while (max_tx > 1 && max_tx * p.vec * elem > 128) max_tx /= 2;
+  int max_tx = 1;
+  lanes(is_bf16, C, aligned, &p.vec, &max_tx);
   p.cluster = 1;
   p.splits = 1;
   if (!one_pass(p, elem, B, R, C, max_tx)) two_pass(p, B, R, C, max_tx);
+  *out = p;
+  return 0;
+}
+
+// The backward's plan: the forward's two-pass geometry for both launches.
+// `aligned`: g, x and dx start on 16-byte boundaries.
+inline int make_bwd_plan(int is_bf16, int B, long long R, int C, int aligned,
+                         int want_dn, SgtBwdPlan* out) {
+  if (!valid_call(B, R, C)) return -1;
+  SgtBwdPlan p = {};
+  lanes(is_bf16, C, aligned, &p.vec, &p.tx);
+  p.ty = kThreads / p.tx;
+  p.chunk_c = p.tx * p.vec;
+  p.chunks = (int)cdiv(C, p.chunk_c);
+  p.rows_per_split = split_rows(p.vec, B, R, p.chunks, p.ty);
+  p.splits = (int)cdiv(R, p.rows_per_split);
+  p.launches = 2;
+  p.dn_partials = want_dn && p.chunks > 1;
+  const long long bsc = (long long)B * p.splits * C;
+  long long off = align16(bsc * 8);
+  p.coef_offset = off;
+  off += align16((long long)B * C * 16);
+  p.dnw_offset = off;
+  off += align16(bsc * 4);
+  p.dn_offset = off;
+  if (p.dn_partials) off += align16((long long)p.chunks * B * R * 4);
+  p.tickets_offset = off;
+  off += align16(((long long)B * p.chunks + p.chunks +
+                  (long long)B * p.splits) * 4);
+  p.workspace_bytes = off;
   *out = p;
   return 0;
 }
@@ -169,6 +237,12 @@ inline int make_plan(int is_bf16, int B, long long R, int C, int aligned,
 extern "C" int sgt_epilogue_plan(int is_bf16, int B, long long R, int C,
                                  int aligned, SgtPlan* plan) {
   return sgt::make_plan(is_bf16, B, R, C, aligned, plan);
+}
+
+extern "C" int sgt_epilogue_bwd_plan(int is_bf16, int B, long long R, int C,
+                                     int aligned, int want_dn,
+                                     SgtBwdPlan* plan) {
+  return sgt::make_bwd_plan(is_bf16, B, R, C, aligned, want_dn, plan);
 }
 
 #endif  // SGT_EPILOGUE_PLAN_H_

@@ -1,13 +1,19 @@
-"""Generator networks: mapping, synthesis, generator."""
+"""Networks: mapping, synthesis, generator, discriminator; and the EMA."""
 
-from .configs import (GeneratorConfig, MappingConfig, SynthesisConfig,
+from .configs import (DiscriminatorConfig, GeneratorConfig, MappingConfig,
+                      SynthesisConfig, discriminator_config_from_args,
+                      discriminator_config_from_cfg,
                       generator_config_from_args, generator_config_from_cfg)
+from .discriminator import Discriminator
+from .ema import ema_update
 from .generator import Generator, GeneratorOutput
 from .mapping import GMapping
 from .synthesis import GSynthesis
 
 __all__ = [
-    "GeneratorConfig", "MappingConfig", "SynthesisConfig",
-    "generator_config_from_args", "generator_config_from_cfg",
-    "Generator", "GeneratorOutput", "GMapping", "GSynthesis",
+    "DiscriminatorConfig", "GeneratorConfig", "MappingConfig",
+    "SynthesisConfig", "discriminator_config_from_args",
+    "discriminator_config_from_cfg", "generator_config_from_args",
+    "generator_config_from_cfg", "Discriminator", "ema_update", "Generator",
+    "GeneratorOutput", "GMapping", "GSynthesis",
 ]

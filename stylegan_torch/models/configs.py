@@ -5,16 +5,19 @@ Field names and defaults mirror the reference network constructors:
   MappingConfig    -> reference GAN.py:39-41 (GMapping)
   SynthesisConfig  -> reference GAN.py:105-109 (GSynthesis)
   GeneratorConfig  -> reference GAN.py:213-216 (Generator)
+  DiscriminatorConfig -> reference GAN.py:302-306 (Discriminator)
 
-The JAX package's TPU execution-layout fields (``packed``, ``fold_blur``,
-``remat``) are left out: they select layouts with the same math, and the port
-has one layout.  The discriminator's config arrives with the discriminator.
+The JAX package's TPU execution-layout fields (``packed``, ``fold_blur``) are
+left out: they select layouts with the same math, and the port has one
+layout.  The discriminator's ``remat`` (recompute each block in the backward
+instead of holding its activations) is kept; the port honours it with
+``torch.utils.checkpoint``.
 """
 
 from __future__ import annotations
 
 import math
-from dataclasses import dataclass, field
+from dataclasses import dataclass, field, replace
 from typing import Optional, Tuple
 
 
@@ -112,6 +115,45 @@ class GeneratorConfig:
         return self.latent_size * 2 if self.conditional else self.latent_size
 
 
+@dataclass(frozen=True)
+class DiscriminatorConfig:
+    resolution: int = 1024
+    num_channels: int = 3
+    conditional: bool = False
+    n_classes: int = 0
+    fmap_base: int = 8192
+    fmap_decay: float = 1.0
+    fmap_max: int = 512
+    nonlinearity: str = "lrelu"
+    use_wscale: bool = True
+    mbstd_group_size: int = 4
+    mbstd_num_features: int = 1
+    blur_filter: Optional[Tuple[int, ...]] = None
+    structure: str = "linear"
+    # recompute each block in the backward pass instead of keeping its
+    # activations (R1's double backward holds them twice otherwise)
+    remat: bool = False
+
+    @property
+    def resolution_log2(self) -> int:
+        r = int(math.log2(self.resolution))
+        assert self.resolution == 2 ** r and self.resolution >= 4
+        return r
+
+    @property
+    def depth(self) -> int:
+        return self.resolution_log2 - 1
+
+    def nf(self, stage: int) -> int:
+        return _nf(stage, self.fmap_base, self.fmap_decay, self.fmap_max)
+
+    @property
+    def input_channels(self) -> int:
+        """Image channels doubled by the label embedding planes when
+        conditional (reference GAN.py:326-329)."""
+        return self.num_channels * 2 if self.conditional else self.num_channels
+
+
 def generator_config_from_args(structure, resolution, num_channels,
                                latent_size, conditional, n_classes,
                                g_args) -> GeneratorConfig:
@@ -147,6 +189,23 @@ def generator_config_from_args(structure, resolution, num_channels,
     )
 
 
+def discriminator_config_from_args(structure, resolution, num_channels,
+                                   conditional, n_classes,
+                                   d_args) -> DiscriminatorConfig:
+    d = dict(d_args)
+    blur = d.get("blur_filter", [1, 2, 1])
+    blur = tuple(blur) if blur else None
+    return DiscriminatorConfig(
+        resolution=int(resolution),
+        num_channels=int(num_channels),
+        conditional=bool(conditional),
+        n_classes=int(n_classes),
+        use_wscale=bool(d.get("use_wscale", True)),
+        blur_filter=blur,
+        structure=str(structure),
+    )
+
+
 def generator_config_from_cfg(cfg) -> GeneratorConfig:
     """Build a GeneratorConfig from a full yacs-style cfg.  The ``ops.*``
     layout knobs are not read: they have no effect on the port's math."""
@@ -154,3 +213,13 @@ def generator_config_from_cfg(cfg) -> GeneratorConfig:
         cfg.structure, cfg.dataset.resolution, cfg.dataset.channels,
         cfg.model.gen.latent_size, cfg.conditional, cfg.n_classes,
         cfg.model.gen)
+
+
+def discriminator_config_from_cfg(cfg) -> DiscriminatorConfig:
+    """Build a DiscriminatorConfig from a full yacs-style cfg; ``ops.remat``
+    is read, the other ``ops.*`` layout knobs (``packed``, ``fold_blur``)
+    are accepted and give the unpacked path's math."""
+    d = discriminator_config_from_args(
+        cfg.structure, cfg.dataset.resolution, cfg.dataset.channels,
+        cfg.conditional, cfg.n_classes, cfg.model.dis)
+    return replace(d, remat=bool(getattr(cfg.ops, "remat", False)))

@@ -1,14 +1,16 @@
-"""StyleGAN generator op library in PyTorch (NHWC at the public functions)."""
+"""StyleGAN op library in PyTorch (NHWC at the public functions)."""
 
-from .primitives import (add_noise, blur2d, instance_norm, leaky_relu,
-                         make_blur_kernel, pixel_norm, style_modulate,
+from .primitives import (add_noise, avg_pool2d, blur2d, downscale2d,
+                         instance_norm, leaky_relu, make_blur_kernel,
+                         minibatch_stddev, pixel_norm, style_modulate,
                          truncate_dlatents, update_moving_average, upscale2d)
 from .linear import (EqualizedConv2d, EqualizedLinear, conv2d_apply,
                      equalized_scales, linear_apply)
 
 __all__ = [
-    "add_noise", "blur2d", "instance_norm", "leaky_relu", "make_blur_kernel",
-    "pixel_norm", "style_modulate", "truncate_dlatents",
+    "add_noise", "avg_pool2d", "blur2d", "downscale2d", "instance_norm",
+    "leaky_relu", "make_blur_kernel", "minibatch_stddev", "pixel_norm",
+    "style_modulate", "truncate_dlatents",
     "update_moving_average", "upscale2d",
     "EqualizedConv2d", "EqualizedLinear", "conv2d_apply", "equalized_scales",
     "linear_apply",

@@ -17,9 +17,15 @@ stream for eager calls; a call made while the stream is captured into a CUDA
 graph takes a workspace of its own from the graph's memory pool, so that a
 graph never shares counters with eager calls or with other graphs.
 
-`kernel_epilogue` is the ``torch.autograd.Function`` around the launch (the
-counterpart of the JAX ``pallas_epilogue`` custom VJP): its backward
-differentiates the plain version, as the JAX backward does.
+The backward (`epilogue_backward`) is a kernel pair of the same library,
+planned by ``sgt_epilogue_bwd_plan`` per (dtype, B, H*W, C, alignment,
+whether dnoise is wanted), with workspaces kept the same way; it reads the
+per-(b, c) (mean, rstd) that the forward saved.  It replaces the JAX custom
+VJP's backward, which is XLA autodiff of the plain composition.
+
+`kernel_epilogue` is the ``torch.autograd.Function`` around both (the
+counterpart of the JAX ``pallas_epilogue`` custom VJP).  This module takes
+CUDA tensors only; ``ops/fused.py`` sends a CPU tensor to the plain versions.
 """
 
 from __future__ import annotations
@@ -32,8 +38,6 @@ from pathlib import Path
 
 import torch
 
-from ..fused import _reference_epilogue
-
 _PKG = Path(__file__).resolve().parents[2]
 SOURCE = _PKG / "csrc" / "epilogue.cu"
 SOURCES = (SOURCE, _PKG / "csrc" / "epilogue_plan.h")
@@ -43,15 +47,21 @@ BUILD_DIR = _PKG.parent / "build" / "stylegan_torch"
 # reports, one launch each per call.
 KERNELS_BY_PATH = {1: ("onepass_kernel",), 2: ("stats_kernel", "apply_kernel")}
 KERNEL_NAMES = KERNELS_BY_PATH[1] + KERNELS_BY_PATH[2]
+# The backward's kernels, one launch each per call.
+BWD_KERNEL_NAMES = ("bwd_sums_kernel", "bwd_dx_kernel")
 
 # Calls of epilogue_forward that launched the kernels (one per call), and the
-# CUDA launches they made (the plan's `launches`: 1 on path 1, 2 on path 2).
+# CUDA launches they made (the plan's `launches`: 1 on path 1, 2 on path 2);
+# calls of epilogue_backward that launched its two kernels.
 launches = 0
 cuda_launches = 0
+backward_launches = 0
 
 _lib = None
 _plans: dict = {}        # (is_bf16, B, rows, C, aligned) -> Plan
 _workspaces: dict = {}   # (plan key, device, stream) -> eager workspace
+_bwd_plans: dict = {}    # (is_bf16, B, rows, C, aligned, want_dn) -> BwdPlan
+_bwd_workspaces: dict = {}
 
 
 class Plan(ctypes.Structure):
@@ -65,6 +75,16 @@ class Plan(ctypes.Structure):
 
     def as_dict(self) -> dict:
         return {n: getattr(self, n) for n, _ in self._fields_}
+
+
+class BwdPlan(ctypes.Structure):
+    """``SgtBwdPlan`` of epilogue_plan.h."""
+    _fields_ = ([(n, ctypes.c_int) for n in (
+        "vec", "tx", "ty", "chunk_c", "chunks", "splits", "launches",
+        "dn_partials")]
+        + [(n, ctypes.c_longlong) for n in (
+            "rows_per_split", "coef_offset", "dnw_offset", "dn_offset",
+            "tickets_offset", "workspace_bytes")])
 
 
 def _nvcc() -> str:
@@ -103,13 +123,24 @@ def bind(lib):
     # is_bf16 B R C aligned plan
     lib.sgt_epilogue_plan.argtypes = [i, i, ll, i, i, ctypes.POINTER(Plan)]
     lib.sgt_epilogue_plan.restype = ctypes.c_int
+    # is_bf16 B R C aligned want_dn plan
+    lib.sgt_epilogue_bwd_plan.argtypes = [i, i, ll, i, i, i,
+                                          ctypes.POINTER(BwdPlan)]
+    lib.sgt_epilogue_bwd_plan.restype = ctypes.c_int
     if hasattr(lib, "sgt_epilogue_forward"):
         lib.sgt_epilogue_forward.argtypes = [
             p, p, p, p, p,        # x noise noise_weight style out
             p, ll,                # workspace, its bytes
             i, i, ll, i,          # is_bf16 B R C
-            ctypes.POINTER(Plan), p]  # plan, stream
+            ctypes.POINTER(Plan), p, p]  # plan, saved stats, stream
         lib.sgt_epilogue_forward.restype = ctypes.c_int
+        lib.sgt_epilogue_backward.argtypes = [
+            p, p, p, p, p, p,     # g x noise noise_weight style saved
+            p, p, p, p,           # dx dnoise_weight dnoise dstyle
+            p, ll,                # workspace, its bytes
+            i, i, ll, i,          # is_bf16 B R C
+            ctypes.POINTER(BwdPlan), p]  # plan, stream
+        lib.sgt_epilogue_backward.restype = ctypes.c_int
     return lib
 
 
@@ -148,20 +179,21 @@ def plan_for(x: torch.Tensor) -> dict:
                      int(x.data_ptr() % 16 == 0)).as_dict()
 
 
-def epilogue_forward(x: torch.Tensor, noise_weight: torch.Tensor,
-                     noise: torch.Tensor, style: torch.Tensor) -> torch.Tensor:
-    """Launch the kernel.  x: (B, H, W, C) contiguous NHWC (channels-last
-    storage), float32 or bfloat16, on a CUDA device; noise (B, H, W, 1) of
-    x's dtype; noise_weight (C,) and style (B, 2C) float32.  Raises on
-    anything else, never copies."""
+def _check_inputs(x, noise_weight, noise, style, g=None, saved=None):
+    """Raise unless the tensors are what the kernels take (see
+    epilogue_forward and epilogue_backward)."""
     if x.ndim != 4 or x.dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"x must be 4-D float32/bfloat16 NHWC, got "
                          f"{tuple(x.shape)} {x.dtype}")
     b, h, w, c = x.shape
-    for name, t, shape, dtype in (
-            ("noise", noise, (b, h, w, 1), x.dtype),
-            ("noise_weight", noise_weight, (c,), torch.float32),
-            ("style", style, (b, 2 * c), torch.float32)):
+    checks = [("noise", noise, (b, h, w, 1), x.dtype),
+              ("noise_weight", noise_weight, (c,), torch.float32),
+              ("style", style, (b, 2 * c), torch.float32)]
+    if g is not None:
+        checks.append(("g", g, (b, h, w, c), x.dtype))
+    if saved is not None:
+        checks.append(("saved", saved, (b, c, 2), torch.float32))
+    for name, t, shape, dtype in checks:
         if tuple(t.shape) != shape or t.dtype != dtype or t.device != x.device:
             raise ValueError(f"{name} must be {shape} {dtype} on {x.device}, "
                              f"got {tuple(t.shape)} {t.dtype} on {t.device}")
@@ -170,13 +202,29 @@ def epilogue_forward(x: torch.Tensor, noise_weight: torch.Tensor,
     if not x.is_contiguous():
         raise ValueError("x must be contiguous NHWC (channels_last NCHW)")
     if x.device.type != "cuda":
-        raise ValueError(f"epilogue kernel needs a CUDA tensor, got {x.device}")
+        raise ValueError(
+            f"epilogue kernel needs a CUDA tensor, got {x.device}")
+
+
+def _on_device(device, fn, *args):
+    if device.index != torch.cuda.current_device():
+        with torch.cuda.device(device):
+            return fn(*args)
+    return fn(*args)
+
+
+def epilogue_forward(x: torch.Tensor, noise_weight: torch.Tensor,
+                     noise: torch.Tensor, style: torch.Tensor,
+                     saved: torch.Tensor | None = None) -> torch.Tensor:
+    """Launch the kernel.  x: (B, H, W, C) contiguous NHWC (channels-last
+    storage), float32 or bfloat16, on a CUDA device; noise (B, H, W, 1) of
+    x's dtype; noise_weight (C,) and style (B, 2C) float32.  With `saved`, a
+    (B, C, 2) float32 tensor, the kernel also writes there the (mean, rstd)
+    per (b, c) that epilogue_backward reads.  Raises on anything else, never
+    copies."""
+    _check_inputs(x, noise_weight, noise, style, saved=saved)
     out = torch.empty_like(x)
-    if x.device.index != torch.cuda.current_device():
-        with torch.cuda.device(x.device):
-            _launch(x, noise_weight, noise, style, out)
-    else:
-        _launch(x, noise_weight, noise, style, out)
+    _on_device(x.device, _launch, x, noise_weight, noise, style, out, saved)
     return out
 
 
@@ -188,7 +236,28 @@ def _workspace(plan: Plan, device) -> torch.Tensor:
     return ws
 
 
-def _launch(x, noise_weight, noise, style, out):
+def _workspace_for(cache, key, plan, device, stream):
+    """(cache key or None, workspace or None) for a call of `plan`: the eager
+    calls' workspace per (plan, device, stream), or, for a call captured into
+    a CUDA graph, one of its own from the graph's pool (freed back to it in
+    stream order after the launch), so that a graph never shares ticket
+    counters."""
+    if not plan.workspace_bytes:
+        return None, None
+    if _capturing():
+        return None, _workspace(plan, device)
+    ws_key = (key, device, stream)
+    ws = cache.get(ws_key)
+    if ws is None:
+        ws = cache[ws_key] = _workspace(plan, device)
+    return ws_key, ws
+
+
+def _ptr(t):
+    return 0 if t is None else t.data_ptr()
+
+
+def _launch(x, noise_weight, noise, style, out, saved=None):
     """One ctypes call on x's device, which is the current one."""
     global launches, cuda_launches
     b, h, w, c = x.shape
@@ -200,27 +269,75 @@ def _launch(x, noise_weight, noise, style, out):
     if plan is None:
         plan = _plans[key] = make_plan(lib, is_bf16, b, rows, c, aligned)
     stream = _stream(x.device)
-    ws_key, ws_ptr = None, 0
-    if plan.workspace_bytes:      # path 2 only
-        if _capturing():
-            # the graph's own, freed back to its pool in stream order
-            ws = _workspace(plan, x.device)
-        else:
-            ws_key = (key, x.device, stream)
-            ws = _workspaces.get(ws_key)
-            if ws is None:
-                ws = _workspaces[ws_key] = _workspace(plan, x.device)
-        ws_ptr = ws.data_ptr()
+    ws_key, ws = _workspace_for(_workspaces, key, plan, x.device, stream)
     err = lib.sgt_epilogue_forward(
         x.data_ptr(), noise.data_ptr(), noise_weight.data_ptr(),
-        style.data_ptr(), out.data_ptr(), ws_ptr, plan.workspace_bytes,
-        is_bf16, b, rows, c, plan, stream)
+        style.data_ptr(), out.data_ptr(), _ptr(ws), plan.workspace_bytes,
+        is_bf16, b, rows, c, plan, _ptr(saved), stream)
     if err != 0:
         # its tickets may be left counting: the next call makes a new one
         _workspaces.pop(ws_key, None)
         raise RuntimeError(f"epilogue kernel launch failed: cudaError {err}")
     launches += 1
     cuda_launches += plan.launches
+
+
+def make_bwd_plan(lib, is_bf16: int, b: int, rows: int, c: int,
+                  aligned: int, want_dn: int) -> BwdPlan:
+    """The backward's plan of one call, from sgt_epilogue_bwd_plan."""
+    plan = BwdPlan()
+    if lib.sgt_epilogue_bwd_plan(is_bf16, b, rows, c, aligned, want_dn,
+                                 plan) != 0:
+        raise ValueError(f"no epilogue backward plan for B={b} R={rows} "
+                         f"C={c} bf16={is_bf16} aligned={aligned}")
+    return plan
+
+
+def epilogue_backward(g, x, noise_weight, noise, style, saved,
+                      needs=(True, True, True, True)):
+    """Launch the backward kernels: the gradients (dx, dnoise_weight, dnoise,
+    dstyle) of the epilogue's output w.r.t. its inputs, given g, the
+    gradient of the output (x's shape and dtype, contiguous), and `saved`,
+    the (B, C, 2) float32 (mean, rstd) that epilogue_forward wrote.  A
+    gradient whose entry of `needs` is false is not computed (None).
+    Inputs as for epilogue_forward; raises on anything else, never copies."""
+    if saved is None:
+        raise ValueError("saved must be the (B, C, 2) statistics that "
+                         "epilogue_forward wrote")
+    _check_inputs(x, noise_weight, noise, style, g=g, saved=saved)
+    dx = torch.empty_like(x) if needs[0] else None
+    dnw = torch.empty_like(noise_weight) if needs[1] else None
+    dn = torch.empty_like(noise) if needs[2] else None
+    dstyle = torch.empty_like(style) if needs[3] else None
+    _on_device(x.device, _launch_backward, g, x, noise_weight, noise, style,
+               saved, dx, dnw, dn, dstyle)
+    return dx, dnw, dn, dstyle
+
+
+def _launch_backward(g, x, noise_weight, noise, style, saved, dx, dnw, dn,
+                     dstyle):
+    """One ctypes call on x's device, which is the current one."""
+    global backward_launches
+    b, h, w, c = x.shape
+    rows, is_bf16 = h * w, int(x.dtype == torch.bfloat16)
+    aligned = int((g.data_ptr() | x.data_ptr() | _ptr(dx)) % 16 == 0)
+    lib = _library()
+    key = (is_bf16, b, rows, c, aligned, int(dn is not None))
+    plan = _bwd_plans.get(key)
+    if plan is None:
+        plan = _bwd_plans[key] = make_bwd_plan(lib, *key)
+    stream = _stream(x.device)
+    ws_key, ws = _workspace_for(_bwd_workspaces, key, plan, x.device, stream)
+    err = lib.sgt_epilogue_backward(
+        g.data_ptr(), x.data_ptr(), noise.data_ptr(), noise_weight.data_ptr(),
+        style.data_ptr(), saved.data_ptr(), _ptr(dx), _ptr(dnw), _ptr(dn),
+        _ptr(dstyle), _ptr(ws), plan.workspace_bytes, is_bf16, b, rows, c,
+        plan, stream)
+    if err != 0:
+        _bwd_workspaces.pop(ws_key, None)
+        raise RuntimeError(
+            f"epilogue backward kernel launch failed: cudaError {err}")
+    backward_launches += 1
 
 
 def bytes_moved(x: torch.Tensor) -> int:
@@ -231,24 +348,42 @@ def bytes_moved(x: torch.Tensor) -> int:
             + 4 * (c + 2 * b * c))
 
 
+def bytes_moved_backward(x: torch.Tensor) -> int:
+    """Bytes a train step's backward must move: g, x and noise read once, dx
+    written once, plus noise_weight, style, the saved statistics and the
+    float32 gradients of noise_weight and style."""
+    b, h, w, c = x.shape
+    n = b * h * w
+    return (x.element_size() * (3 * n * c + n)
+            + 4 * (2 * c + 4 * b * c + 2 * b * c))
+
+
 class _KernelEpilogue(torch.autograd.Function):
-    """Forward: the kernel.  Backward: autograd of the plain version, which is
-    exactly what the CPU path computes (as the JAX custom VJP's _bwd)."""
+    """Forward and backward: the kernels (the forward saves the (mean, rstd)
+    the backward reads).  The backward kernels are once differentiable: a
+    backward that would be differentiated again (create_graph=True) raises
+    rather than hand autograd gradients with no graph behind them."""
 
     @staticmethod
     def forward(ctx, x, noise_weight, noise, style):
-        ctx.save_for_backward(x, noise_weight, noise, style)
-        return epilogue_forward(x, noise_weight, noise, style)
+        saved = torch.empty((x.shape[0], x.shape[-1], 2),
+                            dtype=torch.float32, device=x.device)
+        out = epilogue_forward(x, noise_weight, noise, style, saved)
+        ctx.save_for_backward(x, noise_weight, noise, style, saved)
+        return out
 
     @staticmethod
     def backward(ctx, g):
-        inputs = [t.detach().requires_grad_(need)
-                  for t, need in zip(ctx.saved_tensors, ctx.needs_input_grad)]
-        wanted = [t for t in inputs if t.requires_grad]
-        with torch.enable_grad():
-            y = _reference_epilogue(*inputs)
-            grads = iter(torch.autograd.grad(y, wanted, g))
-        return tuple(next(grads) if t.requires_grad else None for t in inputs)
+        # autograd runs a backward with grad mode on only for create_graph
+        if torch.is_grad_enabled():
+            raise RuntimeError(
+                "the epilogue's CUDA backward is once differentiable: a "
+                "second derivative through it (create_graph=True) is not "
+                "implemented")
+        x, noise_weight, noise, style, saved = ctx.saved_tensors
+        # autograd may hand g in another layout; the kernel reads NHWC rows
+        return epilogue_backward(g.contiguous(), x, noise_weight, noise,
+                                 style, saved, ctx.needs_input_grad)
 
 
 def kernel_epilogue(x, noise_weight, noise, style):

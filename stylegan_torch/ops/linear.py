@@ -7,9 +7,9 @@ reference's torch layouts: dense (out, in), conv OIHW.  Activations are NHWC
 at the public functions and channels-last NCHW inside the convolutions.
 
 The convolutions are PyTorch's (cuDNN on the card), as the JAX package left
-them to XLA.  Only the unpacked upscale and same-size branches of the JAX
-``conv2d_apply`` are here; the downscale branches arrive with the
-discriminator.
+them to XLA.  The JAX ``conv2d_apply``'s unpacked branches are all here:
+upscale, downscale and same-size; its space-to-depth packed and blur-folding
+branches compute the same math in TPU layouts and have no counterpart.
 """
 
 from __future__ import annotations
@@ -21,7 +21,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from .primitives import blur2d, to_nchw, to_nhwc, upscale2d
+from .primitives import blur2d, downscale2d, to_nchw, to_nhwc, upscale2d
 
 
 def equalized_scales(gain: float, fan_in: int, lrmul: float,
@@ -48,27 +48,41 @@ def conv2d_apply(x: torch.Tensor, weight: torch.Tensor,
                  bias: Optional[torch.Tensor] = None, *,
                  gain: float = math.sqrt(2), use_wscale: bool = False,
                  lrmul: float = 1.0, upscale: bool = False,
+                 downscale: bool = False,
                  blur_kernel: Optional[torch.Tensor] = None,
+                 pre_blur_kernel: Optional[torch.Tensor] = None,
                  fused_resample_threshold: int = 128) -> torch.Tensor:
     """Equalized conv of NHWC x with weight (O, I, k, k), SAME padding.
 
     Dispatch mirrors CustomLayers.py:137-180: with `upscale`, an output
     resolution >= threshold takes the fused transposed conv on the 4-tap
-    summed kernel, a smaller one nearest-upsamples and then convolves.
-    `blur_kernel` (the G path) sits between the conv and the bias add.
+    summed kernel, a smaller one nearest-upsamples and then convolves.  With
+    `downscale`, an input resolution >= threshold takes the fused stride-2
+    conv on the 4-tap averaged kernel, a smaller one convolves and then
+    average-pools 2x2.  `blur_kernel` (the G path) sits between the conv and
+    the bias add, as does the small downscale's pooling; `pre_blur_kernel`
+    (the D path) blurs the input of a downscale.
     """
     _, in_ch, kh, kw = weight.shape
     _, w_mul = equalized_scales(gain, in_ch * kh * kw, lrmul, use_wscale)
     w = (weight * w_mul).to(x.dtype)
     if bias is not None:
         bias = (bias * lrmul).to(x.dtype)
+    if upscale and downscale:
+        raise ValueError("conv2d_apply: upscale and downscale are exclusive")
 
+    if downscale and pre_blur_kernel is not None:
+        x = blur2d(x, pre_blur_kernel)
     if upscale and min(x.shape[1], x.shape[2]) * 2 >= fused_resample_threshold:
         y = _fused_upscale_conv(x, w)
+    elif downscale and min(x.shape[1], x.shape[2]) >= fused_resample_threshold:
+        y = _fused_downscale_conv(x, w)
     else:
         if upscale:
             x = upscale2d(x)
-        y = to_nhwc(F.conv2d(to_nchw(x), w, padding=(kh - 1) // 2))
+        y = to_nhwc(conv(to_nchw(x), w, 1, (kh - 1) // 2))
+        if downscale:
+            y = downscale2d(y)
     if blur_kernel is not None:
         y = blur2d(y, blur_kernel)
     if bias is not None:
@@ -83,8 +97,104 @@ def _fused_upscale_conv(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     wp = F.pad(w, (1, 1, 1, 1))
     w4 = (wp[:, :, 1:, 1:] + wp[:, :, :-1, 1:]
           + wp[:, :, 1:, :-1] + wp[:, :, :-1, :-1])
-    y = F.conv_transpose2d(to_nchw(x), w4.transpose(0, 1), stride=2, padding=1)
+    y = conv(to_nchw(x), w4.transpose(0, 1), 2, 1, transpose=True)
     return to_nhwc(y)
+
+
+def _fused_downscale_conv(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """Stride-2 conv, padding 1, with the 4-tap-averaged 4x4 kernel
+    (reference CustomLayers.py:158-163).  Both sides cross-correlate, so the
+    kernel is not flipped."""
+    wp = F.pad(w, (1, 1, 1, 1))
+    w4 = (wp[:, :, 1:, 1:] + wp[:, :, :-1, 1:]
+          + wp[:, :, 1:, :-1] + wp[:, :, :-1, :-1]) * 0.25
+    return to_nhwc(conv(to_nchw(x), w4, 2, 1))
+
+
+# --------------------------------------------------------------------------
+# Convolutions whose gradients of every order are convolutions
+# --------------------------------------------------------------------------
+# R1 differentiates D's scores w.r.t. the images and then the penalty w.r.t.
+# D's weights: a double backward through every convolution.  Autograd's
+# double backward of a convolution computes the weight's gradient as a
+# convolution whose kernel is the size of the image, which cuDNN runs slowly
+# (most of a 1024^2 train step on the H100, PERF.md).  Here the gradient
+# w.r.t. the input is the adjoint convolution and the gradient w.r.t. the
+# weight is cuDNN's backward-filter (aten.convolution_backward), both again
+# differentiable through these same functions.  Same math as F.conv2d /
+# F.conv_transpose2d (groups 1, dilation 1, no bias).
+
+def conv(x: torch.Tensor, w: torch.Tensor, stride: int, padding: int,
+         transpose: bool = False) -> torch.Tensor:
+    """F.conv2d(x, w, stride, padding), or with `transpose`
+    F.conv_transpose2d(x, w, stride, padding), of NCHW x."""
+    if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad):
+        return _Conv.apply(x, w, (stride, padding, transpose, 0))
+    return _conv(x, w, (stride, padding, transpose, 0))
+
+
+def _conv(x, w, op):
+    stride, padding, transpose, output_padding = op
+    if transpose:
+        return F.conv_transpose2d(x, w, None, stride, padding, output_padding)
+    return F.conv2d(x, w, None, stride, padding)
+
+
+def _adjoint(op, x_shape, y_shape, w_shape):
+    """The op mapping y's gradient back to x's: conv <-> transposed conv,
+    with the output padding that restores x's size."""
+    stride, padding, transpose, _ = op
+    if transpose:
+        return stride, padding, False, 0
+    k = w_shape[-1]
+    extra = x_shape[-1] - ((y_shape[-1] - 1) * stride - 2 * padding + k)
+    return stride, padding, True, extra
+
+
+class _Conv(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, w, op):
+        ctx.save_for_backward(x, w)
+        ctx.op = op
+        return _conv(x, w, op)
+
+    @staticmethod
+    def backward(ctx, gy):
+        x, w = ctx.saved_tensors
+        gx = gw = None
+        if ctx.needs_input_grad[0]:
+            gx = _Conv.apply(gy, w, _adjoint(ctx.op, x.shape, gy.shape,
+                                             w.shape))
+        if ctx.needs_input_grad[1]:
+            gw = _ConvWeightGrad.apply(gy, x, w, ctx.op)
+        return gx, gw, None
+
+
+class _ConvWeightGrad(torch.autograd.Function):
+    """d loss / d w of y = op(x, w), given gy = d loss / d y: cuDNN's
+    backward-filter.  It is bilinear in (gy, x): its gradients are op(x, ggw)
+    w.r.t. gy and the adjoint op(gy, ggw) w.r.t. x."""
+
+    @staticmethod
+    def forward(ctx, gy, x, w, op):
+        ctx.save_for_backward(gy, x)
+        ctx.op, ctx.w_shape = op, w.shape
+        stride, padding, transpose, output_padding = op
+        return torch.ops.aten.convolution_backward(
+            gy, x, w, None, (stride, stride), (padding, padding), (1, 1),
+            transpose, (output_padding, output_padding), 1,
+            (False, True, False))[1]
+
+    @staticmethod
+    def backward(ctx, ggw):
+        gy, x = ctx.saved_tensors
+        d_gy = d_x = None
+        if ctx.needs_input_grad[0]:
+            d_gy = _Conv.apply(x, ggw, ctx.op)
+        if ctx.needs_input_grad[1]:
+            d_x = _Conv.apply(gy, ggw, _adjoint(ctx.op, x.shape, gy.shape,
+                                                ctx.w_shape))
+        return d_gy, d_x, None, None
 
 
 def _randn(shape, std, generator):
@@ -126,7 +236,12 @@ class EqualizedConv2d(nn.Module):
         self.bias = nn.Parameter(torch.zeros(out_ch)) if bias else None
 
     def forward(self, x: torch.Tensor, upscale: bool = False,
-                blur_kernel: Optional[torch.Tensor] = None) -> torch.Tensor:
+                blur_kernel: Optional[torch.Tensor] = None,
+                downscale: bool = False,
+                pre_blur_kernel: Optional[torch.Tensor] = None
+                ) -> torch.Tensor:
         return conv2d_apply(x, self.weight, self.bias, gain=self.gain,
                             use_wscale=self.use_wscale, lrmul=self.lrmul,
-                            upscale=upscale, blur_kernel=blur_kernel)
+                            upscale=upscale, downscale=downscale,
+                            blur_kernel=blur_kernel,
+                            pre_blur_kernel=pre_blur_kernel)

@@ -10,9 +10,11 @@ the convolutions read and write channels-last storage without copies.
 Numerical contracts (held against the JAX package in tests/test_torch_ops.py):
   pixel_norm         reference CustomLayers.py:17-23
   upscale2d          reference CustomLayers.py:26-45
+  downscale2d        reference CustomLayers.py:48-76
   blur2d             reference CustomLayers.py:251-276
   leaky_relu(0.2)    reference GAN.py:67-68
   instance_norm      torch.nn.InstanceNorm2d(affine=False, eps=1e-5)
+  minibatch_stddev   reference CustomLayers.py:288-305
   truncation         reference CustomLayers.py:308-323
 """
 
@@ -60,6 +62,20 @@ def upscale2d(x: torch.Tensor, factor: int = 2, gain: float = 1.0) -> torch.Tens
     return x.reshape(b, h * factor, w * factor, c)
 
 
+def avg_pool2d(x: torch.Tensor, factor: int) -> torch.Tensor:
+    """Average pool of NHWC with window == stride == factor."""
+    return to_nhwc(F.avg_pool2d(to_nchw(x), factor))
+
+
+def downscale2d(x: torch.Tensor, factor: int = 2,
+                gain: float = 1.0) -> torch.Tensor:
+    """gain * factor x factor average pooling of NHWC (the reference's
+    [sqrt(g)/2]^2 blur with stride 2 is exactly that for factor 2)."""
+    assert x.ndim == 4
+    out = avg_pool2d(x, factor) if factor > 1 else x
+    return out if gain == 1.0 else out * gain
+
+
 def make_blur_kernel(taps, normalize: bool = True) -> torch.Tensor:
     """Outer-product separable blur kernel, shape (k, k), float32."""
     k = torch.as_tensor(taps, dtype=torch.float32)
@@ -69,14 +85,37 @@ def make_blur_kernel(taps, normalize: bool = True) -> torch.Tensor:
     return k
 
 
-def blur2d(x: torch.Tensor, kernel2d: torch.Tensor, stride: int = 1) -> torch.Tensor:
-    """Depthwise blur of NHWC with a (k, k) kernel, SAME padding."""
-    c = x.shape[-1]
-    k = kernel2d.shape[0]
+def _depthwise(x: torch.Tensor, kernel2d: torch.Tensor) -> torch.Tensor:
+    # the grouped convolution itself, SAME padding for an odd kernel
+    c, k = x.shape[-1], kernel2d.shape[0]
     kern = kernel2d.to(x.dtype)[None, None].expand(c, 1, k, k)
-    y = F.conv2d(to_nchw(x), kern, stride=stride, padding=(k - 1) // 2,
-                 groups=c)
-    return to_nhwc(y)
+    return to_nhwc(F.conv2d(to_nchw(x), kern, padding=(k - 1) // 2, groups=c))
+
+
+class _Blur(torch.autograd.Function):
+    """The blur as a linear map with a constant kernel: its gradient is the
+    same blur with the flipped kernel, itself a _Blur, so every order of
+    derivative (R1's double backward through D) is one depthwise
+    convolution.  Autograd of the grouped conv instead runs its double
+    backward one channel at a time."""
+
+    @staticmethod
+    def forward(ctx, x, kernel2d):
+        ctx.save_for_backward(kernel2d)
+        return _depthwise(x, kernel2d)
+
+    @staticmethod
+    def backward(ctx, g):
+        (kernel2d,) = ctx.saved_tensors
+        return _Blur.apply(g, kernel2d.flip(0, 1)), None
+
+
+def blur2d(x: torch.Tensor, kernel2d: torch.Tensor) -> torch.Tensor:
+    """Depthwise blur of NHWC with a constant (k, k) kernel, k odd, SAME
+    padding, stride 1 (the only blur the networks run)."""
+    if not kernel2d.shape[0] % 2:
+        raise ValueError(f"blur2d needs an odd kernel, got {kernel2d.shape[0]}")
+    return _Blur.apply(x, kernel2d.detach())
 
 
 def instance_norm(x: torch.Tensor, epsilon: float = 1e-5) -> torch.Tensor:
@@ -86,6 +125,50 @@ def instance_norm(x: torch.Tensor, epsilon: float = 1e-5) -> torch.Tensor:
     mean = torch.mean(xf, dim=(1, 2), keepdim=True)
     var = torch.mean(torch.square(xf - mean), dim=(1, 2), keepdim=True)
     return ((xf - mean) * torch.rsqrt(var + epsilon)).to(x.dtype)
+
+
+def _stddev_feature(y: torch.Tensor, group_size: int, f: int) -> torch.Tensor:
+    """The (B, H, W, f) stddev feature map of one batch (float32 in and out).
+
+    Reference grouping (CustomLayers.py:294-305): reshape (g, B//g, ...), so
+    group s holds the batch indices {s, s + B//g, ...}: strided groups."""
+    b, h, w, c = y.shape
+    g = min(group_size, b)
+    if b % g:
+        raise ValueError(f"batch {b} not divisible by stddev group {g}")
+    y = y.reshape(g, b // g, h, w, f, c // f)
+    y = y - y.mean(dim=0, keepdim=True)
+    y = torch.sqrt(y.square().mean(dim=0) + 1e-8)    # (b//g, H, W, f, c//f)
+    y = y.mean(dim=(1, 2, 4))                         # (b//g, f)
+    return y[None, :, None, None, :].expand(g, b // g, h, w, f) \
+        .reshape(b, h, w, f)
+
+
+def minibatch_stddev(x: torch.Tensor, group_size: int = 4,
+                     num_new_features: int = 1, *, axis_name=None,
+                     chunks: int = 1) -> torch.Tensor:
+    """Append per-group stddev statistics as extra channels (NHWC).
+
+    The reference formula (CustomLayers.py:294-305): groups of
+    min(group_size, B), strided over the batch, the biased stddev per
+    (feature, pixel) with eps 1e-8 inside the sqrt, averaged over the
+    feature's channels and H, W, broadcast back, one channel per new
+    feature.  Statistics are float32 whatever x's dtype.
+
+    `chunks` restricts grouping to that many equal contiguous batch chunks,
+    each grouped alone (the fused real/fake scoring runs one batch-2B pass
+    with chunks=2).  `axis_name` (the statistic over a data-parallel
+    group's global batch) arrives with the port's parallelism."""
+    if axis_name is not None:
+        raise NotImplementedError(
+            "minibatch_stddev(axis_name=...) needs the data-parallel path, "
+            "which is not ported yet")
+    if x.shape[0] % chunks:
+        raise ValueError(f"batch {x.shape[0]} not divisible into {chunks} "
+                         "chunks")
+    feat = torch.cat([_stddev_feature(t, group_size, num_new_features)
+                      for t in _f32_stats(x).chunk(chunks)])
+    return torch.cat([x, feat.to(x.dtype)], dim=-1)
 
 
 def truncate_dlatents(dlatents: torch.Tensor, avg_latent: torch.Tensor,

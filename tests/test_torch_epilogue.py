@@ -98,10 +98,21 @@ def test_epilogue_grads_match_jax(shape):
 
 
 def test_kernel_autograd_function_backward(monkeypatch):
-    """The autograd.Function around the kernel: its backward differentiates
-    the plain version, as the JAX custom VJP does.  The launch is swapped
-    for the plain forward so the wiring runs on the CPU."""
-    monkeypatch.setattr(kern, "epilogue_forward", fused._reference_epilogue)
+    """The autograd.Function around the kernels: the forward hands its
+    launch a (B, C, 2) statistics output, the backward hands its launch
+    those statistics and the gradients autograd needs, and the gradients
+    are the JAX custom VJP's.  The two launches are swapped for the plain
+    forward and the plain VJP so the wiring runs on the CPU."""
+    def forward(x, nw, noise, style, saved):
+        assert saved.shape == (x.shape[0], x.shape[-1], 2)
+        return fused._reference_epilogue(x, nw, noise, style)
+
+    def backward(g, x, nw, noise, style, saved, needs):
+        assert saved.shape == (x.shape[0], x.shape[-1], 2)
+        grads = fused._reference_epilogue_vjp(x, nw, noise, style, g)
+        return tuple(d if need else None for d, need in zip(grads, needs))
+    monkeypatch.setattr(kern, "epilogue_forward", forward)
+    monkeypatch.setattr(kern, "epilogue_backward", backward)
     shape = (2, 8, 8, 32)
     ins = _inputs(shape, seed=4)
     g = np.random.RandomState(5).randn(*shape).astype(np.float32)

@@ -198,3 +198,69 @@ def test_wrapper_allocates_the_plans_workspace(plan_lib, monkeypatch, res, c):
     # the launch is handed the cached plan, equal to a fresh one
     (cached,) = kern._plans.values()
     assert args[11] is cached and cached.as_dict() == p.as_dict()
+
+
+# ---------------------------------------------------------------- backward --
+
+def check_bwd_plan(p, b, rows, c, bf16, aligned, want_dn):
+    """The backward's plan: both launches take the grid (splits, chunks, B)
+    of 256-thread blocks; splits and chunks cover every row and channel
+    once; the last block's fixed-order merges give each channel 256 //
+    chunk_c threads; the workspace holds the partials, coefficients,
+    dnoise_weight and (when summed over chunks) dnoise partials, and the
+    tickets, in that order."""
+    elem = 2 if bf16 else 4
+    vec = (8 if bf16 else 4) if c % (8 if bf16 else 4) == 0 and aligned else 1
+    assert p.vec == vec
+    assert _pow2(p.tx) and p.tx <= 32 and p.tx * p.ty == 256
+    assert p.chunk_c == p.tx * p.vec and p.chunk_c * elem <= 128
+    assert (p.chunks - 1) * p.chunk_c < c <= p.chunks * p.chunk_c
+    assert 256 % p.chunk_c == 0 and p.chunks <= 65535
+    assert p.rows_per_split % p.ty == 0
+    assert (p.splits - 1) * p.rows_per_split < rows <= p.splits * \
+        p.rows_per_split
+    assert p.launches == 2
+    assert p.dn_partials == int(bool(want_dn) and p.chunks > 1)
+    assert p.coef_offset == _align16(b * p.splits * c * 8)
+    assert p.dnw_offset == p.coef_offset + _align16(b * c * 16)
+    assert p.dn_offset == p.dnw_offset + _align16(b * p.splits * c * 4)
+    dn_bytes = _align16(p.chunks * b * rows * 4) if p.dn_partials else 0
+    assert p.tickets_offset == p.dn_offset + dn_bytes
+    assert p.workspace_bytes == p.tickets_offset + _align16(
+        (b * p.chunks + p.chunks + b * p.splits) * 4)
+
+
+def bwd_plan(lib, bf16, b, rows, c, aligned=1, want_dn=0):
+    return kern.make_bwd_plan(lib, bf16, b, rows, c, aligned, want_dn)
+
+
+@pytest.mark.parametrize("batch", [2, 8])
+@pytest.mark.parametrize("bf16", [0, 1], ids=["f32", "bf16"])
+@pytest.mark.parametrize("res,c", MAIN_SHAPES,
+                         ids=[f"{r}x{r}x{c}" for r, c in MAIN_SHAPES])
+def test_backward_main_path_plans(plan_lib, res, c, bf16, batch):
+    """The 18 backward calls of a 1024^2 G step, at the training batch (2)
+    and at the serving batch (8): the large planes split their rows into
+    about 1024 pass-1 blocks (512 in bf16), as the forward's two passes."""
+    for want_dn in (0, 1):
+        p = bwd_plan(plan_lib, bf16, batch, res * res, c, want_dn=want_dn)
+        check_bwd_plan(p, batch, res * res, c, bf16, 1, want_dn)
+    if res >= 128:
+        target = 512 if bf16 else 1024
+        assert target // 2 <= p.splits * p.chunks * batch <= 2 * target
+
+
+@pytest.mark.parametrize("want_dn", [0, 1], ids=["no-dnoise", "dnoise"])
+@pytest.mark.parametrize("aligned", [1, 0], ids=["aligned", "unaligned"])
+@pytest.mark.parametrize("bf16", [0, 1], ids=["f32", "bf16"])
+def test_backward_plan_sweep(plan_lib, bf16, aligned, want_dn):
+    for b, rows, c in itertools.product(SWEEP_B, SWEEP_R, SWEEP_C):
+        p = bwd_plan(plan_lib, bf16, b, rows, c, aligned, want_dn)
+        check_bwd_plan(p, b, rows, c, bf16, aligned, want_dn)
+
+
+@pytest.mark.parametrize("dims", [(0, 16, 16), (1, 0, 16), (1, 16, 0)])
+def test_backward_empty_calls_refused(plan_lib, dims):
+    b, rows, c = dims
+    with pytest.raises(ValueError, match="no epilogue backward plan"):
+        bwd_plan(plan_lib, 0, b, rows, c)

@@ -30,15 +30,19 @@ Phases, each fatal on failure:
            `python -m stylegan_torch.cli.generate_samples` on them;
 5. train   (a) the epilogue's backward kernels against autograd of the plain
            version at the 9 epilogue shapes, batch 2 and 8, float32 and
-           bfloat16, two calls bitwise equal, timed at batch 2 (graph
-           replay, cold L2, eager; the plain VJP); (b) FFHQ-1024 training at
+           bfloat16, two calls bitwise equal, with the plan taken (path,
+           cluster, CUDA launches per call), timed at batch 2 in both dtypes
+           (graph replay, cold L2, eager; the plain VJP in float32) against
+           the bytes bound; (b) FFHQ-1024 training at
            depth 8, batch 2 (sched.batch_sizes[8]), loss logistic with R1,
            alpha 0.5, seeded random weights and seeded numpy reals: a warm-up
            step, 3 timed steps (ms per step, img/s, peak memory, finite
            losses), 36 forward and 18 backward epilogue kernel calls per step
-           and no call of the plain version, a profiled step (device time by
-           op into build/chip_smoke/, each epilogue kernel as often as the
-           plans launch it), then one relativistic-hinge step; (c) one depth-5
+           with the CUDA launches the plans make, no call of the plain
+           version, the backward calls whose incoming gradient had to be
+           copied to NHWC, a profiled step (device time by op into
+           build/chip_smoke/, each epilogue kernel as often as the plans
+           launch it), then one relativistic-hinge step; (c) one depth-5
            step of the same model on the card and on the CPU with the draws
            pinned (and on the CPU in float64 as the ground truth): losses,
            gradients and weights within the stated bars.
@@ -380,8 +384,9 @@ def phase_grad_kernel(dev):
     from stylegan_torch.ops.kernels import epilogue as kern
     g = torch.Generator(device=dev).manual_seed(3)
     summary = {"ms": 0.0, "cold_ms": 0.0, "call_ms": 0.0, "plain_ms": 0.0,
-               "bound_ms": 0.0, "bf16_ms": 0.0, "bf16_bound_ms": 0.0,
-               "max_abs_err": 0.0, "worst_bar_ratio": 0.0}
+               "bound_ms": 0.0, "bf16_ms": 0.0, "bf16_cold_ms": 0.0,
+               "bf16_call_ms": 0.0, "bf16_bound_ms": 0.0, "max_abs_err": 0.0,
+               "worst_bar_ratio": 0.0}
     for dtype in (torch.float32, torch.bfloat16):
         for batch in GRAD_BATCHES:
             for res, c in EPILOGUE_SHAPES:
@@ -397,8 +402,12 @@ def phase_grad_kernel(dev):
                         fail(f"epilogue backward {where} d{name}: two calls "
                              "differ")
                 worst = check_grads(fused, args, cot, got, where)
+                plan = kern.bwd_plan_for(x)
                 line = {"epilogue_backward": where, "worst_bar_ratio": worst,
-                        "deterministic": True}
+                        "deterministic": True, "path": plan["path"],
+                        "cluster": plan["cluster"],
+                        "chunk_c": plan["chunk_c"],
+                        "cuda_launches_per_call": plan["launches"]}
                 if batch == TRAIN_BATCH:
                     saved = torch.empty((batch, c, 2), device=dev)
                     kern.epilogue_forward(x, nw, noise, style, saved)
@@ -411,17 +420,18 @@ def phase_grad_kernel(dev):
                         return fused._reference_epilogue_vjp(x, nw, noise,
                                                              style, cot)
                     ms = graph_time_ms(kernel)
+                    cold_ms = cold_pairs_time_ms(
+                        lambda xi, ci: kernel(0, xi, ci), x, cot)
+                    call_ms = cuda_time_ms(kernel)
                     nbytes = kern.bytes_moved_backward(x)
                     bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
-                    line.update(ms=ms, bound_ms=bound_ms, bytes=nbytes,
-                                GB_per_s=nbytes / ms / 1e6)
+                    line.update(ms=ms, cold_ms=cold_ms, call_ms=call_ms,
+                                bound_ms=bound_ms, bytes=nbytes,
+                                GB_per_s=nbytes / ms / 1e6,
+                                cold_GB_per_s=nbytes / cold_ms / 1e6)
                     if dtype == torch.float32:
-                        cold_ms = cold_pairs_time_ms(
-                            lambda xi, ci: kernel(0, xi, ci), x, cot)
-                        call_ms = cuda_time_ms(kernel)
                         plain_ms = graph_time_ms(plain)
-                        line.update(cold_ms=cold_ms, call_ms=call_ms,
-                                    plain_ms=plain_ms)
+                        line.update(plain_ms=plain_ms)
                         for k, v in (("ms", ms), ("cold_ms", cold_ms),
                                      ("call_ms", call_ms),
                                      ("plain_ms", plain_ms),
@@ -432,8 +442,10 @@ def phase_grad_kernel(dev):
                                 float((a - r).abs().max()) for a, r in zip(
                                     got, plain_grads(fused, args, cot))))
                     else:
-                        summary["bf16_ms"] += 2 * ms
-                        summary["bf16_bound_ms"] += 2 * bound_ms
+                        for k, v in (("bf16_ms", ms), ("bf16_cold_ms", cold_ms),
+                                     ("bf16_call_ms", call_ms),
+                                     ("bf16_bound_ms", bound_ms)):
+                            summary[k] += 2 * v
                     del saved, kernel, plain
                 summary["worst_bar_ratio"] = max(summary["worst_bar_ratio"],
                                                  worst)
@@ -656,15 +668,15 @@ def train_batch(gen_cfg, batch, seed):
     return torch.from_numpy(reals), torch.from_numpy(z)
 
 
-def expected_train_launches(kern, dev, batch, gen_cfg):
+def expected_train_launches(kern, dev, batch):
     """Launches of each epilogue kernel in one train step, by the plans:
-    two G forwards of 18 calls, one G backward of 18."""
+    two G forwards of 18 calls, one G backward of 18 (no dnoise)."""
     want = dict.fromkeys(kern.KERNEL_NAMES + kern.BWD_KERNEL_NAMES, 0)
     for res, c in EPILOGUE_SHAPES:
         x = torch.empty((batch, res, res, c), device=dev)
         for name in kern.KERNELS_BY_PATH[kern.plan_for(x)["path"]]:
             want[name] += 2 * 2
-        for name in kern.BWD_KERNEL_NAMES:
+        for name in kern.BWD_KERNELS_BY_PATH[kern.bwd_plan_for(x)["path"]]:
             want[name] += 2
     return want
 
@@ -702,6 +714,7 @@ def phase_train(dev):
 
     torch.cuda.reset_peak_memory_stats()
     kern.launches = kern.cuda_launches = kern.backward_launches = 0
+    kern.backward_cuda_launches = kern.backward_g_copies = 0
     fused.plain_calls = 0
     losses = []
     t0 = time.perf_counter()
@@ -711,13 +724,16 @@ def phase_train(dev):
         losses.append((m["d_loss"].item(), m["g_loss"].item()))
     elapsed = time.perf_counter() - t0
     fwd, bwd, plain = kern.launches, kern.backward_launches, fused.plain_calls
+    bwd_cuda, g_copies = kern.backward_cuda_launches, kern.backward_g_copies
     peak = torch.cuda.max_memory_allocated()
     ms_step = elapsed / TRAIN_STEPS * 1e3
     log(json.dumps({"train_ms_per_step": ms_step,
                     "train_img_per_s": TRAIN_STEPS * batch / elapsed,
                     "peak_memory_GiB": peak / 2 ** 30, "losses": losses,
                     "epilogue_forward_calls": fwd,
-                    "epilogue_backward_calls": bwd, "plain_calls": plain}))
+                    "epilogue_backward_calls": bwd,
+                    "epilogue_backward_cuda_launches": bwd_cuda,
+                    "backward_g_copies": g_copies, "plain_calls": plain}))
     if not all(math.isfinite(v) for pair in losses for v in pair):
         fail(f"train losses not finite: {losses}")
     if fwd != 36 * TRAIN_STEPS or bwd != 18 * TRAIN_STEPS:
@@ -725,8 +741,12 @@ def phase_train(dev):
              f"calls, want {36 * TRAIN_STEPS} and {18 * TRAIN_STEPS}")
     if plain != 0:
         fail(f"the plain epilogue ran {plain} times on the card's train path")
+    want = expected_train_launches(kern, dev, batch)
+    want_bwd_cuda = TRAIN_STEPS * sum(want[n] for n in kern.BWD_KERNEL_NAMES)
+    if bwd_cuda != want_bwd_cuda:
+        fail(f"train steps made {bwd_cuda} backward CUDA launches, the plans "
+             f"{want_bwd_cuda}")
 
-    want = expected_train_launches(kern, dev, batch, gen_cfg)
     busy, wall, top = profile_train_step(step, state, batches[-2], alpha,
                                          kern, want)
 
@@ -751,7 +771,8 @@ def phase_train(dev):
     return {"ms_per_step": ms_step, "img_per_s": TRAIN_STEPS * batch / elapsed,
             "peak_memory_GiB": peak / 2 ** 30, "losses": losses,
             "forward_calls": fwd, "backward_calls": bwd,
-            "device_busy_ms": busy, "profiled_step_wall_ms": wall,
+            "backward_cuda_launches": bwd_cuda,
+            "backward_g_copies": g_copies, "device_busy_ms": busy, "profiled_step_wall_ms": wall,
             "device_busy_share": busy / wall,
             "top_ops": top}
 
@@ -987,18 +1008,22 @@ def main():
         "source": "stylegan_torch/csrc/epilogue.cu",
         "replaces": "stylegan_tpu/ops/pallas/epilogue.py:139",
         "launches": train["backward_calls"],
+        "cuda_launches": train["backward_cuda_launches"],
         "max_abs_err": grad["max_abs_err"],
         "worst_bar_ratio": grad["worst_bar_ratio"],
         "ms": grad["ms"], "plain_ms": grad["plain_ms"],
         "bound_ms": grad["bound_ms"], "bound_by": "bytes",
         "library_ms": None, "call_ms": grad["call_ms"],
         "cold_ms": grad["cold_ms"], "bf16_ms": grad["bf16_ms"],
+        "bf16_cold_ms": grad["bf16_cold_ms"],
+        "bf16_call_ms": grad["bf16_call_ms"],
         "bf16_bound_ms": grad["bf16_bound_ms"],
         "shapes": "the 18 float32 calls of one batch-2 1024^2 G backward "
                   "(dx, dnoise_weight, dstyle); ms and plain_ms (the plain "
                   "analytic VJP) device time by CUDA graph replay, cold_ms "
                   "with g and x cold in L2, call_ms eager, bf16_* in "
-                  "bfloat16; launches over the 3 train steps",
+                  "bfloat16; launches (calls) and cuda_launches over the 3 "
+                  "train steps",
     }]
     log(json.dumps({"serve_img_per_s": img_s, "batch": BATCH,
                     "resolution": 1024, "dtype": "float32"}))

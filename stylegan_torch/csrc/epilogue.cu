@@ -56,19 +56,33 @@
 // E[y^2] - mean^2, which cancels over 2^20 post-lrelu values with a positive
 // mean.  No atomics touch a sum, so results are bitwise deterministic.
 //
-// The backward (bwd_sums_kernel, bwd_dx_kernel, below) replaces the custom
-// VJP's _bwd of stylegan_tpu/ops/pallas/epilogue.py:139-142, which is XLA
-// autodiff of the plain composition.  It too is bound by bytes: it must read
-// g, x and noise once and write dx (and dnoise when asked), plus vectors of
-// B x C; at batch 2 in f32 a 1024^2 G backward's 18 calls must move about
-// 1.6 GB, about 0.48 ms at 3.35 TB/s.  This first version takes two passes
-// over g and x (pass 1: the per-(b, c) sums of g and g * yh; pass 2: dx and
-// the dnoise_weight and dnoise reductions), so it moves 5/3 of the bound.
-// The forward saves (mean, rstd) per (b, c) when a gradient may be needed,
-// so the backward never recomputes the statistics.  Its cross-block sums
-// (over up to 2^20 rows per (b, c), and over B x H x W rows for
-// dnoise_weight) take the forward's machinery: per-split partials, a ticket,
-// and a fixed-order merge in the last block; no float atomics.
+// The backward (K3, below) replaces the custom VJP's _bwd of
+// stylegan_tpu/ops/pallas/epilogue.py:139-142, which is XLA autodiff of the
+// plain composition.  It too is bound by bytes: it must read g, x and noise
+// once and write dx (and dnoise when asked), plus vectors of B x C; at batch
+// 2 in f32 a 1024^2 G backward's 18 calls must move about 1.6 GB, about
+// 0.48 ms at 3.35 TB/s.  The forward saves (mean, rstd) per (b, c) when a
+// gradient may be needed, so the backward never recomputes the statistics.
+// It has the forward's two paths, planned by sgt::make_bwd_plan:
+//
+//   1. One pass (onepass_bwd_kernel), where the (b, channel chunk) slabs of
+//      g and x fit in the shared memory of one block or of a cluster of 2
+//      (planes up to 64^2 x 256 at batch 2 and 8): one launch loads both with
+//      16-byte cp.async, takes the per-(b, c) sums of g and g * (y - mean)
+//      from shared memory (a cluster adds its ranks' sums over DSMEM in rank
+//      order), writes dstyle and then dx from shared memory.  Chunks narrow
+//      down to one 16-byte vector until the grid holds about a block per SM.
+//   2. Two passes (bwd_sums_kernel, bwd_dx_kernel) for the larger planes:
+//      pass 1 the sums, pass 2 dx, so g and x are read twice (5/3 of the
+//      bound's bytes).  Pass 1 keeps several loads of g and x in flight per
+//      thread and aims at its own number of blocks; pass 2 walks its blocks
+//      and rows in the reverse of pass 1's order, so that it first re-reads
+//      from L2 what pass 1 read last.
+//
+// The cross-block sums (over up to 2^20 rows per (b, c) on path 2, and over
+// B x H x W rows for dnoise_weight) take the forward's machinery: per-split
+// partials, a ticket, and a fixed-order merge in the last block; no float
+// atomics.
 //
 // Times on an NVIDIA H100 80GB HBM3 at 700 W are in PERF.md, measured by
 // chip_smoke.py; none is stated here.
@@ -526,10 +540,64 @@ apply_kernel(const T* __restrict__ x, const T* __restrict__ noise,
 //   dy = (s0 + 1) * r * (g - mean_r(g) - yh * mean_r(g * yh))
 //   du = u >= 0 ? dy : 0.2 * dy     (dx = du)
 //   dnw[c] = sum_{b, r} du * n     dn[b, r] = sum_c du * nw[c]
-// Pass 1 (bwd_sums_kernel) takes the per-(b, c) sums; pass 2 (bwd_dx_kernel)
-// writes dx and reduces dnw and dn.  Both run the grid (splits, chunks, B)
-// of blocks (TX, TY), TX * TY == kThreads: thread (tx, ty) owns channels
-// c0 .. c0 + VEC - 1 and rows r0 + ty, r0 + ty + TY, ... of its split.
+// Path 1 (onepass_bwd_kernel) holds the (b, chunk) slabs of g and x in
+// shared memory and does all of it in one launch.  Path 2 takes the
+// per-(b, c) sums in one pass (bwd_sums_kernel), then writes dx and reduces
+// dnw and dn in a second (bwd_dx_kernel); both run the grid (splits, chunks,
+// B) of blocks (TX, TY), TX * TY == kThreads: thread (tx, ty) owns channels
+// c0 .. c0 + VEC - 1 and rows r0 + ty, r0 + ty + TY, ... of its split.  On
+// both paths dnw and dn are summed over the row splits (a cluster's ranks on
+// path 1) and channel chunks by the last block to finish, found by tickets.
+
+// Rows of g and x in flight per thread (16 bytes each) in bwd_sums_kernel
+// and bwd_dx_kernel: f32, bf16 (PERF.md).
+constexpr int kBwdSumsUnroll = 4;
+constexpr int kBwdSumsUnrollBf16 = 1;
+constexpr int kBwdDxUnroll = 2;
+constexpr int kBwdDxUnrollBf16 = 1;
+// Blocks of bwd_sums_kernel and bwd_dx_kernel that must fit on one SM at
+// once: a bound on their registers (PERF.md).
+constexpr int kBwdBlocksPerSm = 1;
+// bwd_dx_kernel walks its blocks, and each block its rows, in the reverse
+// of pass 1's order, so that it first re-reads from L2 what pass 1 read
+// last (PERF.md).
+constexpr bool kBwdReverse = true;
+// L2 policy of the two passes: pass 1 reads all but the last
+// kBwdL2KeepBytes (over the call) of g and x evict-first, so that L2 keeps
+// what pass 2 reads first (0: every read evict-normal); pass 2 reads g and
+// x and writes dx evict-first where kBwdStreamDx (PERF.md).
+constexpr long long kBwdL2KeepBytes = 0;
+constexpr bool kBwdStreamDx = false;
+
+// A Pack of 16, 4 or 2 bytes moved as one word, plainly or evict-first in
+// L2 (ld.global.cs / st.global.cs).
+template <int BYTES> struct Word;
+template <> struct Word<16> { using type = int4; };
+template <> struct Word<4> { using type = int; };
+template <> struct Word<2> { using type = unsigned short; };
+
+template <typename T, int VEC>
+__device__ __forceinline__ Pack<T, VEC> load_pack(const T* p,
+                                                  bool evict_first) {
+  using W = typename Word<sizeof(T) * VEC>::type;
+  const W* q = reinterpret_cast<const W*>(p);
+  const W w = evict_first ? __ldcs(q) : *q;
+  Pack<T, VEC> v;
+  memcpy(&v, &w, sizeof w);
+  return v;
+}
+
+template <typename T, int VEC>
+__device__ __forceinline__ void store_pack(T* p, const Pack<T, VEC>& v,
+                                           bool evict_first) {
+  using W = typename Word<sizeof(T) * VEC>::type;
+  W w;
+  memcpy(&w, &v, sizeof w);
+  if (evict_first)
+    __stcs(reinterpret_cast<W*>(p), w);
+  else
+    *reinterpret_cast<W*>(p) = w;
+}
 
 // Sum over ty of v[VEC] per lane, in a fixed tree order, into red[tx * VEC
 // + i] (red holds kThreads * VEC floats); read by ty == 0 after the call.
@@ -565,39 +633,308 @@ __device__ __forceinline__ bool last_block(int* ticket, int count,
   return last;
 }
 
+__device__ __forceinline__ float2 as_float2(float v) {
+  return make_float2(v, 0.f);
+}
+__device__ __forceinline__ float2 as_float2(float2 v) { return v; }
+
 // Fixed-order sum of parts[k * stride + c], k < K, for the block's nch
-// channels c = c_base .. c_base + nch - 1 (< C): kThreads / nch groups of
-// threads each add a contiguous run of k, then a tree adds neighbouring runs.
-// The result is in red[lane] for the threads of group 0 (tid < nch).
-template <typename P, typename F>
+// channels c = c_base .. c_base + nch - 1 (< C): the block's threads form
+// nthreads / nch groups, each adding a contiguous run of k (loads batched,
+// added in k order), then a tree adds neighbouring runs.  P is float or
+// float2; the sums of the first (second) field land in rx[lane] (ry[lane])
+// for the threads of group 0 (tid < nch).  Needs nthreads >= nch.
+template <typename P>
 __device__ __forceinline__ void fixed_order_sum(const P* parts, int64_t K,
                                                 int64_t stride, int c_base,
-                                                int nch, int C, float* red,
-                                                F field) {
+                                                int nch, int C, float* rx,
+                                                float* ry) {
+  constexpr int kBatch = 8;  // partials loaded before they are added
+  const int nthreads = blockDim.x * blockDim.y;
   const int tid = threadIdx.y * blockDim.x + threadIdx.x;
-  const int G = kThreads / nch, lane = tid % nch, grp = tid / nch;
+  const int G = nthreads / nch, lane = tid % nch, grp = tid / nch;
   const int c = c_base + lane;
   const int64_t per = (K + G - 1) / G;
   const int64_t kb = grp * per, ke = min64(kb + per, K);
-  float acc = 0.f;
-  if (c < C)
-    for (int64_t k = kb; k < ke; ++k)
-      acc += field(__ldcg(parts + k * stride + c));
-  red[tid] = acc;
+  float2 acc = make_float2(0.f, 0.f);
+  if (c < C && grp < G)
+    for (int64_t k = kb; k < ke; k += kBatch) {
+      P ps[kBatch];
+#pragma unroll
+      for (int u = 0; u < kBatch; ++u)
+        if (k + u < ke) ps[u] = __ldcg(parts + (k + u) * stride + c);
+#pragma unroll
+      for (int u = 0; u < kBatch; ++u)
+        if (k + u < ke) {
+          const float2 v = as_float2(ps[u]);
+          acc.x += v.x;
+          acc.y += v.y;
+        }
+    }
+  if (grp < G) {
+    rx[tid] = acc.x;
+    if (ry != nullptr) ry[tid] = acc.y;
+  }
   __syncthreads();
   for (int s = 1; s < G; s *= 2) {
-    if (grp % (2 * s) == 0 && grp + s < G) red[tid] += red[tid + s * nch];
+    if (grp < G && grp % (2 * s) == 0 && grp + s < G) {
+      rx[tid] += rx[tid + s * nch];
+      if (ry != nullptr) ry[tid] += ry[tid + s * nch];
+    }
     __syncthreads();
   }
 }
 
+// The end of a backward block, after its rows of dx: write its dnw partial
+// (acc, this thread's channels summed over its rows) for (b, split), then,
+// in the last block of a chunk over every (b, split), add those partials in
+// that order into dnw; and where C spans several chunks, in the last block
+// of a (b, split) over the chunks, add the dn partials of its rows [r0, r1)
+// in chunk order into dn.  red holds nthreads * VEC floats.
+template <typename T, int VEC>
+__device__ __forceinline__ void bwd_finish(
+    const float (&acc)[VEC], float* red, int* s_flag, bool active, int c0,
+    int b, int B, int split, int splits, int chunk, int chunks, int64_t r0,
+    int64_t r1, int64_t R, int C, float* dnw, T* dn, float* dnw_parts,
+    const float* dn_parts, int* tickets_w, int* tickets_n) {
+  const int tx = threadIdx.x, ty = threadIdx.y;
+  const int nthreads = blockDim.x * blockDim.y, tid = ty * blockDim.x + tx;
+  const bool want_dnw = dnw != nullptr;
+  if (want_dnw) {
+    tree_over_rows<VEC>(acc, red);
+    if (ty == 0 && active) {
+      float* o = dnw_parts + ((size_t)b * splits + split) * C + c0;
+#pragma unroll
+      for (int i = 0; i < VEC; ++i) o[i] = red[tx * VEC + i];
+    }
+  }
+  const bool dn_merge = dn != nullptr && chunks > 1;
+  if (!want_dnw && !dn_merge) return;
+  __threadfence();
+  __syncthreads();
+  if (tid == 0) {
+    int flags = 0;
+    if (want_dnw && atomicAdd(tickets_w + chunk, 1) == B * splits - 1)
+      flags |= 1;
+    if (dn_merge &&
+        atomicAdd(tickets_n + (size_t)b * splits + split, 1) == chunks - 1)
+      flags |= 2;
+    *s_flag = flags;
+  }
+  __syncthreads();
+  const int flags = *s_flag;
+  if (flags == 0) return;
+  __threadfence();
+  if (flags & 1) {  // dnw[c] over every (b, split), in that order
+    const int nch = blockDim.x * VEC, c_base = chunk * nch;
+    fixed_order_sum(dnw_parts, (int64_t)B * splits, C, c_base, nch, C, red,
+                    (float*)nullptr);
+    if (tid < nch && c_base + tid < C) dnw[c_base + tid] = red[tid];
+    if (tid == 0) tickets_w[chunk] = 0;
+  }
+  if (flags & 2) {  // dn[b, r] over the chunks, in chunk order
+    for (int64_t r = r0 + tid; r < r1; r += nthreads) {
+      float v = 0.f;
+      for (int k = 0; k < chunks; ++k)
+        v += __ldcg(dn_parts + ((size_t)k * B + b) * R + r);
+      dn[(size_t)b * R + r] = from_float<T>(v);
+    }
+    if (tid == 0) tickets_n[(size_t)b * splits + split] = 0;
+  }
+}
+
+// This thread's share of dn[b, r] (`row`), summed over the TX lanes of its
+// row (neighbours in one warp, TX divides 32), written by lane 0 where the
+// row exists: into dn when one chunk spans C, else into the chunk's partials.
+// Every thread of the block must call it.
+template <typename T>
+__device__ __forceinline__ void dn_row(float row, bool exists, int b, int B,
+                                       int chunk, int chunks, int64_t r,
+                                       int64_t R, T* dn, float* dn_parts) {
+  const int TX = blockDim.x, nthreads = TX * blockDim.y;
+  const unsigned mask = nthreads >= 32 ? 0xffffffffu : (1u << nthreads) - 1u;
+  for (int off = TX / 2; off > 0; off >>= 1)
+    row += __shfl_xor_sync(mask, row, off);
+  if (threadIdx.x == 0 && exists) {
+    if (chunks == 1)
+      dn[(size_t)b * R + r] = from_float<T>(row);
+    else
+      dn_parts[((size_t)chunk * B + b) * R + r] = row;
+  }
+}
+
+// ------------------------------------------------------ backward, path 1 --
+// grid (chunks * cluster, B), block (TX, TY), clusters of `cluster` blocks
+// along x, as onepass_kernel: block `rank` holds rows [rank * rpr,
+// (rank+1) * rpr) of the (b, chunk) slabs of g and x, and thread (tx, ty)
+// owns channels c0 .. c0 + VEC - 1 of rows ty, ty + TY, ... of them.  It
+// takes the block's sums of g and g * (y - mean) from shared memory in a
+// fixed tree, adds the cluster's partials over DSMEM in rank order, forms
+// the coefficients, writes dstyle (rank 0), then dx from shared memory; dnw
+// and dn take the tickets of bwd_finish with the ranks as row splits.
+template <typename T, int VEC>
+__global__ void __launch_bounds__(kThreads)
+onepass_bwd_kernel(const T* __restrict__ g, const T* __restrict__ x,
+                   const T* __restrict__ noise, const float* __restrict__ nw,
+                   const float* __restrict__ style,
+                   const float2* __restrict__ saved, T* __restrict__ dx,
+                   float* __restrict__ dnw, T* __restrict__ dn,
+                   float* __restrict__ dstyle, float* __restrict__ dnw_parts,
+                   float* __restrict__ dn_parts, int* __restrict__ tickets_w,
+                   int* __restrict__ tickets_n, int64_t R, int C, int cluster,
+                   int64_t rpr) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int tx = threadIdx.x, ty = threadIdx.y;
+  const int TX = blockDim.x, TY = blockDim.y, tid = ty * TX + tx;
+  const int cc = TX * VEC;
+  const int rank = blockIdx.x % cluster, chunk = blockIdx.x / cluster;
+  const int chunks = gridDim.x / cluster, b = blockIdx.y, B = gridDim.y;
+  const int64_t r0 = (int64_t)rank * rpr;
+  const int rows = (int)(r0 < R ? min64(rpr, R - r0) : 0);
+
+  const int64_t slab = sgt::align16(rpr * cc * sizeof(T));
+  T* s_g = reinterpret_cast<T*>(smem);
+  T* s_x = reinterpret_cast<T*>(smem + slab);
+  T* s_z = reinterpret_cast<T*>(smem + 2 * slab);
+  float* red = reinterpret_cast<float*>(
+      reinterpret_cast<unsigned char*>(s_z) + sgt::align16(rpr * sizeof(T)));
+  float2* s_ex = reinterpret_cast<float2*>(
+      reinterpret_cast<unsigned char*>(red) + sgt::align16(TY * cc * 4));
+
+  const int c0 = chunk * cc + tx * VEC;
+  const bool active = c0 < C;
+  const size_t base = ((size_t)b * R + r0) * C + c0;
+  if (active)
+    for (int r = ty; r < rows; r += TY) {
+      copy_in<T, VEC>(s_g + r * cc + tx * VEC, g + base + (size_t)r * C);
+      copy_in<T, VEC>(s_x + r * cc + tx * VEC, x + base + (size_t)r * C);
+    }
+  const T* nb = noise + (size_t)b * R + r0;
+  for (int r = tid; r < rows; r += TX * TY) s_z[r] = nb[r];
+  float w[VEC], mean[VEC], rstd[VEC];
+#pragma unroll
+  for (int i = 0; i < VEC; ++i) {
+    const float2 st =
+        active ? saved[(size_t)b * C + c0 + i] : make_float2(0.f, 0.f);
+    w[i] = active ? nw[c0 + i] : 0.f;
+    mean[i] = st.x;
+    rstd[i] = st.y;
+  }
+  copy_wait_all();
+  __syncthreads();
+
+  float sg[VEC], sgy[VEC];
+#pragma unroll
+  for (int i = 0; i < VEC; ++i) sg[i] = sgy[i] = 0.f;
+  if (active)
+    for (int r = ty; r < rows; r += TY) {
+      const Pack<T, VEC> pg =
+          *reinterpret_cast<const Pack<T, VEC>*>(s_g + r * cc + tx * VEC);
+      const Pack<T, VEC> px =
+          *reinterpret_cast<const Pack<T, VEC>*>(s_x + r * cc + tx * VEC);
+      const float z = to_float(s_z[r]);
+#pragma unroll
+      for (int i = 0; i < VEC; ++i) {
+        const float gv = to_float(pg.v[i]);
+        const float y = noisy_lrelu(to_float(px.v[i]), w[i], z);
+        sg[i] += gv;
+        sgy[i] = fmaf(gv, y - mean[i], sgy[i]);
+      }
+    }
+  block_sum<VEC>(sg, red);
+  block_sum<VEC>(sgy, red);
+
+  if (cluster > 1) {
+    // every block adds all ranks' sums in rank order: the same operations
+    // in the same order, so the blocks of a cluster agree
+    cg::cluster_group cl = cg::this_cluster();
+    if (ty == 0) {
+#pragma unroll
+      for (int i = 0; i < VEC; ++i)
+        s_ex[tx * VEC + i] = make_float2(sg[i], sgy[i]);
+    }
+    cl.sync();
+#pragma unroll
+    for (int i = 0; i < VEC; ++i) sg[i] = sgy[i] = 0.f;
+    for (int k = 0; k < cluster; ++k) {
+      const float2* ex = cl.map_shared_rank(s_ex, k);
+#pragma unroll
+      for (int i = 0; i < VEC; ++i) {
+        const float2 e = ex[tx * VEC + i];
+        sg[i] += e.x;
+        sgy[i] += e.y;
+      }
+    }
+    cl.sync();  // no block leaves while another reads its partials
+  }
+
+  // dy = a * g - k0 - (y - mean) * k1, as bwd_sums_kernel's coefficients
+  const float* sb = style + (size_t)b * 2 * C;
+  const float inv_r = 1.f / (float)R;
+  float a[VEC], k0[VEC], k1[VEC];
+#pragma unroll
+  for (int i = 0; i < VEC; ++i) {
+    const float sum_gy = sgy[i] * rstd[i];  // sum g * yh
+    a[i] = active ? (sb[c0 + i] + 1.f) * rstd[i] : 0.f;
+    k0[i] = a[i] * sg[i] * inv_r;
+    k1[i] = a[i] * sum_gy * inv_r * rstd[i];
+    if (dstyle != nullptr && active && rank == 0 && ty == 0) {
+      dstyle[(size_t)b * 2 * C + c0 + i] = sum_gy;
+      dstyle[(size_t)b * 2 * C + C + c0 + i] = sg[i];
+    }
+  }
+
+  float acc[VEC];
+#pragma unroll
+  for (int i = 0; i < VEC; ++i) acc[i] = 0.f;
+  const bool want_dn = dn != nullptr;
+  T* dxb = dx == nullptr ? nullptr : dx + base;
+  // every thread runs the same row iterations, for dn_row's shuffles
+  for (int rb = 0; rb < rows; rb += TY) {
+    const int r = rb + ty;
+    float row = 0.f;  // this thread's channels' share of dn[b, r0 + r]
+    if (active && r < rows) {
+      const Pack<T, VEC> pg =
+          *reinterpret_cast<const Pack<T, VEC>*>(s_g + r * cc + tx * VEC);
+      const Pack<T, VEC> px =
+          *reinterpret_cast<const Pack<T, VEC>*>(s_x + r * cc + tx * VEC);
+      const float z = to_float(s_z[r]);
+      Pack<T, VEC> o;
+#pragma unroll
+      for (int i = 0; i < VEC; ++i) {
+        const float uu = noisy(to_float(px.v[i]), w[i], z);
+        const float y = uu >= 0.f ? uu : kSlope * uu;
+        const float dy =
+            fmaf(a[i], to_float(pg.v[i]), -k0[i]) - (y - mean[i]) * k1[i];
+        const float du = uu >= 0.f ? dy : kSlope * dy;
+        o.v[i] = from_float<T>(du);
+        acc[i] = fmaf(du, z, acc[i]);
+        row = fmaf(du, w[i], row);
+      }
+      if (dxb != nullptr)
+        *reinterpret_cast<Pack<T, VEC>*>(dxb + (size_t)r * C) = o;
+    }
+    if (want_dn)
+      dn_row<T>(row, r < rows, b, B, chunk, chunks, r0 + r, R, dn, dn_parts);
+  }
+  // its shared memory is all dynamic (a static part would count against
+  // the opt-in maximum); the ticket flag takes s_ex, free once the cluster
+  // has exchanged its sums
+  int* s_flag = reinterpret_cast<int*>(s_ex);
+  bwd_finish<T, VEC>(acc, red, s_flag, active, c0, b, B, rank, cluster,
+                     chunk, chunks, r0, r0 + rows, R, C, dnw, dn, dnw_parts,
+                     dn_parts, tickets_w, tickets_n);
+}
+
+// ------------------------------------------------------ backward, path 2 --
 // Pass 1: partials (sum g, sum g * (y - mean)) per (b, split, c); the last
 // block of a (b, chunk) adds the splits in a fixed order and writes dstyle
 // (when asked) and coef = (mean, a, a * mean(g), a * r * mean(g * yh)) with
 // a = (s0 + 1) * r, so that pass 2 computes
 // dy = a * g - coef.z - (y - mean) * coef.w.
-template <typename T, int VEC, int UNROLL = VEC == 8 ? 1 : 2>
-__global__ void __launch_bounds__(kThreads)
+template <typename T, int VEC,
+          int UNROLL = VEC == 8 ? kBwdSumsUnrollBf16 : kBwdSumsUnroll>
+__global__ void __launch_bounds__(kThreads, kBwdBlocksPerSm)
 bwd_sums_kernel(const T* __restrict__ g, const T* __restrict__ x,
                 const T* __restrict__ noise, const float* __restrict__ nw,
                 const float* __restrict__ style,
@@ -624,6 +961,13 @@ bwd_sums_kernel(const T* __restrict__ g, const T* __restrict__ x,
     mean[i] = active ? saved[(size_t)b * C + c0 + i].x : 0.f;
     sg[i] = sgy[i] = 0.f;
   }
+  // rows before r_keep are read evict-first: pass 2 reads them last
+  int64_t r_keep = r0;
+  if (kBwdL2KeepBytes > 0) {
+    const double call = 2.0 * gridDim.z * R * C * sizeof(T);
+    if (call > (double)kBwdL2KeepBytes)
+      r_keep = r1 - (int64_t)((double)(r1 - r0) * kBwdL2KeepBytes / call);
+  }
   if (active) {
     const T* gb = g + (size_t)b * R * C + c0;
     const T* xb = x + (size_t)b * R * C + c0;
@@ -635,8 +979,8 @@ bwd_sums_kernel(const T* __restrict__ g, const T* __restrict__ x,
       for (int u = 0; u < UNROLL; ++u) {  // all loads first, then the math
         const int64_t ru = r + (int64_t)u * TY;
         if (ru < r1) {
-          pg[u] = *reinterpret_cast<const Pack<T, VEC>*>(gb + ru * C);
-          px[u] = *reinterpret_cast<const Pack<T, VEC>*>(xb + ru * C);
+          pg[u] = load_pack<T, VEC>(gb + ru * C, ru < r_keep);
+          px[u] = load_pack<T, VEC>(xb + ru * C, ru < r_keep);
           z[u] = to_float(nb[ru]);
         }
       }
@@ -666,11 +1010,8 @@ bwd_sums_kernel(const T* __restrict__ g, const T* __restrict__ x,
   if (!last_block(ticket, splits, &s_flag)) return;
 
   const int nch = TX * VEC, c_base = chunk * nch;
-  const float2* pb = parts + (size_t)b * splits * C;
-  fixed_order_sum(pb, splits, C, c_base, nch, C, s_g,
-                  [](float2 p) { return p.x; });
-  fixed_order_sum(pb, splits, C, c_base, nch, C, s_gy,
-                  [](float2 p) { return p.y; });
+  fixed_order_sum(parts + (size_t)b * splits * C, splits, C, c_base, nch, C,
+                  s_g, s_gy);
   const int tid = ty * TX + tx, c = c_base + tid;
   if (tid < nch && c < C) {
     const float2 st = saved[(size_t)b * C + c];
@@ -689,13 +1030,12 @@ bwd_sums_kernel(const T* __restrict__ g, const T* __restrict__ x,
 }
 
 // Pass 2: dx, and partials of dnw per (b, split, c) and of dn per (chunk, b,
-// r).  The last block of a chunk (over all (b, split)) adds the dnw partials
-// in a fixed order; where C spans several chunks, the last block of a
-// (b, split) (over the chunks) adds the dn partials in chunk order.  Every
-// thread runs the same row iterations, so that the TX lanes of a row can
-// add their channels' dn terms with warp shuffles.
-template <typename T, int VEC, int UNROLL = VEC == 8 ? 1 : 2>
-__global__ void __launch_bounds__(kThreads)
+// r), merged by bwd_finish.  Every thread runs the same row iterations, so
+// that the TX lanes of a row can add their channels' dn terms with warp
+// shuffles.
+template <typename T, int VEC,
+          int UNROLL = VEC == 8 ? kBwdDxUnrollBf16 : kBwdDxUnroll>
+__global__ void __launch_bounds__(kThreads, kBwdBlocksPerSm)
 bwd_dx_kernel(const T* __restrict__ g, const T* __restrict__ x,
               const T* __restrict__ noise, const float* __restrict__ nw,
               const float4* __restrict__ coef, T* __restrict__ dx,
@@ -706,9 +1046,11 @@ bwd_dx_kernel(const T* __restrict__ g, const T* __restrict__ x,
   __shared__ float s_w[kThreads * VEC];
   __shared__ int s_flag;
   const int tx = threadIdx.x, ty = threadIdx.y;
-  const int TX = blockDim.x, TY = blockDim.y, tid = ty * TX + tx;
-  const int split = blockIdx.x, splits = gridDim.x, chunk = blockIdx.y;
-  const int chunks = gridDim.y, b = blockIdx.z, B = gridDim.z;
+  const int TX = blockDim.x, TY = blockDim.y;
+  const int splits = gridDim.x, chunks = gridDim.y, B = gridDim.z;
+  const int split = kBwdReverse ? splits - 1 - blockIdx.x : blockIdx.x;
+  const int chunk = kBwdReverse ? chunks - 1 - blockIdx.y : blockIdx.y;
+  const int b = kBwdReverse ? B - 1 - blockIdx.z : blockIdx.z;
   const int c0 = (chunk * TX + tx) * VEC;
   const bool active = c0 < C;
   const int64_t r0 = (int64_t)split * rows_per_split;
@@ -731,15 +1073,18 @@ bwd_dx_kernel(const T* __restrict__ g, const T* __restrict__ x,
   const T* xb = x + (size_t)b * R * C + c0;
   T* dxb = dx == nullptr ? nullptr : dx + (size_t)b * R * C + c0;
   const T* nb = noise + (size_t)b * R;
-  for (int64_t base = r0; base < r1; base += (int64_t)TY * UNROLL) {
+  const int64_t step = (int64_t)TY * UNROLL;
+  const int64_t steps = (r1 - r0 + step - 1) / step;
+  for (int64_t s = 0; s < steps; ++s) {
+    const int64_t base = r0 + (kBwdReverse ? steps - 1 - s : s) * step;
     Pack<T, VEC> pg[UNROLL], px[UNROLL];
     float z[UNROLL];
 #pragma unroll
     for (int u = 0; u < UNROLL; ++u) {
       const int64_t ru = base + ty + (int64_t)u * TY;
       if (active && ru < r1) {
-        pg[u] = *reinterpret_cast<const Pack<T, VEC>*>(gb + ru * C);
-        px[u] = *reinterpret_cast<const Pack<T, VEC>*>(xb + ru * C);
+        pg[u] = load_pack<T, VEC>(gb + ru * C, kBwdStreamDx);
+        px[u] = load_pack<T, VEC>(xb + ru * C, kBwdStreamDx);
         z[u] = to_float(nb[ru]);
       }
     }
@@ -760,81 +1105,50 @@ bwd_dx_kernel(const T* __restrict__ g, const T* __restrict__ x,
           acc[i] = fmaf(du, z[u], acc[i]);
           row = fmaf(du, w[i], row);
         }
-        if (dxb != nullptr) *reinterpret_cast<Pack<T, VEC>*>(dxb + ru * C) = o;
+        if (dxb != nullptr) store_pack<T, VEC>(dxb + ru * C, o, kBwdStreamDx);
       }
-      if (want_dn) {
-        // the TX lanes of a row are neighbours in one warp (TX divides 32)
-        for (int off = TX / 2; off > 0; off >>= 1)
-          row += __shfl_xor_sync(0xffffffffu, row, off);
-        if (tx == 0 && ru < r1) {
-          if (chunks == 1)
-            dn[(size_t)b * R + ru] = from_float<T>(row);
-          else
-            dn_parts[((size_t)chunk * B + b) * R + ru] = row;
-        }
-      }
+      if (want_dn)
+        dn_row<T>(row, ru < r1, b, B, chunk, chunks, ru, R, dn, dn_parts);
     }
   }
-
-  const bool want_dnw = dnw != nullptr;
-  if (want_dnw) {
-    tree_over_rows<VEC>(acc, s_w);
-    if (ty == 0 && active) {
-      float* o = dnw_parts + ((size_t)b * splits + split) * C + c0;
-#pragma unroll
-      for (int i = 0; i < VEC; ++i) o[i] = s_w[tx * VEC + i];
-    }
-  }
-  const bool dn_merge = want_dn && chunks > 1;
-  if (!want_dnw && !dn_merge) return;
-  __threadfence();
-  __syncthreads();
-  if (tid == 0) {
-    int flags = 0;
-    if (want_dnw && atomicAdd(tickets_w + chunk, 1) == B * splits - 1)
-      flags |= 1;
-    if (dn_merge &&
-        atomicAdd(tickets_n + (size_t)b * splits + split, 1) == chunks - 1)
-      flags |= 2;
-    s_flag = flags;
-  }
-  __syncthreads();
-  const int flags = s_flag;
-  if (flags == 0) return;
-  __threadfence();
-  if (flags & 1) {  // dnw[c] over every (b, split), in that order
-    const int nch = TX * VEC, c_base = chunk * nch;
-    fixed_order_sum(dnw_parts, (int64_t)B * splits, C, c_base, nch, C, s_w,
-                    [](float p) { return p; });
-    if (tid < nch && c_base + tid < C) dnw[c_base + tid] = s_w[tid];
-    if (tid == 0) tickets_w[chunk] = 0;
-  }
-  if (flags & 2) {  // dn[b, r] over the chunks, in chunk order
-    for (int64_t r = r0 + tid; r < r1; r += kThreads) {
-      float v = 0.f;
-      for (int k = 0; k < chunks; ++k)
-        v += __ldcg(dn_parts + ((size_t)k * B + b) * R + r);
-      dn[(size_t)b * R + r] = from_float<T>(v);
-    }
-    if (tid == 0) tickets_n[(size_t)b * splits + split] = 0;
-  }
+  bwd_finish<T, VEC>(acc, s_w, &s_flag, active, c0, b, B, split, splits,
+                     chunk, chunks, r0, r1, R, C, dnw, dn, dnw_parts,
+                     dn_parts, tickets_w, tickets_n);
 }
 
 // ------------------------------------------------------------- launching --
-// The one-pass kernel may take up to 227 KB of dynamic shared memory: opted
-// in once per instantiation and device, not per call.
-template <typename T, int VEC>
-cudaError_t allow_smem() {
-  static unsigned done = 0;  // bit per device
+// Launches a one-pass kernel on the grid (chunks * cluster, B) in clusters
+// of `cluster` blocks along x.  It may take up to 227 KB of dynamic shared
+// memory: opted in once per kernel and device (`done`, a bit per device),
+// not per call.
+template <typename... Params, typename... Args>
+cudaError_t launch_onepass(void (*kernel)(Params...), unsigned* done,
+                           int chunks, int cluster, int B, dim3 block,
+                           long long smem_bytes, cudaStream_t stream,
+                           Args... args) {
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return err;
-  if (dev < 32 && (done >> dev & 1u)) return cudaSuccess;
-  err = cudaFuncSetAttribute(onepass_kernel<T, VEC>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)sgt::kMaxSmem);
-  if (err == cudaSuccess && dev < 32) done |= 1u << dev;
-  return err;
+  if (!(dev < 32 && (*done >> dev & 1u))) {
+    err = cudaFuncSetAttribute(kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)sgt::kMaxSmem);
+    if (err != cudaSuccess) return err;
+    if (dev < 32) *done |= 1u << dev;
+  }
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)(chunks * cluster), (unsigned)B);
+  cfg.blockDim = block;
+  cfg.dynamicSmemBytes = (size_t)smem_bytes;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = (unsigned)cluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = cluster > 1 ? 1 : 0;
+  return cudaLaunchKernelEx(&cfg, kernel, args...);
 }
 
 template <typename T, int VEC>
@@ -850,23 +1164,11 @@ cudaError_t launch(const SgtPlan& p, const void* xv, const void* noisev,
   float2* saved = static_cast<float2*>(savedv);
   const dim3 block(p.tx, p.ty);
   if (p.path == 1) {
-    cudaError_t err = allow_smem<T, VEC>();
-    if (err != cudaSuccess) return err;
-    cudaLaunchConfig_t cfg = {};
-    cfg.gridDim = dim3((unsigned)(p.chunks * p.cluster), (unsigned)B);
-    cfg.blockDim = block;
-    cfg.dynamicSmemBytes = (size_t)p.smem_bytes;
-    cfg.stream = stream;
-    cudaLaunchAttribute attr[1];
-    attr[0].id = cudaLaunchAttributeClusterDimension;
-    attr[0].val.clusterDim.x = (unsigned)p.cluster;
-    attr[0].val.clusterDim.y = 1;
-    attr[0].val.clusterDim.z = 1;
-    cfg.attrs = attr;
-    cfg.numAttrs = p.cluster > 1 ? 1 : 0;
-    return cudaLaunchKernelEx(&cfg, onepass_kernel<T, VEC>, x, noise, nw,
-                              style, out, saved, (int64_t)R, C, p.cluster,
-                              (int64_t)p.rows_per_rank);
+    static unsigned done = 0;
+    return launch_onepass(onepass_kernel<T, VEC>, &done, p.chunks, p.cluster,
+                          B, block, p.smem_bytes, stream, x, noise, nw, style,
+                          out, saved, (int64_t)R, C, p.cluster,
+                          (int64_t)p.rows_per_rank);
   }
   unsigned char* ws = static_cast<unsigned char*>(workspace);
   float2* partials = reinterpret_cast<float2*>(ws);
@@ -893,6 +1195,12 @@ cudaError_t launch_bwd(const SgtBwdPlan& p, const void* gv, const void* xv,
   const T* x = static_cast<const T*>(xv);
   const T* noise = static_cast<const T*>(noisev);
   const float* nw = static_cast<const float*>(nwv);
+  const float* style = static_cast<const float*>(stylev);
+  const float2* saved = static_cast<const float2*>(savedv);
+  T* dx = static_cast<T*>(dxv);
+  float* dnw = static_cast<float*>(dnwv);
+  T* dn = static_cast<T*>(dnv);
+  float* dstyle = static_cast<float*>(dstylev);
   unsigned char* ws = static_cast<unsigned char*>(workspace);
   float2* parts = reinterpret_cast<float2*>(ws);
   float4* coef = reinterpret_cast<float4*>(ws + p.coef_offset);
@@ -901,17 +1209,25 @@ cudaError_t launch_bwd(const SgtBwdPlan& p, const void* gv, const void* xv,
   int* tickets = reinterpret_cast<int*>(ws + p.tickets_offset);
   int* tickets_w = tickets + (size_t)B * p.chunks;
   int* tickets_n = tickets_w + p.chunks;
-  const dim3 grid(p.splits, p.chunks, B), block(p.tx, p.ty);
+  const dim3 block(p.tx, p.ty);
+  if (p.path == 1) {
+    static unsigned done = 0;
+    return launch_onepass(onepass_bwd_kernel<T, VEC>, &done, p.chunks,
+                          p.cluster, B, block, p.smem_bytes, stream, g, x,
+                          noise, nw, style, saved, dx, dnw, dn, dstyle,
+                          dnw_parts, dn_parts, tickets_w, tickets_n,
+                          (int64_t)R, C, p.cluster,
+                          (int64_t)p.rows_per_split);
+  }
+  const dim3 grid(p.splits, p.chunks, B);
   bwd_sums_kernel<T, VEC><<<grid, block, 0, stream>>>(
-      g, x, noise, nw, static_cast<const float*>(stylev),
-      static_cast<const float2*>(savedv), parts, coef,
-      static_cast<float*>(dstylev), tickets, R, C, p.rows_per_split);
+      g, x, noise, nw, style, saved, parts, coef, dstyle, tickets, R, C,
+      p.rows_per_split);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   bwd_dx_kernel<T, VEC><<<grid, block, 0, stream>>>(
-      g, x, noise, nw, coef, static_cast<T*>(dxv), static_cast<float*>(dnwv),
-      static_cast<T*>(dnv), dnw_parts, dn_parts, tickets_w, tickets_n, R, C,
-      p.rows_per_split);
+      g, x, noise, nw, coef, dx, dnw, dn, dnw_parts, dn_parts, tickets_w,
+      tickets_n, R, C, p.rows_per_split);
   return cudaGetLastError();
 }
 
@@ -949,8 +1265,8 @@ extern "C" int sgt_epilogue_forward(
   return (int)cudaErrorInvalidValue;
 }
 
-// Launches the backward of one epilogue call on `stream`: the two kernels of
-// `plan`, which sgt_epilogue_bwd_plan made for this (is_bf16, B, R, C),
+// Launches the backward of one epilogue call on `stream`: the one or two
+// kernels of `plan`, which sgt_epilogue_bwd_plan made for this (is_bf16, B, R, C),
 // alignment and want_dn (dn not null).  g, x and dx are (B, R, C), noise and
 // dn (B, R) in the forward's dtype; noise_weight and dnw (C,), style and
 // dstyle (B, 2C), saved (B, C) float2, all float32.  dx, dnw, dn and dstyle

@@ -3,15 +3,13 @@
 // C++ with no CUDA include, so that the CPU tests compile it with the host
 // compiler and check it; epilogue.cu includes it and launches what it says.
 //
-// Paths (see epilogue.cu's header for why):
-//   1  one-pass: each (b, channel chunk) slab is held in the shared memory of
-//      one block, or of a cluster of kMaxCluster blocks that split its rows;
-//      one launch.
-//   2  two-pass: a stats pass whose last block per (b, chunk) merges the row
-//      splits, then an apply pass; two launches.
-//
-// The backward always takes two launches over the two-pass geometry
-// (SgtBwdPlan below).
+// Paths (see epilogue.cu's header for why), of the forward and the backward
+// alike:
+//   1  one-pass: each (b, channel chunk) slab (of x; of g and x for the
+//      backward) is held in the shared memory of one block, or of a cluster
+//      of kMaxCluster blocks that split its rows; one launch.
+//   2  two-pass: a first pass whose last block per (b, chunk) merges the row
+//      splits, then a second pass; two launches.
 //
 // Exported: sgt_epilogue_plan and sgt_epilogue_bwd_plan (defined once, in
 // the translation unit that includes this header: the kernel library or the
@@ -46,16 +44,26 @@ struct SgtPlan {
   long long workspace_bytes; // path 2: partials, stats and tickets
 };
 
-// The backward (epilogue.cu's bwd_sums_kernel, then bwd_dx_kernel): both
-// launches take the grid (splits, chunks, B) of (tx, ty) blocks.  Workspace,
-// in this order, each part 16-byte aligned: pass-1 partials (B, splits, C)
-// float2, coefficients (B, C) float4, dnoise_weight partials (B, splits, C)
-// float, dnoise partials (chunks, B, R) float when dn_partials, and the
-// tickets: B * chunks (pass 1), chunks (dnoise_weight), B * splits (dnoise).
+// The backward.  Path 1 (epilogue.cu's onepass_bwd_kernel): the grid
+// (chunks * cluster, B) of (tx, ty) blocks, clusters of `cluster` along x;
+// the ranks of a cluster are its row splits (splits == cluster,
+// rows_per_split the rows of a rank).  Path 2 (bwd_sums_kernel, then
+// bwd_dx_kernel): both launches take the grid (splits, chunks, B) of (tx, ty)
+// blocks, tx * ty == kThreads.  Workspace, in this order, each part 16-byte
+// aligned: pass-1 partials (B, splits, C) float2 and coefficients (B, C)
+// float4 (path 2 only: empty on path 1), dnoise_weight partials
+// (B, splits, C) float, dnoise partials (chunks, B, R) float when
+// dn_partials, and the tickets: B * chunks (pass 1), chunks (dnoise_weight),
+// B * splits (dnoise).
 struct SgtBwdPlan {
-  int vec, tx, ty, chunk_c, chunks, splits, launches;
-  int dn_partials;           // dnoise is summed over channel chunks
-  long long rows_per_split;
+  int path;            // 1 or 2
+  int vec, tx, ty, chunk_c, chunks;
+  int cluster;         // path 1: blocks per (b, chunk); 1 on path 2
+  int splits;          // row splits per (b, chunk): the ranks on path 1
+  int launches;        // CUDA launches per call: 1 or 2
+  int dn_partials;     // dnoise is summed over channel chunks
+  long long rows_per_split;  // rows of one split (of one rank on path 1)
+  long long smem_bytes;      // path 1: dynamic shared memory per block
   long long coef_offset, dnw_offset, dn_offset, tickets_offset;
   long long workspace_bytes;
 };
@@ -71,9 +79,18 @@ constexpr long long kMaxSmem = 232448;  // 227 KB: a block's most on sm_90
 constexpr int kMaxCluster = 2;
 constexpr int kMinBlocks = 128;         // about one block per SM of 132
 constexpr int kMinRowBytes = 32;        // a sector: the narrowest chunk row
+// The backward's one-pass chunks may narrow to one 16-byte vector, so that
+// its small bf16 planes at batch 2 still fill the card.
+constexpr int kMinBwdRowBytes = 16;
 // Pass-1 blocks to aim for; bf16 (8-wide vectors, one load in flight) did
 // best with half of f32's on the H100 (PERF.md).
 constexpr int kTargetStatsBlocks = 1024;
+// The backward's two passes: blocks of its pass 1 (and pass 2) to aim for,
+// and the fewest rows a thread.  About two blocks per SM: one wave in both
+// passes, so that each pass-2 block starts on the rows its pass-1 block read
+// last, still in L2 (PERF.md).
+constexpr int kTargetBwdBlocks = 256;
+constexpr int kMinBwdRowsPerThread = 8;
 constexpr int kMinRowsPerThread = 8;
 
 SGT_HD inline long long cdiv(long long a, long long b) { return (a + b - 1) / b; }
@@ -84,29 +101,37 @@ inline int pow2_at_least(long long n, int cap) {
   return p;
 }
 
-// Dynamic shared memory of a one-pass block: the slab of x, its noise
-// column, the reduction buffer (ty x chunk_c f32) and the partials that a
-// cluster exchanges (chunk_c float2); each part 16-byte aligned.
-inline long long onepass_smem(int elem, int chunk_c, int ty, long long rows) {
-  return align16(rows * chunk_c * elem) + align16(rows * elem) +
+// Dynamic shared memory of a one-pass block: `slabs` slabs (x; or g and x),
+// their noise column, the reduction buffer (ty x chunk_c f32) and the
+// partials that a cluster exchanges (chunk_c float2); each part 16-byte
+// aligned.
+inline long long onepass_smem(int elem, int slabs, int chunk_c, int ty,
+                              long long rows) {
+  return slabs * align16(rows * chunk_c * elem) + align16(rows * elem) +
          align16((long long)ty * chunk_c * 4) + (long long)chunk_c * 8;
 }
 
-inline bool one_pass(SgtPlan& p, int elem, int B, long long R, int C,
-                     int max_tx) {
-  // Widest rows first (128 bytes), then narrower down to a sector; within a
-  // width the smallest cluster whose slab fits.  A grid of fewer than
-  // kMinBlocks blocks narrows the chunk down to a sector, then, for planes
-  // of many rows, doubles the cluster.
+// The geometry of a one-pass launch, where one fits.
+struct OnePass {
+  int tx, ty, cluster;
+  long long rows_per_rank, smem_bytes;
+};
+
+inline bool fit_one_pass(int vec, int elem, int slabs, int min_row_bytes,
+                         int B, long long R, int C, int max_tx, OnePass* f) {
+  // Widest rows first (128 bytes), then narrower down to min_row_bytes;
+  // within a width the smallest cluster whose slabs fit.  A grid of fewer
+  // than kMinBlocks blocks narrows the chunk down to min_row_bytes, then,
+  // for planes of many rows, doubles the cluster.
   int best_tx = 0, best_cl = 0;
   for (int tx = max_tx; tx >= 1 && !best_tx; tx /= 2) {
-    const int cc = tx * p.vec;
-    if (cc * elem < kMinRowBytes && tx != max_tx) break;
+    const int cc = tx * vec;
+    if (cc * elem < min_row_bytes && tx != max_tx) break;
     for (int cl = 1; cl <= kMaxCluster; cl *= 2) {
       const long long rpr = cdiv(R, cl);
       if (cl > 1 && (cl - 1) * rpr >= R) break;  // a rank would hold no rows
       const int ty = pow2_at_least(rpr, kThreads / tx);
-      if (onepass_smem(elem, cc, ty, rpr) <= kMaxSmem) {
+      if (onepass_smem(elem, slabs, cc, ty, rpr) <= kMaxSmem) {
         best_tx = tx;
         best_cl = cl;
         break;
@@ -115,10 +140,10 @@ inline bool one_pass(SgtPlan& p, int elem, int B, long long R, int C,
   }
   if (!best_tx) return false;
   for (;;) {
-    const long long blocks = (long long)B * cdiv(C, best_tx * p.vec) * best_cl;
+    const long long blocks = (long long)B * cdiv(C, best_tx * vec) * best_cl;
     if (blocks >= kMinBlocks) break;
     const long long rpr2 = cdiv(R, best_cl * 2);
-    if (best_tx > 1 && (best_tx / 2) * p.vec * elem >= kMinRowBytes) {
+    if (best_tx > 1 && (best_tx / 2) * vec * elem >= min_row_bytes) {
       best_tx /= 2;
     } else if (best_cl < kMaxCluster && rpr2 >= 2 * kThreads &&
                (best_cl * 2 - 1) * rpr2 < R) {
@@ -127,29 +152,40 @@ inline bool one_pass(SgtPlan& p, int elem, int B, long long R, int C,
       break;
     }
   }
+  f->tx = best_tx;
+  f->cluster = best_cl;
+  f->rows_per_rank = cdiv(R, best_cl);
+  f->ty = pow2_at_least(f->rows_per_rank, kThreads / best_tx);
+  f->smem_bytes = onepass_smem(elem, slabs, best_tx * vec, f->ty,
+                               f->rows_per_rank);
+  return true;
+}
+
+inline bool one_pass(SgtPlan& p, int elem, int B, long long R, int C,
+                     int max_tx) {
+  OnePass f;
+  if (!fit_one_pass(p.vec, elem, 1, kMinRowBytes, B, R, C, max_tx, &f))
+    return false;
   p.path = 1;
-  p.tx = best_tx;
-  p.chunk_c = best_tx * p.vec;
+  p.tx = f.tx;
+  p.ty = f.ty;
+  p.chunk_c = f.tx * p.vec;
   p.chunks = (int)cdiv(C, p.chunk_c);
-  p.cluster = best_cl;
-  p.rows_per_rank = cdiv(R, best_cl);
-  p.ty = pow2_at_least(p.rows_per_rank, kThreads / best_tx);
-  p.smem_bytes = onepass_smem(elem, p.chunk_c, p.ty, p.rows_per_rank);
+  p.cluster = f.cluster;
+  p.rows_per_rank = f.rows_per_rank;
+  p.smem_bytes = f.smem_bytes;
   p.launches = 1;
   return true;
 }
 
-// Rows of one pass-1 block: about kTargetStatsBlocks blocks over the grid
-// (half as many in bf16), at least kMinRowsPerThread rows a thread, a whole
-// number of row groups.
-inline long long split_rows(int vec, int B, long long R, int chunks, int ty) {
-  const long long target =
-      vec == 8 ? kTargetStatsBlocks / 2 : kTargetStatsBlocks;
+// Rows of one pass-1 block: about `target` blocks over the grid, at least
+// `min_rows` rows a thread, a whole number of row groups.
+inline long long split_rows(long long target, int min_rows, int B,
+                            long long R, int chunks, int ty) {
   long long want = target / ((long long)B * chunks);
   if (want < 1) want = 1;
   long long rps = cdiv(R, want);
-  if (rps < (long long)ty * kMinRowsPerThread)
-    rps = (long long)ty * kMinRowsPerThread;
+  if (rps < (long long)ty * min_rows) rps = (long long)ty * min_rows;
   return cdiv(rps, ty) * ty;
 }
 
@@ -161,7 +197,10 @@ inline void two_pass(SgtPlan& p, int B, long long R, int C, int max_tx) {
   p.ty = kThreads / p.tx;
   p.chunk_c = p.tx * p.vec;
   p.chunks = (int)cdiv(C, p.chunk_c);
-  p.rows_per_split = split_rows(p.vec, B, R, p.chunks, p.ty);
+  // half as many pass-1 blocks in bf16
+  p.rows_per_split = split_rows(
+      p.vec == 8 ? kTargetStatsBlocks / 2 : kTargetStatsBlocks,
+      kMinRowsPerThread, B, R, p.chunks, p.ty);
   p.splits = (int)cdiv(R, p.rows_per_split);
   p.rows_per_block = (long long)p.ty * kMinRowsPerThread;
   p.launches = 2;
@@ -202,24 +241,44 @@ inline int make_plan(int is_bf16, int B, long long R, int C, int aligned,
   return 0;
 }
 
-// The backward's plan: the forward's two-pass geometry for both launches.
+// The backward's plan: one pass where the slabs of g and x fit on chip (as
+// the forward's path 1, with 16-byte rows allowed), else two passes over
+// the forward's two-pass chunks with the backward's own split target.
 // `aligned`: g, x and dx start on 16-byte boundaries.
 inline int make_bwd_plan(int is_bf16, int B, long long R, int C, int aligned,
                          int want_dn, SgtBwdPlan* out) {
   if (!valid_call(B, R, C)) return -1;
   SgtBwdPlan p = {};
-  lanes(is_bf16, C, aligned, &p.vec, &p.tx);
-  p.ty = kThreads / p.tx;
+  const int elem = is_bf16 ? 2 : 4;
+  int max_tx = 1;
+  lanes(is_bf16, C, aligned, &p.vec, &max_tx);
+  OnePass f;
+  if (fit_one_pass(p.vec, elem, 2, kMinBwdRowBytes, B, R, C, max_tx, &f)) {
+    p.path = 1;
+    p.tx = f.tx;
+    // the last block's merges give each channel ty / vec >= 1 threads
+    p.ty = f.ty < p.vec ? p.vec : f.ty;
+    p.cluster = p.splits = f.cluster;
+    p.rows_per_split = f.rows_per_rank;
+    p.smem_bytes = onepass_smem(elem, 2, p.tx * p.vec, p.ty, f.rows_per_rank);
+    p.launches = 1;
+  } else {
+    p.path = 2;
+    p.tx = max_tx;
+    p.ty = kThreads / p.tx;
+    p.cluster = 1;
+    p.rows_per_split = split_rows(
+        kTargetBwdBlocks, kMinBwdRowsPerThread, B, R, cdiv(C, p.tx * p.vec), p.ty);
+    p.splits = (int)cdiv(R, p.rows_per_split);
+    p.launches = 2;
+  }
   p.chunk_c = p.tx * p.vec;
   p.chunks = (int)cdiv(C, p.chunk_c);
-  p.rows_per_split = split_rows(p.vec, B, R, p.chunks, p.ty);
-  p.splits = (int)cdiv(R, p.rows_per_split);
-  p.launches = 2;
   p.dn_partials = want_dn && p.chunks > 1;
   const long long bsc = (long long)B * p.splits * C;
-  long long off = align16(bsc * 8);
+  long long off = p.path == 2 ? align16(bsc * 8) : 0;
   p.coef_offset = off;
-  off += align16((long long)B * C * 16);
+  if (p.path == 2) off += align16((long long)B * C * 16);
   p.dnw_offset = off;
   off += align16(bsc * 4);
   p.dn_offset = off;

@@ -17,11 +17,12 @@ stream for eager calls; a call made while the stream is captured into a CUDA
 graph takes a workspace of its own from the graph's memory pool, so that a
 graph never shares counters with eager calls or with other graphs.
 
-The backward (`epilogue_backward`) is a kernel pair of the same library,
-planned by ``sgt_epilogue_bwd_plan`` per (dtype, B, H*W, C, alignment,
-whether dnoise is wanted), with workspaces kept the same way; it reads the
-per-(b, c) (mean, rstd) that the forward saved.  It replaces the JAX custom
-VJP's backward, which is XLA autodiff of the plain composition.
+The backward (`epilogue_backward`) takes one launch (path 1) or two (path 2)
+of the same library, planned by ``sgt_epilogue_bwd_plan`` per (dtype, B,
+H*W, C, alignment, whether dnoise is wanted), with workspaces kept the same
+way; it reads the per-(b, c) (mean, rstd) that the forward saved.  It
+replaces the JAX custom VJP's backward, which is XLA autodiff of the plain
+composition.
 
 `kernel_epilogue` is the ``torch.autograd.Function`` around both (the
 counterpart of the JAX ``pallas_epilogue`` custom VJP).  This module takes
@@ -47,15 +48,21 @@ BUILD_DIR = _PKG.parent / "build" / "stylegan_torch"
 # reports, one launch each per call.
 KERNELS_BY_PATH = {1: ("onepass_kernel",), 2: ("stats_kernel", "apply_kernel")}
 KERNEL_NAMES = KERNELS_BY_PATH[1] + KERNELS_BY_PATH[2]
-# The backward's kernels, one launch each per call.
-BWD_KERNEL_NAMES = ("bwd_sums_kernel", "bwd_dx_kernel")
+# The backward's, the same way.
+BWD_KERNELS_BY_PATH = {1: ("onepass_bwd_kernel",),
+                       2: ("bwd_sums_kernel", "bwd_dx_kernel")}
+BWD_KERNEL_NAMES = BWD_KERNELS_BY_PATH[1] + BWD_KERNELS_BY_PATH[2]
 
 # Calls of epilogue_forward that launched the kernels (one per call), and the
 # CUDA launches they made (the plan's `launches`: 1 on path 1, 2 on path 2);
-# calls of epilogue_backward that launched its two kernels.
+# the same two counts for epilogue_backward; and the autograd backward's
+# calls whose incoming gradient was not contiguous NHWC, so that it had to be
+# copied before the kernels could read it.
 launches = 0
 cuda_launches = 0
 backward_launches = 0
+backward_cuda_launches = 0
+backward_g_copies = 0
 
 _lib = None
 _plans: dict = {}        # (is_bf16, B, rows, C, aligned) -> Plan
@@ -80,11 +87,13 @@ class Plan(ctypes.Structure):
 class BwdPlan(ctypes.Structure):
     """``SgtBwdPlan`` of epilogue_plan.h."""
     _fields_ = ([(n, ctypes.c_int) for n in (
-        "vec", "tx", "ty", "chunk_c", "chunks", "splits", "launches",
-        "dn_partials")]
+        "path", "vec", "tx", "ty", "chunk_c", "chunks", "cluster", "splits",
+        "launches", "dn_partials")]
         + [(n, ctypes.c_longlong) for n in (
-            "rows_per_split", "coef_offset", "dnw_offset", "dn_offset",
-            "tickets_offset", "workspace_bytes")])
+            "rows_per_split", "smem_bytes", "coef_offset", "dnw_offset",
+            "dn_offset", "tickets_offset", "workspace_bytes")])
+
+    as_dict = Plan.as_dict
 
 
 def _nvcc() -> str:
@@ -293,9 +302,18 @@ def make_bwd_plan(lib, is_bf16: int, b: int, rows: int, c: int,
     return plan
 
 
+def bwd_plan_for(x: torch.Tensor, want_dn: bool = False) -> dict:
+    """The backward's plan for a call on x (with g and dx 16-byte aligned
+    as x is)."""
+    b, h, w, c = x.shape
+    return make_bwd_plan(_library(), int(x.dtype == torch.bfloat16), b, h * w,
+                         c, int(x.data_ptr() % 16 == 0),
+                         int(want_dn)).as_dict()
+
+
 def epilogue_backward(g, x, noise_weight, noise, style, saved,
                       needs=(True, True, True, True)):
-    """Launch the backward kernels: the gradients (dx, dnoise_weight, dnoise,
+    """Launch the backward kernel(s): the gradients (dx, dnoise_weight, dnoise,
     dstyle) of the epilogue's output w.r.t. its inputs, given g, the
     gradient of the output (x's shape and dtype, contiguous), and `saved`,
     the (B, C, 2) float32 (mean, rstd) that epilogue_forward wrote.  A
@@ -317,7 +335,7 @@ def epilogue_backward(g, x, noise_weight, noise, style, saved,
 def _launch_backward(g, x, noise_weight, noise, style, saved, dx, dnw, dn,
                      dstyle):
     """One ctypes call on x's device, which is the current one."""
-    global backward_launches
+    global backward_launches, backward_cuda_launches
     b, h, w, c = x.shape
     rows, is_bf16 = h * w, int(x.dtype == torch.bfloat16)
     aligned = int((g.data_ptr() | x.data_ptr() | _ptr(dx)) % 16 == 0)
@@ -338,6 +356,7 @@ def _launch_backward(g, x, noise_weight, noise, style, saved, dx, dnw, dn,
         raise RuntimeError(
             f"epilogue backward kernel launch failed: cudaError {err}")
     backward_launches += 1
+    backward_cuda_launches += plan.launches
 
 
 def bytes_moved(x: torch.Tensor) -> int:
@@ -380,10 +399,14 @@ class _KernelEpilogue(torch.autograd.Function):
                 "the epilogue's CUDA backward is once differentiable: a "
                 "second derivative through it (create_graph=True) is not "
                 "implemented")
+        global backward_g_copies
         x, noise_weight, noise, style, saved = ctx.saved_tensors
         # autograd may hand g in another layout; the kernel reads NHWC rows
-        return epilogue_backward(g.contiguous(), x, noise_weight, noise,
-                                 style, saved, ctx.needs_input_grad)
+        if not g.is_contiguous():
+            backward_g_copies += 1
+            g = g.contiguous()
+        return epilogue_backward(g, x, noise_weight, noise, style, saved,
+                                 ctx.needs_input_grad)
 
 
 def kernel_epilogue(x, noise_weight, noise, style):

@@ -103,6 +103,7 @@ class _StubLibrary:
     def __init__(self, err=0):
         self.bwd_plans, self.backwards, self.forwards = [], [], []
         self.err = err
+        self.bwd_path = 2
 
     def sgt_epilogue_plan(self, is_bf16, b, rows, c, aligned, plan):
         plan.path, plan.launches = 1, 1
@@ -115,7 +116,8 @@ class _StubLibrary:
     def sgt_epilogue_bwd_plan(self, is_bf16, b, rows, c, aligned, want_dn,
                               plan):
         self.bwd_plans.append((is_bf16, b, rows, c, aligned, want_dn))
-        plan.launches, plan.tickets_offset, plan.workspace_bytes = 2, 96, 128
+        plan.path = plan.launches = self.bwd_path
+        plan.tickets_offset, plan.workspace_bytes = 96, 128
         return 0
 
     def sgt_epilogue_backward(self, *args):
@@ -131,7 +133,9 @@ def stub(monkeypatch):
     monkeypatch.setattr(kern, "_capturing", lambda: False)
     for name in ("_plans", "_workspaces", "_bwd_plans", "_bwd_workspaces"):
         monkeypatch.setattr(kern, name, {})
-    monkeypatch.setattr(kern, "backward_launches", 0)
+    for name in ("backward_launches", "backward_cuda_launches",
+                 "backward_g_copies"):
+        monkeypatch.setattr(kern, name, 0)
     monkeypatch.setattr(kern, "launches", 0)
     monkeypatch.setattr(kern, "cuda_launches", 0)
     # CPU tensors stand in for CUDA ones past the wrapper's device check
@@ -166,6 +170,7 @@ def test_backward_wrapper_hands_the_library_its_arguments(stub, needs):
             assert d.shape == ref.shape and d.dtype == ref.dtype
     assert stub.bwd_plans == [(0, 2, 64, 16, 1, int(needs[2]))]
     assert len(stub.backwards) == 2 and kern.backward_launches == 2
+    assert kern.backward_cuda_launches == 4
     ws, = kern._bwd_workspaces.values()
     assert bool((ws[96:] == 0).all()) and ws.numel() == 128
     for args, outs in zip(stub.backwards, calls):
@@ -198,6 +203,27 @@ def test_autograd_backward_hands_the_kernels_what_autograd_needs(stub):
     assert args[8] == 0                          # no dnoise
     assert stub.bwd_plans[-1][-1] == 0           # planned without dnoise
     assert kern.backward_launches == 1
+    # the copy of g is counted, and handed to the kernels as contiguous NHWC
+    assert kern.backward_g_copies == 1
+    assert args[0] != g_strided.data_ptr()
+    with torch.no_grad():
+        kern._KernelEpilogue.backward(ctx, g_strided.contiguous())
+    assert kern.backward_g_copies == 1 and kern.backward_launches == 2
+
+
+@pytest.mark.parametrize("path", [1, 2])
+def test_backward_wrapper_counts_the_plans_cuda_launches(stub, path):
+    """backward_launches counts calls, backward_cuda_launches the plan's
+    launches: one on path 1, two on path 2."""
+    stub.bwd_path = path
+    ins, g = _inputs((2, 4, 4, 8), seed=6)
+    x, nw, noise, style = map(torch.from_numpy, ins)
+    g, saved = torch.from_numpy(g), torch.zeros(2, 8, 2)
+    for _ in range(3):
+        kern.epilogue_backward(g, x, nw, noise, style, saved)
+    assert kern.backward_launches == 3
+    assert kern.backward_cuda_launches == 3 * path
+    assert kern.launches == kern.cuda_launches == 0
 
 
 def test_kernel_backward_refuses_a_second_derivative(stub):
@@ -232,6 +258,7 @@ def test_backward_wrapper_failed_launch_raises_and_drops_workspace(stub):
     with pytest.raises(RuntimeError, match="cudaError 700"):
         kern.epilogue_backward(*t, torch.zeros(1, 8, 2))
     assert kern._bwd_workspaces == {} and kern.backward_launches == 0
+    assert kern.backward_cuda_launches == 0
 
 
 def test_forward_hands_the_saved_stats_pointer(stub):
@@ -261,12 +288,17 @@ def test_backward_wrapper_refuses_wrong_inputs():
 
 
 def test_backward_kernel_names_are_in_the_source():
-    """chip_smoke.py reads the backward's device time by these names, which
-    share no substring with the forward's."""
+    """chip_smoke.py reads the backward's device time by these names, of
+    both paths, which share no substring with the forward's and are not
+    substrings of one another."""
     src = kern.SOURCE.read_text()
+    assert set(kern.BWD_KERNELS_BY_PATH) == {1, 2}
+    assert kern.BWD_KERNEL_NAMES == sum(kern.BWD_KERNELS_BY_PATH.values(), ())
     for name in kern.BWD_KERNEL_NAMES:
-        assert f"{name}(" in src
+        assert f"\n{name}(" in src     # a kernel's definition
         assert not any(f in name for f in kern.KERNEL_NAMES)
+        assert not any(name in other for other in kern.BWD_KERNEL_NAMES
+                       if other != name)
 
 
 def test_bytes_moved_backward_counts_one_pass():

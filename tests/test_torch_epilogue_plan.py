@@ -203,26 +203,46 @@ def test_wrapper_allocates_the_plans_workspace(plan_lib, monkeypatch, res, c):
 # ---------------------------------------------------------------- backward --
 
 def check_bwd_plan(p, b, rows, c, bf16, aligned, want_dn):
-    """The backward's plan: both launches take the grid (splits, chunks, B)
-    of 256-thread blocks; splits and chunks cover every row and channel
-    once; the last block's fixed-order merges give each channel 256 //
-    chunk_c threads; the workspace holds the partials, coefficients,
-    dnoise_weight and (when summed over chunks) dnoise partials, and the
-    tickets, in that order."""
+    """The backward's plan.  Both paths: chunks cover every channel once;
+    the last block's fixed-order merges give each channel tx * ty // chunk_c
+    >= 1 threads; the workspace holds the pass-1 partials and coefficients
+    (path 2 only), the dnoise_weight and (when summed over chunks) dnoise
+    partials, and the tickets, in that order.  Path 1: one launch of
+    (chunks * cluster, B) blocks whose slabs of g and x, noise column and
+    buffers fit the shared memory the block asks for; the cluster's ranks
+    are the row splits and cover every row once.  Path 2: two launches of
+    the grid (splits, chunks, B) of 256-thread blocks."""
     elem = 2 if bf16 else 4
     vec = (8 if bf16 else 4) if c % (8 if bf16 else 4) == 0 and aligned else 1
     assert p.vec == vec
-    assert _pow2(p.tx) and p.tx <= 32 and p.tx * p.ty == 256
+    assert _pow2(p.tx) and p.tx <= 32 and _pow2(p.ty)
     assert p.chunk_c == p.tx * p.vec and p.chunk_c * elem <= 128
     assert (p.chunks - 1) * p.chunk_c < c <= p.chunks * p.chunk_c
-    assert 256 % p.chunk_c == 0 and p.chunks <= 65535
-    assert p.rows_per_split % p.ty == 0
+    assert p.chunks <= 65535 and b <= 65535
+    assert (p.tx * p.ty) % p.chunk_c == 0 and p.ty >= p.vec
     assert (p.splits - 1) * p.rows_per_split < rows <= p.splits * \
         p.rows_per_split
-    assert p.launches == 2
+    if p.path == 1:
+        assert p.cluster in (1, 2) and p.splits == p.cluster
+        assert p.tx * p.ty <= 256 and p.launches == 1
+        assert p.ty >= min(p.rows_per_split, 256 // p.tx)
+        # g and x slabs, their noise column, the reduction buffer and the
+        # cluster's exchange
+        need = (2 * _align16(p.rows_per_split * p.chunk_c * elem)
+                + _align16(p.rows_per_split * elem)
+                + _align16(p.ty * p.chunk_c * 4) + p.chunk_c * 8)
+        assert need <= p.smem_bytes <= MAX_SMEM
+        assert p.chunks * p.cluster <= 2 ** 31 - 1
+        parts = 0
+    else:
+        assert p.path == 2 and p.cluster == 1 and p.smem_bytes == 0
+        assert p.tx * p.ty == 256 and 256 % p.chunk_c == 0
+        assert p.rows_per_split % p.ty == 0
+        assert p.launches == 2
+        parts = _align16(b * p.splits * c * 8)
+        assert p.dnw_offset == p.coef_offset + _align16(b * c * 16)
     assert p.dn_partials == int(bool(want_dn) and p.chunks > 1)
-    assert p.coef_offset == _align16(b * p.splits * c * 8)
-    assert p.dnw_offset == p.coef_offset + _align16(b * c * 16)
+    assert p.coef_offset == parts
     assert p.dn_offset == p.dnw_offset + _align16(b * p.splits * c * 4)
     dn_bytes = _align16(p.chunks * b * rows * 4) if p.dn_partials else 0
     assert p.tickets_offset == p.dn_offset + dn_bytes
@@ -240,23 +260,36 @@ def bwd_plan(lib, bf16, b, rows, c, aligned=1, want_dn=0):
                          ids=[f"{r}x{r}x{c}" for r, c in MAIN_SHAPES])
 def test_backward_main_path_plans(plan_lib, res, c, bf16, batch):
     """The 18 backward calls of a 1024^2 G step, at the training batch (2)
-    and at the serving batch (8): the large planes split their rows into
-    about 1024 pass-1 blocks (512 in bf16), as the forward's two passes."""
+    and at the serving batch (8): planes up to 64^2 x 256 hold g and x on
+    chip in one launch with about a block per SM, in clusters of at most 2;
+    the larger ones take two passes of about 256 blocks (one wave of about
+    two blocks per SM), at least 8 rows a thread."""
     for want_dn in (0, 1):
         p = bwd_plan(plan_lib, bf16, batch, res * res, c, want_dn=want_dn)
         check_bwd_plan(p, batch, res * res, c, bf16, 1, want_dn)
-    if res >= 128:
-        target = 512 if bf16 else 1024
-        assert target // 2 <= p.splits * p.chunks * batch <= 2 * target
+        if res <= 64:
+            assert p.path == 1 and p.launches == 1 and p.cluster <= 2
+            assert batch * p.chunks * p.cluster >= MIN_BLOCKS
+        else:
+            assert p.path == 2 and p.launches == 2
+            blocks = p.splits * p.chunks * batch
+            assert blocks <= 512
+            assert blocks >= 128 or p.rows_per_split == 8 * p.ty
 
 
 @pytest.mark.parametrize("want_dn", [0, 1], ids=["no-dnoise", "dnoise"])
 @pytest.mark.parametrize("aligned", [1, 0], ids=["aligned", "unaligned"])
 @pytest.mark.parametrize("bf16", [0, 1], ids=["f32", "bf16"])
 def test_backward_plan_sweep(plan_lib, bf16, aligned, want_dn):
+    """Every (B <= 8, H*W <= 2^20, C <= 512) of the sweep has a backward
+    plan that covers it, and the sweep reaches both paths and both cluster
+    sizes of path 1."""
+    paths = set()
     for b, rows, c in itertools.product(SWEEP_B, SWEEP_R, SWEEP_C):
         p = bwd_plan(plan_lib, bf16, b, rows, c, aligned, want_dn)
         check_bwd_plan(p, b, rows, c, bf16, aligned, want_dn)
+        paths.add((p.path, p.cluster))
+    assert paths == {(1, 1), (1, 2), (2, 1)}
 
 
 @pytest.mark.parametrize("dims", [(0, 16, 16), (1, 0, 16), (1, 16, 0)])

@@ -442,7 +442,8 @@ def phase_grad_kernel(dev):
                                 float((a - r).abs().max()) for a, r in zip(
                                     got, plain_grads(fused, args, cot))))
                     else:
-                        for k, v in (("bf16_ms", ms), ("bf16_cold_ms", cold_ms),
+                        for k, v in (("bf16_ms", ms),
+                                     ("bf16_cold_ms", cold_ms),
                                      ("bf16_call_ms", call_ms),
                                      ("bf16_bound_ms", bound_ms)):
                             summary[k] += 2 * v
@@ -772,7 +773,8 @@ def phase_train(dev):
             "peak_memory_GiB": peak / 2 ** 30, "losses": losses,
             "forward_calls": fwd, "backward_calls": bwd,
             "backward_cuda_launches": bwd_cuda,
-            "backward_g_copies": g_copies, "device_busy_ms": busy, "profiled_step_wall_ms": wall,
+            "backward_g_copies": g_copies, "device_busy_ms": busy,
+            "profiled_step_wall_ms": wall,
             "device_busy_share": busy / wall,
             "top_ops": top}
 

@@ -70,14 +70,15 @@
 //      (planes up to 64^2 x 256 at batch 2 and 8): one launch loads both with
 //      16-byte cp.async, takes the per-(b, c) sums of g and g * (y - mean)
 //      from shared memory (a cluster adds its ranks' sums over DSMEM in rank
-//      order), writes dstyle and then dx from shared memory.  Chunks narrow
-//      down to one 16-byte vector until the grid holds about a block per SM.
+//      order), writes dstyle and then dx from shared memory.  Chunks as
+//      the forward's path 1.
 //   2. Two passes (bwd_sums_kernel, bwd_dx_kernel) for the larger planes:
 //      pass 1 the sums, pass 2 dx, so g and x are read twice (5/3 of the
-//      bound's bytes).  Pass 1 keeps several loads of g and x in flight per
-//      thread and aims at its own number of blocks; pass 2 walks its blocks
-//      and rows in the reverse of pass 1's order, so that it first re-reads
-//      from L2 what pass 1 read last.
+//      bound's bytes).  Both take one wave of about two blocks per SM, and
+//      pass 2 walks its blocks and rows in the reverse of pass 1's order, so
+//      that each of its blocks starts on what its pass-1 block read last.
+//      More loads in flight, more or fewer blocks, and L2 eviction hints
+//      made no difference or lost on the H100 (PERF.md).
 //
 // The cross-block sums (over up to 2^20 rows per (b, c) on path 2, and over
 // B x H x W rows for dnoise_weight) take the forward's machinery: per-split
@@ -554,53 +555,11 @@ apply_kernel(const T* __restrict__ x, const T* __restrict__ noise,
 constexpr int kBwdSumsUnroll = 4;
 constexpr int kBwdSumsUnrollBf16 = 1;
 constexpr int kBwdDxUnroll = 2;
-constexpr int kBwdDxUnrollBf16 = 1;
-// Blocks of bwd_sums_kernel and bwd_dx_kernel that must fit on one SM at
-// once: a bound on their registers (PERF.md).
-constexpr int kBwdBlocksPerSm = 1;
-// bwd_dx_kernel walks its blocks, and each block its rows, in the reverse
-// of pass 1's order, so that it first re-reads from L2 what pass 1 read
-// last (PERF.md).
-constexpr bool kBwdReverse = true;
-// L2 policy of the two passes: pass 1 reads all but the last
-// kBwdL2KeepBytes (over the call) of g and x evict-first, so that L2 keeps
-// what pass 2 reads first (0: every read evict-normal); pass 2 reads g and
-// x and writes dx evict-first where kBwdStreamDx (PERF.md).
-constexpr long long kBwdL2KeepBytes = 0;
-constexpr bool kBwdStreamDx = false;
-
-// A Pack of 16, 4 or 2 bytes moved as one word, plainly or evict-first in
-// L2 (ld.global.cs / st.global.cs).
-template <int BYTES> struct Word;
-template <> struct Word<16> { using type = int4; };
-template <> struct Word<4> { using type = int; };
-template <> struct Word<2> { using type = unsigned short; };
-
-template <typename T, int VEC>
-__device__ __forceinline__ Pack<T, VEC> load_pack(const T* p,
-                                                  bool evict_first) {
-  using W = typename Word<sizeof(T) * VEC>::type;
-  const W* q = reinterpret_cast<const W*>(p);
-  const W w = evict_first ? __ldcs(q) : *q;
-  Pack<T, VEC> v;
-  memcpy(&v, &w, sizeof w);
-  return v;
-}
-
-template <typename T, int VEC>
-__device__ __forceinline__ void store_pack(T* p, const Pack<T, VEC>& v,
-                                           bool evict_first) {
-  using W = typename Word<sizeof(T) * VEC>::type;
-  W w;
-  memcpy(&w, &v, sizeof w);
-  if (evict_first)
-    __stcs(reinterpret_cast<W*>(p), w);
-  else
-    *reinterpret_cast<W*>(p) = w;
-}
+constexpr int kBwdDxUnrollBf16 = 2;
 
 // Sum over ty of v[VEC] per lane, in a fixed tree order, into red[tx * VEC
-// + i] (red holds kThreads * VEC floats); read by ty == 0 after the call.
+// + i] (red holds the block's threads x VEC floats); read by ty == 0 after
+// the call.
 template <int VEC>
 __device__ __forceinline__ void tree_over_rows(const float (&v)[VEC],
                                                float* red) {
@@ -934,7 +893,7 @@ onepass_bwd_kernel(const T* __restrict__ g, const T* __restrict__ x,
 // dy = a * g - coef.z - (y - mean) * coef.w.
 template <typename T, int VEC,
           int UNROLL = VEC == 8 ? kBwdSumsUnrollBf16 : kBwdSumsUnroll>
-__global__ void __launch_bounds__(kThreads, kBwdBlocksPerSm)
+__global__ void __launch_bounds__(kThreads)
 bwd_sums_kernel(const T* __restrict__ g, const T* __restrict__ x,
                 const T* __restrict__ noise, const float* __restrict__ nw,
                 const float* __restrict__ style,
@@ -961,13 +920,6 @@ bwd_sums_kernel(const T* __restrict__ g, const T* __restrict__ x,
     mean[i] = active ? saved[(size_t)b * C + c0 + i].x : 0.f;
     sg[i] = sgy[i] = 0.f;
   }
-  // rows before r_keep are read evict-first: pass 2 reads them last
-  int64_t r_keep = r0;
-  if (kBwdL2KeepBytes > 0) {
-    const double call = 2.0 * gridDim.z * R * C * sizeof(T);
-    if (call > (double)kBwdL2KeepBytes)
-      r_keep = r1 - (int64_t)((double)(r1 - r0) * kBwdL2KeepBytes / call);
-  }
   if (active) {
     const T* gb = g + (size_t)b * R * C + c0;
     const T* xb = x + (size_t)b * R * C + c0;
@@ -979,8 +931,8 @@ bwd_sums_kernel(const T* __restrict__ g, const T* __restrict__ x,
       for (int u = 0; u < UNROLL; ++u) {  // all loads first, then the math
         const int64_t ru = r + (int64_t)u * TY;
         if (ru < r1) {
-          pg[u] = load_pack<T, VEC>(gb + ru * C, ru < r_keep);
-          px[u] = load_pack<T, VEC>(xb + ru * C, ru < r_keep);
+          pg[u] = *reinterpret_cast<const Pack<T, VEC>*>(gb + ru * C);
+          px[u] = *reinterpret_cast<const Pack<T, VEC>*>(xb + ru * C);
           z[u] = to_float(nb[ru]);
         }
       }
@@ -1030,12 +982,13 @@ bwd_sums_kernel(const T* __restrict__ g, const T* __restrict__ x,
 }
 
 // Pass 2: dx, and partials of dnw per (b, split, c) and of dn per (chunk, b,
-// r), merged by bwd_finish.  Every thread runs the same row iterations, so
-// that the TX lanes of a row can add their channels' dn terms with warp
-// shuffles.
+// r), merged by bwd_finish.  It walks its blocks, and each block its rows,
+// in the reverse of pass 1's order, so that it first re-reads what pass 1
+// read last (PERF.md).  Every thread runs the same row iterations, so that
+// the TX lanes of a row can add their channels' dn terms with warp shuffles.
 template <typename T, int VEC,
           int UNROLL = VEC == 8 ? kBwdDxUnrollBf16 : kBwdDxUnroll>
-__global__ void __launch_bounds__(kThreads, kBwdBlocksPerSm)
+__global__ void __launch_bounds__(kThreads)
 bwd_dx_kernel(const T* __restrict__ g, const T* __restrict__ x,
               const T* __restrict__ noise, const float* __restrict__ nw,
               const float4* __restrict__ coef, T* __restrict__ dx,
@@ -1048,9 +1001,9 @@ bwd_dx_kernel(const T* __restrict__ g, const T* __restrict__ x,
   const int tx = threadIdx.x, ty = threadIdx.y;
   const int TX = blockDim.x, TY = blockDim.y;
   const int splits = gridDim.x, chunks = gridDim.y, B = gridDim.z;
-  const int split = kBwdReverse ? splits - 1 - blockIdx.x : blockIdx.x;
-  const int chunk = kBwdReverse ? chunks - 1 - blockIdx.y : blockIdx.y;
-  const int b = kBwdReverse ? B - 1 - blockIdx.z : blockIdx.z;
+  const int split = splits - 1 - blockIdx.x;
+  const int chunk = chunks - 1 - blockIdx.y;
+  const int b = B - 1 - blockIdx.z;
   const int c0 = (chunk * TX + tx) * VEC;
   const bool active = c0 < C;
   const int64_t r0 = (int64_t)split * rows_per_split;
@@ -1076,15 +1029,15 @@ bwd_dx_kernel(const T* __restrict__ g, const T* __restrict__ x,
   const int64_t step = (int64_t)TY * UNROLL;
   const int64_t steps = (r1 - r0 + step - 1) / step;
   for (int64_t s = 0; s < steps; ++s) {
-    const int64_t base = r0 + (kBwdReverse ? steps - 1 - s : s) * step;
+    const int64_t base = r0 + (steps - 1 - s) * step;
     Pack<T, VEC> pg[UNROLL], px[UNROLL];
     float z[UNROLL];
 #pragma unroll
     for (int u = 0; u < UNROLL; ++u) {
       const int64_t ru = base + ty + (int64_t)u * TY;
       if (active && ru < r1) {
-        pg[u] = load_pack<T, VEC>(gb + ru * C, kBwdStreamDx);
-        px[u] = load_pack<T, VEC>(xb + ru * C, kBwdStreamDx);
+        pg[u] = *reinterpret_cast<const Pack<T, VEC>*>(gb + ru * C);
+        px[u] = *reinterpret_cast<const Pack<T, VEC>*>(xb + ru * C);
         z[u] = to_float(nb[ru]);
       }
     }
@@ -1105,7 +1058,7 @@ bwd_dx_kernel(const T* __restrict__ g, const T* __restrict__ x,
           acc[i] = fmaf(du, z[u], acc[i]);
           row = fmaf(du, w[i], row);
         }
-        if (dxb != nullptr) store_pack<T, VEC>(dxb + ru * C, o, kBwdStreamDx);
+        if (dxb != nullptr) *reinterpret_cast<Pack<T, VEC>*>(dxb + ru * C) = o;
       }
       if (want_dn)
         dn_row<T>(row, ru < r1, b, B, chunk, chunks, ru, R, dn, dn_parts);
@@ -1266,14 +1219,14 @@ extern "C" int sgt_epilogue_forward(
 }
 
 // Launches the backward of one epilogue call on `stream`: the one or two
-// kernels of `plan`, which sgt_epilogue_bwd_plan made for this (is_bf16, B, R, C),
-// alignment and want_dn (dn not null).  g, x and dx are (B, R, C), noise and
-// dn (B, R) in the forward's dtype; noise_weight and dnw (C,), style and
-// dstyle (B, 2C), saved (B, C) float2, all float32.  dx, dnw, dn and dstyle
-// may each be null: that gradient is then not written.  The workspace is
-// the plan's workspace_bytes with its tickets (from tickets_offset) zero;
-// the kernels leave them at zero.  Returns 0 or a cudaError_t, as
-// sgt_epilogue_forward does.
+// kernels of `plan`, which sgt_epilogue_bwd_plan made for this (is_bf16, B,
+// R, C), alignment and want_dn (dn not null).  g, x and dx are (B, R, C),
+// noise and dn (B, R) in the forward's dtype; noise_weight and dnw (C,),
+// style and dstyle (B, 2C), saved (B, C) float2, all float32.  dx, dnw, dn
+// and dstyle may each be null: that gradient is then not written.  The
+// workspace is the plan's workspace_bytes with its tickets (from
+// tickets_offset) zero; the kernels leave them at zero.  Returns 0 or a
+// cudaError_t, as sgt_epilogue_forward does.
 extern "C" int sgt_epilogue_backward(
     const void* g, const void* x, const void* noise, const void* noise_weight,
     const void* style, const void* saved, void* dx, void* dnw, void* dn,

@@ -79,18 +79,12 @@ constexpr long long kMaxSmem = 232448;  // 227 KB: a block's most on sm_90
 constexpr int kMaxCluster = 2;
 constexpr int kMinBlocks = 128;         // about one block per SM of 132
 constexpr int kMinRowBytes = 32;        // a sector: the narrowest chunk row
-// The backward's one-pass chunks may narrow to one 16-byte vector, so that
-// its small bf16 planes at batch 2 still fill the card.
-constexpr int kMinBwdRowBytes = 16;
 // Pass-1 blocks to aim for; bf16 (8-wide vectors, one load in flight) did
 // best with half of f32's on the H100 (PERF.md).
 constexpr int kTargetStatsBlocks = 1024;
-// The backward's two passes: blocks of its pass 1 (and pass 2) to aim for,
-// and the fewest rows a thread.  About two blocks per SM: one wave in both
-// passes, so that each pass-2 block starts on the rows its pass-1 block read
-// last, still in L2 (PERF.md).
+// Blocks of each of the backward's two passes to aim for: about two per SM,
+// one wave in both passes (PERF.md).
 constexpr int kTargetBwdBlocks = 256;
-constexpr int kMinBwdRowsPerThread = 8;
 constexpr int kMinRowsPerThread = 8;
 
 SGT_HD inline long long cdiv(long long a, long long b) { return (a + b - 1) / b; }
@@ -117,16 +111,16 @@ struct OnePass {
   long long rows_per_rank, smem_bytes;
 };
 
-inline bool fit_one_pass(int vec, int elem, int slabs, int min_row_bytes,
-                         int B, long long R, int C, int max_tx, OnePass* f) {
-  // Widest rows first (128 bytes), then narrower down to min_row_bytes;
-  // within a width the smallest cluster whose slabs fit.  A grid of fewer
-  // than kMinBlocks blocks narrows the chunk down to min_row_bytes, then,
-  // for planes of many rows, doubles the cluster.
+inline bool fit_one_pass(int vec, int elem, int slabs, int B, long long R,
+                         int C, int max_tx, OnePass* f) {
+  // Widest rows first (128 bytes), then narrower down to a sector; within a
+  // width the smallest cluster whose slabs fit.  A grid of fewer than
+  // kMinBlocks blocks narrows the chunk down to a sector, then, for planes
+  // of many rows, doubles the cluster.
   int best_tx = 0, best_cl = 0;
   for (int tx = max_tx; tx >= 1 && !best_tx; tx /= 2) {
     const int cc = tx * vec;
-    if (cc * elem < min_row_bytes && tx != max_tx) break;
+    if (cc * elem < kMinRowBytes && tx != max_tx) break;
     for (int cl = 1; cl <= kMaxCluster; cl *= 2) {
       const long long rpr = cdiv(R, cl);
       if (cl > 1 && (cl - 1) * rpr >= R) break;  // a rank would hold no rows
@@ -143,7 +137,7 @@ inline bool fit_one_pass(int vec, int elem, int slabs, int min_row_bytes,
     const long long blocks = (long long)B * cdiv(C, best_tx * vec) * best_cl;
     if (blocks >= kMinBlocks) break;
     const long long rpr2 = cdiv(R, best_cl * 2);
-    if (best_tx > 1 && (best_tx / 2) * vec * elem >= min_row_bytes) {
+    if (best_tx > 1 && (best_tx / 2) * vec * elem >= kMinRowBytes) {
       best_tx /= 2;
     } else if (best_cl < kMaxCluster && rpr2 >= 2 * kThreads &&
                (best_cl * 2 - 1) * rpr2 < R) {
@@ -164,7 +158,7 @@ inline bool fit_one_pass(int vec, int elem, int slabs, int min_row_bytes,
 inline bool one_pass(SgtPlan& p, int elem, int B, long long R, int C,
                      int max_tx) {
   OnePass f;
-  if (!fit_one_pass(p.vec, elem, 1, kMinRowBytes, B, R, C, max_tx, &f))
+  if (!fit_one_pass(p.vec, elem, 1, B, R, C, max_tx, &f))
     return false;
   p.path = 1;
   p.tx = f.tx;
@@ -179,13 +173,14 @@ inline bool one_pass(SgtPlan& p, int elem, int B, long long R, int C,
 }
 
 // Rows of one pass-1 block: about `target` blocks over the grid, at least
-// `min_rows` rows a thread, a whole number of row groups.
-inline long long split_rows(long long target, int min_rows, int B,
-                            long long R, int chunks, int ty) {
+// kMinRowsPerThread rows a thread, a whole number of row groups.
+inline long long split_rows(long long target, int B, long long R, int chunks,
+                            int ty) {
   long long want = target / ((long long)B * chunks);
   if (want < 1) want = 1;
   long long rps = cdiv(R, want);
-  if (rps < (long long)ty * min_rows) rps = (long long)ty * min_rows;
+  if (rps < (long long)ty * kMinRowsPerThread)
+    rps = (long long)ty * kMinRowsPerThread;
   return cdiv(rps, ty) * ty;
 }
 
@@ -199,8 +194,8 @@ inline void two_pass(SgtPlan& p, int B, long long R, int C, int max_tx) {
   p.chunks = (int)cdiv(C, p.chunk_c);
   // half as many pass-1 blocks in bf16
   p.rows_per_split = split_rows(
-      p.vec == 8 ? kTargetStatsBlocks / 2 : kTargetStatsBlocks,
-      kMinRowsPerThread, B, R, p.chunks, p.ty);
+      p.vec == 8 ? kTargetStatsBlocks / 2 : kTargetStatsBlocks, B, R,
+      p.chunks, p.ty);
   p.splits = (int)cdiv(R, p.rows_per_split);
   p.rows_per_block = (long long)p.ty * kMinRowsPerThread;
   p.launches = 2;
@@ -242,8 +237,8 @@ inline int make_plan(int is_bf16, int B, long long R, int C, int aligned,
 }
 
 // The backward's plan: one pass where the slabs of g and x fit on chip (as
-// the forward's path 1, with 16-byte rows allowed), else two passes over
-// the forward's two-pass chunks with the backward's own split target.
+// the forward's path 1), else two passes over the forward's two-pass chunks
+// with the backward's own split target.
 // `aligned`: g, x and dx start on 16-byte boundaries.
 inline int make_bwd_plan(int is_bf16, int B, long long R, int C, int aligned,
                          int want_dn, SgtBwdPlan* out) {
@@ -253,7 +248,7 @@ inline int make_bwd_plan(int is_bf16, int B, long long R, int C, int aligned,
   int max_tx = 1;
   lanes(is_bf16, C, aligned, &p.vec, &max_tx);
   OnePass f;
-  if (fit_one_pass(p.vec, elem, 2, kMinBwdRowBytes, B, R, C, max_tx, &f)) {
+  if (fit_one_pass(p.vec, elem, 2, B, R, C, max_tx, &f)) {
     p.path = 1;
     p.tx = f.tx;
     // the last block's merges give each channel ty / vec >= 1 threads
@@ -267,8 +262,8 @@ inline int make_bwd_plan(int is_bf16, int B, long long R, int C, int aligned,
     p.tx = max_tx;
     p.ty = kThreads / p.tx;
     p.cluster = 1;
-    p.rows_per_split = split_rows(
-        kTargetBwdBlocks, kMinBwdRowsPerThread, B, R, cdiv(C, p.tx * p.vec), p.ty);
+    p.rows_per_split =
+        split_rows(kTargetBwdBlocks, B, R, cdiv(C, p.tx * p.vec), p.ty);
     p.splits = (int)cdiv(R, p.rows_per_split);
     p.launches = 2;
   }

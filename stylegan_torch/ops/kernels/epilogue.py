@@ -302,13 +302,12 @@ def make_bwd_plan(lib, is_bf16: int, b: int, rows: int, c: int,
     return plan
 
 
-def bwd_plan_for(x: torch.Tensor, want_dn: bool = False) -> dict:
-    """The backward's plan for a call on x (with g and dx 16-byte aligned
-    as x is)."""
+def bwd_plan_for(x: torch.Tensor) -> dict:
+    """The backward's plan for a train-step call on x (no dnoise; g and dx
+    16-byte aligned as x is)."""
     b, h, w, c = x.shape
     return make_bwd_plan(_library(), int(x.dtype == torch.bfloat16), b, h * w,
-                         c, int(x.data_ptr() % 16 == 0),
-                         int(want_dn)).as_dict()
+                         c, int(x.data_ptr() % 16 == 0), 0).as_dict()
 
 
 def epilogue_backward(g, x, noise_weight, noise, style, saved,

@@ -41,37 +41,14 @@ VARIANTS = {
     "bf16_sums_unroll_2": [(CU, "kBwdSumsUnrollBf16 = 1",
                             "kBwdSumsUnrollBf16 = 2")],
     "dx_unroll_4": [(CU, "kBwdDxUnroll = 2", "kBwdDxUnroll = 4")],
-    "bf16_dx_unroll_2": [(CU, "kBwdDxUnrollBf16 = 1",
-                          "kBwdDxUnrollBf16 = 2")],
-    "forward_order": [(CU, "kBwdReverse = true", "kBwdReverse = false")],
-    "stream_dx": [(CU, "kBwdStreamDx = false", "kBwdStreamDx = true")],
-    "rows_32": [(PLAN, "kMinBwdRowBytes = 16", "kMinBwdRowBytes = 32")],
+    "bf16_dx_unroll_1": [(CU, "kBwdDxUnrollBf16 = 2",
+                          "kBwdDxUnrollBf16 = 1")],
     "two_pass_only": [(PLAN, "if (fit_one_pass(p.vec, elem, 2,",
                        "if (false && fit_one_pass(p.vec, elem, 2,")],
 }
-for mb in (16, 24, 40):
-    VARIANTS[f"l2_keep_{mb}mb"] = [(CU, "kBwdL2KeepBytes = 0",
-                                    f"kBwdL2KeepBytes = {mb}LL << 20")]
 for n in (128, 384, 512, 1024):
     VARIANTS[f"target_{n}"] = [(PLAN, "kTargetBwdBlocks = 256",
                                 f"kTargetBwdBlocks = {n}")]
-for n in (4, 16, 32):
-    VARIANTS[f"min_rows_{n}"] = [(PLAN, "kMinBwdRowsPerThread = 8",
-                                  f"kMinBwdRowsPerThread = {n}")]
-for n in (2, 3, 4):
-    VARIANTS[f"blocks_per_sm_{n}"] = [(CU, "kBwdBlocksPerSm = 1",
-                                       f"kBwdBlocksPerSm = {n}")]
-
-
-def combine(*names):
-    """A variant made of the replacements of several."""
-    return [r for n in names for r in VARIANTS[n]]
-
-
-VARIANTS.update({
-    "l2_keep_24mb_stream_dx": combine("l2_keep_24mb", "stream_dx"),
-    "l2_keep_40mb_stream_dx": combine("l2_keep_40mb", "stream_dx"),
-})
 BATCH = 2
 
 

@@ -261,15 +261,17 @@ def bwd_plan(lib, bf16, b, rows, c, aligned=1, want_dn=0):
 def test_backward_main_path_plans(plan_lib, res, c, bf16, batch):
     """The 18 backward calls of a 1024^2 G step, at the training batch (2)
     and at the serving batch (8): planes up to 64^2 x 256 hold g and x on
-    chip in one launch with about a block per SM, in clusters of at most 2;
-    the larger ones take two passes of about 256 blocks (one wave of about
-    two blocks per SM), at least 8 rows a thread."""
+    chip in one launch, in clusters of at most 2, with about a block per SM
+    or chunks already at a 32-byte row; the larger ones take two passes of
+    about 256 blocks (one wave of about two blocks per SM), at least 8 rows
+    a thread."""
     for want_dn in (0, 1):
         p = bwd_plan(plan_lib, bf16, batch, res * res, c, want_dn=want_dn)
         check_bwd_plan(p, batch, res * res, c, bf16, 1, want_dn)
         if res <= 64:
             assert p.path == 1 and p.launches == 1 and p.cluster <= 2
-            assert batch * p.chunks * p.cluster >= MIN_BLOCKS
+            assert (batch * p.chunks * p.cluster >= MIN_BLOCKS
+                    or p.chunk_c * (2 if bf16 else 4) == 32)
         else:
             assert p.path == 2 and p.launches == 2
             blocks = p.splits * p.chunks * batch

@@ -45,7 +45,22 @@ Phases, each fatal on failure:
            launch it), then one relativistic-hinge step; (c) one depth-5
            step of the same model on the card and on the CPU with the draws
            pinned (and on the CPU in float64 as the ground truth): losses,
-           gradients and weights within the stated bars.
+           gradients and weights within the stated bars;
+6. trainer (a) progressive FFHQ-1024 training through StyleGAN.train (the
+           yaml with one epoch per depth) from 24 seeded 1024^2 PNGs in two
+           folders: the decoder in use (native or PIL) and the loader's
+           decode rate; depths 7 (batch 4) and 8 (batch 2), fade 50%, grids
+           at least twice per depth (2051x2051x3), the five checkpoint files
+           of tags 7_1 and 8_1, finite losses, 32/16 (depth 7) and 36/18
+           (depth 8) forward/backward epilogue calls per step plus the
+           feedback forwards, no plain call, every batch on the card bitwise
+           equal to the loader's numpy batch (the pinned ring), and the
+           depth-8 windowed img/s of metrics.jsonl beside phase 5(b)'s bare
+           step; (b) restore_full_state into a fresh trainer, bitwise (every
+           tensor, moment and step, update_count), one more step with
+           fetch=False under CUDA's sync debug mode set to error; the train
+           CLI (--start_depth 8 and the five _8_1 files, 4 images) in a
+           subprocess, and the sample CLI on its GAN_GEN_SHADOW_8_1.npz.
 
 The last two lines are {"kernels": [...]} with the kernels' measurements and
 {"ok": true, "device": {...}}; the card's name and power limit precede them.
@@ -55,6 +70,7 @@ Exits non-zero without a result when CUDA is missing or the port is absent.
 import json
 import math
 import os
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -933,6 +949,273 @@ def moments(state):
     return out
 
 
+TRAINER_IMAGES = 24             # seeded 1024^2 PNGs, two FFHQ-style folders
+TRAINER_START_DEPTH = 7         # 512^2 at batch 4, then 1024^2 at batch 2
+TRAINER_FEEDBACK = 4            # grids at i = 1, 2, 4, 6 and 1, 4, 8, 12
+GRID_SIDE = 2 * 1024 + 3        # 2x2 samples at 1024^2, 1 px padding
+RESUME_IMAGES = 4
+
+
+def write_pngs(root, n, res, seed):
+    """n seeded noise images in two subdirectories (the FFHQ layout), PNG at
+    zlib level 1: noise does not compress, and level 6 takes seconds each."""
+    from PIL import Image
+    rs = np.random.default_rng(seed)
+    for i in range(n):
+        sub = os.path.join(root, f"{(i % 2) * 1000:05d}")
+        os.makedirs(sub, exist_ok=True)
+        Image.fromarray(rs.integers(0, 256, (res, res, 3), dtype=np.uint8)
+                        ).save(os.path.join(sub, f"{i:05d}.png"),
+                               compress_level=1)
+
+
+def trainer_cfg(img_dir, output_dir):
+    """configs/sample_ffhq_1024.yaml over the defaults, with a local image
+    directory, one epoch per depth (the yaml lists 6 epochs for 9 depths),
+    4 feedback samples and a checkpoint every epoch."""
+    from stylegan_torch.config import get_default_cfg
+    cfg = get_default_cfg()
+    cfg.merge_from_file(CONFIG)
+    cfg.merge_from_list(["output_dir", output_dir, "dataset.img_dir", img_dir,
+                         "sched.epochs", [1] * 9, "num_samples", 4,
+                         "feedback_factor", TRAINER_FEEDBACK,
+                         "checkpoint_factor", 1])
+    return cfg
+
+
+def phase_trainer(dev, bare_img_s):
+    """FFHQ-1024 progressive training through StyleGAN.train on the card
+    from image files (depths 7 and 8), then its resume in process and
+    through the CLIs; returns the measurements for the report."""
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_trainer_")
+    try:
+        return trainer_run(dev, bare_img_s, tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def trainer_run(dev, bare_img_s, tmp):
+    import yaml
+    from PIL import Image
+    from stylegan_torch.cli.train import build_trainer
+    from stylegan_torch.config import apply_runtime_knobs
+    from stylegan_torch.data import DataLoader, make_dataset, native
+    from stylegan_torch.ops import fused
+    from stylegan_torch.ops.kernels import epilogue as kern
+    from stylegan_torch.utils import make_logger
+
+    data_dir, out = os.path.join(tmp, "ffhq"), os.path.join(tmp, "run")
+    t_phase = t0 = time.perf_counter()
+    write_pngs(data_dir, TRAINER_IMAGES, 1024, seed=40)
+    log(f"trainer: {TRAINER_IMAGES} PNGs at 1024^2 written in "
+        f"{time.perf_counter() - t0:.1f} s")
+    cfg = trainer_cfg(data_dir, out)
+    cfg.freeze()
+    apply_runtime_knobs(cfg)          # float32, TF32 off
+    dataset = make_dataset(cfg.dataset)
+    decoder = native.decoder()
+    # the loader alone: decode + resize + batch, 4 threads, batch 4
+    t0 = time.perf_counter()
+    decoded = sum(len(b) for b in DataLoader(dataset, 4, cfg.num_works))
+    decode_rate = decoded / (time.perf_counter() - t0)
+    log(json.dumps({"trainer_decoder": decoder, "decode_img_per_s":
+                    decode_rate, "decode_workers": cfg.num_works,
+                    "native_build_error": native.build_error}))
+
+    trainer = build_trainer(cfg, dev)
+    os.makedirs(out)
+    logger = make_logger("chip_smoke_trainer", out, "log")
+    steps = []              # (depth, images on the card, fwd, bwd calls)
+    real_step = trainer.train_on_batch
+
+    def step(images, depth, alpha, labels=None, fetch=True):
+        f0, b0 = kern.launches, kern.backward_launches
+        result = real_step(images, depth, alpha, labels, fetch=fetch)
+        steps.append((depth, images.clone(), kern.launches - f0,
+                      kern.backward_launches - b0))
+        return result
+    trainer.train_on_batch = step
+
+    kern.launches = kern.cuda_launches = kern.backward_launches = 0
+    kern.backward_cuda_launches = kern.backward_g_copies = 0
+    fused.plain_calls = 0
+    t0 = time.perf_counter()
+    trainer.train(dataset=dataset, num_workers=cfg.num_works,
+                  epochs=cfg.sched.epochs, batch_sizes=cfg.sched.batch_sizes,
+                  fade_in_percentage=cfg.sched.fade_in_percentage,
+                  logger=logger, output=out, num_samples=cfg.num_samples,
+                  start_depth=TRAINER_START_DEPTH,
+                  feedback_factor=cfg.feedback_factor,
+                  checkpoint_factor=cfg.checkpoint_factor)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = {"forward": kern.launches, "forward_cuda": kern.cuda_launches,
+              "backward": kern.backward_launches,
+              "backward_cuda": kern.backward_cuda_launches,
+              "g_copies": kern.backward_g_copies,
+              "plain_calls": fused.plain_calls}
+    trainer.train_on_batch = real_step
+
+    # the schedule's outputs
+    with open(os.path.join(out, "log.txt")) as f:
+        text = f.read()
+    for d in (TRAINER_START_DEPTH, TRAINER_START_DEPTH + 1):
+        if f"Currently working on depth: {d + 1}" not in text:
+            fail(f"trainer: depth {d} was not announced")
+    with open(os.path.join(out, "metrics.jsonl")) as f:
+        rows = [json.loads(line) for line in f]
+    if not rows or not all(math.isfinite(r["d_loss"]) and
+                           math.isfinite(r["g_loss"]) for r in rows):
+        fail(f"trainer: losses not finite: {rows}")
+    grids = sorted(os.listdir(os.path.join(out, "samples")))
+    per_depth = {d: sum(g.startswith(f"gen_{d}_") for g in grids)
+                 for d in (TRAINER_START_DEPTH, TRAINER_START_DEPTH + 1)}
+    if min(per_depth.values()) < 2:
+        fail(f"trainer: grids per depth {per_depth}")
+    for g in grids:
+        shape = np.asarray(Image.open(os.path.join(out, "samples", g))).shape
+        if shape != (GRID_SIDE, GRID_SIDE, 3):
+            fail(f"trainer: grid {g} has shape {shape}")
+    models = set(os.listdir(os.path.join(out, "models")))
+    want_files = {f"GAN_{k}_{d}_1.npz" for d in (7, 8) for k in (
+        "GEN", "DIS", "GEN_OPTIM", "DIS_OPTIM", "GEN_SHADOW")}
+    if not want_files <= models:
+        fail(f"trainer: missing checkpoints {sorted(want_files - models)}")
+
+    # the epilogue calls: per step by the plans, plus the feedback forwards
+    per_step = {TRAINER_START_DEPTH: (32, 16), TRAINER_START_DEPTH + 1: (36, 18)}
+    bad = [(d, f, b) for d, _, f, b in steps if (f, b) != per_step[d]]
+    if bad:
+        fail(f"trainer: epilogue calls per step {bad[:4]}, want {per_step}")
+    want_fwd = sum(f for _, _, f, _ in steps) + sum(
+        n * (2 * (d + 1)) for d, n in per_depth.items())
+    want_bwd = sum(b for _, _, _, b in steps)
+    if counts["forward"] != want_fwd or counts["backward"] != want_bwd:
+        fail(f"trainer: epilogue calls {counts}, want {want_fwd} forward "
+             f"and {want_bwd} backward")
+    if counts["plain_calls"] != 0:
+        fail(f"trainer: the plain epilogue ran {counts['plain_calls']} times")
+
+    # every batch that reached the card equals the loader's, bitwise
+    for d in (TRAINER_START_DEPTH, TRAINER_START_DEPTH + 1):
+        want = list(DataLoader(dataset, cfg.sched.batch_sizes[d],
+                               cfg.num_works))
+        got = [img for depth, img, _, _ in steps if depth == d]
+        if len(got) != len(want) or not all(
+                torch.equal(g.cpu(), torch.from_numpy(w))
+                for g, w in zip(got, want)):
+            fail(f"trainer: the batches on the card at depth {d} differ from "
+                 "the loader's")
+    first = steps[0][1]
+    step_counts = {d: sum(1 for s in steps if s[0] == d) for d in per_depth}
+    del steps
+
+    # windowed img/s at depth 8 against the bare step of phase 5(b)
+    d8 = [r["imgs_per_sec"] for r in rows
+          if r["depth"] == TRAINER_START_DEPTH + 1 and r["imgs_per_sec"]]
+    if not d8:
+        fail("trainer: no windowed img/s at depth 8")
+    trainer_img_s = sum(d8) / len(d8)
+    report = {"decoder": decoder, "decode_img_per_s": decode_rate,
+              "wall_s": wall, "steps": step_counts,
+              "grids": per_depth, "epilogue_calls": counts,
+              "depth8_windows_img_per_s": d8,
+              "depth8_img_per_s": trainer_img_s,
+              "bare_step_img_per_s": bare_img_s,
+              "trainer_over_bare": trainer_img_s / bare_img_s}
+    log(json.dumps({"trainer": report}))
+
+    # (b) resume: the full state into a fresh trainer, bitwise
+    full = os.path.join(tmp, "full_state")
+    trainer.save_full_state(full, depth=8, epoch=1)
+    fresh = build_trainer(cfg, dev)
+    meta = fresh.restore_full_state(full)
+    if meta.get("update_count") != trainer._update_count or \
+            fresh._update_count != trainer._update_count:
+        fail(f"resume: update_count {meta} vs {trainer._update_count}")
+    for part in ("generator", "discriminator", "g_shadow"):
+        a = getattr(trainer.state, part).state_dict()
+        b = getattr(fresh.state, part).state_dict()
+        if set(a) != set(b) or not all(torch.equal(a[k], b[k]) for k in a):
+            fail(f"resume: {part} differs after restore_full_state")
+    for opt, mod in (("g_optimizer", "generator"),
+                     ("d_optimizer", "discriminator")):
+        pa = dict(getattr(trainer.state, mod).named_parameters())
+        pb = dict(getattr(fresh.state, mod).named_parameters())
+        sa, sb = getattr(trainer.state, opt).state, \
+            getattr(fresh.state, opt).state
+        for name in pa:
+            x, y = sa[pa[name]], sb[pb[name]]
+            if not all(torch.equal(x[k].cpu(), y[k].cpu())
+                       for k in ("step", "exp_avg", "exp_avg_sq")):
+                fail(f"resume: {opt} state of {name} differs")
+    del trainer
+    # fetch=False waits for nothing: no call on its way synchronises
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        d, g = fresh.train_on_batch(first[:2], 8, 1.0, fetch=False)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    d_loss, g_loss = float(d), float(g)
+    if not (math.isfinite(d_loss) and math.isfinite(g_loss)):
+        fail(f"resume: losses {d_loss}, {g_loss}")
+    del fresh, first
+    torch.cuda.empty_cache()
+
+    # the train CLI from the five _8_1 files, then the sample CLI on its
+    # shadow generator
+    small, out2 = os.path.join(tmp, "small"), os.path.join(tmp, "resumed")
+    write_pngs(small, RESUME_IMAGES, 1024, seed=41)
+    with open(CONFIG) as f:
+        doc = yaml.safe_load(f)
+    doc.update(output_dir=out2, num_samples=4, checkpoint_factor=1,
+               feedback_factor=TRAINER_FEEDBACK)
+    doc["dataset"]["img_dir"] = small
+    doc["sched"]["epochs"] = [1] * 9
+    cfg_path = os.path.join(tmp, "resume.yaml")
+    with open(cfg_path, "w") as f:
+        yaml.safe_dump(doc, f)
+    mdir = os.path.join(out, "models")
+    flags = []
+    for flag, kind in (("--generator_file", "GEN"),
+                       ("--gen_shadow_file", "GEN_SHADOW"),
+                       ("--discriminator_file", "DIS"),
+                       ("--gen_optim_file", "GEN_OPTIM"),
+                       ("--dis_optim_file", "DIS_OPTIM")):
+        flags += [flag, os.path.join(mdir, f"GAN_{kind}_8_1.npz")]
+    t0 = time.perf_counter()
+    run([sys.executable, "-m", "stylegan_torch.cli.train", "--config",
+         cfg_path, "--start_depth", "8"] + flags, "train CLI")
+    cli_s = time.perf_counter() - t0
+    shadow = os.path.join(out2, "models", "GAN_GEN_SHADOW_8_1.npz")
+    if not os.path.exists(shadow):
+        fail("train CLI wrote no GAN_GEN_SHADOW_8_1.npz")
+    samples = os.path.join(tmp, "samples")
+    run([sys.executable, "-m", "stylegan_torch.cli.generate_samples",
+         "--config", cfg_path, "--generator_file", shadow, "--num_samples",
+         "2", "--output_dir", samples, "--seed", "0"], "generate_samples")
+    for i in (1, 2):
+        img = np.asarray(Image.open(os.path.join(samples, f"{i}.png")))
+        if img.shape != (1024, 1024, 3):
+            fail(f"sample {i}.png from the resumed run has shape {img.shape}")
+    log(f"resume: full state bitwise, one more step without a sync "
+        f"({d_loss:.4f}, "
+        f"{g_loss:.4f}); train CLI from the _8_1 files in {cli_s:.1f} s; "
+        "2 samples from its shadow")
+    report.update(resume_cli_s=cli_s, phase_s=time.perf_counter() - t_phase)
+    return report
+
+
+def run(cmd, what):
+    """Run a CLI from the repo root; fail with its output if it fails."""
+    r = subprocess.run(cmd, cwd=REPO, capture_output=True, text=True,
+                       timeout=600)
+    if r.returncode != 0:
+        fail(f"{what} exited {r.returncode}:\n{r.stdout[-4000:]}\n"
+             f"{r.stderr[-4000:]}")
+    return r
+
+
 def phase_cli(cpu_gen):
     from PIL import Image
     from stylegan_torch.convert import save_generator_file
@@ -941,14 +1224,9 @@ def phase_cli(cpu_gen):
         save_generator_file(cpu_gen, npz)
         out_dir = os.path.join(tmp, "samples")
         t0 = time.perf_counter()
-        r = subprocess.run(
-            [sys.executable, "-m", "stylegan_torch.cli.generate_samples",
+        run([sys.executable, "-m", "stylegan_torch.cli.generate_samples",
              "--config", CONFIG, "--generator_file", npz, "--num_samples",
-             "2", "--output_dir", out_dir, "--seed", "0"],
-            cwd=REPO, capture_output=True, text=True, timeout=600)
-        if r.returncode != 0:
-            fail(f"generate_samples exited {r.returncode}:\n{r.stdout}\n"
-                 f"{r.stderr}")
+             "2", "--output_dir", out_dir, "--seed", "0"], "generate_samples")
         for i in (1, 2):
             img = np.asarray(Image.open(os.path.join(out_dir, f"{i}.png")))
             if img.shape != (1024, 1024, 3):
@@ -981,6 +1259,8 @@ def main():
     del cpu_gen
     train = phase_train(dev)
     check = phase_train_vs_cpu(dev)
+    trainer = phase_trainer(dev, train["img_per_s"])
+    calls = trainer["epilogue_calls"]
 
     kernels = [{
         "name": "epilogue", "route": "cuda",
@@ -997,6 +1277,8 @@ def main():
         "bf16_bound_ms": summary["bf16_bound_ms"],
         "profiled_forward_ms": profiled_ms,
         "train_launches": train["forward_calls"],
+        "trainer_launches": calls["forward"],
+        "trainer_cuda_launches": calls["forward_cuda"],
         "shapes": "the 18 float32 calls of one batch-8 1024^2 forward; ms "
                   "and plain_ms device time (CUDA graph replay, x warm in "
                   "L2), cold_ms the same with x and out cold in L2, call_ms "
@@ -1004,7 +1286,8 @@ def main():
                   "same 18 calls in bfloat16, profiled_forward_ms the "
                   "kernels' device time inside one profiled forward; "
                   "launches over the 3 served requests, train_launches "
-                  "over the 3 train steps",
+                  "over the 3 train steps, trainer_launches over phase 6's "
+                  "StyleGAN.train run (its steps and feedback grids)",
     }, {
         "name": "epilogue_backward", "route": "cuda",
         "source": "stylegan_torch/csrc/epilogue.cu",
@@ -1020,18 +1303,22 @@ def main():
         "bf16_cold_ms": grad["bf16_cold_ms"],
         "bf16_call_ms": grad["bf16_call_ms"],
         "bf16_bound_ms": grad["bf16_bound_ms"],
+        "trainer_launches": calls["backward"],
+        "trainer_cuda_launches": calls["backward_cuda"],
         "shapes": "the 18 float32 calls of one batch-2 1024^2 G backward "
                   "(dx, dnoise_weight, dstyle); ms and plain_ms (the plain "
                   "analytic VJP) device time by CUDA graph replay, cold_ms "
                   "with g and x cold in L2, call_ms eager, bf16_* in "
                   "bfloat16; launches (calls) and cuda_launches over the 3 "
-                  "train steps",
+                  "train steps, trainer_launches over phase 6's "
+                  "StyleGAN.train run",
     }]
     log(json.dumps({"serve_img_per_s": img_s, "batch": BATCH,
                     "resolution": 1024, "dtype": "float32"}))
     log(json.dumps({"train": {k: v for k, v in train.items()
                               if k != "top_ops"},
                     "card_vs_cpu": check}))
+    log(json.dumps({"trainer": trainer}))
     log(card)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

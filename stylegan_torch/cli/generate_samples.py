@@ -9,7 +9,8 @@ Random hypersphere-projected Z samples (z * sqrt(latent)/|z|, reference
 reference, sampling uses train-mode semantics (style mixing + truncation in
 the training branch); --eval gives deterministic truncation-free sampling.
 Runs on CUDA unless --device cpu.  The weights are a JAX-package ``.npz`` or a
-reference ``.pth``.
+reference ``.pth``, loaded strictly (every key, every shape), where the JAX
+CLI loads partially.
 """
 
 from __future__ import annotations
@@ -68,7 +69,8 @@ def main(args):
     gen_cfg = generator_config_from_cfg(opt)
     generator = Generator(gen_cfg)
     print("Loading the generator weights from:", args.generator_file)
-    load_generator_file(generator, args.generator_file)
+    # strict: a sampler has no use for a partly initialised generator
+    load_generator_file(generator, args.generator_file, strict=True)
     generator.requires_grad_(False).to(device)
 
     latent_size = opt.model.gen.latent_size

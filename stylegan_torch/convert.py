@@ -27,13 +27,21 @@ unchanged.  The reference's blur-kernel buffers (G's
 ``conv0_up.intermediate.kernel``, D's ``blocks.{i}.blur.kernel``) are static
 configuration, not weights: ``.pth`` loading drops them, and a D ``.pth``
 written here carries them, as the reference's does.
+
+Loading is partial by default, as the JAX package's is (`load_partial`): a
+shallow checkpoint resumes into a deeper network.  The sample CLI asks for a
+strict load instead: a file that misses keys would otherwise give images of
+an initialised network, which the JAX CLIs warn about only on shapes.
 """
 
 from __future__ import annotations
 
+import json
 import os
 import re
 import tempfile
+import warnings
+from typing import Optional
 
 import numpy as np
 import torch
@@ -116,17 +124,51 @@ def discriminator_state_dict_from_jax_params(params) -> dict:
     return state_dict_from_flat(flatten_params(params))
 
 
-def _load_file(module: nn.Module, path: str) -> nn.Module:
-    """Load a JAX ``.npz`` or a reference ``.pth`` into `module` (strict)."""
+def _read_file(path: str) -> dict:
+    """A JAX ``.npz`` or a reference ``.pth`` as the port's state_dict (the
+    ``.pth``'s blur-kernel buffers dropped)."""
     if path.endswith(".pth"):
         sd = torch.load(path, map_location="cpu", weights_only=True)
-        sd = {k: v for k, v in sd.items() if not k.endswith(_BLUR_BUFFERS)}
-    else:
-        with np.load(path) as z:
-            sd = state_dict_from_flat(
-                {k: z[k] for k in z.files if k != "__metadata__"})
-    module.load_state_dict(sd, strict=True)
+        return {k: v for k, v in sd.items() if not k.endswith(_BLUR_BUFFERS)}
+    with np.load(path) as z:
+        return state_dict_from_flat(
+            {k: z[k] for k in z.files if k != "__metadata__"})
+
+
+def load_partial(module: nn.Module, sd: dict) -> nn.Module:
+    """Load `sd` into `module` with the JAX package's partial semantics
+    (``stylegan_tpu/io/checkpoint.py::unflatten_like``, partial=True, the
+    reference's --start_depth resume): a key the module lacks is ignored, a
+    key `sd` lacks keeps the module's value, and a shape mismatch keeps it
+    too and warns with the count and the first 8 keys (a config mismatch
+    that would otherwise pass for a restored model)."""
+    own = module.state_dict()
+    keep, mismatched = {}, []
+    for k, v in sd.items():
+        if k not in own:
+            continue
+        if tuple(v.shape) == tuple(own[k].shape):
+            keep[k] = v
+        else:
+            mismatched.append(f"{k}: checkpoint {tuple(v.shape)} vs model "
+                              f"{tuple(own[k].shape)}")
+    if mismatched:
+        more = (f" (+{len(mismatched) - 8} more)" if len(mismatched) > 8
+                else "")
+        warnings.warn(
+            f"checkpoint restore kept {len(mismatched)} initialized tensors "
+            f"due to shape mismatches (config mismatch?): "
+            f"{'; '.join(mismatched[:8])}{more}", stacklevel=3)
+    module.load_state_dict(keep, strict=False)
     return module
+
+
+def _load_file(module: nn.Module, path: str, strict: bool) -> nn.Module:
+    sd = _read_file(path)
+    if strict:
+        module.load_state_dict(sd, strict=True)
+        return module
+    return load_partial(module, sd)
 
 
 def _write_atomically(path: str, write):
@@ -145,29 +187,45 @@ def _write_atomically(path: str, write):
         raise
 
 
-def load_generator_file(generator: nn.Module, path: str) -> nn.Module:
-    """Load a JAX ``.npz`` or a reference ``.pth`` into `generator` (strict)."""
-    return _load_file(generator, path)
-
-
-def save_generator_file(generator: nn.Module, path: str):
-    """Write `generator` as a JAX-package ``.npz`` (dotted paths, JAX
-    layouts), atomically: a temp file renamed into place."""
-    flat = flat_from_state_dict(generator.state_dict())
+def save_flat(path: str, flat: dict, metadata: Optional[dict] = None):
+    """Write {dotted path: array} as a JAX-package ``.npz`` atomically, with
+    `metadata` as its ``__metadata__`` entry (JSON bytes), as
+    ``stylegan_tpu/io/checkpoint.py::save_params`` does."""
+    if metadata is not None:
+        flat = dict(flat, __metadata__=np.frombuffer(
+            json.dumps(metadata).encode(), dtype=np.uint8))
     _write_atomically(path, lambda f: np.savez(f, **flat))
 
 
-def load_discriminator_file(discriminator: nn.Module, path: str) -> nn.Module:
+def load_generator_file(generator: nn.Module, path: str,
+                        strict: bool = False) -> nn.Module:
+    """Load a JAX ``.npz`` or a reference ``.pth`` into `generator`, partially
+    as the JAX package does (`load_partial`), or every key and shape
+    required with strict=True."""
+    return _load_file(generator, path, strict)
+
+
+def save_generator_file(generator: nn.Module, path: str,
+                        metadata: Optional[dict] = None):
+    """Write `generator` as a JAX-package ``.npz`` (dotted paths, JAX
+    layouts), atomically: a temp file renamed into place."""
+    save_flat(path, flat_from_state_dict(generator.state_dict()), metadata)
+
+
+def load_discriminator_file(discriminator: nn.Module, path: str,
+                            strict: bool = False) -> nn.Module:
     """Load a JAX ``.npz`` or a reference ``.pth`` into `discriminator`
-    (strict; a ``.pth``'s ``blocks.{i}.blur.kernel`` buffers are dropped)."""
-    return _load_file(discriminator, path)
+    (partially unless strict; a ``.pth``'s ``blocks.{i}.blur.kernel``
+    buffers are dropped)."""
+    return _load_file(discriminator, path, strict)
 
 
-def save_discriminator_file(discriminator: nn.Module, path: str):
+def save_discriminator_file(discriminator: nn.Module, path: str,
+                            metadata: Optional[dict] = None):
     """Write `discriminator` atomically: a path ending in ``.pth`` as a
     reference state_dict (with each block's ``blur.kernel`` buffer, the
     normalised blur of shape (1, 1, k, k)), any other as a JAX-package
-    ``.npz``."""
+    ``.npz`` (with `metadata`)."""
     sd = discriminator.state_dict()
     if path.endswith(".pth"):
         sd = {k: v.detach().cpu().clone() for k, v in sd.items()}
@@ -176,5 +234,4 @@ def save_discriminator_file(discriminator: nn.Module, path: str):
             sd[f"blocks.{i}.blur.kernel"] = kernel
         _write_atomically(path, lambda f: torch.save(sd, f))
     else:
-        flat = flat_from_state_dict(sd)
-        _write_atomically(path, lambda f: np.savez(f, **flat))
+        save_flat(path, flat_from_state_dict(sd), metadata)

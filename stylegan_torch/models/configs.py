@@ -9,9 +9,9 @@ Field names and defaults mirror the reference network constructors:
 
 The JAX package's TPU execution-layout fields (``packed``, ``fold_blur``) are
 left out: they select layouts with the same math, and the port has one
-layout.  The discriminator's ``remat`` (recompute each block in the backward
-instead of holding its activations) is kept; the port honours it with
-``torch.utils.checkpoint``.
+layout.  ``remat`` of the synthesis and the discriminator (recompute each
+block in the backward instead of holding its activations) is kept; the port
+honours it with ``torch.utils.checkpoint``.
 """
 
 from __future__ import annotations
@@ -64,6 +64,9 @@ class SynthesisConfig:
     use_instance_norm: bool = True
     blur_filter: Optional[Tuple[int, ...]] = None
     structure: str = "linear"
+    # recompute each growth block in the backward pass instead of keeping
+    # its activations (the JAX package's remat_blocks)
+    remat: bool = False
 
     @property
     def resolution_log2(self) -> int:
@@ -207,12 +210,16 @@ def discriminator_config_from_args(structure, resolution, num_channels,
 
 
 def generator_config_from_cfg(cfg) -> GeneratorConfig:
-    """Build a GeneratorConfig from a full yacs-style cfg.  The ``ops.*``
-    layout knobs are not read: they have no effect on the port's math."""
-    return generator_config_from_args(
+    """Build a GeneratorConfig from a full yacs-style cfg; ``ops.remat`` is
+    read, the other ``ops.*`` layout knobs have no effect on the port's
+    math."""
+    g = generator_config_from_args(
         cfg.structure, cfg.dataset.resolution, cfg.dataset.channels,
         cfg.model.gen.latent_size, cfg.conditional, cfg.n_classes,
         cfg.model.gen)
+    if getattr(cfg.ops, "remat", False):
+        g = replace(g, synthesis=replace(g.synthesis, remat=True))
+    return g
 
 
 def discriminator_config_from_cfg(cfg) -> DiscriminatorConfig:

@@ -10,6 +10,10 @@ Per-layer noise is drawn from a ``torch.Generator`` seeded from
 (seed, layer index), so skipping a branch never shifts another layer's draw,
 or comes from a pinned list of maps (``noises=``, the reference's
 NoiseLayer.noise analysis hook, CustomLayers.py:195-198).
+
+With ``cfg.remat`` each growth block is recomputed in the backward pass
+(``torch.utils.checkpoint``): its two epilogue kernels then launch once more
+per block in a G update's backward.
 """
 
 from __future__ import annotations
@@ -20,6 +24,7 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..ops import (EqualizedConv2d, EqualizedLinear, add_noise, instance_norm,
                    leaky_relu, make_blur_kernel, pixel_norm, style_modulate,
@@ -216,9 +221,14 @@ class GSynthesis(nn.Module):
 
         def block(i, x):
             layer0 = 2 * (i + 1)
-            return self.blocks[i](x, dlatents[:, layer0:layer0 + 2],
-                                  noise(layer0), noise(layer0 + 1),
-                                  self.blur_kernel)
+            args = (x, dlatents[:, layer0:layer0 + 2], noise(layer0),
+                    noise(layer0 + 1), self.blur_kernel)
+            if cfg.remat and torch.is_grad_enabled():
+                # the noise maps are drawn here and handed in, so the
+                # recompute sees the same ones; the block's two epilogues
+                # run again in the backward
+                return checkpoint(self.blocks[i], *args, use_reentrant=False)
+            return self.blocks[i](*args)
 
         x = self.init_block(dlatents[:, 0:2], noise(0), noise(1))
 

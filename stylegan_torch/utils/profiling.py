@@ -1,0 +1,55 @@
+"""Observability hooks (the port's copy of
+``stylegan_tpu/utils/profiling.py``, less its ``trace()``, which arrives
+with the port's ``torch.profiler`` slice).
+
+* ``StepTimer`` — cheap host-side step timing with EMA smoothing and img/s.
+* ``MetricsWriter`` — JSONL metrics stream (one dict per line) that tools can
+  tail; doubles as the trainer's machine-readable log.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import time
+from typing import Optional
+
+
+class StepTimer:
+    def __init__(self, smoothing: float = 0.9):
+        self.smoothing = smoothing
+        self._last = None
+        self.ema_step_time = None
+
+    def tick(self) -> Optional[float]:
+        """Call once per step; returns smoothed step time (seconds) or None."""
+        now = time.perf_counter()
+        if self._last is not None:
+            dt = now - self._last
+            if self.ema_step_time is None:
+                self.ema_step_time = dt
+            else:
+                self.ema_step_time = (self.smoothing * self.ema_step_time
+                                      + (1 - self.smoothing) * dt)
+        self._last = now
+        return self.ema_step_time
+
+    def images_per_sec(self, batch_size: int) -> Optional[float]:
+        if not self.ema_step_time:
+            return None
+        return batch_size / self.ema_step_time
+
+
+class MetricsWriter:
+    """Append-only JSONL metrics file."""
+
+    def __init__(self, path: str):
+        os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+        self._f = open(path, "a", buffering=1)
+
+    def write(self, **metrics):
+        metrics.setdefault("time", time.time())
+        self._f.write(json.dumps(metrics) + "\n")
+
+    def close(self):
+        self._f.close()

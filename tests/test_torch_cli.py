@@ -1,7 +1,9 @@
-"""The port's generate CLI (python -m stylegan_torch.cli.generate_samples)
-as a real subprocess on the CPU, at a tiny configuration."""
+"""The port's CLIs (python -m stylegan_torch.cli.generate_samples and
+python -m stylegan_torch.cli.train) as real subprocesses on the CPU, at a
+tiny configuration."""
 
 import os
+import shutil
 import subprocess
 import sys
 
@@ -101,3 +103,105 @@ def test_cli_spatial_devices_not_ported(toy):
          "--spatial_devices", "2", "--device", "cpu"])
     with pytest.raises(NotImplementedError):
         generate_samples.main(args)
+
+
+# --------------------------------------------------------------------------
+# python -m stylegan_torch.cli.train
+
+TRAIN_RES = 8
+
+
+def _run_train(args, ok=True):
+    env = dict(os.environ, OMP_NUM_THREADS="1")
+    env.pop("PYTHONPATH", None)
+    r = subprocess.run([sys.executable, "-m", "stylegan_torch.cli.train"]
+                       + args, cwd=REPO, env=env, capture_output=True,
+                       text=True, timeout=600)
+    if ok:
+        assert r.returncode == 0, f"{r.stdout}\n{r.stderr}"
+    return r
+
+
+@pytest.fixture(scope="module")
+def train_toy(tmp_path_factory):
+    """A flat directory of 8 PNGs and a toy yaml (resolution 8, batch 4,
+    one epoch per depth); its output directories are removed afterwards
+    (the 512-channel checkpoints take hundreds of MB)."""
+    tmp = tmp_path_factory.mktemp("torch_cli_train")
+    data = tmp / "data"
+    data.mkdir()
+    rs = np.random.RandomState(0)
+    for i in range(8):
+        Image.fromarray(rs.randint(0, 255, (12, 12, 3), np.uint8)).save(
+            data / f"{i:02d}.png")
+
+    def config(name):
+        path = tmp / f"{name}.yaml"
+        path.write_text(f"""
+output_dir: '{tmp / name}'
+structure: 'linear'
+feedback_factor: 1
+checkpoint_factor: 1
+num_samples: 4
+num_works: 1
+loss: 'logistic'
+model:
+  gen: {{latent_size: 32, mapping_layers: 2}}
+dataset: {{img_dir: '{data}', folder: False, resolution: {TRAIN_RES}}}
+sched:
+  epochs: [1, 1]
+  batch_sizes: [4, 4]
+  fade_in_percentage: [50, 50]
+""")
+        return str(path)
+    yield tmp, config
+    shutil.rmtree(tmp, ignore_errors=True)
+
+
+def test_train_cli_runs_and_resumes_on_cpu(train_toy):
+    """One depth from scratch (--start_depth 1), then a resume from its five
+    files into a new output_dir; the first run's directory is refused."""
+    tmp, config = train_toy
+    first = config("first")
+    _run_train(["--config", first, "--start_depth", "1", "--device", "cpu"])
+    out = tmp / "first"
+    assert sorted(os.listdir(out / "samples")) == ["gen_1_1_1.png"]
+    assert sorted(os.listdir(out / "models")) == sorted(
+        f"GAN_{k}_1_1.npz" for k in ("GEN", "DIS", "GEN_OPTIM", "DIS_OPTIM",
+                                     "GEN_SHADOW"))
+    assert (out / "log.txt").exists() and (out / "metrics.jsonl").exists()
+    assert (out / "first.yaml").exists()
+    assert (out / "src" / "stylegan_torch" / "cli" / "train.py").exists()
+    assert (out / "src" / "stylegan_torch" / "csrc" / "epilogue.cu").exists()
+    grid = np.asarray(Image.open(out / "samples" / "gen_1_1_1.png"))
+    assert grid.shape == (2 * TRAIN_RES + 3, 2 * TRAIN_RES + 3, 3)
+
+    r = _run_train(["--config", first, "--device", "cpu"], ok=False)
+    assert r.returncode != 0 and "already exists" in r.stderr
+
+    models = out / "models"
+    second = config("second")
+    flags = ["--generator_file", "GAN_GEN_1_1.npz",
+             "--gen_shadow_file", "GAN_GEN_SHADOW_1_1.npz",
+             "--discriminator_file", "GAN_DIS_1_1.npz",
+             "--gen_optim_file", "GAN_GEN_OPTIM_1_1.npz",
+             "--dis_optim_file", "GAN_DIS_OPTIM_1_1.npz"]
+    flags = [str(models / f) if f.endswith(".npz") else f for f in flags]
+    r = _run_train(["--config", second, "--start_depth", "1", "--device",
+                    "cpu"] + flags)
+    log = (tmp / "second" / "log.txt").read_text()
+    for what in ("generator params", "EMA shadow", "discriminator params",
+                 "generator optimizer", "discriminator optimizer"):
+        assert f"Restoring {what}" in log, what
+    with np.load(tmp / "second" / "models" / "GAN_GEN_OPTIM_1_1.npz") as z:
+        assert int(z["1.0.count"]) == 2 * int(
+            np.load(models / "GAN_GEN_OPTIM_1_1.npz")["1.0.count"])
+
+
+def test_train_cli_refuses_more_devices(train_toy):
+    from stylegan_torch.cli import train
+    _, config = train_toy
+    args = train.parse_arguments(["--config", config("many"),
+                                  "--num_devices", "2", "--device", "cpu"])
+    with pytest.raises(NotImplementedError, match="queue 7"):
+        train.main(args)

@@ -56,7 +56,10 @@ Phases, each fatal on failure:
            feedback forwards, no plain call, every batch on the card bitwise
            equal to the loader's numpy batch (the pinned ring), and the
            depth-8 windowed img/s of metrics.jsonl beside phase 5(b)'s bare
-           step; (b) restore_full_state into a fresh trainer, bitwise (every
+           step, with the host's ms per step in those windows (waiting for
+           the loader, the pinned copy, train_on_batch, the wait for the
+           device) and the same trainer's steps on a batch already on the
+           card with no loader running; (b) restore_full_state into a fresh trainer, bitwise (every
            tensor, moment and step, update_count), one more step with
            fetch=False under CUDA's sync debug mode set to error; the train
            CLI (--start_depth 8 and the five _8_1 files, 4 images) in a
@@ -67,6 +70,7 @@ The last two lines are {"kernels": [...]} with the kernels' measurements and
 Exits non-zero without a result when CUDA is missing or the port is absent.
 """
 
+import contextlib
 import json
 import math
 import os
@@ -954,6 +958,7 @@ TRAINER_START_DEPTH = 7         # 512^2 at batch 4, then 1024^2 at batch 2
 TRAINER_FEEDBACK = 4            # grids at i = 1, 2, 4, 6 and 1, 4, 8, 12
 GRID_SIDE = 2 * 1024 + 3        # 2x2 samples at 1024^2, 1 px padding
 RESUME_IMAGES = 4
+NO_LOADER_STEPS = 6
 
 
 def write_pngs(root, n, res, seed):
@@ -994,6 +999,98 @@ def phase_trainer(dev, bare_img_s):
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+@contextlib.contextmanager
+def host_spans(trainer, spans):
+    """While StyleGAN.train runs, append to `spans` each wait of its loop for
+    the next batch ("next": the loader, and the pinned copy inside it) and
+    each pinned copy ("copy"), on the host clock; yields the feedback points
+    as [depth, start of the sampling, end of the grid write]."""
+    from stylegan_torch.data import PinnedRing
+    from stylegan_torch.train import trainer as trainer_mod
+    real_prefetch, real_send = trainer_mod.device_prefetch, PinnedRing.send
+    real_grid, real_sample = trainer_mod.save_image_grid, trainer.sample
+    feedback = []
+
+    def prefetch(*a, **kw):
+        batches = real_prefetch(*a, **kw)
+        while True:
+            t0 = time.perf_counter()
+            batch = next(batches, None)
+            if batch is None:
+                return
+            spans.append(("next", t0, time.perf_counter()))
+            yield batch
+
+    def send(ring, arrays):
+        t0 = time.perf_counter()
+        out = real_send(ring, arrays)
+        spans.append(("copy", t0, time.perf_counter()))
+        return out
+
+    def sample(depth, alpha, **kw):
+        feedback.append([depth, time.perf_counter(), None])
+        return real_sample(depth, alpha, **kw)
+
+    def grid(*a, **kw):
+        real_grid(*a, **kw)
+        feedback[-1][2] = time.perf_counter()
+
+    trainer_mod.device_prefetch, PinnedRing.send = prefetch, send
+    trainer_mod.save_image_grid, trainer.sample = grid, sample
+    try:
+        yield feedback
+    finally:
+        trainer_mod.device_prefetch, PinnedRing.send = real_prefetch, real_send
+        trainer_mod.save_image_grid = real_grid
+        del trainer.sample
+
+
+def window_breakdown(spans, feedback, depth, n_windows):
+    """The host's ms per step in the throughput windows at `depth` (each from
+    a grid's end to the next feedback point's sampling, as the trainer times
+    them): waiting for the next batch (loader_wait, the pinned copy apart),
+    in train_on_batch (step: launches), and the rest (device_wait: the
+    feedback point's wait for the queued steps, and the loop itself)."""
+    points = [f for f in feedback if f[0] == depth]
+    windows = [(a[2], b[1]) for a, b in zip(points, points[1:])]
+    if len(windows) != n_windows:
+        fail(f"trainer: {len(windows)} timed windows at depth {depth}, "
+             f"metrics.jsonl has {n_windows}")
+
+    def within(kind):
+        return sum(max(0.0, min(t1, hi) - max(t0, lo))
+                   for k, t0, t1 in spans if k == kind for lo, hi in windows)
+    n = sum(1 for k, t0, _ in spans
+            if k == "step" and any(lo <= t0 <= hi for lo, hi in windows))
+    wall = sum(hi - lo for lo, hi in windows)
+    nxt, copy, launch = within("next"), within("copy"), within("step")
+    ms = 1e3 / n
+    return {"steps": n, "wall": wall * ms, "loader_wait": (nxt - copy) * ms,
+            "pinned_copy": copy * ms, "step": launch * ms,
+            "device_wait": (wall - nxt - launch) * ms}
+
+
+def steps_without_loader(trainer, images, depth):
+    """The trainer's steps on one batch already on the card, queued as its
+    loop queues them (fetch=False, one wait at the end), with no loader
+    running: img/s, and the host's ms per step in train_on_batch."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    host = 0.0
+    for _ in range(NO_LOADER_STEPS):
+        s0 = time.perf_counter()
+        d, g = trainer.train_on_batch(images, depth, 1.0, fetch=False)
+        host += time.perf_counter() - s0
+    losses = (float(d), float(g))
+    wall = time.perf_counter() - t0
+    if not all(math.isfinite(v) for v in losses):
+        fail(f"trainer: losses {losses} in the steps without the loader")
+    return {"steps": NO_LOADER_STEPS,
+            "img_per_s": NO_LOADER_STEPS * len(images) / wall,
+            "ms_per_step": wall / NO_LOADER_STEPS * 1e3,
+            "step_ms": host / NO_LOADER_STEPS * 1e3}
+
+
 def trainer_run(dev, bare_img_s, tmp):
     import yaml
     from PIL import Image
@@ -1026,11 +1123,14 @@ def trainer_run(dev, bare_img_s, tmp):
     os.makedirs(out)
     logger = make_logger("chip_smoke_trainer", out, "log")
     steps = []              # (depth, images on the card, fwd, bwd calls)
+    spans = []              # (kind, start, end) on the host clock
     real_step = trainer.train_on_batch
 
     def step(images, depth, alpha, labels=None, fetch=True):
         f0, b0 = kern.launches, kern.backward_launches
+        t0 = time.perf_counter()
         result = real_step(images, depth, alpha, labels, fetch=fetch)
+        spans.append(("step", t0, time.perf_counter()))
         steps.append((depth, images.clone(), kern.launches - f0,
                       kern.backward_launches - b0))
         return result
@@ -1040,13 +1140,15 @@ def trainer_run(dev, bare_img_s, tmp):
     kern.backward_cuda_launches = kern.backward_g_copies = 0
     fused.plain_calls = 0
     t0 = time.perf_counter()
-    trainer.train(dataset=dataset, num_workers=cfg.num_works,
-                  epochs=cfg.sched.epochs, batch_sizes=cfg.sched.batch_sizes,
-                  fade_in_percentage=cfg.sched.fade_in_percentage,
-                  logger=logger, output=out, num_samples=cfg.num_samples,
-                  start_depth=TRAINER_START_DEPTH,
-                  feedback_factor=cfg.feedback_factor,
-                  checkpoint_factor=cfg.checkpoint_factor)
+    with host_spans(trainer, spans) as feedback:
+        trainer.train(dataset=dataset, num_workers=cfg.num_works,
+                      epochs=cfg.sched.epochs,
+                      batch_sizes=cfg.sched.batch_sizes,
+                      fade_in_percentage=cfg.sched.fade_in_percentage,
+                      logger=logger, output=out, num_samples=cfg.num_samples,
+                      start_depth=TRAINER_START_DEPTH,
+                      feedback_factor=cfg.feedback_factor,
+                      checkpoint_factor=cfg.checkpoint_factor)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts = {"forward": kern.launches, "forward_cuda": kern.cuda_launches,
@@ -1107,22 +1209,30 @@ def trainer_run(dev, bare_img_s, tmp):
             fail(f"trainer: the batches on the card at depth {d} differ from "
                  "the loader's")
     first = steps[0][1]
+    x8 = next(img for d, img, _, _ in steps if d == TRAINER_START_DEPTH + 1)
     step_counts = {d: sum(1 for s in steps if s[0] == d) for d in per_depth}
     del steps
 
-    # windowed img/s at depth 8 against the bare step of phase 5(b)
+    # windowed img/s at depth 8 against the bare step of phase 5(b), and
+    # where the host's time in those windows went
     d8 = [r["imgs_per_sec"] for r in rows
           if r["depth"] == TRAINER_START_DEPTH + 1 and r["imgs_per_sec"]]
     if not d8:
         fail("trainer: no windowed img/s at depth 8")
     trainer_img_s = sum(d8) / len(d8)
+    host_ms = window_breakdown(spans, feedback, TRAINER_START_DEPTH + 1,
+                               len(d8))
+    no_loader = steps_without_loader(trainer, x8, TRAINER_START_DEPTH + 1)
     report = {"decoder": decoder, "decode_img_per_s": decode_rate,
               "wall_s": wall, "steps": step_counts,
               "grids": per_depth, "epilogue_calls": counts,
               "depth8_windows_img_per_s": d8,
               "depth8_img_per_s": trainer_img_s,
               "bare_step_img_per_s": bare_img_s,
-              "trainer_over_bare": trainer_img_s / bare_img_s}
+              "trainer_over_bare": trainer_img_s / bare_img_s,
+              "depth8_host_ms_per_step": host_ms,
+              "depth8_no_loader": no_loader,
+              "trainer_over_no_loader": trainer_img_s / no_loader["img_per_s"]}
     log(json.dumps({"trainer": report}))
 
     # (b) resume: the full state into a fresh trainer, bitwise

@@ -57,8 +57,9 @@ from .state import create_train_state, lazy_reg_adam_correction
 from .steps import (build_d_step, build_g_step, build_sample_fn,
                     build_train_step)
 
-# streams of `seed`: module init; the draws of each step and sample
-_INIT, _STEP = 0x49, 0x53
+# streams of `seed`: module init; the fused step of each update; the other
+# draws (feedback samples, the split update API)
+_INIT, _STEP, _DRAW = 0x49, 0x53, 0x44
 
 
 def _refuse_parallel(mesh, max_devices, spatial_devices):
@@ -153,7 +154,7 @@ class StyleGAN:
         self.state = create_train_state(gen, dis, dict(g_opt_args),
                                         dict(d_opt_args), use_ema=use_ema)
         self._z = torch.Generator(device=self.device).manual_seed(self.seed)
-        self._seeds = 0
+        self._draws = 0
         self._steps = {}        # step key -> step function
         self._sample_fns = {}   # depth -> sampler
 
@@ -201,10 +202,11 @@ class StyleGAN:
         return torch.randn((batch, self.latent_size), generator=self._z,
                            device=self.device)
 
-    def _step_seed(self) -> int:
-        """A fresh integer seed per update (the JAX trainer's _next_key)."""
-        self._seeds += 1
-        return stream_seed(self.seed, _STEP, self._seeds)
+    def _draw_seed(self) -> int:
+        """A fresh integer seed per draw outside the fused step (the JAX
+        trainer's _next_key)."""
+        self._draws += 1
+        return stream_seed(self.seed, _DRAW, self._draws)
 
     # ------------------------------------------------------------------
     # Reference-parity single-network update API (GAN.py:591-659)
@@ -219,7 +221,7 @@ class StyleGAN:
         s = self.state
         loss = self._steps[key](
             s.generator, s.discriminator, s.d_optimizer,
-            self._tensor(real_batch), self._tensor(noise), self._step_seed(),
+            self._tensor(real_batch), self._tensor(noise), self._draw_seed(),
             float(alpha), self._labels(labels))
         return float(loss)
 
@@ -234,7 +236,7 @@ class StyleGAN:
         s = self.state
         loss = self._steps[key](
             s.generator, s.discriminator, s.g_optimizer, s.g_shadow,
-            self._tensor(real_batch), self._tensor(noise), self._step_seed(),
+            self._tensor(real_batch), self._tensor(noise), self._draw_seed(),
             float(alpha), self._labels(labels))
         return float(loss)
 
@@ -257,8 +259,11 @@ class StyleGAN:
         step = self._get_step(depth, with_r1)
         reals = self._tensor(images)
         z = self._draw_z(reals.shape[0])
-        _, metrics = step(self.state, reals, z, self._step_seed(),
-                          float(alpha), self._labels(labels))
+        # the update count, which a full-state resume restores, seeds the
+        # step's noise and style mixing
+        seed = stream_seed(self.seed, _STEP, self._update_count)
+        _, metrics = step(self.state, reals, z, seed, float(alpha),
+                          self._labels(labels))
         if not fetch:
             return metrics["d_loss"], metrics["g_loss"]
         return float(metrics["d_loss"]), float(metrics["g_loss"])
@@ -271,7 +276,7 @@ class StyleGAN:
         shadow = self.state.g_shadow if self.use_ema else None
         module = shadow if shadow is not None else self.state.generator
         z = self._draw_z(num_samples) if z is None else self._tensor(z)
-        images, new_avg = fn(module, z, self._step_seed(), float(alpha),
+        images, new_avg = fn(module, z, self._draw_seed(), float(alpha),
                              self._labels(labels))
         if update_shadow_avg and new_avg is not None and shadow is not None:
             with torch.no_grad():

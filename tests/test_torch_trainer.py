@@ -188,6 +188,19 @@ def test_full_state_round_trip_keeps_update_count(tmp_path):
     a = flat_from_state_dict(t.state.discriminator.state_dict())
     b = flat_from_state_dict(fresh.state.discriminator.state_dict())
     assert all(np.array_equal(a[k], b[k]) for k in a)
+    # the next update seeds its noise and style mixing alike in both
+    seeds = []
+    for trainer in (t, fresh):
+        def spy(depth, with_r1, get_step=trainer._get_step):
+            step = get_step(depth, with_r1)
+
+            def run(state, reals, z, seed, *rest):
+                seeds.append(seed)
+                return step(state, reals, z, seed, *rest)
+            return run
+        trainer._get_step = spy
+        trainer.train_on_batch(imgs, depth=1, alpha=1.0)
+    assert seeds[0] == seeds[1]
 
 
 def test_fixed_structure_trains_last_depth_only(tmp_path):

@@ -16,7 +16,9 @@ Phases, each fatal on failure:
            than 100 MB of buffers so that L2 is cold; and eager calls); hold
            it too at ragged shapes that take its scalar (unvectorised) path;
            check the autograd.Function's gradients against autograd of the
-           plain version;
+           plain version; then hold the forward to the plain version at the 9
+           shapes in float32 at the batch sizes the tool CLIs of phase 7 give
+           it (3, 5, 6, 16, 40), with the same bar and bitwise repeat;
 3. slice   build the FFHQ-1024 generator of configs/sample_ffhq_1024.yaml with
            seeded random weights (noise weights included), serve 3 requests of
            batch 8 at 1024^2 through make_serving_fn, check shapes, finiteness
@@ -63,7 +65,26 @@ Phases, each fatal on failure:
            tensor, moment and step, update_count), one more step with
            fetch=False under CUDA's sync debug mode set to error; the train
            CLI (--start_depth 8 and the five _8_1 files, 4 images) in a
-           subprocess, and the sample CLI on its GAN_GEN_SHADOW_8_1.npz.
+           subprocess, and the sample CLI on its GAN_GEN_SHADOW_8_1.npz;
+7. tools   the generation CLIs on FFHQ-1024 (configs/sample_ffhq_1024.yaml,
+           and its _truncation variant for the truncation figure and sweep):
+           seeded weights, noise weights included, the W average the mean of
+           mapped W over a seeded batch; each CLI's main() in process with
+           the kernel's counters reset: the grid (10x4, one forward), the
+           mixing figure (5 forwards) and the truncation figure (2) at depth
+           8, the video's walk (2 points x 8 frames) and truncation sweep (16
+           frames), 2 forwards of 8 each, and eval_metrics on 24 seeded 1024^2
+           PNGs with --num_samples 16: swd, fid and is (a seeded-init
+           Inception .npz), ppl with the pyramid-L2 fallback and with a
+           seeded-init LPIPS .npz (2 forwards each); each output's shape and
+           finiteness, 18 epilogue calls per forward and no plain call; then
+           one subprocess of every CLI, all at once, on the card, convert
+           included (a synthetic official TF pickle of the same generator,
+           its .npz bitwise; --export_pth of G and D, their state_dicts and
+           blur buffers); then the mixing figure at depth 5 on the card and
+           on the CPU with the noise maps drawn on the CPU (max |diff| <=
+           1e-2) and Inception features of 4 of its images (<= 1e-3
+           relative, TF32 off).
 
 The last two lines are {"kernels": [...]} with the kernels' measurements and
 {"ok": true, "device": {...}}; the card's name and power limit precede them.
@@ -1344,6 +1365,426 @@ def phase_cli(cpu_gen):
         log(f"cli: 2 samples at 1024^2 in {time.perf_counter() - t0:.1f} s")
 
 
+# the batch sizes the tool CLIs give the epilogue kernel (phase 7): the
+# mixing figure's 3 and 5, the truncation figure's 6, eval_metrics' default
+# 16 and the grid's 10x4
+TOOL_BATCHES = (3, 5, 6, 16, 40)
+
+
+def phase_kernel_batches(dev):
+    """The forward kernel against its plain version at the 9 epilogue shapes
+    in float32 at the tool CLIs' batch sizes, with phase 2's bar and its
+    bitwise repeat; returns {batch: max |diff|}."""
+    from stylegan_torch.ops import fused
+    from stylegan_torch.ops.kernels import epilogue as kern
+    g = torch.Generator(device=dev).manual_seed(7)
+    worst = {}
+    for batch in TOOL_BATCHES:
+        err_b, plans = 0.0, []
+        for res, c in EPILOGUE_SHAPES:
+            args = epilogue_inputs(g, dev, torch.float32, res, c, batch)
+            with torch.no_grad():
+                got = fused.fused_epilogue(*args)
+                again = fused.fused_epilogue(*args)
+                ref = fused._reference_epilogue(*args)
+            shape = tuple(args[0].shape)
+            if not torch.equal(got, again):
+                fail(f"epilogue {shape} f32: two calls differ")
+            err = float((got - ref).abs().max())
+            if not err <= F32_TOL:
+                fail(f"epilogue {shape} f32: max |diff| {err} > {F32_TOL}")
+            plan = kern.plan_for(args[0])
+            plans.append(f"{res}x{c}:p{plan['path']}c{plan['cluster']}")
+            err_b = max(err_b, err)
+            del args, got, again, ref
+        worst[batch] = err_b
+        log(json.dumps({"epilogue_batch": batch, "dtype": "f32",
+                        "max_abs_err": err_b, "tol": F32_TOL,
+                        "deterministic": True, "plans": plans}))
+    torch.cuda.empty_cache()
+    return worst
+
+
+TRUNC_CONFIG = os.path.join(REPO, "configs", "sample_ffhq_1024_truncation.yaml")
+# epilogue calls of one forward at out_depth 8
+PER_FORWARD = 18
+TOOL_SAMPLES = 16               # eval_metrics --num_samples (one batch of 16)
+TOOL_IMAGES = 24                # seeded 1024^2 PNGs the metrics read as reals
+INCEPTION_REL_TOL = 1e-3        # card vs CPU Inception features, TF32 off
+
+
+def official_pickle(path, state_dict, out_depth):
+    """A synthetic official-format TF pickle (a (G, D, Gs) tuple of
+    dnnlib.tflib.network.Network states, the arrays in TF layouts) holding
+    the reference-keyed generator `state_dict`, as the TF-import tests
+    build one."""
+    import pickle
+    import types
+
+    class Network:
+        def __init__(self, name, variables, components=None):
+            self.name, self.variables = name, variables
+            self.components = components or {}
+
+        def __getstate__(self):
+            return {"version": 3, "name": self.name, "static_kwargs": {},
+                    "components": dict(self.components),
+                    "build_module_src": "raise RuntimeError('never run')",
+                    "build_func_name": "G_style", "variables": self.variables}
+    Network.__module__, Network.__qualname__ = "dnnlib.tflib.network", "Network"
+    saved = {m: sys.modules.get(m) for m in
+             ("dnnlib", "dnnlib.tflib", "dnnlib.tflib.network")}
+    for m in saved:
+        sys.modules[m] = types.ModuleType(m)
+    sys.modules["dnnlib.tflib.network"].Network = Network
+
+    epi = {"epi1.top_epi.noise.weight": "Noise/weight",
+           "epi1.style_mod.lin.weight": "StyleMod/weight",
+           "epi1.style_mod.lin.bias": "StyleMod/bias"}
+    epi2 = {k.replace("epi1", "epi2"): v for k, v in epi.items()}
+    init = {"const": "Const/const", "bias": "Const/bias",
+            "conv.weight": "Conv/weight", "conv.bias": "Conv/bias",
+            **{k: "Const/" + v for k, v in epi.items()},
+            **{k: "Conv/" + v for k, v in epi2.items()}}
+    block = {"conv0_up.weight": "Conv0_up/weight",
+             "conv0_up.bias": "Conv0_up/bias",
+             "conv1.weight": "Conv1/weight", "conv1.bias": "Conv1/bias",
+             **{k: "Conv0_up/" + v for k, v in epi.items()},
+             **{k: "Conv1/" + v for k, v in epi2.items()}}
+    syn, mapping, top = [], [], []
+    for key, t in state_dict.items():
+        v = t.detach().cpu().numpy()
+        if v.ndim == 2 and key.endswith("weight"):
+            v = v.T                                   # (in, out)
+        elif v.ndim == 4 and key.endswith("weight"):
+            v = v.transpose(2, 3, 1, 0)               # HWIO
+        v = np.ascontiguousarray(v)
+        parts = key.split(".")
+        if key.startswith("g_mapping.map.dense"):
+            mapping.append((f"Dense{parts[2][5:]}/{parts[3]}", v))
+        elif key == "truncation.avg_latent":
+            top.append(("dlatent_avg", v))
+        elif key.startswith("g_synthesis.to_rgb."):
+            if int(parts[2]) == out_depth:
+                syn.append((f"ToRGB_lod0/{parts[3]}", v))
+        elif key.startswith("g_synthesis.init_block."):
+            syn.append(("4x4/" + init[".".join(parts[2:])], v))
+        else:
+            res = 2 ** (int(parts[2]) + 3)
+            syn.append((f"{res}x{res}/" + block[".".join(parts[3:])], v))
+    syn.append(("noise0", np.zeros((1, 1, 4, 4), np.float32)))  # dropped
+    gs = Network("G", top, {"synthesis": Network("G_synthesis", syn),
+                            "mapping": Network("G_mapping", mapping)})
+    try:
+        with open(path, "wb") as f:
+            pickle.dump((Network("G", []), Network("D", []), gs), f)
+    finally:
+        for m, mod in saved.items():
+            if mod is None:
+                sys.modules.pop(m, None)
+            else:
+                sys.modules[m] = mod
+
+
+def tools_yaml(tmp, data_dir):
+    """configs/sample_ffhq_1024.yaml with the seeded PNGs as its dataset."""
+    import yaml
+    with open(CONFIG) as f:
+        doc = yaml.safe_load(f)
+    doc["dataset"]["img_dir"] = data_dir
+    path = os.path.join(tmp, "tools.yaml")
+    with open(path, "w") as f:
+        yaml.safe_dump(doc, f)
+    return path
+
+
+def phase_tools(dev):
+    """Phase 7: every generation CLI of the port on FFHQ-1024; returns the
+    epilogue launches of each in-process run."""
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_tools_")
+    try:
+        return tools_run(dev, tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def tools_run(dev, tmp):
+    from PIL import Image
+    from stylegan_torch.cli import (eval_metrics, generate_grid,
+                                    generate_mixing_figure,
+                                    generate_truncation_figure,
+                                    generate_video)
+    from stylegan_torch.cli.common import load_config, load_generator
+    from stylegan_torch.config import get_default_cfg
+    from stylegan_torch.convert import (save_discriminator_file,
+                                        save_generator_file)
+    from stylegan_torch.metrics import (inception_v3_init, lpips_vgg_init,
+                                        make_feature_fn)
+    from stylegan_torch.models import (Discriminator, Generator,
+                                       discriminator_config_from_cfg,
+                                       generator_config_from_cfg)
+    from stylegan_torch.models.synthesis import layer_resolution, make_noise
+    from stylegan_torch.ops import fused
+    from stylegan_torch.ops.kernels import epilogue as kern
+
+    t_phase = time.perf_counter()
+    # FFHQ-1024 with truncation: seeded weights, noise weights included, and
+    # the W average the mean of mapped W over a seeded batch
+    cfg = get_default_cfg()
+    cfg.merge_from_file(TRUNC_CONFIG)
+    cfg.freeze()
+    gen = Generator(generator_config_from_cfg(cfg))
+    gen.load_state_dict(random_state_dict(gen, seed=3), strict=True)
+    with torch.no_grad():
+        z = torch.from_numpy(np.random.default_rng(4).standard_normal(
+            (256, gen.cfg.latent_size), dtype=np.float32))
+        gen.truncation.avg_latent.copy_(gen.g_mapping(z)[:, 0].mean(0))
+    npz = os.path.join(tmp, "gen.npz")
+    save_generator_file(gen, npz)
+    data_dir = os.path.join(tmp, "ffhq")
+    write_pngs(data_dir, TOOL_IMAGES, 1024, seed=50)
+    cfg_path = tools_yaml(tmp, data_dir)
+    inception = os.path.join(tmp, "inception.npz")
+    np.savez(inception, **inception_v3_init(0))
+    lpips = os.path.join(tmp, "lpips.npz")
+    np.savez(lpips, **lpips_vgg_init(0))
+    log(f"tools: weights, {TOOL_IMAGES} PNGs and metric weights written in "
+        f"{time.perf_counter() - t_phase:.1f} s")
+
+    def t(name):
+        return os.path.join(tmp, name)
+    full = gen.cfg.synthesis.depth - 1              # 8: 1024^2
+    small = min(5, full)                            # 5: 128^2
+    base = ["--generator_file", npz]
+    plain_cfg, trunc_cfg = ["--config", cfg_path], ["--config", TRUNC_CONFIG]
+    runs = [
+        ("generate_grid", generate_grid, plain_cfg + base + [
+            "--n_row", "10", "--n_col", "4", "--output_dir", t("grid"),
+            "--seed", "0"], 1),
+        ("generate_mixing_figure", generate_mixing_figure, plain_cfg + base
+         + ["--output", t("mix.png"), "--out_depth", str(full)], 5),
+        ("generate_truncation_figure", generate_truncation_figure, trunc_cfg
+         + base + ["--output", t("trunc.png"), "--out_depth", str(full)],
+         2),
+        ("generate_video_walk", generate_video, plain_cfg + base + [
+            "--output", t("walk.gif"), "--mode", "walk", "--num_points", "2",
+            "--frames_per_step", "8"], 2),
+        ("generate_video_truncation", generate_video, trunc_cfg + base + [
+            "--output", t("sweep.gif"), "--mode", "truncation",
+            "--num_frames", "16"], 2),
+    ]
+    metric = plain_cfg + base + ["--num_samples", str(TOOL_SAMPLES)]
+    ppl_forwards = 2 * math.ceil(TOOL_SAMPLES / 16)   # ppl_samples: a, b
+    runs += [
+        ("eval_metrics_swd", eval_metrics, metric + ["--metric", "swd"], 1),
+        ("eval_metrics_fid", eval_metrics, metric + [
+            "--metric", "fid", "--inception_weights", inception], 1),
+        ("eval_metrics_is", eval_metrics, metric + [
+            "--metric", "is", "--inception_weights", inception], 1),
+        ("eval_metrics_ppl", eval_metrics, metric + ["--metric", "ppl"],
+         ppl_forwards),
+        ("eval_metrics_ppl_lpips", eval_metrics, metric + [
+            "--metric", "ppl", "--lpips_weights", lpips], ppl_forwards),
+    ]
+    launches, times = {}, {}
+    for name, module, argv, forwards in runs:
+        torch.cuda.synchronize()
+        kern.launches = fused.plain_calls = 0
+        t0 = time.perf_counter()
+        out = module.main(module.parse_arguments(argv + ["--device",
+                                                         dev.type]))
+        torch.cuda.synchronize()
+        times[name] = time.perf_counter() - t0
+        launches[name] = kern.launches
+        check_tool_output(name, out, tmp, 2 ** (full + 2))
+        want = forwards * PER_FORWARD
+        log(f"tools: {name} in {times[name]:.2f} s, {kern.launches} epilogue "
+            f"calls (want {want}), {fused.plain_calls} plain")
+        if kern.launches != want or fused.plain_calls:
+            fail(f"{name}: {kern.launches} kernel calls (want {want}), "
+                 f"{fused.plain_calls} plain calls")
+        torch.cuda.empty_cache()
+
+    # one subprocess of every CLI, all at once, on the card: the python -m
+    # entry points; convert imports a synthetic official pickle of the same
+    # generator and exports G and D .pth files
+    pkl = t("official.pkl")
+    official_pickle(pkl, gen.state_dict(), gen.cfg.synthesis.depth - 1)
+    dis = Discriminator(discriminator_config_from_cfg(cfg),
+                        generator=torch.Generator().manual_seed(5))
+    dis_npz = t("dis.npz")
+    save_discriminator_file(dis, dis_npz)
+    sub_depth = ["--out_depth", str(small)]
+    m = [sys.executable, "-m"]
+    cmds = {
+        "convert": m + ["stylegan_torch.cli.convert"] + trunc_cfg + [
+            "--input_file", pkl, "--output_file", t("converted.npz")],
+        "convert_export_gen": m + ["stylegan_torch.cli.convert"] + trunc_cfg
+        + ["--export_pth", "--input_file", npz, "--output_file",
+           t("gen.pth")],
+        "convert_export_dis": m + ["stylegan_torch.cli.convert"] + trunc_cfg
+        + ["--export_pth", "--network", "dis", "--input_file", dis_npz,
+           "--output_file", t("dis.pth")],
+        "generate_grid": m + ["stylegan_torch.cli.generate_grid"] + plain_cfg
+        + base + ["--n_row", "2", "--n_col", "1", "--output_dir",
+                  t("sub_grid")],
+        "generate_mixing_figure": m + [
+            "stylegan_torch.cli.generate_mixing_figure"] + plain_cfg + base
+        + sub_depth + ["--output", t("sub_mix.png")],
+        "generate_truncation_figure": m + [
+            "stylegan_torch.cli.generate_truncation_figure"] + trunc_cfg
+        + base + sub_depth + ["--output", t("sub_trunc.png")],
+        "generate_video": m + ["stylegan_torch.cli.generate_video"]
+        + plain_cfg + base + sub_depth + [
+            "--output", t("sub.gif"), "--num_points", "2",
+            "--frames_per_step", "2", "--batch", "2"],
+        "eval_metrics": m + ["stylegan_torch.cli.eval_metrics"] + plain_cfg
+        + base + ["--num_samples", "4", "--batch", "4"],
+    }
+    sub_s = run_all(cmds)
+    check_converted(gen, dis, tmp)
+    res, res_small = 2 ** (full + 2), 2 ** (small + 2)
+    for name, shape in (("sub_grid/grid.png", (res + 2, 2 * res + 3, 3)),
+                        ("sub_mix.png", (4 * res_small, 6 * res_small, 3)),
+                        ("sub_trunc.png", (2 * res_small, 6 * res_small, 3))):
+        got = np.asarray(Image.open(t(name))).shape
+        if got != shape:
+            fail(f"subprocess {name}: shape {got}, want {shape}")
+
+    # card against CPU: the mixing figure at 128^2 with the noise maps drawn
+    # on the CPU and handed to both, then Inception features of 4 images
+    opt = load_config(cfg_path)               # float32, TF32 off
+    card = load_generator(opt, npz, dev)
+    cpu = load_generator(opt, npz, torch.device("cpu"))
+    torch.set_num_threads(os.cpu_count() or 1)
+
+    def noises(batch):
+        return [make_noise(0, i, batch, layer_resolution(i), "cpu")
+                for i in range(gen.cfg.num_layers)]
+    args = (small, generate_mixing_figure.SRC_SEEDS,
+            generate_mixing_figure.DST_SEEDS,
+            generate_mixing_figure.STYLE_RANGES)
+    _, on_card = generate_mixing_figure.draw_style_mixing_figure(
+        t("card.png"), card, *args, noises=noises)
+    _, on_cpu = generate_mixing_figure.draw_style_mixing_figure(
+        t("cpu.png"), cpu, *args, noises=noises)
+    fig_err = max(float(np.abs(a - b).max()) for a, b in zip(on_card, on_cpu))
+    if not fig_err <= CPU_TOL:
+        fail(f"mixing figure card vs CPU: max |diff| {fig_err} > {CPU_TOL}")
+    imgs01 = np.clip((on_cpu[0][:4] + 1) / 2, 0, 1)
+    params = inception_v3_init(0)
+    f_card = make_feature_fn(params, dev)(imgs01).cpu().numpy()
+    f_cpu = make_feature_fn(params, "cpu")(imgs01).numpy()
+    inc_rel = float(np.abs(f_card - f_cpu).max() / np.abs(f_cpu).max())
+    if not inc_rel <= INCEPTION_REL_TOL:
+        fail(f"Inception features card vs CPU: {inc_rel} relative > "
+             f"{INCEPTION_REL_TOL}")
+    log(f"tools: card vs CPU, mixing figure at {res_small}^2 max |diff| "
+        f"{fig_err:.3e} (bar {CPU_TOL}); Inception features of 4 images "
+        f"{inc_rel:.3e} relative (bar {INCEPTION_REL_TOL})")
+    return {"launches": launches, "cli_s": times, "subprocess_s": sub_s,
+            "mixing_card_vs_cpu": fig_err, "inception_card_vs_cpu": inc_rel,
+            "phase_s": time.perf_counter() - t_phase}
+
+
+def check_tool_output(name, out, tmp, res):
+    """Shapes and finiteness of what one in-process CLI run returned at
+    res^2, and the file it wrote."""
+    from PIL import Image
+
+    def finite(arrays):
+        if not all(np.isfinite(a).all() for a in arrays):
+            fail(f"{name}: non-finite images")
+    if name == "generate_grid":
+        finite([out])
+        want = [(40, res, res, 3), (4 * (res + 1) + 1, 10 * (res + 1) + 1, 3)]
+        got = [out.shape, np.asarray(Image.open(
+            os.path.join(tmp, "grid", "grid.png"))).shape]
+    elif name in ("generate_mixing_figure", "generate_truncation_figure"):
+        canvas, images = out
+        finite(images)
+        want = ([(4 * res, 6 * res, 3), [5, 3, 5, 5, 5]]
+                if name == "generate_mixing_figure"
+                else [(2 * res, 6 * res, 3), [6, 6]])
+        got = [canvas.shape, [len(i) for i in images]]
+    elif name.startswith("generate_video"):
+        frames, floats = out
+        finite(floats)
+        gif = Image.open(os.path.join(
+            tmp, "walk.gif" if name.endswith("walk") else "sweep.gif"))
+        # PIL merges equal consecutive frames of a GIF into one
+        want = [16, (res, res, 3), (res, res), True]
+        got = [len(frames), frames[0].shape, gif.size,
+               1 < gif.n_frames <= 16]
+    else:
+        if not all(math.isfinite(v) for v in out.values()
+                   if isinstance(v, float)):
+            fail(f"{name}: non-finite result {out}")
+        keys = {"eval_metrics_swd": {"swd_x1e3_avg"},
+                "eval_metrics_fid": {"fid"},
+                "eval_metrics_is": {"inception_score"}}.get(name, {"ppl"})
+        want, got = keys, keys & set(out)
+    if got != want:
+        fail(f"{name}: output {got}, want {want}")
+
+
+def check_converted(gen, dis, tmp):
+    """The converted .npz holds the pickle's tensors bitwise (the lower-lod
+    to_rgb heads are not in an official pickle); the exported .pth files
+    hold G's and D's state_dicts and their blur buffers."""
+    from stylegan_torch.convert import state_dict_from_flat
+    with np.load(os.path.join(tmp, "converted.npz")) as z:
+        meta = json.loads(z["__metadata__"].tobytes().decode())
+        got = state_dict_from_flat({k: z[k] for k in z.files
+                                    if k != "__metadata__"})
+    if meta != {"source": "official.pkl",
+                "resolution": gen.cfg.resolution}:
+        fail(f"convert: metadata {meta}")
+    out_depth = gen.cfg.synthesis.depth - 1
+    for k, v in gen.state_dict().items():
+        lower_rgb = (k.startswith("g_synthesis.to_rgb.")
+                     and int(k.split(".")[2]) != out_depth)
+        if not lower_rgb and not torch.equal(got[k], v):
+            fail(f"convert: {k} differs from the pickle's")
+    for name, module, blur in (("gen.pth", gen, "conv0_up.intermediate"),
+                               ("dis.pth", dis, "blur")):
+        sd = torch.load(os.path.join(tmp, name), map_location="cpu",
+                        weights_only=True)
+        own = module.state_dict()
+        extra = set(sd) - set(own)
+        if not extra or not all(k.endswith(f"{blur}.kernel") for k in extra):
+            fail(f"convert --export_pth {name}: keys {sorted(extra)[:4]}")
+        for k, v in own.items():
+            if not torch.equal(sd[k], v.cpu()):
+                fail(f"convert --export_pth {name}: {k} differs")
+
+
+def run_all(cmds):
+    """Start every command at once from the repo root; fail with the output
+    of any that fails; returns each one's wall time in s."""
+    procs, t0 = {}, time.perf_counter()
+    for name, cmd in cmds.items():
+        procs[name] = subprocess.Popen(cmd, cwd=REPO, stdout=subprocess.PIPE,
+                                       stderr=subprocess.PIPE, text=True)
+    times = {}
+    try:
+        for name, p in procs.items():
+            out, err = p.communicate(timeout=600)
+            times[name] = time.perf_counter() - t0
+            if p.returncode != 0:
+                fail(f"{name} exited {p.returncode}:\n{out[-3000:]}\n"
+                     f"{err[-3000:]}")
+    finally:
+        for p in procs.values():
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    log(f"tools: {len(cmds)} CLI subprocesses on the card, concurrently, "
+        f"done in {max(times.values()):.1f} s: " + ", ".join(
+            f"{k} {v:.1f} s" for k, v in times.items()))
+    return times
+
+
 def main():
     if not torch.cuda.is_available():
         fail("CUDA is not available")
@@ -1362,6 +1803,7 @@ def main():
     log(f"card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}")
 
     summary = phase_kernel(dev)
+    batches = phase_kernel_batches(dev)
     grad = phase_grad_kernel(dev)
     cpu_gen, launches, cuda_launches, img_s, profiled_ms = phase_slice(
         dev, summary["per_forward"])
@@ -1371,6 +1813,7 @@ def main():
     check = phase_train_vs_cpu(dev)
     trainer = phase_trainer(dev, train["img_per_s"])
     calls = trainer["epilogue_calls"]
+    tools = phase_tools(dev)
 
     kernels = [{
         "name": "epilogue", "route": "cuda",
@@ -1389,6 +1832,8 @@ def main():
         "train_launches": train["forward_calls"],
         "trainer_launches": calls["forward"],
         "trainer_cuda_launches": calls["forward_cuda"],
+        "tools_launches": tools["launches"],
+        "tool_batches_max_abs_err": batches,
         "shapes": "the 18 float32 calls of one batch-8 1024^2 forward; ms "
                   "and plain_ms device time (CUDA graph replay, x warm in "
                   "L2), cold_ms the same with x and out cold in L2, call_ms "
@@ -1397,7 +1842,10 @@ def main():
                   "kernels' device time inside one profiled forward; "
                   "launches over the 3 served requests, train_launches "
                   "over the 3 train steps, trainer_launches over phase 6's "
-                  "StyleGAN.train run (its steps and feedback grids)",
+                  "StyleGAN.train run (its steps and feedback grids), "
+                  "tools_launches over each in-process CLI run of phase 7, "
+                  "tool_batches_max_abs_err the float32 error at the 9 "
+                  "shapes by the tool CLIs' batch sizes",
     }, {
         "name": "epilogue_backward", "route": "cuda",
         "source": "stylegan_torch/csrc/epilogue.cu",
@@ -1429,6 +1877,7 @@ def main():
                               if k != "top_ops"},
                     "card_vs_cpu": check}))
     log(json.dumps({"trainer": trainer}))
+    log(json.dumps({"tools": tools}))
     log(card)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

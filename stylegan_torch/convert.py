@@ -28,10 +28,16 @@ unchanged.  The reference's blur-kernel buffers (G's
 configuration, not weights: ``.pth`` loading drops them, and a D ``.pth``
 written here carries them, as the reference's does.
 
-Loading is partial by default, as the JAX package's is (`load_partial`): a
-shallow checkpoint resumes into a deeper network.  The sample CLI asks for a
-strict load instead: a file that misses keys would otherwise give images of
-an initialised network, which the JAX CLIs warn about only on shapes.
+Loading is partial by default, as the JAX package's is: a shallow checkpoint
+resumes into a deeper network, and a key the file lacks keeps the module's
+value.  A shape mismatch depends on the kind of file, as in JAX: a ``.npz``
+keeps the module's value and warns (`load_partial`,
+``stylegan_tpu/io/checkpoint.py::unflatten_like``), a reference ``.pth`` (or
+a converted TF pickle) raises and names the key (`load_reference_partial`,
+``stylegan_tpu/convert/torch_params.py::_load_entries``).  The sample CLI
+asks for a strict load instead: a file that misses keys would otherwise give
+images of an initialised network, which the JAX CLIs warn about only on
+shapes.
 """
 
 from __future__ import annotations
@@ -124,15 +130,17 @@ def discriminator_state_dict_from_jax_params(params) -> dict:
     return state_dict_from_flat(flatten_params(params))
 
 
-def _read_file(path: str) -> dict:
+def _read_file(path: str) -> tuple[dict, str]:
     """A JAX ``.npz`` or a reference ``.pth`` as the port's state_dict (the
-    ``.pth``'s blur-kernel buffers dropped)."""
+    ``.pth``'s blur-kernel buffers dropped), and the kind of file it was,
+    ``"pth"`` or ``"npz"``."""
     if path.endswith(".pth"):
         sd = torch.load(path, map_location="cpu", weights_only=True)
-        return {k: v for k, v in sd.items() if not k.endswith(_BLUR_BUFFERS)}
+        return ({k: v for k, v in sd.items()
+                 if not k.endswith(_BLUR_BUFFERS)}, "pth")
     with np.load(path) as z:
         return state_dict_from_flat(
-            {k: z[k] for k in z.files if k != "__metadata__"})
+            {k: z[k] for k in z.files if k != "__metadata__"}), "npz"
 
 
 def load_partial(module: nn.Module, sd: dict) -> nn.Module:
@@ -163,11 +171,34 @@ def load_partial(module: nn.Module, sd: dict) -> nn.Module:
     return module
 
 
+def load_reference_partial(module: nn.Module, sd: dict) -> nn.Module:
+    """Load a reference-keyed state_dict (a ``.pth``, or a converted TF
+    pickle; tensors or numpy arrays in torch layouts) into `module` with
+    the semantics of the JAX package's ``.pth`` import (torch_params.py
+    ``_load_entries``, the reference's ``load_state_dict(strict=False)``):
+    a key the module lacks is ignored, a key `sd` lacks keeps the module's
+    value, and a shape mismatch raises, naming the key and both shapes."""
+    own = module.state_dict()
+    keep = {}
+    for k, v in sd.items():
+        if k not in own:
+            continue
+        v = torch.as_tensor(v)
+        if tuple(v.shape) != tuple(own[k].shape):
+            raise ValueError(f"shape mismatch for {k}: file {tuple(v.shape)} "
+                             f"vs model {tuple(own[k].shape)}")
+        keep[k] = v
+    module.load_state_dict(keep, strict=False)
+    return module
+
+
 def _load_file(module: nn.Module, path: str, strict: bool) -> nn.Module:
-    sd = _read_file(path)
+    sd, kind = _read_file(path)
     if strict:
         module.load_state_dict(sd, strict=True)
         return module
+    if kind == "pth":
+        return load_reference_partial(module, sd)
     return load_partial(module, sd)
 
 
@@ -200,23 +231,43 @@ def save_flat(path: str, flat: dict, metadata: Optional[dict] = None):
 def load_generator_file(generator: nn.Module, path: str,
                         strict: bool = False) -> nn.Module:
     """Load a JAX ``.npz`` or a reference ``.pth`` into `generator`, partially
-    as the JAX package does (`load_partial`), or every key and shape
-    required with strict=True."""
+    as the JAX package does (a ``.npz``'s shape mismatch warns, a
+    ``.pth``'s raises), or every key and shape required with strict=True."""
     return _load_file(generator, path, strict)
+
+
+def _save_pth(path: str, sd: dict, buffers: dict):
+    sd = {k: v.detach().cpu().clone() for k, v in sd.items()}
+    sd.update(buffers)
+    _write_atomically(path, lambda f: torch.save(sd, f))
 
 
 def save_generator_file(generator: nn.Module, path: str,
                         metadata: Optional[dict] = None):
-    """Write `generator` as a JAX-package ``.npz`` (dotted paths, JAX
-    layouts), atomically: a temp file renamed into place."""
-    save_flat(path, flat_from_state_dict(generator.state_dict()), metadata)
+    """Write `generator` atomically (a temp file renamed into place): a path
+    ending in ``.pth`` as a reference state_dict (with each growth block's
+    ``conv0_up.intermediate.kernel`` blur buffer, shape (1, 1, k, k), where
+    the synthesis blurs, as ``generator_state_dict_from_params(...,
+    blur_filter=)`` emits them), any other as a JAX-package ``.npz``
+    (dotted paths, JAX layouts, with `metadata`)."""
+    sd = generator.state_dict()
+    if path.endswith(".pth"):
+        syn = generator.g_synthesis
+        buffers = {}
+        if syn.blur_kernel is not None:
+            kernel = syn.blur_kernel.detach().cpu()[None, None].clone()
+            buffers = {f"g_synthesis.blocks.{i}.conv0_up.intermediate.kernel":
+                       kernel for i in range(len(syn.blocks))}
+        _save_pth(path, sd, buffers)
+    else:
+        save_flat(path, flat_from_state_dict(sd), metadata)
 
 
 def load_discriminator_file(discriminator: nn.Module, path: str,
                             strict: bool = False) -> nn.Module:
     """Load a JAX ``.npz`` or a reference ``.pth`` into `discriminator`
-    (partially unless strict; a ``.pth``'s ``blocks.{i}.blur.kernel``
-    buffers are dropped)."""
+    (partially unless strict, as `load_generator_file`; a ``.pth``'s
+    ``blocks.{i}.blur.kernel`` buffers are dropped)."""
     return _load_file(discriminator, path, strict)
 
 
@@ -228,10 +279,8 @@ def save_discriminator_file(discriminator: nn.Module, path: str,
     ``.npz`` (with `metadata`)."""
     sd = discriminator.state_dict()
     if path.endswith(".pth"):
-        sd = {k: v.detach().cpu().clone() for k, v in sd.items()}
         kernel = discriminator.blur_kernel.detach().cpu()[None, None].clone()
-        for i in range(len(discriminator.blocks)):
-            sd[f"blocks.{i}.blur.kernel"] = kernel
-        _write_atomically(path, lambda f: torch.save(sd, f))
+        _save_pth(path, sd, {f"blocks.{i}.blur.kernel": kernel
+                             for i in range(len(discriminator.blocks))})
     else:
         save_flat(path, flat_from_state_dict(sd), metadata)

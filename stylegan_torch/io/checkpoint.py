@@ -20,8 +20,10 @@ The full train state is the JAX package's npz fallback: one ``<path>.npz``
 with top-level keys ``g_params``, ``d_params``, ``g_opt_state``,
 ``d_opt_state`` and ``g_shadow`` and a ``__metadata__`` entry (``depth``,
 ``epoch``, ``update_count``), which JAX's ``load_train_state`` reads.  JAX
-writes an orbax directory instead where orbax is installed; the port cannot
-read that and says so.
+writes an orbax directory instead where orbax is installed (an OCDBT store
+of zarr arrays, one per leaf, with the metadata in ``<path>.meta.json``);
+the port reads that through ``tensorstore`` without importing orbax, and
+says so when tensorstore is missing.
 
 Loading is partial, as the JAX package's is: a key the file lacks keeps the
 current value, a shape mismatch keeps it and warns.  Every write is atomic.
@@ -153,16 +155,53 @@ def save_train_state(path: str, state: TrainState, step_meta: dict):
     save_flat(path + ".npz", flat, step_meta)
 
 
-def load_train_state(path: str, state: TrainState) -> dict:
-    """Restore a TrainState written by `save_train_state` or by the JAX
-    package's npz fallback, in place; returns its metadata."""
-    if os.path.isdir(path):
+def _read_orbax(path: str) -> tuple[dict, dict]:
+    """An orbax ``StandardCheckpointer`` directory as {dotted path: array}
+    and its ``<path>.meta.json``.  The leaves are those that the
+    directory's ``_METADATA`` lists (``tree_metadata``: each leaf's key
+    path, optax's namedtuple and tuple states included; empty states have
+    no value), each read from the OCDBT store under its dotted path."""
+    try:
+        import tensorstore as ts
+    except ImportError as e:
         raise ValueError(
-            f"{path} is an orbax checkpoint directory, which the port cannot "
-            "read; write the train state with the JAX package's "
+            f"{path} is an orbax checkpoint directory, which the port reads "
+            "through tensorstore, and tensorstore is not installed; install "
+            "it, or write the train state with the JAX package's "
             "save_train_state(..., use_orbax=False), which gives "
-            f"{path}.npz")
-    flat, meta = _read(path + ".npz")
+            f"{path}.npz") from e
+    path = os.path.abspath(path)
+    with open(os.path.join(path, "_METADATA")) as f:
+        md = json.load(f)
+    if not md.get("use_ocdbt", False):
+        raise ValueError(f"{path}: only orbax's OCDBT layout is read "
+                         "(use_ocdbt is false in its _METADATA)")
+    # tensorstore's URL form: the OCDBT store in `path`, the zarr array at
+    # the leaf's dotted path in it
+    array = "zarr3:" if md.get("use_zarr3") else "zarr2:"
+    flat = {}
+    for leaf in md["tree_metadata"].values():
+        value = leaf["value_metadata"]
+        if value["value_type"] == "None" or value.get("skip_deserialize"):
+            continue
+        key = ".".join(str(k["key"]) for k in leaf["key_metadata"])
+        url = f"file://{path}/|ocdbt:{key}|{array}"
+        flat[key] = np.asarray(ts.open(url).result().read().result())
+    meta = {}
+    if os.path.exists(path + ".meta.json"):
+        with open(path + ".meta.json") as f:
+            meta = json.load(f)
+    return flat, meta
+
+
+def load_train_state(path: str, state: TrainState) -> dict:
+    """Restore a TrainState written by `save_train_state`, by the JAX
+    package's npz fallback or by its orbax writer (a directory at `path`),
+    in place; returns its metadata."""
+    if os.path.isdir(path):
+        flat, meta = _read_orbax(path)
+    else:
+        flat, meta = _read(path + ".npz")
     parts = {part: _sub(flat, part + ".") for part in _PARTS}
     load_partial(state.generator, state_dict_from_flat(parts["g_params"]))
     load_partial(state.discriminator, state_dict_from_flat(parts["d_params"]))

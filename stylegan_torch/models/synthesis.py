@@ -9,7 +9,8 @@ layout the epilogue kernel reads.
 Per-layer noise is drawn from a ``torch.Generator`` seeded from
 (seed, layer index), so skipping a branch never shifts another layer's draw,
 or comes from a pinned list of maps (``noises=``, the reference's
-NoiseLayer.noise analysis hook, CustomLayers.py:195-198).
+NoiseLayer.noise analysis hook, CustomLayers.py:195-198); a pinned map of
+batch 1 is shared by every image of the batch, as JAX broadcasts it.
 
 With ``cfg.remat`` each growth block is recomputed in the backward pass
 (``torch.utils.checkpoint``): its two epilogue kernels then launch once more
@@ -212,7 +213,12 @@ class GSynthesis(nn.Module):
             if not cfg.use_noise:
                 return None
             if noises is not None:
-                return noises[layer_idx]
+                n = noises[layer_idx]
+                if n.shape[0] == 1 and batch > 1:
+                    # a map pinned for every image (the video's frames):
+                    # the kernel takes (B, H, W, 1), contiguous
+                    n = n.expand(batch, *n.shape[1:]).contiguous()
+                return n
             if seed is None:
                 raise ValueError("synthesis needs a seed when use_noise=True")
             return make_noise(seed, layer_idx, batch,

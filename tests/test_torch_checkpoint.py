@@ -9,6 +9,7 @@ other)."""
 import os
 import re
 import shutil
+import sys
 import warnings
 
 import numpy as np
@@ -205,6 +206,50 @@ def test_partial_load_shallow_into_deep_equals_jax(tmp_path, network):
         tload(module, path, strict=True)
 
 
+@pytest.mark.parametrize("network", ["generator", "discriminator"])
+def test_pth_shape_mismatch_raises_as_in_jax(tmp_path, network):
+    """A reference .pth whose tensor has another shape than the module's
+    raises in both packages and names the key (JAX asserts in
+    torch_params._load_entries); a key the .pth lacks keeps the module's
+    value, as the reference's load_state_dict(strict=False) resume does.
+    (The port kept the module's value and warned, as for a .npz.)"""
+    from stylegan_tpu.convert import (discriminator_state_dict_from_params,
+                                      generator_state_dict_from_params)
+    (jg, jd), (tg, td) = _narrow_configs(8)
+    if network == "generator":
+        params = jax.tree_util.tree_map(
+            np.asarray, generator_init(jax.random.PRNGKey(1), jg))
+        sd = generator_state_dict_from_params(params, blur_filter=(1, 2, 1))
+        bad, dropped = "g_mapping.map.dense0.weight", "g_synthesis.to_rgb.1.bias"
+        module, tload, jload = Generator(tg), load_generator_file, jax_load_g
+    else:
+        params = jax.tree_util.tree_map(
+            np.asarray, discriminator_init(jax.random.PRNGKey(1), jd))
+        sd = discriminator_state_dict_from_params(params)
+        bad, dropped = "blocks.0.conv0.weight", "final_block.dense1.bias"
+        module, tload, jload = (Discriminator(td), load_discriminator_file,
+                                jax_load_d)
+    sd = {k: torch.from_numpy(np.array(v)) for k, v in sd.items()}
+    good = str(tmp_path / "good.pth")
+    torch.save({k: v for k, v in sd.items() if k != dropped}, good)
+    before = module.state_dict()[dropped].clone()
+    tload(module, good)
+    assert torch.equal(module.state_dict()[dropped], before)
+    loaded = module.state_dict()[bad]
+    assert torch.equal(loaded, sd[bad])
+
+    w = sd[bad]
+    sd[bad] = torch.cat([w, w[:, :1]], dim=1)     # one column / channel more
+    path = str(tmp_path / "bad.pth")
+    torch.save(sd, path)
+    shapes = rf"\({', '.join(map(str, sd[bad].shape))}\)"
+    with pytest.raises(ValueError, match=rf"{re.escape(bad)}: file {shapes}"):
+        tload(module, path)
+    assert torch.equal(module.state_dict()[bad], loaded)   # nothing loaded
+    with pytest.raises(AssertionError, match=re.escape(bad)):
+        jload(params, path)
+
+
 # --------------------------------------------------------------------------
 # the five files of a tag, and the full state
 
@@ -280,12 +325,42 @@ def test_full_state_jax_to_port(tmp_path):
     assert np.isfinite(d) and np.isfinite(g)
 
 
-def test_orbax_directory_raises(tmp_path):
+def test_full_state_jax_orbax_to_port(tmp_path):
+    """A JAX trainer's save_full_state writes an orbax directory wherever
+    orbax imports; the port reads it through tensorstore, bitwise, and the
+    restored trainer steps.  (The port raised on any directory.)"""
+    pytest.importorskip("orbax.checkpoint")
+    pytest.importorskip("tensorstore")
+    jt, pt = _trainers()
+    _randomized_jax(jt, count=7)
+    jt._update_count = 7
+    path = str(tmp_path / "orbax_state")
+    jt.save_full_state(path, depth=1, epoch=4)
+    assert os.path.isdir(path)
+    meta = pt.restore_full_state(path)
+    assert meta == {"depth": 1, "epoch": 4, "update_count": 7}
+    assert pt._update_count == 7
+    want = _flat(jt.state._asdict())
+    got = _port_flat(pt)
+    _assert_flat_equal(got, want, skip=("mu.truncation", "nu.truncation"))
+    assert int(got["g_opt_state.1.0.count"]) == 7
+    steps = {float(st["step"]) for st in pt.state.d_optimizer.state.values()}
+    assert steps == {7.0}
+    d, g = pt.train_on_batch(np.zeros((4, RES, RES, 3), np.float32), depth=1,
+                             alpha=1.0)
+    assert np.isfinite(d) and np.isfinite(g)
+
+
+def test_orbax_directory_without_tensorstore_raises(tmp_path, monkeypatch):
+    """Without tensorstore the port cannot read the directory, and says
+    so."""
     jt, pt = _trainers()
     path = str(tmp_path / "orbax_state")
     jt.save_full_state(path, depth=1, epoch=1)
     assert os.path.isdir(path)
-    with pytest.raises(ValueError, match=r"use_orbax=False"):
+    monkeypatch.setitem(sys.modules, "tensorstore", None)
+    with pytest.raises(ValueError,
+                       match=r"tensorstore is not installed.*use_orbax=False"):
         pt.restore_full_state(path)
 
 

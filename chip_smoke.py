@@ -17,8 +17,10 @@ Phases, each fatal on failure:
            it too at ragged shapes that take its scalar (unvectorised) path;
            check the autograd.Function's gradients against autograd of the
            plain version; then hold the forward to the plain version at the 9
-           shapes in float32 at the batch sizes the tool CLIs of phase 7 give
-           it (3, 5, 6, 16, 40), with the same bar and bitwise repeat;
+           shapes in float32 at projection's batch 1 (timed, with the plain
+           version and the bytes bound) and at the batch sizes the tool CLIs
+           of phase 7 give it (3, 5, 6, 16, 40), with the same bar and
+           bitwise repeat, printing each plan;
 3. slice   build the FFHQ-1024 generator of configs/sample_ffhq_1024.yaml with
            seeded random weights (noise weights included), serve 3 requests of
            batch 8 at 1024^2 through make_serving_fn, check shapes, finiteness
@@ -35,7 +37,9 @@ Phases, each fatal on failure:
            bfloat16, two calls bitwise equal, with the plan taken (path,
            cluster, CUDA launches per call), timed at batch 2 in both dtypes
            (graph replay, cold L2, eager; the plain VJP in float32) against
-           the bytes bound; (b) FFHQ-1024 training at
+           the bytes bound; and at batch 1 as projection asks it (dx and
+           dstyle only, the plan without dnoise), timed, with its plan;
+           (b) FFHQ-1024 training at
            depth 8, batch 2 (sched.batch_sizes[8]), loss logistic with R1,
            alpha 0.5, seeded random weights and seeded numpy reals: a warm-up
            step, 3 timed steps (ms per step, img/s, peak memory, finite
@@ -84,7 +88,31 @@ Phases, each fatal on failure:
            blur buffers); then the mixing figure at depth 5 on the card and
            on the CPU with the noise maps drawn on the CPU (max |diff| <=
            1e-2) and Inception features of 4 of its images (<= 1e-3
-           relative, TF32 off).
+           relative, TF32 off);
+8. export  FFHQ-1024 (configs/sample_ffhq_1024.yaml, seeded weights with
+           non-zero noise weights, eval mode, float32 with TF32 off):
+           (a) one served request under utils.profiling.trace, whose trace
+           JSON (build/chip_smoke/serve_trace/) must list each epilogue
+           kernel as often as the wrapper launched it; (b) mfu_fields of
+           phase 3's img/s and phase 5(b)'s step against the card's float32
+           peak, beside its name and power limit; (c) export_generator at
+           batch 8 on the card: size, export and load wall time, 3
+           requests through load_exported, bitwise equal to make_serving_fn
+           with cuDNN's deterministic algorithms (within 1e-4 of the
+           image's largest with its defaults, whose transposed convs sum
+           in no fixed order),
+           18 nodes of the forward op and 18 kernel calls per request, no
+           plain call, img/s beside phase 3's; a batch-2 depth-5 artifact
+           exported on the card and run on the CPU within 1e-2; (d) project
+           at 1024^2, W+, 100 steps on the generator's own image of a W near
+           w_avg: 18 x 101 forward and 18 x 100 backward kernel calls, no
+           plain call, the loss curve falling, ms per step, the device's
+           busy share in one profiled step; (e) 5 steps at
+           depth 5 on the card, the CPU and the CPU in float64 with pinned
+           draws: the losses at w_avg, the first step's gradient and W
+           after the 5 steps (bars stated at CHECK_W_FACTOR); (f) the
+           project and export_generator --check CLIs and generate_samples
+           --input on (d)'s w.npy, as subprocesses on the card.
 
 The last two lines are {"kernels": [...]} with the kernels' measurements and
 {"ok": true, "device": {...}}; the card's name and power limit precede them.
@@ -495,6 +523,65 @@ def phase_grad_kernel(dev):
                 del args, x, cot, got, again
     log(json.dumps({"epilogue_backward_18_calls": summary}))
     return summary
+
+
+# the gradients projection asks of the epilogue: the generator is frozen,
+# so dx and dstyle only (dx not at the input block's first epilogue)
+PROJECT_NEEDS = (True, False, False, True)
+
+
+def phase_grad_kernel_b1(dev):
+    """The backward kernels at projection's batch 1 and gradients, at the 9
+    epilogue shapes in float32: against autograd of the plain version, two
+    calls bitwise equal, the plan printed, timed (graph replay) with the
+    plain VJP and the bytes bound.  Returns the summary over the 18 calls
+    of one projection step's backward."""
+    from stylegan_torch.ops import fused
+    from stylegan_torch.ops.kernels import epilogue as kern
+    g = torch.Generator(device=dev).manual_seed(9)
+    b1 = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "max_abs_err": 0.0,
+          "worst_bar_ratio": 0.0}
+    for res, c in EPILOGUE_SHAPES:
+        args = epilogue_inputs(g, dev, torch.float32, res, c, PROJECT_BATCH)
+        x, nw, noise, style = args
+        cot = torch.randn(x.shape, generator=g, device=dev)
+        where = f"{PROJECT_BATCH}x{res}x{res}x{c} f32"
+        got = kernel_grads(kern, args, cot, PROJECT_NEEDS)
+        again = kernel_grads(kern, args, cot, PROJECT_NEEDS)
+        torch.cuda.synchronize()
+        ref = plain_grads(fused, args, cot)
+        for name, a, b, r, need in zip(GRAD_NAMES, got, again, ref,
+                                       PROJECT_NEEDS):
+            if not need:
+                if a is not None:
+                    fail(f"epilogue backward {where}: d{name} not asked for")
+                continue
+            if not torch.equal(a, b):
+                fail(f"epilogue backward {where} d{name}: two calls differ")
+            err, scale = float((a - r).abs().max()), float(r.abs().max())
+            bar = F32_TOL * max(1.0, scale)
+            b1["worst_bar_ratio"] = max(b1["worst_bar_ratio"], err / bar)
+            b1["max_abs_err"] = max(b1["max_abs_err"], err)
+            if not err <= bar:
+                fail(f"epilogue backward {where} d{name}: max |diff| {err} "
+                     f"> {bar}")
+        saved = torch.empty((PROJECT_BATCH, c, 2), device=dev)
+        kern.epilogue_forward(x, nw, noise, style, saved)
+        ms = graph_time_ms(lambda i: kern.epilogue_backward(
+            cot, x, nw, noise, style, saved, PROJECT_NEEDS))
+        plain_ms = graph_time_ms(lambda i: fused._reference_epilogue_vjp(
+            x, nw, noise, style, cot))
+        bound_ms = kern.bytes_moved_backward(x) / HBM_BYTES_PER_S * 1e3
+        plan = kern.bwd_plan_for(x)
+        log(json.dumps({"epilogue_backward": where, "needs": PROJECT_NEEDS,
+                        "deterministic": True, "plan": plan, "ms": ms,
+                        "plain_ms": plain_ms, "bound_ms": bound_ms}))
+        for k, v in (("ms", ms), ("plain_ms", plain_ms),
+                     ("bound_ms", bound_ms)):
+            b1[k] += 2 * v
+        del args, x, cot, got, again, ref, saved
+    log(json.dumps({"epilogue_backward_batch1_18_calls": b1}))
+    return b1
 
 
 def check_ragged(fused, g, dev, dtype, shape, offset):
@@ -1369,17 +1456,24 @@ def phase_cli(cpu_gen):
 # mixing figure's 3 and 5, the truncation figure's 6, eval_metrics' default
 # 16 and the grid's 10x4
 TOOL_BATCHES = (3, 5, 6, 16, 40)
+# projection's (phase 8(d)): one image, forward and backward
+PROJECT_BATCH = 1
 
 
 def phase_kernel_batches(dev):
     """The forward kernel against its plain version at the 9 epilogue shapes
-    in float32 at the tool CLIs' batch sizes, with phase 2's bar and its
-    bitwise repeat; returns {batch: max |diff|}."""
+    in float32 at projection's batch and the tool CLIs' batch sizes, with
+    phase 2's bar and its bitwise repeat, printing the plan of each; at
+    projection's batch also timed (graph replay) with the plain version
+    and the bytes bound.  Returns ({batch: max |diff|}, the batch-1
+    summary over the 18 calls of one forward)."""
     from stylegan_torch.ops import fused
     from stylegan_torch.ops.kernels import epilogue as kern
     g = torch.Generator(device=dev).manual_seed(7)
     worst = {}
-    for batch in TOOL_BATCHES:
+    b1 = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "max_abs_err": 0.0,
+          "per_forward": dict.fromkeys(kern.KERNEL_NAMES, 0)}
+    for batch in (PROJECT_BATCH,) + TOOL_BATCHES:
         err_b, plans = 0.0, []
         for res, c in EPILOGUE_SHAPES:
             args = epilogue_inputs(g, dev, torch.float32, res, c, batch)
@@ -1394,15 +1488,33 @@ def phase_kernel_batches(dev):
             if not err <= F32_TOL:
                 fail(f"epilogue {shape} f32: max |diff| {err} > {F32_TOL}")
             plan = kern.plan_for(args[0])
-            plans.append(f"{res}x{c}:p{plan['path']}c{plan['cluster']}")
+            plans.append(f"{res}x{c}:p{plan['path']}c{plan['cluster']}"
+                         f"s{plan['splits']}k{plan['chunks']}")
             err_b = max(err_b, err)
+            if batch == PROJECT_BATCH:
+                with torch.no_grad():
+                    ms = graph_time_ms(lambda i: fused.fused_epilogue(*args))
+                    plain_ms = graph_time_ms(
+                        lambda i: fused._reference_epilogue(*args))
+                bound_ms = kern.bytes_moved(args[0]) / HBM_BYTES_PER_S * 1e3
+                log(json.dumps({"epilogue": "x".join(map(str, shape)),
+                                "dtype": "f32", "max_abs_err": err,
+                                "plan": plan, "ms": ms, "plain_ms": plain_ms,
+                                "bound_ms": bound_ms}))
+                for k, v in (("ms", ms), ("plain_ms", plain_ms),
+                             ("bound_ms", bound_ms)):
+                    b1[k] += 2 * v
+                b1["max_abs_err"] = max(b1["max_abs_err"], err)
+                for name in kern.KERNELS_BY_PATH[plan["path"]]:
+                    b1["per_forward"][name] += 2
             del args, got, again, ref
         worst[batch] = err_b
         log(json.dumps({"epilogue_batch": batch, "dtype": "f32",
                         "max_abs_err": err_b, "tol": F32_TOL,
                         "deterministic": True, "plans": plans}))
+    log(json.dumps({"epilogue_batch1_18_calls": b1}))
     torch.cuda.empty_cache()
-    return worst
+    return worst, b1
 
 
 TRUNC_CONFIG = os.path.join(REPO, "configs", "sample_ffhq_1024_truncation.yaml")
@@ -1759,7 +1871,389 @@ def check_converted(gen, dis, tmp):
                 fail(f"convert --export_pth {name}: {k} differs")
 
 
-def run_all(cmds):
+PROJECT_STEPS = 100
+PROJECT_TIMED_STEPS = 10
+CHECK_STEPS = 5
+# phase 8(e): the card's projection against float64 on the CPU, as phase
+# 5(c) holds a train step.  The losses of steps 0 and 1, whose forward runs
+# at W = w_avg (the lr is 0 at step 0): float32 sums in another order over
+# the network, within 1e-3 relative of the CPU.  The first step's gradient
+# (Adam's first moment): the card's error from float64 within 10x the CPU
+# float32 run's own (cuDNN sums in other orders and takes other
+# algorithms), plus 1e-5 of its largest.  W after the 5 steps: Adam moves
+# each coordinate by about lr times the sign of its gradient, so a
+# coordinate whose gradient is 0 up to float32 rounding moves either way
+# and W's error grows with the steps; the card's from float64 within 10x
+# the CPU float32's, plus 1e-6 of W's largest.  The later losses follow
+# those W and are reported
+CHECK_W_FACTOR = 10.0
+CHECK_SAME_W_STEPS = 2
+
+
+def phase_export_project(dev, per_forward, serve_img_s, train):
+    """Phase 8: profiling, MFU, torch.export serving and W-space projection
+    at FFHQ-1024 on the card; returns the report."""
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_p8_")
+    try:
+        return export_project_run(dev, per_forward, serve_img_s, train, tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def reset_counts(kern, fused):
+    kern.launches = kern.cuda_launches = kern.backward_launches = 0
+    kern.backward_cuda_launches = kern.backward_g_copies = 0
+    fused.plain_calls = 0
+
+
+def export_project_run(dev, per_forward, serve_img_s, train, tmp):
+    from PIL import Image
+    from stylegan_torch.config import apply_runtime_knobs, get_default_cfg
+    from stylegan_torch.convert import save_generator_file
+    from stylegan_torch.models import Generator, generator_config_from_cfg
+    from stylegan_torch.ops import fused
+    from stylegan_torch.ops.kernels import epilogue as kern
+    from stylegan_torch.serving import (export_generator, load_exported,
+                                        make_serving_fn)
+    from stylegan_torch.utils import trace
+    from stylegan_torch.utils.flops import (device_peak_tflops,
+                                            generator_forward_flops,
+                                            mfu_fields, train_step_flops)
+
+    t_phase = time.perf_counter()
+    cfg = get_default_cfg()
+    cfg.merge_from_file(CONFIG)
+    cfg.freeze()
+    apply_runtime_knobs(cfg)          # float32, TF32 off
+    gen_cfg = generator_config_from_cfg(cfg)
+    gen = Generator(gen_cfg)
+    gen.load_state_dict(random_state_dict(gen), strict=True)
+    npz = os.path.join(tmp, "gen.npz")
+    save_generator_file(gen, npz)
+    gen.requires_grad_(False).eval().to(dev)
+    report = {}
+    rs = np.random.default_rng(80)
+    zs = [rs.standard_normal((BATCH, gen_cfg.latent_size), dtype=np.float32)
+          for _ in range(REQUESTS + 1)]
+    serve = make_serving_fn(gen_cfg, gen, depth=DEPTH, device=dev)
+    serve(zs[-1], 1000)
+    torch.cuda.synchronize()
+
+    # (a) one served request under utils.profiling.trace
+    trace_dir = os.path.join(REPO, "build", "chip_smoke", "serve_trace")
+    shutil.rmtree(trace_dir, ignore_errors=True)
+    kern.cuda_launches = 0
+    with trace(trace_dir):
+        serve(zs[0], 0)
+        torch.cuda.synchronize()
+    wrapper = kern.cuda_launches
+    (trace_file,) = [os.path.join(trace_dir, f)
+                     for f in os.listdir(trace_dir)]
+    with open(trace_file) as f:
+        events = json.load(f)["traceEvents"]
+    device_kernels = [e for e in events if e.get("cat") == "kernel"]
+    count = {name: sum(f"::{name}<" in e.get("name", "")
+                       for e in device_kernels)
+             for name in kern.KERNEL_NAMES}
+    report["trace"] = {"file": os.path.relpath(trace_file, REPO),
+                       "bytes": os.path.getsize(trace_file),
+                       "device_kernels": len(device_kernels),
+                       "epilogue_launches_by_kernel": count,
+                       "wrapper_cuda_launches": wrapper}
+    log(json.dumps({"phase8_trace": report["trace"]}))
+    if count != per_forward or sum(count.values()) != wrapper:
+        fail(f"the trace of one served request shows epilogue launches "
+             f"{count}; the plans make {per_forward}, the wrapper counted "
+             f"{wrapper}")
+
+    # (b) MFU of phase 3's serving and phase 5(b)'s step, float32 peak
+    peak = device_peak_tflops(dev, "float32")
+    report["mfu"] = {
+        "card": card_line(), "peak_tflops": peak, "precision": "float32",
+        "serving": mfu_fields(serve_img_s, generator_forward_flops(1024),
+                              peak),
+        "train_step": mfu_fields(train["img_per_s"], train_step_flops(
+            1024, loss=cfg.loss, with_r1=cfg.r1_gamma > 0), peak)}
+    log(json.dumps({"phase8_mfu": report["mfu"]}))
+
+    # (c) torch.export serving at batch 8, on the card
+    t0 = time.perf_counter()
+    blob = export_generator(gen_cfg, gen, depth=DEPTH, batch_size=BATCH)
+    export_s = time.perf_counter() - t0
+    path = os.path.join(tmp, "gen_b8.pt2")
+    with open(path, "wb") as f:
+        f.write(blob)
+    t0 = time.perf_counter()
+    served = load_exported(path, device=dev)
+    load_s = time.perf_counter() - t0
+    nodes = sum(n.op == "call_function"
+                and n.target is torch.ops.stylegan_torch.epilogue.default
+                for n in served.exported.graph.nodes)
+    served(zs[-1], 1000)              # warm-up request, not counted
+    torch.cuda.synchronize()
+    reset_counts(kern, fused)
+    t0 = time.perf_counter()
+    outs = []
+    for i in range(REQUESTS):
+        outs.append(served(zs[i], i))
+        torch.cuda.synchronize()
+    elapsed = time.perf_counter() - t0
+    calls, plain = kern.launches, fused.plain_calls
+    # with cuDNN's default algorithms a replayed request differs in the
+    # last bits (its transposed convs sum in no fixed order): the default
+    # differences are reported, the bitwise check runs with its
+    # deterministic algorithms
+    default_diff = {
+        "export_vs_serve": max(float((out - serve(zs[i], i)).abs().max())
+                               for i, out in enumerate(outs)),
+        "serve_vs_serve": float((serve(zs[0], 0) - serve(zs[0], 0))
+                                .abs().max())}
+    default_bar = F32_TOL * max(1.0, float(outs[0].abs().max()))
+    torch.backends.cudnn.deterministic = True
+    try:
+        equal = [bool(torch.equal(served(zs[i], i), serve(zs[i], i)))
+                 for i in range(REQUESTS)]
+    finally:
+        torch.backends.cudnn.deterministic = False
+    report["export"] = {
+        "bytes": len(blob), "export_s": export_s, "load_s": load_s,
+        "graph_epilogue_nodes": nodes, "img_per_s": REQUESTS * BATCH / elapsed,
+        "phase3_img_per_s": serve_img_s, "epilogue_calls": calls,
+        "plain_calls": plain, "bitwise_equal_deterministic_cudnn": equal,
+        "max_abs_diff_default_cudnn": default_diff}
+    if nodes != PER_FORWARD or calls != PER_FORWARD * REQUESTS or plain:
+        fail(f"exported program: {nodes} epilogue nodes, {calls} kernel "
+             f"calls and {plain} plain calls over {REQUESTS} requests")
+    if not all(equal):
+        fail(f"exported program vs make_serving_fn: bitwise {equal}")
+    if not max(default_diff.values()) <= default_bar:
+        fail(f"exported program vs make_serving_fn: {default_diff} > "
+             f"{default_bar}")
+    del outs, served, blob
+    # a batch-2 depth-5 artifact exported on the card, loaded on the CPU
+    small = export_generator(gen_cfg, gen, depth=CHECK_DEPTH,
+                             batch_size=2)
+    on_card = load_exported(small, device=dev).exported.module()
+    on_cpu = load_exported(small, device="cpu").exported.module()
+    z2 = torch.from_numpy(rs.standard_normal((2, gen_cfg.latent_size),
+                                             dtype=np.float32))
+    maps = [torch.from_numpy(rs.standard_normal(
+        (2, 2 ** (i // 2 + 2), 2 ** (i // 2 + 2), 1), dtype=np.float32))
+        for i in range(2 * (CHECK_DEPTH + 1))]
+    torch.set_num_threads(os.cpu_count() or 1)
+    with torch.inference_mode():
+        want = on_cpu(z2, maps)
+        got = on_card(z2.to(dev), [m.to(dev) for m in maps]).cpu()
+    err = float((got - want).abs().max())
+    report["export"]["depth5_card_vs_cpu"] = err
+    log(json.dumps({"phase8_export": report["export"]}))
+    if not err <= CPU_TOL:
+        fail(f"depth-5 artifact, card vs CPU: max |diff| {err} > {CPU_TOL}")
+    del on_card, on_cpu, small
+
+    # (d) projection at 1024^2, W+, on a target the generator makes from a
+    # W near w_avg with the projector's own pinned noises
+    report["project"] = project_on_card(dev, gen_cfg, gen, kern, fused, tmp)
+    w_path = report["project"].pop("w_path")
+
+    # (e) depth 5 on the card and the CPU, pinned draws, float64 truth
+    report["project_vs_cpu"] = project_vs_cpu(dev, cfg)
+
+    # (f) the CLIs as subprocesses on the card
+    target = os.path.join(tmp, "target.png")
+    Image.fromarray(np.random.default_rng(81).integers(
+        0, 256, (1024, 1024, 3), dtype=np.uint8)).save(target)
+
+    def t(name):
+        return os.path.join(tmp, name)
+    times = run_all({
+        "project": [sys.executable, "-m", "stylegan_torch.cli.project",
+                    "--config", CONFIG, "--generator_file", npz, "--target",
+                    target, "--output_dir", t("proj"), "--num_steps", "5"],
+        "export_generator": [
+            sys.executable, "-m", "stylegan_torch.cli.export_generator",
+            "--config", CONFIG, "--generator_file", npz, "--output",
+            t("cli.pt2"), "--batch", "2", "--check"],
+        "generate_samples_input": [
+            sys.executable, "-m", "stylegan_torch.cli.generate_samples",
+            "--config", CONFIG, "--generator_file", npz, "--input", w_path,
+            "--output", t("from_w.png")]}, label="phase 8")
+    for name in ("proj/projected.png", "proj/target.png", "from_w.png"):
+        shape = np.asarray(Image.open(t(name))).shape
+        if shape != (1024, 1024, 3):
+            fail(f"phase 8 CLI output {name} has shape {shape}")
+    if np.load(t("proj/w.npy")).shape != (gen_cfg.num_layers,
+                                          gen_cfg.dlatent_size):
+        fail("the project CLI's w.npy has the wrong shape")
+    report["cli_s"] = times
+    report["phase_s"] = time.perf_counter() - t_phase
+    log(f"phase 8: {report['phase_s']:.1f} s")
+    return report
+
+
+def project_on_card(dev, gen_cfg, gen, kern, fused, tmp):
+    """Phase 8(d): 100 projection steps at 1024^2 with the exact epilogue
+    calls, the loss curve, ms per step and the w.npy it writes."""
+    from stylegan_torch.projection import (ProjectorConfig,
+                                           build_projection_step,
+                                           init_projection, project,
+                                           w_statistics)
+    pcfg = ProjectorConfig(num_steps=PROJECT_STEPS)
+    seed = 5
+    _, _, noises = init_projection(seed, gen_cfg, gen, pcfg)
+    w_avg, ws = w_statistics(gen_cfg, gen, torch.Generator().manual_seed(7),
+                             256)
+    rs = np.random.default_rng(82)
+    w_true = w_avg + 0.4 * ws * torch.from_numpy(rs.standard_normal(
+        (1, gen_cfg.num_layers, gen_cfg.dlatent_size),
+        dtype=np.float32)).to(dev) / gen_cfg.dlatent_size ** 0.5
+    with torch.no_grad():
+        target = gen.g_synthesis(w_true, depth=DEPTH, alpha=1.0,
+                                 noises=noises)[0]
+    torch.cuda.synchronize()
+    reset_counts(kern, fused)
+    t0 = time.perf_counter()
+    dl, img, losses = project(seed, gen_cfg, gen, target, pcfg)
+    wall = time.perf_counter() - t0
+    counts = {"forward_calls": kern.launches,
+              "forward_cuda_launches": kern.cuda_launches,
+              "backward_calls": kern.backward_launches,
+              "backward_cuda_launches": kern.backward_cuda_launches,
+              "backward_g_copies": kern.backward_g_copies,
+              "plain_calls": fused.plain_calls}
+    want = (PER_FORWARD * (PROJECT_STEPS + 1), PER_FORWARD * PROJECT_STEPS)
+    if (counts["forward_calls"], counts["backward_calls"]) != want or \
+            counts["plain_calls"]:
+        fail(f"projection made epilogue calls {counts}, want {want} and no "
+             "plain call")
+    if not (np.isfinite(img).all() and np.isfinite(dl).all()
+            and all(math.isfinite(v) for v in losses)):
+        fail("projection output not finite")
+    if img.shape != (1024, 1024, 3) or dl.shape != (gen_cfg.num_layers,
+                                                    gen_cfg.dlatent_size):
+        fail(f"projection output shapes {img.shape} {dl.shape}")
+    if not losses[-1] < losses[0]:
+        fail(f"projection loss {losses[0]} -> {losses[-1]}: no descent")
+    w_path = os.path.join(tmp, "w.npy")
+    np.save(w_path, dl)
+    # ms per step over a window of steps, after one warm step
+    state, w_std, noises = init_projection(seed, gen_cfg, gen, pcfg)
+    step = build_projection_step(gen_cfg, gen, pcfg, noises)
+    step(state, target, 10, w_std)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for t in range(PROJECT_TIMED_STEPS):
+        step(state, target, 11 + t, w_std)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) / PROJECT_TIMED_STEPS * 1e3
+    # one profiled step: its device time (kernels' self time) over its own
+    # wall time is the device's busy share, a lower bound (the profiler's
+    # host cost)
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile as tprofile
+    with tprofile(activities=[ProfilerActivity.CPU,
+                              ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step(state, target, 11 + PROJECT_TIMED_STEPS, w_std)
+        torch.cuda.synchronize()
+        profiled_wall = (time.perf_counter() - t0) * 1e3
+    busy = sum(e.self_device_time_total for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA) / 1e3
+    report = {"steps": PROJECT_STEPS, "wall_s": wall, "ms_per_step": ms,
+              "profiled_step_device_ms": busy,
+              "profiled_step_wall_ms": profiled_wall,
+              "device_busy_share": busy / profiled_wall,
+              "losses_every_10": losses[::10] + [losses[-1]],
+              "pixel_mse": float(np.mean((img - target.cpu().numpy()) ** 2)),
+              **counts, "w_path": w_path}
+    log(json.dumps({"phase8_project": {k: v for k, v in report.items()
+                                       if k != "w_path"}}))
+    return report
+
+
+def project_vs_cpu(dev, cfg):
+    """Phase 8(e): 5 projection steps of the FFHQ-1024 model's first 6
+    stages (128^2) on the card, on the CPU, and on the CPU in float64, with
+    the z of w_statistics, the noise maps and each step's perturbation
+    pinned: the losses and W within the bars above."""
+    from stylegan_torch.models import Generator, generator_config_from_cfg
+    from stylegan_torch.models.synthesis import layer_resolution
+    from stylegan_torch.projection import (ProjectorConfig,
+                                           build_projection_step,
+                                           init_projection, w_statistics)
+    small = cfg.clone()
+    small.defrost()
+    small.dataset.resolution = 2 ** (CHECK_DEPTH + 2)
+    small.freeze()
+    gen_cfg = generator_config_from_cfg(small)
+    sd = random_state_dict(Generator(gen_cfg), seed=12)
+    pcfg = ProjectorConfig(num_steps=CHECK_STEPS, avg_samples=256)
+    rs = np.random.default_rng(83)
+    n_layers, dl_size = gen_cfg.num_layers, gen_cfg.dlatent_size
+    z = rs.standard_normal((256, gen_cfg.latent_size))
+    noises = [rs.standard_normal((1, layer_resolution(i), layer_resolution(i),
+                                  1)) for i in range(n_layers)]
+    perts = rs.standard_normal((CHECK_STEPS, n_layers, dl_size))
+    # the target: the same model's image of a W near w_avg (as phase 8(d))
+    ref = Generator(gen_cfg)
+    ref.load_state_dict(sd, strict=True)
+    ref.requires_grad_(False)
+    w_avg, w_std = w_statistics(gen_cfg, ref, z=torch.from_numpy(z).float())
+    w_true = w_avg + 0.4 * w_std * torch.from_numpy(rs.standard_normal(
+        (1, n_layers, dl_size), dtype=np.float32)) / dl_size ** 0.5
+    with torch.no_grad():
+        target = ref.g_synthesis(
+            w_true, depth=CHECK_DEPTH, alpha=1.0,
+            noises=[torch.from_numpy(n).float() for n in noises])[0].numpy()
+    del ref
+    runs = []
+    for device, dtype in ((dev, torch.float32), (torch.device("cpu"),
+                                                 torch.float32),
+                          (torch.device("cpu"), torch.float64)):
+        def put(a):
+            return torch.as_tensor(a).to(device, dtype)
+        gen = Generator(gen_cfg)
+        gen.load_state_dict(sd, strict=True)
+        gen.requires_grad_(False).to(device, dtype)
+        state, w_std, pinned = init_projection(
+            0, gen_cfg, gen, pcfg, z=put(z), noises=[put(n) for n in noises])
+        step = build_projection_step(gen_cfg, gen, pcfg, pinned)
+        t0 = time.perf_counter()
+        losses, moment = [], None
+        for t in range(CHECK_STEPS):
+            losses.append(float(step(state, put(target), t, w_std,
+                                     perturbation=put(perts[t]))[1]))
+            if t == 0:     # a copy: Adam updates its moments in place
+                moment = state.optimizer.state[state.dlatents]["exp_avg"] \
+                    .detach().cpu().double().clone()
+        log(f"projection check on {device.type} {dtype}: losses {losses}, "
+            f"{time.perf_counter() - t0:.1f} s")
+        runs.append((losses, moment, state.dlatents.detach().cpu().double()))
+        del gen, state, step
+    (lc, mc, wc), (lh, mh, wh), (l64, m64, w64) = runs
+    loss_rel = [abs(a - b) / abs(b) for a, b in zip(lc, lh)]
+
+    def bar_check(card, cpu, truth, floor):
+        err_card = float((card - truth).abs().max())
+        err_cpu = float((cpu - truth).abs().max())
+        bar = CHECK_W_FACTOR * err_cpu + floor * float(truth.abs().max())
+        return {"card": err_card, "cpu_f32": err_cpu, "bar": bar}
+    grad = bar_check(mc, mh, m64, 1e-5)
+    w = bar_check(wc, wh, w64, 1e-6)
+    report = {"depth": CHECK_DEPTH, "steps": CHECK_STEPS,
+              "loss_rel_diff": loss_rel, "losses_card": lc,
+              "losses_cpu_f32": lh, "losses_f64": l64,
+              "grad_err_vs_f64": grad, "w_err_vs_f64": w}
+    log(json.dumps({"phase8_project_vs_cpu": report}))
+    if not max(loss_rel[:CHECK_SAME_W_STEPS]) <= CHECK_LOSS_RTOL:
+        fail(f"projection losses at w_avg, card vs CPU: {lc} vs {lh}")
+    for name, r in (("first-step gradient", grad), ("W", w)):
+        if not r["card"] <= r["bar"]:
+            fail(f"projection {name}, card vs float64: {r}")
+    return report
+
+
+def run_all(cmds, label="tools"):
     """Start every command at once from the repo root; fail with the output
     of any that fails; returns each one's wall time in s."""
     procs, t0 = {}, time.perf_counter()
@@ -1779,7 +2273,7 @@ def run_all(cmds):
             if p.poll() is None:
                 p.kill()
                 p.wait()
-    log(f"tools: {len(cmds)} CLI subprocesses on the card, concurrently, "
+    log(f"{label}: {len(cmds)} CLI subprocesses on the card, concurrently, "
         f"done in {max(times.values()):.1f} s: " + ", ".join(
             f"{k} {v:.1f} s" for k, v in times.items()))
     return times
@@ -1803,8 +2297,9 @@ def main():
     log(f"card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}")
 
     summary = phase_kernel(dev)
-    batches = phase_kernel_batches(dev)
+    batches, b1 = phase_kernel_batches(dev)
     grad = phase_grad_kernel(dev)
+    grad_b1 = phase_grad_kernel_b1(dev)
     cpu_gen, launches, cuda_launches, img_s, profiled_ms = phase_slice(
         dev, summary["per_forward"])
     phase_cli(cpu_gen)
@@ -1814,6 +2309,8 @@ def main():
     trainer = phase_trainer(dev, train["img_per_s"])
     calls = trainer["epilogue_calls"]
     tools = phase_tools(dev)
+    p8 = phase_export_project(dev, summary["per_forward"], img_s, train)
+    proj = p8["project"]
 
     kernels = [{
         "name": "epilogue", "route": "cuda",
@@ -1833,6 +2330,8 @@ def main():
         "trainer_launches": calls["forward"],
         "trainer_cuda_launches": calls["forward_cuda"],
         "tools_launches": tools["launches"],
+        "export_launches": p8["export"]["epilogue_calls"],
+        "project_launches": proj["forward_calls"],
         "tool_batches_max_abs_err": batches,
         "shapes": "the 18 float32 calls of one batch-8 1024^2 forward; ms "
                   "and plain_ms device time (CUDA graph replay, x warm in "
@@ -1844,8 +2343,11 @@ def main():
                   "over the 3 train steps, trainer_launches over phase 6's "
                   "StyleGAN.train run (its steps and feedback grids), "
                   "tools_launches over each in-process CLI run of phase 7, "
+                  "export_launches over phase 8(c)'s 3 requests through the "
+                  "exported program, project_launches over phase 8(d)'s "
+                  "projection (101 batch-1 forwards), "
                   "tool_batches_max_abs_err the float32 error at the 9 "
-                  "shapes by the tool CLIs' batch sizes",
+                  "shapes by batch (projection's 1, the tool CLIs')",
     }, {
         "name": "epilogue_backward", "route": "cuda",
         "source": "stylegan_torch/csrc/epilogue.cu",
@@ -1863,13 +2365,43 @@ def main():
         "bf16_bound_ms": grad["bf16_bound_ms"],
         "trainer_launches": calls["backward"],
         "trainer_cuda_launches": calls["backward_cuda"],
+        "project_launches": proj["backward_calls"],
         "shapes": "the 18 float32 calls of one batch-2 1024^2 G backward "
                   "(dx, dnoise_weight, dstyle); ms and plain_ms (the plain "
                   "analytic VJP) device time by CUDA graph replay, cold_ms "
                   "with g and x cold in L2, call_ms eager, bf16_* in "
                   "bfloat16; launches (calls) and cuda_launches over the 3 "
                   "train steps, trainer_launches over phase 6's "
-                  "StyleGAN.train run",
+                  "StyleGAN.train run, project_launches over phase 8(d)'s "
+                  "100 projection steps (dx and dstyle only)",
+    }, {
+        "name": "epilogue_batch1", "route": "cuda",
+        "source": "stylegan_torch/csrc/epilogue.cu",
+        "replaces": "stylegan_tpu/ops/pallas/epilogue.py:73",
+        "replaces_also": ["stylegan_tpu/ops/pallas/epilogue.py:101"],
+        "launches": proj["forward_calls"],
+        "cuda_launches": proj["forward_cuda_launches"],
+        "max_abs_err": b1["max_abs_err"], "ms": b1["ms"],
+        "plain_ms": b1["plain_ms"], "bound_ms": b1["bound_ms"],
+        "bound_by": "bytes", "library_ms": None,
+        "shapes": "the forward kernel at projection's batch 1: the 18 "
+                  "float32 calls of one 1024^2 forward, device time by "
+                  "CUDA graph replay (phase 2); launches over phase 8(d)'s "
+                  "100-step projection",
+    }, {
+        "name": "epilogue_backward_batch1", "route": "cuda",
+        "source": "stylegan_torch/csrc/epilogue.cu",
+        "replaces": "stylegan_tpu/ops/pallas/epilogue.py:139",
+        "launches": proj["backward_calls"],
+        "cuda_launches": proj["backward_cuda_launches"],
+        "max_abs_err": grad_b1["max_abs_err"],
+        "worst_bar_ratio": grad_b1["worst_bar_ratio"], "ms": grad_b1["ms"],
+        "plain_ms": grad_b1["plain_ms"], "bound_ms": grad_b1["bound_ms"],
+        "bound_by": "bytes", "library_ms": None,
+        "shapes": "the backward kernels at projection's batch 1, dx and "
+                  "dstyle only: the 18 float32 calls of one 1024^2 "
+                  "backward, device time by CUDA graph replay (phase "
+                  "5(a)); launches over phase 8(d)'s 100 steps",
     }]
     log(json.dumps({"serve_img_per_s": img_s, "batch": BATCH,
                     "resolution": 1024, "dtype": "float32"}))
@@ -1878,6 +2410,7 @@ def main():
                     "card_vs_cpu": check}))
     log(json.dumps({"trainer": trainer}))
     log(json.dumps({"tools": tools}))
+    log(json.dumps({"phase8": p8}))
     log(card)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

@@ -8,13 +8,19 @@ backward (``ops/kernels/epilogue.py``); a CPU tensor takes the plain versions
 here, `_reference_epilogue` and its analytic VJP `_reference_epilogue_vjp`,
 which are also the ground truth the kernels are held to.  The JAX package's
 opt-in switch was a TPU trade-off and has no counterpart here.
+
+A call that needs no gradient goes, on either device, through the
+``stylegan_torch::epilogue`` op, whose CPU implementation this module
+registers (`_reference_epilogue`): a program that ``torch.export`` traces
+anywhere holds the op's node, and launches the kernel once moved to the
+card.
 """
 
 from __future__ import annotations
 
 import torch
 
-from .kernels.epilogue import kernel_epilogue
+from .kernels.epilogue import epilogue_op, kernel_epilogue, needs_grad
 from .primitives import add_noise, instance_norm, leaky_relu, style_modulate
 
 # Calls of the plain versions (forward and VJP).  On the card's main path
@@ -68,6 +74,9 @@ def _reference_epilogue_vjp(x, noise_weight, noise, style, g):
             dstyle.to(style.dtype))
 
 
+epilogue_op.register_kernel("cpu")(_reference_epilogue)
+
+
 class _PlainEpilogue(torch.autograd.Function):
     """The CPU epilogue: the composition forward, its analytic VJP backward.
     The VJP is torch ops, so a create_graph backward differentiates again."""
@@ -91,10 +100,13 @@ def fused_epilogue(x: torch.Tensor, noise_weight: torch.Tensor,
     x: (B, H, W, C); noise: (B, H, W, 1); noise_weight: (C,); style: (B, 2C).
     A CUDA x launches the kernels, which take x and noise in one dtype
     (float32 or bfloat16) and noise_weight and style in float32, and raise
-    on anything else; a CPU x runs the plain versions.
+    on anything else; a CPU x runs the plain versions.  Without a gradient
+    to record, both go through the ``stylegan_torch::epilogue`` op.
     """
     if x.device.type == "cuda":
         return kernel_epilogue(x, noise_weight, noise, style)
-    if x.device.type == "cpu":
+    if x.device.type != "cpu":
+        raise ValueError(f"no epilogue for device {x.device}")
+    if needs_grad(x, noise_weight, noise, style):
         return _PlainEpilogue.apply(x, noise_weight, noise, style)
-    raise ValueError(f"no epilogue for device {x.device}")
+    return epilogue_op(x, noise_weight, noise, style)

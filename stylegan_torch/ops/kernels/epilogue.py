@@ -24,9 +24,32 @@ way; it reads the per-(b, c) (mean, rstd) that the forward saved.  It
 replaces the JAX custom VJP's backward, which is XLA autodiff of the plain
 composition.
 
-`kernel_epilogue` is the ``torch.autograd.Function`` around both (the
-counterpart of the JAX ``pallas_epilogue`` custom VJP).  This module takes
-CUDA tensors only; ``ops/fused.py`` sends a CPU tensor to the plain versions.
+The kernels reach PyTorch as ``torch.library`` custom ops, each with a
+fake (meta) implementation that checks shapes and dtypes as the launch does
+and returns outputs of the real shapes, so that ``torch.export`` traces
+them as nodes of their own and an exported program launches them on the
+card:
+
+* ``stylegan_torch::epilogue`` (x, noise_weight, noise, style) -> out, the
+  inference forward.  Its CUDA implementation is `epilogue_forward`; its
+  CPU implementation, registered by ``ops/fused.py``, is the plain
+  `_reference_epilogue`.
+* ``stylegan_torch::epilogue_train`` -> (out, saved): the forward that also
+  writes the (B, C, 2) (mean, rstd) the backward reads.
+* ``stylegan_torch::epilogue_backward`` (g, x, noise_weight, noise, style,
+  saved, needs) -> the gradients whose entry of `needs` is true, in the
+  order (dx, dnoise_weight, dnoise, dstyle): a custom op returns no
+  optional tensors.
+
+The training path is the ``torch.autograd.Function`` `_KernelEpilogue`
+(the counterpart of the JAX ``pallas_epilogue`` custom VJP), whose forward
+and backward call the last two ops; the Function, not
+``register_autograd``, keeps the once-differentiable error and the
+incoming gradient's copy to NHWC where they were.  The training ops' one
+implementation serves every device and launches the kernels, which raise
+on anything but a CUDA tensor: ``ops/fused.py`` sends a CPU tensor that
+needs a gradient to the plain versions and never to these ops.  The
+launch itself is still the ``ctypes`` call below, inside the op.
 """
 
 from __future__ import annotations
@@ -188,9 +211,10 @@ def plan_for(x: torch.Tensor) -> dict:
                      int(x.data_ptr() % 16 == 0)).as_dict()
 
 
-def _check_inputs(x, noise_weight, noise, style, g=None, saved=None):
-    """Raise unless the tensors are what the kernels take (see
-    epilogue_forward and epilogue_backward)."""
+def _check_layout(x, noise_weight, noise, style, g=None, saved=None):
+    """Raise unless the tensors have the shapes, dtypes, device and layout
+    the kernels take (see epilogue_forward and epilogue_backward); the ops'
+    fakes run this, where the device is whatever the trace's is."""
     if x.ndim != 4 or x.dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"x must be 4-D float32/bfloat16 NHWC, got "
                          f"{tuple(x.shape)} {x.dtype}")
@@ -210,6 +234,12 @@ def _check_inputs(x, noise_weight, noise, style, g=None, saved=None):
             raise ValueError(f"{name} must be contiguous")
     if not x.is_contiguous():
         raise ValueError("x must be contiguous NHWC (channels_last NCHW)")
+
+
+def _check_inputs(x, noise_weight, noise, style, g=None, saved=None):
+    """Raise unless the tensors are what the kernels take: _check_layout,
+    and on a CUDA device."""
+    _check_layout(x, noise_weight, noise, style, g, saved)
     if x.device.type != "cuda":
         raise ValueError(
             f"epilogue kernel needs a CUDA tensor, got {x.device}")
@@ -376,17 +406,71 @@ def bytes_moved_backward(x: torch.Tensor) -> int:
             + 4 * (2 * c + 4 * b * c + 2 * b * c))
 
 
+# --------------------------------------------------------------------------
+# The kernels as torch.library ops.  The implementations look up
+# epilogue_forward / epilogue_backward when called, so a test can stand a
+# plain version in for the launch.
+
+@torch.library.custom_op("stylegan_torch::epilogue", mutates_args=(),
+                         device_types="cuda")
+def epilogue_op(x: torch.Tensor, noise_weight: torch.Tensor,
+                noise: torch.Tensor, style: torch.Tensor) -> torch.Tensor:
+    """The inference forward: the kernel on the card; on the CPU the plain
+    version (registered by ops/fused.py)."""
+    return epilogue_forward(x, noise_weight, noise, style)
+
+
+@epilogue_op.register_fake
+def _(x, noise_weight, noise, style):
+    _check_layout(x, noise_weight, noise, style)
+    return torch.empty_like(x)
+
+
+@torch.library.custom_op("stylegan_torch::epilogue_train", mutates_args=())
+def epilogue_train_op(x: torch.Tensor, noise_weight: torch.Tensor,
+                      noise: torch.Tensor, style: torch.Tensor
+                      ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The training forward: (out, saved (B, C, 2) float32 (mean, rstd))."""
+    saved = torch.empty((x.shape[0], x.shape[-1], 2), dtype=torch.float32,
+                        device=x.device)
+    return epilogue_forward(x, noise_weight, noise, style, saved), saved
+
+
+@epilogue_train_op.register_fake
+def _(x, noise_weight, noise, style):
+    _check_layout(x, noise_weight, noise, style)
+    return torch.empty_like(x), x.new_empty((x.shape[0], x.shape[-1], 2),
+                                            dtype=torch.float32)
+
+
+@torch.library.custom_op("stylegan_torch::epilogue_backward", mutates_args=())
+def epilogue_backward_op(g: torch.Tensor, x: torch.Tensor,
+                         noise_weight: torch.Tensor, noise: torch.Tensor,
+                         style: torch.Tensor, saved: torch.Tensor,
+                         needs: list[bool]) -> list[torch.Tensor]:
+    """The backward: the gradients asked for by `needs`, in order."""
+    grads = epilogue_backward(g, x, noise_weight, noise, style, saved,
+                              tuple(needs))
+    return [d for d, need in zip(grads, needs) if need]
+
+
+@epilogue_backward_op.register_fake
+def _(g, x, noise_weight, noise, style, saved, needs):
+    _check_layout(x, noise_weight, noise, style, g=g, saved=saved)
+    return [torch.empty_like(t) for t, need in
+            zip((x, noise_weight, noise, style), needs) if need]
+
+
 class _KernelEpilogue(torch.autograd.Function):
-    """Forward and backward: the kernels (the forward saves the (mean, rstd)
-    the backward reads).  The backward kernels are once differentiable: a
-    backward that would be differentiated again (create_graph=True) raises
-    rather than hand autograd gradients with no graph behind them."""
+    """Forward and backward: the kernels through their training ops (the
+    forward saves the (mean, rstd) the backward reads).  The backward
+    kernels are once differentiable: a backward that would be
+    differentiated again (create_graph=True) raises rather than hand
+    autograd gradients with no graph behind them."""
 
     @staticmethod
     def forward(ctx, x, noise_weight, noise, style):
-        saved = torch.empty((x.shape[0], x.shape[-1], 2),
-                            dtype=torch.float32, device=x.device)
-        out = epilogue_forward(x, noise_weight, noise, style, saved)
+        out, saved = epilogue_train_op(x, noise_weight, noise, style)
         ctx.save_for_backward(x, noise_weight, noise, style, saved)
         return out
 
@@ -404,16 +488,21 @@ class _KernelEpilogue(torch.autograd.Function):
         if not g.is_contiguous():
             backward_g_copies += 1
             g = g.contiguous()
-        return epilogue_backward(g, x, noise_weight, noise, style, saved,
-                                 ctx.needs_input_grad)
+        needs = list(ctx.needs_input_grad)
+        grads = iter(epilogue_backward_op(g, x, noise_weight, noise, style,
+                                          saved, needs))
+        return tuple(next(grads) if need else None for need in needs)
+
+
+def needs_grad(*tensors) -> bool:
+    """Whether autograd would record a call on these tensors."""
+    return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
 
 
 def kernel_epilogue(x, noise_weight, noise, style):
     """Differentiable kernel epilogue; same arguments as epilogue_forward.
     Where no gradient can flow (inference, or no input requiring one) the
-    launch is called directly, without the autograd.Function's host cost."""
-    if torch.is_grad_enabled() and (
-            x.requires_grad or noise_weight.requires_grad
-            or noise.requires_grad or style.requires_grad):
+    inference op is called, without the autograd.Function's host cost."""
+    if needs_grad(x, noise_weight, noise, style):
         return _KernelEpilogue.apply(x, noise_weight, noise, style)
-    return epilogue_forward(x, noise_weight, noise, style)
+    return epilogue_op(x, noise_weight, noise, style)

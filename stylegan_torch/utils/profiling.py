@@ -1,7 +1,9 @@
 """Observability hooks (the port's copy of
-``stylegan_tpu/utils/profiling.py``, less its ``trace()``, which arrives
-with the port's ``torch.profiler`` slice).
+``stylegan_tpu/utils/profiling.py``).
 
+* ``trace(logdir)`` — context manager around ``torch.profiler`` that writes
+  a Chrome/Perfetto trace JSON (CPU ops, and the card's kernels when CUDA is
+  available) into `logdir`.
 * ``StepTimer`` — cheap host-side step timing with EMA smoothing and img/s.
 * ``MetricsWriter`` — JSONL metrics stream (one dict per line) that tools can
   tail; doubles as the trainer's machine-readable log.
@@ -9,10 +11,38 @@ with the port's ``torch.profiler`` slice).
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import time
 from typing import Optional
+
+
+@contextlib.contextmanager
+def trace(logdir: Optional[str]):
+    """torch.profiler trace if a logdir is given, else a no-op.  On exit the
+    trace is written as ``trace-<pid>-<ns>.json`` in `logdir` (created), a
+    Chrome trace that Perfetto and chrome://tracing open, also when the
+    body raises, as JAX's stop_trace in a finally.  The context's value is
+    the profile (``with trace(d) as prof``: its ``key_averages()``), None
+    without a logdir."""
+    if not logdir:
+        yield None
+        return
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    os.makedirs(logdir, exist_ok=True)
+    activities = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(ProfilerActivity.CUDA)
+    prof = profile(activities=activities)
+    prof.start()
+    try:
+        yield prof
+    finally:
+        prof.stop()
+        prof.export_chrome_trace(os.path.join(
+            logdir, f"trace-{os.getpid()}-{time.time_ns()}.json"))
 
 
 class StepTimer:

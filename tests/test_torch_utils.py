@@ -108,3 +108,29 @@ def test_step_timer_equals_jax(monkeypatch):
         assert ours.tick() == theirs.tick()
         assert ours.images_per_sec(4) == theirs.images_per_sec(4)
     assert ours.ema_step_time is not None
+
+
+def test_trace_writes_a_chrome_trace(tmp_path):
+    """trace(logdir) writes a Chrome/Perfetto trace JSON naming the aten
+    ops run inside it, creating the directory; the context's value is the
+    profile."""
+    import torch
+    from stylegan_torch.utils import trace
+    logdir = tmp_path / "new" / "traces"
+    with trace(str(logdir)) as prof:
+        torch.ones(4, 4) @ torch.ones(4, 4)
+    files = list(logdir.glob("*.json"))
+    assert len(files) == 1 and prof is not None
+    events = json.loads(files[0].read_text())["traceEvents"]
+    assert any(e.get("name", "").startswith("aten::mm") for e in events)
+    files[0].unlink()
+
+
+def test_trace_without_logdir_is_a_no_op(tmp_path, monkeypatch):
+    from stylegan_torch.utils import trace
+    monkeypatch.chdir(tmp_path)
+    for logdir in (None, ""):
+        with trace(logdir) as prof:
+            pass
+        assert prof is None
+    assert list(tmp_path.iterdir()) == []

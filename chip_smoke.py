@@ -97,10 +97,10 @@ Phases, each fatal on failure:
            phase 3's img/s and phase 5(b)'s step against the card's float32
            peak, beside its name and power limit; (c) export_generator at
            batch 8 on the card: size, export and load wall time, 3
-           requests through load_exported, bitwise equal to make_serving_fn
-           with cuDNN's deterministic algorithms (within 1e-4 of the
-           image's largest with its defaults, whose transposed convs sum
-           in no fixed order),
+           requests through load_exported, each bitwise equal to
+           make_serving_fn, and one request served twice bitwise equal,
+           with cuDNN's default algorithms (the fused upscale runs as a
+           sub-pixel convolution where no gradient is recorded),
            18 nodes of the forward op and 18 kernel calls per request, no
            plain call, img/s beside phase 3's; a batch-2 depth-5 artifact
            exported on the card and run on the CPU within 1e-2; (d) project
@@ -112,7 +112,32 @@ Phases, each fatal on failure:
            draws: the losses at w_avg, the first step's gradient and W
            after the 5 steps (bars stated at CHECK_W_FACTOR); (f) the
            project and export_generator --check CLIs and generate_samples
-           --input on (d)'s w.npy, as subprocesses on the card.
+           --input on (d)'s w.npy, as subprocesses on the card;
+9. bf16    configs/sample_ffhq_1024_tpu_perf.yaml (bf16 activations, float32
+           parameters): (a) phase 3's generator on bf16 z, batch 8 at
+           1024^2: img/s beside the float32 forward's, 18 kernel calls per
+           forward and no plain call, the drift from float32 on the same z
+           and pinned noise within tests/test_bf16.py's bars (mean |diff|
+           < 0.02, max < 0.25 of the span), two runs bitwise equal, and
+           img/s with the dense layers' float32 product (the port's, as
+           JAX's) and with a bf16 GEMM in their place, in turns;
+           (b) the perf config's trainer at depth 8, batch 2 (logistic,
+           lazy R1 at 16, remat, fused scoring on the off-steps): an R1
+           step and an off-step, 3 timed each after a warm-up, beside
+           phase 5(b)'s float32 step timed before and after them; each
+           step's epilogue calls in its D update (18 forward) and G
+           update (18 forward, 16 recomputed, 18 backward), no plain call,
+           one profiled step of each (device busy share, the kernels' time
+           inside it) and the MFU against the bf16 peak; float32
+           parameters after; (c) one depth-5 R1 step on the card and on
+           the CPU in bf16 and on the CPU in float64, draws pinned: losses
+           and each gradient within the bars at BF16_LOSS_RTOL; (d) the
+           train CLI on a copy of the perf yaml over 24 seeded 1024^2
+           PNGs, depths 7 and 8: finite losses, float32 checkpoints, the
+           depth-8 windowed img/s.  It prints its seconds.
+
+`python3 chip_smoke.py --only 8 9` runs the build and just those phases
+(to try a change; no result lines).
 
 The last two lines are {"kernels": [...]} with the kernels' measurements and
 {"ok": true, "device": {...}}; the card's name and power limit precede them.
@@ -765,14 +790,21 @@ CHECK_LOSS_RTOL = 1e-3
 CHECK_GRAD_FACTOR = 10.0
 
 
-def train_models(cfg, dev, dtype=torch.float32):
+def train_models(cfg, dev, dtype=torch.float32, remat=False):
     """FFHQ-1024 G and D (configs/sample_ffhq_1024.yaml over the defaults)
-    with seeded random weights, on `dev`."""
+    with seeded random weights, on `dev`; with `remat`, each block
+    recomputed in the backward (the trainer's ops.remat)."""
+    from dataclasses import replace
+
     from stylegan_torch.models import (Discriminator, Generator,
                                        discriminator_config_from_cfg,
                                        generator_config_from_cfg)
     gen_cfg = generator_config_from_cfg(cfg)
     dis_cfg = discriminator_config_from_cfg(cfg)
+    if remat:
+        gen_cfg = replace(gen_cfg, synthesis=replace(gen_cfg.synthesis,
+                                                     remat=True))
+        dis_cfg = replace(dis_cfg, remat=True)
     gen, dis = Generator(gen_cfg), Discriminator(dis_cfg)
     gen.load_state_dict(random_state_dict(gen, seed=10), strict=True)
     dis.load_state_dict(random_state_dict(dis, seed=11), strict=True)
@@ -876,8 +908,8 @@ def phase_train(dev):
         fail(f"train steps made {bwd_cuda} backward CUDA launches, the plans "
              f"{want_bwd_cuda}")
 
-    busy, wall, top = profile_train_step(step, state, batches[-2], alpha,
-                                         kern, want)
+    busy, wall, top, _ = profile_train_step(step, state, batches[-2],
+                                            alpha, kern, want)
 
     # one relativistic-hinge step on the same state
     rh = train_step_fn(cfg, gen_cfg, dis_cfg, TRAIN_DEPTH,
@@ -907,7 +939,8 @@ def phase_train(dev):
             "top_ops": top}
 
 
-def profile_train_step(step, state, batch, alpha, kern, want):
+def profile_train_step(step, state, batch, alpha, kern, want,
+                       table_path=TRAIN_PROFILE_TABLE):
     """Device time of one train step by op (table in build/chip_smoke/)
     and that step's own wall time, whose ratio is the device's busy share;
     each epilogue kernel must show as often as the plans launch it."""
@@ -933,21 +966,21 @@ def profile_train_step(step, state, batch, alpha, kern, want):
                  key=lambda e: -e.device_time_total)
     top = [(e.key, e.device_time_total / 1e3, e.count) for e in ops[:12]]
     table = events.table(sort_by="cuda_time_total", row_limit=50)
-    os.makedirs(os.path.dirname(TRAIN_PROFILE_TABLE), exist_ok=True)
-    with open(TRAIN_PROFILE_TABLE, "w") as f:
+    os.makedirs(os.path.dirname(table_path), exist_ok=True)
+    with open(table_path, "w") as f:
         f.write(table)
     log(json.dumps({"profiled_train_step_device_ms": busy,
                     "profiled_train_step_wall_ms": wall,
                     "epilogue_by_kernel_ms": ms,
                     "epilogue_launches_by_kernel": count,
                     "top_aten_ops_device_ms": top}))
-    log(f"train profile table: {os.path.relpath(TRAIN_PROFILE_TABLE, REPO)}")
+    log(f"train profile table: {os.path.relpath(table_path, REPO)}")
     if count != want:
         fail(f"the profiled train step shows epilogue launches {count}; "
              f"the plans make {want}")
     if not all(ms[name] > 0 for name in want if want[name]):
         fail(f"the profiled train step shows no device time in {ms}")
-    return busy, wall, top
+    return busy, wall, top, ms
 
 
 def phase_train_vs_cpu(dev):
@@ -1999,37 +2032,31 @@ def export_project_run(dev, per_forward, serve_img_s, train, tmp):
         torch.cuda.synchronize()
     elapsed = time.perf_counter() - t0
     calls, plain = kern.launches, fused.plain_calls
-    # with cuDNN's default algorithms a replayed request differs in the
-    # last bits (its transposed convs sum in no fixed order): the default
-    # differences are reported, the bitwise check runs with its
-    # deterministic algorithms
-    default_diff = {
-        "export_vs_serve": max(float((out - serve(zs[i], i)).abs().max())
-                               for i, out in enumerate(outs)),
-        "serve_vs_serve": float((serve(zs[0], 0) - serve(zs[0], 0))
-                                .abs().max())}
-    default_bar = F32_TOL * max(1.0, float(outs[0].abs().max()))
-    torch.backends.cudnn.deterministic = True
-    try:
-        equal = [bool(torch.equal(served(zs[i], i), serve(zs[i], i)))
-                 for i in range(REQUESTS)]
-    finally:
-        torch.backends.cudnn.deterministic = False
+    # requests replay bit for bit with cuDNN's default algorithms: the
+    # exported program against make_serving_fn for each request, and one
+    # request served twice; the differences are reported either way
+    replays = [serve(zs[i], i) for i in range(REQUESTS)]
+    again = serve(zs[0], 0)
+    equal = [bool(torch.equal(out, want)) for out, want in zip(outs, replays)]
+    replay_equal = bool(torch.equal(again, replays[0]))
+    diff = {"export_vs_serve": max(float((out - want).abs().max())
+                                   for out, want in zip(outs, replays)),
+            "serve_vs_serve": float((again - replays[0]).abs().max())}
     report["export"] = {
         "bytes": len(blob), "export_s": export_s, "load_s": load_s,
         "graph_epilogue_nodes": nodes, "img_per_s": REQUESTS * BATCH / elapsed,
         "phase3_img_per_s": serve_img_s, "epilogue_calls": calls,
-        "plain_calls": plain, "bitwise_equal_deterministic_cudnn": equal,
-        "max_abs_diff_default_cudnn": default_diff}
+        "plain_calls": plain, "bitwise_equal_export_vs_serve": equal,
+        "bitwise_equal_serve_vs_serve": replay_equal,
+        "max_abs_diff": diff}
     if nodes != PER_FORWARD or calls != PER_FORWARD * REQUESTS or plain:
         fail(f"exported program: {nodes} epilogue nodes, {calls} kernel "
              f"calls and {plain} plain calls over {REQUESTS} requests")
-    if not all(equal):
-        fail(f"exported program vs make_serving_fn: bitwise {equal}")
-    if not max(default_diff.values()) <= default_bar:
-        fail(f"exported program vs make_serving_fn: {default_diff} > "
-             f"{default_bar}")
-    del outs, served, blob
+    if not all(equal) or not replay_equal:
+        fail(f"served requests do not replay bit for bit: exported program "
+             f"vs make_serving_fn {equal}, one request twice "
+             f"{replay_equal}; max |diff| {diff}")
+    del outs, replays, again, served, blob
     # a batch-2 depth-5 artifact exported on the card, loaded on the CPU
     small = export_generator(gen_cfg, gen, depth=CHECK_DEPTH,
                              batch_size=2)
@@ -2253,6 +2280,482 @@ def project_vs_cpu(dev, cfg):
     return report
 
 
+# --------------------------------------------------------------------------
+# Phase 9: the bf16 activation path on the card
+# --------------------------------------------------------------------------
+
+PERF_CONFIG = os.path.join(REPO, "configs", "sample_ffhq_1024_tpu_perf.yaml")
+# tests/test_bf16.py's bars on the bf16 forward's drift from float32, as
+# shares of the float32 image's span
+BF16_DRIFT_MEAN, BF16_DRIFT_MAX = 0.02, 0.25
+# one bf16 step on the card against the same bf16 step on the CPU and
+# float64 on the CPU: losses within 5e-2 of the CPU's (bf16 keeps 8
+# significant bits, so sums over the network differ in the third digit);
+# each gradient tensor's relative L2 error from float64 within 3x the CPU
+# bf16 step's own, plus 1e-3 (cuDNN's bf16 algorithms round in other places
+# than oneDNN's, and accumulate in float32 as it does)
+BF16_LOSS_RTOL = 5e-2
+BF16_GRAD_FACTOR, BF16_GRAD_FLOOR = 3.0, 1e-3
+BF16_CHECK_DEPTH = CHECK_DEPTH
+BF16_TIMED = 3                  # timed steps after a warm-up
+BF16_REQUESTS = 10              # timed requests of batch 8 (about 15 ms each)
+BF16_CLI_IMAGES = 24            # depth 7: 6 steps at batch 4, 8: 12 at 2
+BF16_PROFILE_TABLE = os.path.join(REPO, "build", "chip_smoke",
+                                  "bf16_{}_profile.txt")
+
+
+def perf_cfg(**overrides):
+    """configs/sample_ffhq_1024_tpu_perf.yaml over the defaults: bf16
+    activations, logistic loss with lazy R1 at interval 16, remat."""
+    from stylegan_torch.config import get_default_cfg
+    cfg = get_default_cfg()
+    cfg.merge_from_file(PERF_CONFIG)
+    cfg.merge_from_list([x for kv in overrides.items() for x in kv])
+    cfg.freeze()
+    return cfg
+
+
+def phase_bf16(dev):
+    """Phase 9: the bf16 forward, train steps, a depth-5 step against the
+    CPU and float64, and the perf config through the train CLI; returns
+    the report."""
+    t_phase = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_p9_")
+    try:
+        report = {"forward": bf16_forward(dev), "train": bf16_train(dev),
+                  "vs_cpu": bf16_vs_cpu(dev), "cli": bf16_cli(dev, tmp)}
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    report["phase_s"] = time.perf_counter() - t_phase
+    log(f"phase 9: {report['phase_s']:.1f} s")
+    return report
+
+
+def time_requests(fn, n=BF16_REQUESTS):
+    """img/s of n requests of batch BATCH, each ending in a synchronize,
+    after one warm-up request."""
+    fn(1000)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(n):
+        fn(i)
+        torch.cuda.synchronize()
+    return n * BATCH / (time.perf_counter() - t0)
+
+
+def bf16_forward(dev):
+    """9(a): phase 3's generator (float32 weights) on bf16 z, batch 8 at
+    1024^2: its img/s beside the float32 forward's, 18 kernel calls per
+    forward and no plain call, the drift from float32 on the same z and
+    pinned noise within tests/test_bf16.py's bars, two runs bitwise
+    equal, and the dense layers' float32 product against a bf16 GEMM
+    (img/s, in turns)."""
+    from stylegan_torch.config import apply_runtime_knobs, get_default_cfg
+    from stylegan_torch.models import Generator, generator_config_from_cfg
+    from stylegan_torch.models.synthesis import layer_resolution
+    from stylegan_torch.ops import fused, linear
+    from stylegan_torch.ops.kernels import epilogue as kern
+    from stylegan_torch.ops.precision import set_precision
+
+    cfg = get_default_cfg()
+    cfg.merge_from_file(CONFIG)
+    cfg.freeze()
+    gen_cfg = generator_config_from_cfg(cfg)
+    gen = Generator(gen_cfg)
+    gen.load_state_dict(random_state_dict(gen), strict=True)
+    gen.requires_grad_(False).eval().to(dev)
+    rs = np.random.default_rng(90)
+    z = torch.from_numpy(rs.standard_normal(
+        (BATCH, gen_cfg.latent_size), dtype=np.float32)).to(dev)
+    noises = [torch.from_numpy(rs.standard_normal(
+        (BATCH, layer_resolution(i), layer_resolution(i), 1),
+        dtype=np.float32)).to(dev) for i in range(gen_cfg.num_layers)]
+
+    def forward(dtype, seed=None, pinned=False):
+        with torch.inference_mode():
+            return gen(z.to(dtype), depth=DEPTH, alpha=1.0, seed=seed,
+                       noises=[n.to(dtype) for n in noises] if pinned
+                       else None).images
+
+    set_precision("highest")          # the float32 reference: TF32 off
+    ref = forward(torch.float32, pinned=True)
+    f32_img_s = time_requests(lambda i: forward(torch.float32, i))
+    apply_runtime_knobs(perf_cfg())   # bf16: TF32 for the float32 ops
+    out = forward(torch.bfloat16, pinned=True)
+    again = forward(torch.bfloat16, pinned=True)
+    if out.dtype != torch.bfloat16 or tuple(out.shape) != (BATCH, 1024,
+                                                           1024, 3):
+        fail(f"bf16 forward: {out.dtype} {tuple(out.shape)}")
+    if not bool(torch.isfinite(out).all()):
+        fail("bf16 forward: non-finite values")
+    d = (out.float() - ref).abs()
+    span = float(ref.max() - ref.min())
+    drift = {"mean_abs": float(d.mean()), "max_abs": float(d.max()),
+             "span": span, "mean_bar": BF16_DRIFT_MEAN * span,
+             "max_bar": BF16_DRIFT_MAX * span}
+    replay = bool(torch.equal(out, again))
+    del d, out, again, ref
+
+    reset_counts(kern, fused)
+    img_s = time_requests(lambda i: forward(torch.bfloat16, i))
+    calls, plain = kern.launches, fused.plain_calls
+    # the dense layers' policy, in turns: the product in float32 (the
+    # port's, as JAX's) against a bf16 GEMM with PyTorch's default split-K
+    # reduction in bf16
+    dense = {"float32_product": [], "bf16_gemm": []}
+    port_linear = linear.linear_apply
+
+    def bf16_gemm(x, weight, bias=None, *, gain, use_wscale, lrmul):
+        _, w_mul = linear.equalized_scales(gain, weight.shape[1], lrmul,
+                                           use_wscale)
+        return torch.nn.functional.linear(
+            x, (weight * w_mul).to(x.dtype),
+            None if bias is None else (bias * lrmul).to(x.dtype))
+    for policy in ("float32_product", "bf16_gemm", "bf16_gemm",
+                   "float32_product"):
+        linear.linear_apply = (bf16_gemm if policy == "bf16_gemm"
+                               else port_linear)
+        try:
+            dense[policy].append(time_requests(
+                lambda i: forward(torch.bfloat16, i)))
+        finally:
+            linear.linear_apply = port_linear
+    report = {"img_per_s": img_s, "float32_img_per_s": f32_img_s,
+              "speedup": img_s / f32_img_s, "epilogue_calls": calls,
+              "plain_calls": plain, "drift": drift,
+              "bitwise_equal_two_runs": replay,
+              "dense_policy_img_per_s": dense}
+    log(json.dumps({"phase9_forward": report}))
+    want = PER_FORWARD * (BF16_REQUESTS + 1)
+    if calls != want or plain:
+        fail(f"bf16 forward: {calls} epilogue calls and {plain} plain calls "
+             f"over {BF16_REQUESTS + 1} forwards, want {want} and 0")
+    if not (drift["mean_abs"] < drift["mean_bar"]
+            and drift["max_abs"] < drift["max_bar"]):
+        fail(f"bf16 forward drift from float32 beyond the bars: {drift}")
+    if not replay:
+        fail("bf16 forward: two runs of one request differ")
+    del gen
+    torch.cuda.empty_cache()
+    return report
+
+
+def bf16_step_launches(kern, dev, batch):
+    """Launches of each epilogue kernel in one bf16 perf-config step, by
+    the plans: two G forwards of 18 calls, the 16 calls of the growth
+    blocks recomputed in the backward (remat), one G backward of 18."""
+    want = dict.fromkeys(kern.KERNEL_NAMES + kern.BWD_KERNEL_NAMES, 0)
+    for res, c in EPILOGUE_SHAPES:
+        x = torch.empty((batch, res, res, c), device=dev,
+                        dtype=torch.bfloat16)
+        for name in kern.KERNELS_BY_PATH[kern.plan_for(x)["path"]]:
+            want[name] += 2 * (2 + (res > 4))
+        for name in kern.BWD_KERNELS_BY_PATH[kern.bwd_plan_for(x)["path"]]:
+            want[name] += 2
+    return want
+
+
+@contextlib.contextmanager
+def g_update_marks(kern):
+    """The epilogue counts at the start of each G update, so that a step's
+    calls split into its D update and its G update."""
+    from stylegan_torch.train import steps as steps_mod
+    marks, real = [], steps_mod._Phases.g_update
+
+    def g_update(self, *args, **kwargs):
+        marks.append((kern.launches, kern.backward_launches))
+        return real(self, *args, **kwargs)
+    steps_mod._Phases.g_update = g_update
+    try:
+        yield marks
+    finally:
+        steps_mod._Phases.g_update = real
+
+
+def bf16_train(dev):
+    """9(b): the perf config's trainer (bf16, logistic with lazy R1 at 16,
+    remat, fused scoring on the off-steps) at depth 8, batch 2, seeded
+    weights: an R1 step and an off-step, each 3 timed after a warm-up
+    through train_on_batch, beside phase 5(b)'s float32 step timed here
+    too; the epilogue calls of each step's D and G updates, no plain call;
+    one profiled step of each (device busy share, kernels as the plans
+    launch them) and the MFU against the bf16 peak."""
+    from stylegan_torch.cli.train import build_trainer
+    from stylegan_torch.config import apply_runtime_knobs, get_default_cfg
+    from stylegan_torch.ops import fused
+    from stylegan_torch.ops.kernels import epilogue as kern
+    from stylegan_torch.ops.precision import set_precision
+    from stylegan_torch.train import create_train_state
+    from stylegan_torch.utils.flops import (device_peak_tflops, mfu_fields,
+                                            train_step_flops)
+
+    # phase 5(b)'s float32 step (TF32 off), timed and profiled in this
+    # phase, before and after the bf16 steps
+    cfg32 = get_default_cfg()
+    cfg32.merge_from_file(CONFIG)
+    cfg32.freeze()
+    gen_cfg, dis_cfg, gen, dis = train_models(cfg32, dev)
+    state32 = create_train_state(gen, dis, dict(cfg32.model.g_optim),
+                                 dict(cfg32.model.d_optim), use_ema=True)
+    step32 = train_step_fn(cfg32, gen_cfg, dis_cfg, TRAIN_DEPTH, cfg32.loss)
+    alpha = torch.tensor(0.5, device=dev)
+    batch = TRAIN_BATCH
+    reals, z = (t.to(dev) for t in train_batch(gen_cfg, batch, 20))
+
+    def f32_ms(seed):
+        set_precision("highest")
+        step32(state32, reals, z, seed, alpha)        # warm-up
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for i in range(BF16_TIMED):
+            step32(state32, reals, z, seed + 1 + i, alpha)
+            torch.cuda.synchronize()
+        return (time.perf_counter() - t0) / BF16_TIMED * 1e3
+    f32_before = f32_ms(0)
+    busy32, wall32, _, _ = profile_train_step(
+        step32, state32, (reals, z), alpha, kern,
+        expected_train_launches(kern, dev, batch),
+        BF16_PROFILE_TABLE.format("float32_step"))
+
+    cfg = perf_cfg()
+    apply_runtime_knobs(cfg)
+    trainer = build_trainer(cfg, dev)
+    s = trainer.state
+    s.generator.load_state_dict(random_state_dict(s.generator, seed=10))
+    s.discriminator.load_state_dict(random_state_dict(s.discriminator,
+                                                      seed=11))
+    interval = trainer.r1_interval
+    want = bf16_step_launches(kern, dev, batch)
+    peak = device_peak_tflops(dev, cfg.precision.activations)
+    report = {"r1_interval": interval,
+              "fuse_scores": trainer.fuse_scores, "peak_tflops": peak,
+              "precision": cfg.precision.activations}
+    if not trainer.fuse_scores:
+        fail("the perf config's trainer does not fuse the scoring")
+    for name, with_r1 in (("r1_step", True), ("off_step", False)):
+        def one(i):
+            trainer._update_count = 0 if with_r1 else 1  # the R1 phase
+            return trainer.train_on_batch(reals, TRAIN_DEPTH, 0.5,
+                                          fetch=False)
+        one(0)
+        torch.cuda.synchronize()
+        reset_counts(kern, fused)
+        losses = []
+        with g_update_marks(kern) as marks:
+            t0 = time.perf_counter()
+            for i in range(BF16_TIMED):
+                start = (kern.launches, kern.backward_launches)
+                losses.append([float(v) for v in one(1 + i)])
+                torch.cuda.synchronize()
+                marks[i] = (marks[i][0] - start[0], marks[i][1] - start[1])
+            ms = (time.perf_counter() - t0) / BF16_TIMED * 1e3
+        fwd, bwd, plain = (kern.launches, kern.backward_launches,
+                           fused.plain_calls)
+        per_step = {"d_update_forward": marks[0][0],
+                    "d_update_backward": marks[0][1],
+                    "g_update_forward": fwd // BF16_TIMED - marks[0][0],
+                    "g_update_backward": bwd // BF16_TIMED - marks[0][1]}
+        step = trainer._get_step(TRAIN_DEPTH, with_r1)
+        z16 = torch.randn((batch, trainer.latent_size), device=dev,
+                          dtype=torch.bfloat16)
+        busy, wall, top, kernel_ms = profile_train_step(
+            step, s, (reals.to(torch.bfloat16), z16), alpha, kern, want,
+            BF16_PROFILE_TABLE.format(name))
+        flops = train_step_flops(1024, loss=cfg.loss, with_r1=with_r1)
+        report[name] = {
+            "ms_per_step": ms, "img_per_s": batch * 1e3 / ms,
+            "speedup_vs_float32": f32_before / ms,
+            "device_speedup_vs_float32": busy32 / busy, "losses": losses,
+            "epilogue_calls_per_step": per_step, "plain_calls": plain,
+            "device_busy_ms": busy, "profiled_step_wall_ms": wall,
+            "device_busy_share": busy / wall, "top_ops": top[:6],
+            "epilogue_kernels_in_step_ms": kernel_ms,
+            **mfu_fields(batch * 1e3 / ms, flops, peak)}
+        if not all(math.isfinite(v) for pair in losses for v in pair):
+            fail(f"bf16 {name}: losses not finite: {losses}")
+        if any(m != marks[0] for m in marks) or per_step != {
+                "d_update_forward": PER_FORWARD, "d_update_backward": 0,
+                "g_update_forward": PER_FORWARD + 16,
+                "g_update_backward": PER_FORWARD} or plain:
+            fail(f"bf16 {name}: epilogue calls per step {marks} "
+                 f"({per_step}), {plain} plain calls")
+    # the same steps without remat (the yaml's ops.remat), host clock only
+    no_remat = build_trainer(perf_cfg(**{"ops.remat": False}), dev)
+    no_remat.state.generator.load_state_dict(s.generator.state_dict())
+    no_remat.state.discriminator.load_state_dict(s.discriminator.state_dict())
+    report["without_remat_ms_per_step"] = {}
+    for name, phase in (("r1_step", 0), ("off_step", 1)):
+        times = []
+        for i in range(BF16_TIMED + 1):
+            no_remat._update_count = phase
+            t0 = time.perf_counter()
+            no_remat.train_on_batch(reals, TRAIN_DEPTH, 0.5)
+            times.append((time.perf_counter() - t0) * 1e3)
+        report["without_remat_ms_per_step"][name] = sum(times[1:]) / \
+            BF16_TIMED
+    del no_remat
+    f32_after = f32_ms(10)
+    report["float32_phase5b_step"] = {
+        "ms_per_step_before_after": [f32_before, f32_after],
+        "device_busy_ms": busy32, "profiled_step_wall_ms": wall32,
+        "device_busy_share": busy32 / wall32}
+    del state32, step32, gen, dis, z
+    r1, off = report["r1_step"]["ms_per_step"], report["off_step"][
+        "ms_per_step"]
+    lazy_ms = (r1 + (interval - 1) * off) / interval
+    report["lazy_r1_mean_ms_per_step"] = lazy_ms
+    report["lazy_r1_mean"] = mfu_fields(
+        batch * 1e3 / lazy_ms, (train_step_flops(1024, loss=cfg.loss)
+                                + (interval - 1) * train_step_flops(
+                                    1024, loss=cfg.loss, with_r1=False))
+        / interval, peak)
+    params = {p.dtype for m in (s.generator, s.discriminator, s.g_shadow)
+              for p in m.parameters()}
+    report["parameter_dtypes"] = sorted(str(d) for d in params)
+    log(json.dumps({"phase9_train": report}))
+    if params != {torch.float32}:
+        fail(f"bf16 training changed the parameters' dtypes: {params}")
+    del trainer, s, reals
+    torch.cuda.empty_cache()
+    return report
+
+
+def bf16_vs_cpu(dev):
+    """9(c): one depth-5 step of the perf config's R1 step (bf16, remat,
+    gamma 10 x 16) on the card and on the CPU in bf16, and in float64 on
+    the CPU, with the draws pinned: losses, each gradient tensor (Adam's
+    first moment) and the parameters' dtype within the bars above."""
+    from stylegan_torch.config import apply_runtime_knobs
+    from stylegan_torch.models import generator_config_from_cfg
+    from stylegan_torch.models.synthesis import layer_resolution
+    from stylegan_torch.train import build_train_step, create_train_state
+
+    cfg = perf_cfg()
+    apply_runtime_knobs(cfg)
+    batch = TRAIN_BATCH
+    rs = np.random.default_rng(91)
+    reals, z = train_batch(generator_config_from_cfg(cfg), batch, 92)
+    noises = [torch.from_numpy(rs.standard_normal(
+        (batch, layer_resolution(i), layer_resolution(i), 1),
+        dtype=np.float32)) for i in range(2 * (BF16_CHECK_DEPTH + 1))]
+    latents2 = torch.from_numpy(rs.standard_normal(tuple(z.shape),
+                                                   dtype=np.float32))
+    torch.set_num_threads(os.cpu_count() or 1)
+    cpu = torch.device("cpu")
+    runs = []
+    for device, dtype in ((dev, torch.bfloat16), (cpu, torch.bfloat16),
+                          (cpu, torch.float64)):
+        params = torch.float64 if dtype == torch.float64 else torch.float32
+        gen_cfg, dis_cfg, gen, dis = train_models(cfg, device, params,
+                                                  remat=True)
+        state = create_train_state(gen, dis, dict(cfg.model.g_optim),
+                                   dict(cfg.model.d_optim))
+        step = build_train_step(gen_cfg, dis_cfg, depth=BF16_CHECK_DEPTH,
+                                loss=cfg.loss, use_ema=cfg.use_ema,
+                                ema_decay=cfg.ema_decay,
+                                r1_gamma=cfg.r1_gamma * cfg.r1_interval,
+                                fuse_scores=True)
+        put = lambda t: t.to(device, dtype)
+        t0 = time.perf_counter()
+        _, m = step(state, put(reals), put(z), 0,
+                    torch.tensor(0.5, device=device, dtype=params),
+                    noises=[put(n) for n in noises],
+                    mixing=(put(latents2), 5))
+        losses = (m["d_loss"].item(), m["g_loss"].item())
+        log(f"bf16 check on {device.type} {dtype}: losses {losses}, "
+            f"{time.perf_counter() - t0:.1f} s")
+        dtypes = {p.dtype for mod in (state.generator, state.discriminator,
+                                      state.g_shadow)
+                  for p in mod.parameters()}
+        runs.append((losses, moments(state), dtypes))
+        del state, step, gen, dis
+        torch.cuda.empty_cache()
+    (lc, mc, dc), (lh, mh, _), (_, m64, _) = runs
+    loss_rel = {name: abs(a - b) / max(1.0, abs(b))
+                for name, a, b in zip(("d_loss", "g_loss"), lc, lh)}
+    worst = {"ratio": 0.0, "card_rel_l2": 0.0, "cpu_rel_l2": 0.0,
+             "worst_tensor": None}
+    bad = []
+    for name, truth in m64.items():
+        norm = float(truth.norm())
+        card = float((mc[name].double() - truth).norm())
+        cpu_err = float((mh[name].double() - truth).norm())
+        if norm == 0.0:       # no gradient flows there: both exactly 0
+            if card or cpu_err:
+                bad.append((name, card, cpu_err))
+            continue
+        card, cpu_err = card / norm, cpu_err / norm
+        bar = BF16_GRAD_FACTOR * cpu_err + BF16_GRAD_FLOOR
+        if card / bar > worst["ratio"]:
+            worst.update(ratio=card / bar, worst_tensor=(
+                name, truth.numel(), card, cpu_err))
+        worst["card_rel_l2"] = max(worst["card_rel_l2"], card)
+        worst["cpu_rel_l2"] = max(worst["cpu_rel_l2"], cpu_err)
+        if not card <= bar:
+            bad.append((name, card, cpu_err))
+    report = {"depth": BF16_CHECK_DEPTH, "losses_card": lc,
+              "losses_cpu_bf16": lh, "loss_rel_diff": loss_rel,
+              "grads_vs_float64": worst,
+              "parameter_dtypes": sorted(str(d) for d in dc)}
+    log(json.dumps({"phase9_vs_cpu": report}))
+    if not max(loss_rel.values()) <= BF16_LOSS_RTOL:
+        fail(f"bf16 step, card vs CPU losses: {lc} vs {lh}")
+    if bad:
+        fail(f"bf16 step, card gradients vs float64 beyond the bar: "
+             f"{bad[:5]}")
+    if dc != {torch.float32}:
+        fail(f"bf16 step on the card: parameters {dc} after the step")
+    return report
+
+
+def bf16_cli(dev, tmp):
+    """9(d): `python -m stylegan_torch.cli.train --config` a copy of the
+    perf config on 24 seeded 1024^2 PNGs, depths 7 and 8 (one epoch each,
+    4 feedback samples): finite losses in metrics.jsonl, a checkpoint that
+    reads back with float32 parameters, and the depth-8 windowed img/s."""
+    import yaml
+    from stylegan_torch.convert import load_generator_file
+    from stylegan_torch.models import Generator, generator_config_from_cfg
+
+    data_dir, out = os.path.join(tmp, "ffhq"), os.path.join(tmp, "run")
+    write_pngs(data_dir, BF16_CLI_IMAGES, 1024, seed=93)
+    with open(PERF_CONFIG) as f:
+        doc = yaml.safe_load(f)
+    doc["output_dir"] = out
+    doc["dataset"]["img_dir"] = data_dir
+    doc["sched"]["epochs"] = [1] * 9
+    doc["num_samples"] = 4
+    path = os.path.join(tmp, "perf.yaml")
+    with open(path, "w") as f:
+        yaml.safe_dump(doc, f)
+    t0 = time.perf_counter()
+    run([sys.executable, "-m", "stylegan_torch.cli.train", "--config", path,
+         "--start_depth", str(TRAINER_START_DEPTH)], "train CLI (bf16)")
+    wall = time.perf_counter() - t0
+    with open(os.path.join(out, "metrics.jsonl")) as f:
+        rows = [json.loads(line) for line in f]
+    with open(os.path.join(out, "log.txt")) as f:
+        text = f.read()
+    if not rows or not all(math.isfinite(r["d_loss"]) and
+                           math.isfinite(r["g_loss"]) for r in rows):
+        fail(f"bf16 train CLI: losses not finite: {rows}")
+    if "bf16 activations" not in text:
+        fail("bf16 train CLI: the log does not say it trains in bf16")
+    gen = Generator(generator_config_from_cfg(perf_cfg()))
+    load_generator_file(gen, os.path.join(out, "models",
+                                          "GAN_GEN_SHADOW_8_1.npz"))
+    dtypes = {p.dtype for p in gen.parameters()}
+    if dtypes != {torch.float32}:
+        fail(f"bf16 train CLI: checkpoint parameters {dtypes}")
+    depth8 = [r["imgs_per_sec"] for r in rows
+              if r["depth"] == TRAINER_START_DEPTH + 1 and r["imgs_per_sec"]]
+    report = {"wall_s": wall, "feedback_rows": len(rows),
+              "depth8_windows_img_per_s": depth8,
+              "losses": [(r["d_loss"], r["g_loss"]) for r in rows]}
+    log(json.dumps({"phase9_cli": report}))
+    return report
+
+
 def run_all(cmds, label="tools"):
     """Start every command at once from the repo root; fail with the output
     of any that fails; returns each one's wall time in s."""
@@ -2279,7 +2782,13 @@ def run_all(cmds, label="tools"):
     return times
 
 
-def main():
+def main(argv=None):
+    import argparse
+    parser = argparse.ArgumentParser()
+    parser.add_argument("--only", type=int, nargs="+", default=None,
+                        help="run only these of the phases 2-9 after the "
+                        "build (to try a change; prints no result line)")
+    only = parser.parse_args(argv).only
     if not torch.cuda.is_available():
         fail("CUDA is not available")
     if not os.path.isdir(os.path.join(REPO, "stylegan_torch")):
@@ -2295,6 +2804,14 @@ def main():
             log("  nvcc:", line.strip())
     card = card_line()
     log(f"card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}")
+    if only:
+        for n in only:
+            t0 = time.perf_counter()
+            {8: lambda: phase_export_project(dev, phase_kernel(dev)[
+                "per_forward"], 0.0, {"img_per_s": 0.0}),
+             9: lambda: phase_bf16(dev)}[n]()
+            log(f"phase {n} alone: {time.perf_counter() - t0:.1f} s")
+        return 0
 
     summary = phase_kernel(dev)
     batches, b1 = phase_kernel_batches(dev)
@@ -2311,6 +2828,8 @@ def main():
     tools = phase_tools(dev)
     p8 = phase_export_project(dev, summary["per_forward"], img_s, train)
     proj = p8["project"]
+    p9 = phase_bf16(dev)
+    b9 = p9["train"]
 
     kernels = [{
         "name": "epilogue", "route": "cuda",
@@ -2332,6 +2851,12 @@ def main():
         "tools_launches": tools["launches"],
         "export_launches": p8["export"]["epilogue_calls"],
         "project_launches": proj["forward_calls"],
+        "bf16_forward_launches": p9["forward"]["epilogue_calls"],
+        "bf16_train_launches_per_step": {
+            k: b9[k]["epilogue_calls_per_step"] for k in ("r1_step",
+                                                          "off_step")},
+        "bf16_in_step_ms": {k: b9[k]["epilogue_kernels_in_step_ms"]
+                            for k in ("r1_step", "off_step")},
         "tool_batches_max_abs_err": batches,
         "shapes": "the 18 float32 calls of one batch-8 1024^2 forward; ms "
                   "and plain_ms device time (CUDA graph replay, x warm in "
@@ -2346,6 +2871,11 @@ def main():
                   "export_launches over phase 8(c)'s 3 requests through the "
                   "exported program, project_launches over phase 8(d)'s "
                   "projection (101 batch-1 forwards), "
+                  "bf16_forward_launches over phase 9(a)'s 11 bf16 "
+                  "forwards, bf16_train_launches_per_step the D and G "
+                  "updates' calls of one bf16 perf-config step (remat "
+                  "recomputes 16 in G's backward), bf16_in_step_ms the "
+                  "kernels' device time inside one profiled bf16 step, "
                   "tool_batches_max_abs_err the float32 error at the 9 "
                   "shapes by batch (projection's 1, the tool CLIs')",
     }, {
@@ -2366,6 +2896,8 @@ def main():
         "trainer_launches": calls["backward"],
         "trainer_cuda_launches": calls["backward_cuda"],
         "project_launches": proj["backward_calls"],
+        "bf16_train_launches": {k: b9[k]["epilogue_calls_per_step"][
+            "g_update_backward"] for k in ("r1_step", "off_step")},
         "shapes": "the 18 float32 calls of one batch-2 1024^2 G backward "
                   "(dx, dnoise_weight, dstyle); ms and plain_ms (the plain "
                   "analytic VJP) device time by CUDA graph replay, cold_ms "
@@ -2373,7 +2905,10 @@ def main():
                   "bfloat16; launches (calls) and cuda_launches over the 3 "
                   "train steps, trainer_launches over phase 6's "
                   "StyleGAN.train run, project_launches over phase 8(d)'s "
-                  "100 projection steps (dx and dstyle only)",
+                  "100 projection steps (dx and dstyle only), "
+                  "bf16_train_launches per bf16 perf-config step of "
+                  "phase 9(b), whose in-step times are in the forward's "
+                  "bf16_in_step_ms",
     }, {
         "name": "epilogue_batch1", "route": "cuda",
         "source": "stylegan_torch/csrc/epilogue.cu",
@@ -2411,6 +2946,7 @@ def main():
     log(json.dumps({"trainer": trainer}))
     log(json.dumps({"tools": tools}))
     log(json.dumps({"phase8": p8}))
+    log(json.dumps({"phase9": p9}))
     log(card)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

@@ -53,6 +53,7 @@ def parse_arguments(argv=None):
 
 def build_trainer(opt, device, num_devices=None):
     """The StyleGAN trainer of a merged config, as train.py builds it."""
+    from stylegan_torch.config import resolve_fuse_scores, resolve_packed
     from stylegan_torch.train import StyleGAN
     return StyleGAN(structure=opt.structure,
                     conditional=opt.conditional,
@@ -72,7 +73,7 @@ def build_trainer(opt, device, num_devices=None):
                     max_devices=num_devices,
                     seed=opt.seed,
                     activations_dtype=opt.precision.activations,
-                    packed_layout=opt.ops.packed is True,
+                    packed_layout=resolve_packed(opt),
                     fold_blur=opt.ops.fold_blur,
                     r1_interval=opt.r1_interval,
                     r1_gamma=opt.r1_gamma,
@@ -80,19 +81,20 @@ def build_trainer(opt, device, num_devices=None):
                     remat_blocks=opt.ops.remat,
                     spatial_devices=opt.parallel.spatial,
                     mbstd_scope=opt.mbstd_scope,
-                    fuse_scores=opt.ops.fuse_scores is True,
+                    fuse_scores=resolve_fuse_scores(opt),
                     reuse_g_fwd=opt.ops.reuse_g_fwd,
                     device=device)
 
 
 def main(args):
     from stylegan_torch import resolve_device
-    from stylegan_torch.config import apply_runtime_knobs, get_default_cfg
+    from stylegan_torch.config import (apply_runtime_knobs, get_default_cfg,
+                                       resolve_fuse_scores)
 
     if (args.num_devices or 1) > 1:
         raise NotImplementedError(
             "--num_devices > 1 arrives with the port's parallel slice "
-            "(ROADMAP queue 7)")
+            "(ROADMAP queue 1, parallelism)")
     opt = get_default_cfg()
     opt.merge_from_file(args.config)
     opt.freeze()
@@ -114,7 +116,10 @@ def main(args):
 
     apply_runtime_knobs(opt)
     if opt.precision.activations == "bfloat16":
-        logger.info("precision.activations bfloat16: float32 with TF32")
+        logger.info("precision.activations bfloat16: bf16 activations in G "
+                    "and D, float32 parameters, optimizer state and "
+                    "statistics, TF32 for the float32 ops; fused real/fake "
+                    "scoring %s", "on" if resolve_fuse_scores(opt) else "off")
 
     from stylegan_torch.data import make_dataset
     dataset = make_dataset(opt.dataset, conditional=opt.conditional)

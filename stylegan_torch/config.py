@@ -228,8 +228,9 @@ def get_default_cfg() -> ConfigNode:
     # ---- keys of the JAX package (not present in reference yamls) ---------
     c.seed = 0
     c.precision = ConfigNode()
-    # 'float32' | 'bfloat16'; the port's generator computes in float32 and
-    # reads 'bfloat16' as "allow TF32 in convs and matmuls" (apply_runtime_knobs)
+    # 'float32' | 'bfloat16': the activations' dtype in G and D (reals and
+    # latents enter the step in it); parameters, optimizer state and the EMA
+    # stay float32 (precision.params), weights cast at apply time
     c.precision.activations = "float32"
     c.precision.params = "float32"
     c.parallel = ConfigNode()
@@ -252,11 +253,40 @@ def get_default_cfg() -> ConfigNode:
     return c
 
 
+def resolve_packed(cfg) -> bool:
+    """Resolve the `ops.packed` knob as the JAX package does: an explicit
+    bool wins; 'auto' is on with bf16 activations.  Packed is a TPU layout
+    of the same math: the port computes unpacked whatever this says and
+    only reports the flag."""
+    try:
+        p = cfg.ops.packed
+        if isinstance(p, bool):
+            return p
+        return cfg.precision.activations == "bfloat16"
+    except AttributeError:
+        return False
+
+
+def resolve_fuse_scores(cfg) -> bool:
+    """Resolve the `ops.fuse_scores` knob: an explicit bool wins; 'auto'
+    turns on the fused real/fake D scoring (the same math) with bf16
+    activations, as in the JAX package.  The step still skips it where an
+    in-loss R1 pass runs (train/steps.py)."""
+    try:
+        f = cfg.ops.fuse_scores
+        if isinstance(f, bool):
+            return f
+        return cfg.precision.activations == "bfloat16"
+    except AttributeError:
+        return False
+
+
 def apply_runtime_knobs(cfg):
     """Apply the process-wide numerics policy of a merged config: float32
-    with TF32 off by default, TF32 allowed when the config asks for bfloat16
-    activations (the counterpart of the JAX package's set_precision
-    ("default") on that key)."""
+    activations compute in full float32 (TF32 off); bfloat16 activations
+    (the networks carry them, models/ and train/trainer.py) allow TF32 for
+    what still runs in float32, as the JAX package's set_precision
+    ("default") on that key does."""
     from .ops.precision import set_precision
     set_precision("default" if cfg.precision.activations == "bfloat16"
                   else "highest")

@@ -140,7 +140,9 @@ class InputBlock(nn.Module):
         batch = dlatents.shape[0]
         nf = self.cfg.nf(1)
         if self.cfg.const_input_layer:
-            x = (self.const.permute(0, 2, 3, 1) + self.bias).to(dlatents.dtype)
+            # cast, then add: the JAX package's order in bfloat16
+            x = (self.const.permute(0, 2, 3, 1).to(dlatents.dtype)
+                 + self.bias.to(dlatents.dtype))
             x = x.expand(batch, 4, 4, nf).contiguous()
         else:
             x = self.dense(dlatents[:, 0])

@@ -100,11 +100,16 @@ def fused_epilogue(x: torch.Tensor, noise_weight: torch.Tensor,
     x: (B, H, W, C); noise: (B, H, W, 1); noise_weight: (C,); style: (B, 2C).
     A CUDA x launches the kernels, which take x and noise in one dtype
     (float32 or bfloat16) and noise_weight and style in float32, and raise
-    on anything else; a CPU x runs the plain versions.  Without a gradient
-    to record, both go through the ``stylegan_torch::epilogue`` op.
+    on anything else; a bfloat16 style (the bf16 path's style dense) is
+    widened first, as the JAX package's Pallas wrapper widens it, and its
+    gradient comes back in float32 through the cast.  A CPU x runs the
+    plain versions in the inputs' dtypes, as the JAX package's unfused
+    composition does.  Without a gradient to record, both go through the
+    ``stylegan_torch::epilogue`` op.
     """
     if x.device.type == "cuda":
-        return kernel_epilogue(x, noise_weight, noise, style)
+        return kernel_epilogue(x, noise_weight, noise,
+                               style.to(torch.float32))
     if x.device.type != "cpu":
         raise ValueError(f"no epilogue for device {x.device}")
     if needs_grad(x, noise_weight, noise, style):

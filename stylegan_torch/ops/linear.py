@@ -37,8 +37,13 @@ def linear_apply(x: torch.Tensor, weight: torch.Tensor,
                  bias: Optional[torch.Tensor] = None, *,
                  gain: float = math.sqrt(2), use_wscale: bool = False,
                  lrmul: float = 1.0) -> torch.Tensor:
-    """Equalized dense layer; weight (out, in)."""
+    """Equalized dense layer; weight (out, in).  On bfloat16 x it computes
+    as the JAX package's does: the product with the float32 weight in
+    float32, rounded to bf16, then the bias rounded to bf16 added."""
     _, w_mul = equalized_scales(gain, weight.shape[1], lrmul, use_wscale)
+    if x.dtype == torch.bfloat16:
+        y = F.linear(x.float(), weight * w_mul).to(x.dtype)
+        return y if bias is None else y + (bias * lrmul).to(y.dtype)
     if bias is not None:
         bias = (bias * lrmul).to(x.dtype)
     return F.linear(x, (weight * w_mul).to(x.dtype), bias)
@@ -91,14 +96,56 @@ def conv2d_apply(x: torch.Tensor, weight: torch.Tensor,
 
 
 def _fused_upscale_conv(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """Transposed conv, stride 2, padding 1, with the 4-tap-summed 4x4 kernel
-    (reference CustomLayers.py:146-151).  conv_transpose2d takes the kernel
-    un-flipped, laid out (in, out, kh, kw)."""
+    """The transposed conv, stride 2, padding 1, with the 4-tap-summed 4x4
+    kernel (reference CustomLayers.py:146-151).  Where no gradient is
+    recorded (serving, the generation CLIs, an exported program, the D
+    update's fakes) it runs as the sub-pixel convolution, whose every run
+    gives the same bits on the card; under autograd as cuDNN's transposed
+    conv, whose backward is the cheaper of the two on the H100 (the
+    depth-8 float32 train step took 8% longer with the sub-pixel form
+    throughout: tools/host_ab.py, PERF.md)."""
+    if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad):
+        return _transposed_upscale_conv(x, w)
+    return _subpixel_upscale_conv(x, w)
+
+
+def _summed_taps(w: torch.Tensor) -> torch.Tensor:
+    """(O, I, 3, 3) -> the 4-tap-summed (O, I, 4, 4) kernel."""
     wp = F.pad(w, (1, 1, 1, 1))
-    w4 = (wp[:, :, 1:, 1:] + wp[:, :, :-1, 1:]
-          + wp[:, :, 1:, :-1] + wp[:, :, :-1, :-1])
-    y = conv(to_nchw(x), w4.transpose(0, 1), 2, 1, transpose=True)
+    return (wp[:, :, 1:, 1:] + wp[:, :, :-1, 1:]
+            + wp[:, :, 1:, :-1] + wp[:, :, :-1, :-1])
+
+
+def _transposed_upscale_conv(x: torch.Tensor, w: torch.Tensor
+                             ) -> torch.Tensor:
+    """conv_transpose2d takes the kernel un-flipped, laid out (in, out, kh,
+    kw).  cuDNN runs it as a backward-data convolution, whose default
+    algorithms on the card sum in no fixed order."""
+    y = conv(to_nchw(x), _summed_taps(w).transpose(0, 1), 2, 1,
+             transpose=True)
     return to_nhwc(y)
+
+
+def _subpixel_upscale_conv(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """The same sums as a sub-pixel convolution.  Output pixel (2m + a,
+    2n + b) reads a 2x2 window of the input padded by 1, at offset (a, b):
+    along each axis, phase 0 takes the 4x4 kernel's taps (3, 1) and phase 1
+    its taps (2, 0), every other tap of the flipped kernel.  The four phase
+    kernels are stacked as 4*O output channels of one stride-1 conv with
+    padding 1, whose (H+1, W+1) output holds each phase's (H, W) window at
+    its offset; the phases are then interleaved into (2H, 2W).  FLOPs
+    (H+1)(W+1)/HW of the transposed conv's; cuDNN's forward algorithms give
+    the same bits on every run.  Its gradients are convolutions (`conv`)."""
+    b, h, wd, _ = x.shape
+    o = w.shape[0]
+    # slices, not index lists: an index list is copied to the card each call
+    wf = _summed_taps(w).flip(2, 3)
+    phases = torch.cat([wf[:, :, a::2, c::2] for a in (0, 1) for c in (0, 1)])
+    y = to_nhwc(conv(to_nchw(x), phases, 1, 1)).reshape(b, h + 1, wd + 1,
+                                                        2, 2, o)
+    rows = [torch.stack([y[:, a:a + h, c:c + wd, a, c] for c in (0, 1)], 3)
+            for a in (0, 1)]
+    return torch.stack(rows, 2).reshape(b, 2 * h, 2 * wd, o)
 
 
 def _fused_downscale_conv(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:

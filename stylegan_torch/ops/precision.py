@@ -5,7 +5,14 @@ The JAX package defaults to ``Precision.HIGHEST`` so float32 convolutions run
 in full float32: the converted-weights fidelity target (<=1e-2 pixel delta at
 1024^2) needs it.  On the card, cuDNN runs float32 convolutions in TF32 by
 default, which keeps about three decimal digits, so "highest" turns TF32 off
-for both cuDNN and cuBLAS; "default" allows it (the perf setting).
+for both cuDNN and cuBLAS; "default" allows it (the perf setting, which bf16
+activations take for whatever still runs in float32).
+
+No bf16 GEMM runs: a dense layer on bf16 activations multiplies in float32
+and rounds the product, as the JAX package's does (``ops/linear.py``), so
+cuBLAS's bf16 split-K reduction (PyTorch's
+``allow_bf16_reduced_precision_reduction``) never applies.  cuDNN's bf16
+convolutions accumulate in float32.
 """
 
 from __future__ import annotations

@@ -12,12 +12,12 @@ into a ``torch.export`` artifact (the port's counterpart of
     images = serve(z, seed)
 
 The function is deterministic in (z, seed): per-layer noise and the
-train-quirk draws derive from the seed.  On the CPU a replayed request gives
-the same bits, as the JAX package's does; on the card cuDNN's default
-algorithms for the transposed convs (the fused upscale from 128^2) sum in no
-fixed order, so a replayed request agrees only to the last bits (ROADMAP
-queue 3; its deterministic algorithms cost a factor of three on an
-H100).  Eval
+train-quirk draws derive from the seed, and a replayed request gives the
+same bits, on the card as on the CPU, as the JAX package's does.  On the
+card that holds for the same card, driver and cuDNN (another cuDNN may pick
+other algorithms): every op of the forward sums in a fixed order there,
+the fused upscale included, which runs as a sub-pixel convolution
+(``ops/linear.py``) because cuDNN's transposed convolutions do not.  Eval
 semantics by default (no style mixing, no train-branch truncation);
 `train_quirks=True` gives the reference's train-mode sampling.
 
@@ -31,8 +31,8 @@ needs no model code, config or checkpoint.  The request's draws stay
 outside the traced graph: the per-layer noise maps (and, with train quirks,
 the mixing latents and cutoff) are inputs of the program, drawn by
 `load_exported`'s serve from the seed with the same functions
-`make_serving_fn` uses, so that the two compute the same images: bitwise on
-the CPU, and on the card with cuDNN's deterministic algorithms.
+`make_serving_fn` uses, so that the two compute the same images, bit for
+bit on either device.
 """
 
 from __future__ import annotations

@@ -9,8 +9,7 @@ seeded FFHQ-1024 models and train step, as phases 3 and 5(b) build them)
 and prints one JSON line: the card's name and power limit; serving img/s
 at batch 8, 1024^2, float32, in REPS windows of REQUESTS requests
 (each ending in a synchronize, after a warm-up request), through
-make_serving_fn and through the bare generator forward with cuDNN's
-deterministic algorithms and with its defaults; ms per depth-8,
+make_serving_fn and through the bare generator forward; ms per depth-8,
 batch-2 logistic + R1 train step in windows of STEPS; and the host's
 microseconds per epilogue call at a 8x4x4x512 plane, where the launch is
 all host time: an inference call, and a forward plus backward under
@@ -104,19 +103,14 @@ def main(args):
     rs = np.random.default_rng(1)
     z = rs.standard_normal((8, gen_cfg.latent_size), dtype=np.float32)
 
-    def forward(deterministic):
-        def run(z, seed):
-            torch.backends.cudnn.deterministic = deterministic
-            with torch.inference_mode():
-                return gen(torch.from_numpy(z).to(dev), depth=8, alpha=1.0,
-                           seed=seed).images
-        return run
+    def forward(z, seed):
+        with torch.inference_mode():
+            return gen(torch.from_numpy(z).to(dev), depth=8, alpha=1.0,
+                       seed=seed).images
 
-    # make_serving_fn, then the bare forward with cuDNN's deterministic
-    # algorithms and with its defaults, each in REPS windows
+    # make_serving_fn, then the bare forward, each in REPS windows
     for key, fn in (("serve_img_per_s", serve),
-                    ("forward_deterministic_img_per_s", forward(True)),
-                    ("forward_default_img_per_s", forward(False))):
+                    ("forward_img_per_s", forward)):
         fn(z, 1000)
         torch.cuda.synchronize()
         img_s = []
@@ -127,7 +121,6 @@ def main(args):
                 torch.cuda.synchronize()
             img_s.append(REQUESTS * 8 / (time.perf_counter() - t0))
         report[key] = img_s
-    torch.backends.cudnn.deterministic = False
     del serve, gen
     torch.cuda.empty_cache()
 

@@ -10,6 +10,11 @@ One step (reference GAN.py:557-659):
   the truncation W-average threaded back after every G forward (GAN.py:278)
   EMA of G's parameters into the shadow
 
+Reals and z may be bfloat16 (the bf16 activation path): the networks then
+carry bf16 activations, R1 differentiates D with respect to the bf16 reals,
+and the losses come back as float32 scalars; parameters, gradients and
+Adam's state are float32 either way.
+
 The modules and optimizers of the TrainState are updated in place.  Every
 G forward's randomness (noise maps, style mixing, the GP interpolates) comes
 from `seed` through `stream_seed`: repeat `rep` of the D phase draws from
@@ -81,6 +86,12 @@ def _frozen(module: torch.nn.Module):
         yield
     finally:
         module.requires_grad_(True)
+
+
+def _wide(loss: torch.Tensor) -> torch.Tensor:
+    """The detached loss, at least float32 (a bf16 step's loss is read as
+    float32)."""
+    return loss.detach().to(torch.promote_types(loss.dtype, torch.float32))
 
 
 def _with_avg(generator, avg):
@@ -173,7 +184,7 @@ class _Phases:
                              reals_cur, fakes, seed, gp_eps)
         loss.backward()
         d_optimizer.step()
-        return loss.detach()
+        return _wide(loss)
 
     def d_phase(self, generator, discriminator, d_optimizer, reals_cur, z,
                 seed, alpha, labels, noises, mixing, gp_eps, d_repeats):
@@ -217,7 +228,7 @@ class _Phases:
         _with_avg(generator, out.avg_latent)
         if shadow is not None:
             ema_update(shadow, generator, ema_decay)
-        return loss.detach()
+        return _wide(loss)
 
 
 def _refuse_parallel(mesh):

@@ -24,12 +24,19 @@ Two deliberate differences from the JAX trainer:
 Between feedback points the loop does not wait for the device: the losses
 stay device tensors until a feedback point reads them.
 
+``activations_dtype='bfloat16'`` is the JAX package's bf16 policy: reals
+and z enter each fused step (train_on_batch) in bfloat16, G and D carry
+bf16 activations (weights cast at apply time, norm and minibatch-stddev
+statistics in float32), and the parameters, Adam's moments, the EMA shadow
+and the checkpoints stay float32.  As in the JAX trainer, the feedback
+samples and the split update API (optimize_discriminator /
+optimize_generator) take float32 latents and reals.  The process's TF32
+setting is ``config.apply_runtime_knobs``'s.
+
 Not ported yet, and refused: data parallelism (``mesh``, ``max_devices >
-1``, ``spatial_devices > 1``, more than one process: ROADMAP queue 7).
-``activations_dtype='bfloat16'`` computes in float32, as the port's
-``precision.activations`` key does (TF32 allowed through
-``config.apply_runtime_knobs``; bf16 activations are queue 8).
-``packed_layout`` and ``fold_blur`` are accepted and give the unpacked math.
+1``, ``spatial_devices > 1``, more than one process: ROADMAP queue 1,
+parallelism).  ``packed_layout`` and ``fold_blur`` are accepted and give
+the unpacked math.
 """
 
 from __future__ import annotations
@@ -67,11 +74,13 @@ def _refuse_parallel(mesh, max_devices, spatial_devices):
             or (spatial_devices or 0) > 1:
         raise NotImplementedError(
             "data and spatial parallelism (mesh, max_devices > 1, "
-            "spatial_devices > 1) are not ported yet (ROADMAP queue 7)")
+            "spatial_devices > 1) are not ported yet (ROADMAP queue 1, "
+            "parallelism)")
     if torch.distributed.is_available() and torch.distributed.is_initialized() \
             and torch.distributed.get_world_size() > 1:
         raise NotImplementedError(
-            "multi-process training is not ported yet (ROADMAP queue 7)")
+            "multi-process training is not ported yet (ROADMAP queue 1, "
+            "parallelism)")
 
 
 class StyleGAN:
@@ -110,6 +119,8 @@ class StyleGAN:
         self.use_ema = use_ema
         self.ema_decay = ema_decay
         self.seed = int(seed)
+        # the dtype reals and z enter the step in; parameters stay float32
+        self.activations_dtype = getattr(torch, activations_dtype)
         self.fuse_scores = bool(fuse_scores)
         self.reuse_g_fwd = bool(reuse_g_fwd)
         # a registry name, or a (dis_loss_fn, gen_loss_fn) pair
@@ -198,9 +209,12 @@ class StyleGAN:
     def _labels(self, labels):
         return None if labels is None else self._tensor(labels, torch.long)
 
-    def _draw_z(self, batch: int):
+    def _draw_z(self, batch: int, dtype=None):
+        """Latents from the trainer's stream, in the activations' dtype
+        unless `dtype` is given."""
         return torch.randn((batch, self.latent_size), generator=self._z,
-                           device=self.device)
+                           device=self.device,
+                           dtype=dtype or self.activations_dtype)
 
     def _draw_seed(self) -> int:
         """A fresh integer seed per draw outside the fused step (the JAX
@@ -257,7 +271,7 @@ class StyleGAN:
         with_r1 = (self._update_count % self.r1_interval) == 0
         self._update_count += 1
         step = self._get_step(depth, with_r1)
-        reals = self._tensor(images)
+        reals = self._tensor(images, self.activations_dtype)
         z = self._draw_z(reals.shape[0])
         # the update count, which a full-state resume restores, seeds the
         # step's noise and style mixing
@@ -275,7 +289,8 @@ class StyleGAN:
         fn = self._get_sample_fn(depth)
         shadow = self.state.g_shadow if self.use_ema else None
         module = shadow if shadow is not None else self.state.generator
-        z = self._draw_z(num_samples) if z is None else self._tensor(z)
+        z = (self._draw_z(num_samples, torch.float32) if z is None
+             else self._tensor(z))
         images, new_avg = fn(module, z, self._draw_seed(), float(alpha),
                              self._labels(labels))
         if update_shadow_avg and new_avg is not None and shadow is not None:

@@ -171,7 +171,10 @@ def device_peak_tflops(device=None,
                        precision: str = "float32") -> Optional[float]:
     """Dense peak TFLOP/s of a CUDA device (None = the current one) at
     `precision` ('float32', 'tf32' or 'bfloat16'); None when there is no
-    card or its name is not in the table (mfu is then omitted)."""
+    card or its name is not in the table (mfu is then omitted).  A run's
+    MFU reads against its config's ``precision.activations``: 'bfloat16'
+    (the tensor cores) for bf16 activations, else 'float32' (the CUDA
+    cores, as the float32 path runs with TF32 off)."""
     import torch
     if not torch.cuda.is_available():
         return None

@@ -203,5 +203,5 @@ def test_train_cli_refuses_more_devices(train_toy):
     _, config = train_toy
     args = train.parse_arguments(["--config", config("many"),
                                   "--num_devices", "2", "--device", "cpu"])
-    with pytest.raises(NotImplementedError, match="queue 7"):
+    with pytest.raises(NotImplementedError, match="queue 1, parallelism"):
         train.main(args)

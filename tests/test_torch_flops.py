@@ -94,7 +94,11 @@ def test_generator_forward_matches_flop_counter(res, fmap_base, fmap_max):
     with the same widths.  The counter counts matrix products and
     convolutions only, which is the analytic convention, so the bar is the
     JAX test's 0.85-1.45 tightened to what it gives: equality (measured
-    ratio 1.0 at all four)."""
+    ratio 1.0 at all four).  Without a gradient the fused upscale runs as a
+    sub-pixel conv (ops/linear.py), which computes the transposed conv's
+    sums over an (H+1) x (W+1) grid of 2x2 windows: its 32*I*O*(H+W+1)
+    FLOPs over the analytic count's 32*I*O*H*W at an H x W input are added
+    to the analytic count, exactly."""
     n_layers = (res.bit_length() - 2) * 2
     cfg = tcfg.GeneratorConfig(
         resolution=res, latent_size=64, dlatent_size=64, truncation_psi=-1.0,
@@ -112,5 +116,10 @@ def test_generator_forward_matches_flop_counter(res, fmap_base, fmap_max):
     analytic = tflops.generator_forward_flops(
         res, latent_size=64, dlatent_size=64, mapping_layers=8,
         mapping_fmaps=64, fmap_base=fmap_base, fmap_max=fmap_max)
+    for i, block in enumerate(gen.g_synthesis.blocks):
+        h = 2 ** (i + 2)                      # the block's input side
+        if 2 * h >= 128:                      # the fused upscale
+            o, c = block.conv0_up.weight.shape[:2]
+            analytic += 32 * c * o * (2 * h + 1)
     assert counter.get_total_flops() / analytic == 1.0, (
         counter.get_total_flops(), analytic)

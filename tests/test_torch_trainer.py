@@ -403,7 +403,7 @@ def test_remat_blocks_reaches_both_networks():
     {"mesh": object()}, {"max_devices": 2}, {"spatial_devices": 2}],
     ids=["mesh", "max_devices", "spatial_devices"])
 def test_unported_options_raise(kw):
-    with pytest.raises(NotImplementedError, match="queue 7"):
+    with pytest.raises(NotImplementedError, match="queue 1, parallelism"):
         make_trainer(**kw)
 
 

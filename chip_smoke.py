@@ -135,8 +135,28 @@ Phases, each fatal on failure:
            train CLI on a copy of the perf yaml over 24 seeded 1024^2
            PNGs, depths 7 and 8: finite losses, float32 checkpoints, the
            depth-8 windowed img/s.  It prints its seconds.
+10. parallel data parallelism on FFHQ-1024 (stylegan_torch/parallel, the
+           mesh= step): (a) a world of one rank over NCCL, the mesh= step at
+           depth 8, batch 2, logistic + R1: its first step's losses and
+           gradients within 10x the spread of two runs of the mesh=None
+           step on the same inputs and draws, then 3 timed steps (ms per
+           step beside 5(b)'s), 36 forward and 18 backward kernel calls per
+           step, no plain call; (b) two ranks spawned on the one card over
+           gloo (NCCL refuses two ranks on one device), the same step at
+           global batch 4 (2 per rank), a warm-up and 3 steps: after each,
+           the two ranks' parameters, buffers (the W-average), Adam moments
+           and counts and EMA shadow bitwise equal (sha256), finite losses,
+           each rank's kernel calls as (a)'s, no plain call, ms per step of
+           two ranks sharing one card (a correctness run, not a scaling
+           figure); (c) the two ranks' depth-5 step against the one-process
+           step on the global batch with chunks=2 minibatch stddev, draws
+           pinned, on the card and on the CPU in float64: phase 5(c)'s
+           bars; (d) the train CLI under `torchrun --standalone
+           --nproc_per_node 1` (NCCL) on 8 seeded 1024^2 PNGs, depths 7-8:
+           finite losses, the checkpoint files written once.  It prints its
+           seconds.
 
-`python3 chip_smoke.py --only 8 9` runs the build and just those phases
+`python3 chip_smoke.py --only 8 9 10` runs the build and just those phases
 (to try a change; no result lines).
 
 The last two lines are {"kernels": [...]} with the kernels' measurements and
@@ -811,9 +831,11 @@ def train_models(cfg, dev, dtype=torch.float32, remat=False):
     return gen_cfg, dis_cfg, gen.to(dev, dtype), dis.to(dev, dtype)
 
 
-def train_step_fn(cfg, gen_cfg, dis_cfg, depth, loss):
+def train_step_fn(cfg, gen_cfg, dis_cfg, depth, loss, **kw):
+    """The yaml's fused step; `kw` (mesh=, mbstd_chunks=) passes through."""
     from stylegan_torch.train import build_train_step
-    kw = {"r1_gamma": cfg.r1_gamma} if loss in ("logistic",) else {}
+    if loss in ("logistic",):
+        kw["r1_gamma"] = cfg.r1_gamma
     return build_train_step(gen_cfg, dis_cfg, depth=depth, loss=loss,
                             d_repeats=cfg.d_repeats, use_ema=cfg.use_ema,
                             ema_decay=cfg.ema_decay, drift=cfg.drift, **kw)
@@ -989,8 +1011,6 @@ def phase_train_vs_cpu(dev):
     losses, Adam's first moments and every weight of G, D and the shadow
     within the bars above."""
     from stylegan_torch.config import apply_runtime_knobs, get_default_cfg
-    from stylegan_torch.models import generator_config_from_cfg
-    from stylegan_torch.models.synthesis import layer_resolution
     from stylegan_torch.train import create_train_state
 
     cfg = get_default_cfg()
@@ -998,14 +1018,7 @@ def phase_train_vs_cpu(dev):
     cfg.freeze()
     apply_runtime_knobs(cfg)
     batch = cfg.sched.batch_sizes[TRAIN_DEPTH]
-    rs = np.random.default_rng(30)
-    reals, z = train_batch(generator_config_from_cfg(cfg), batch, 31)
-    noises = [torch.from_numpy(rs.standard_normal(
-        (batch, layer_resolution(i), layer_resolution(i), 1),
-        dtype=np.float32)) for i in range(2 * (CHECK_DEPTH + 1))]
-    latents2 = torch.from_numpy(rs.standard_normal(tuple(z.shape),
-                                                   dtype=np.float32))
-    mixing_cutoff = 5            # mix the layers >= 5 of the 12 in use
+    reals, z, noises, latents2 = pinned_inputs(cfg, batch, 30)
     results = []
     torch.set_num_threads(os.cpu_count() or 1)
     cpu = torch.device("cpu")
@@ -1020,44 +1033,83 @@ def phase_train_vs_cpu(dev):
         _, m = step(state, put(reals), put(z), 0,
                     torch.tensor(0.5, device=device, dtype=dtype),
                     noises=[put(n) for n in noises],
-                    mixing=(put(latents2), mixing_cutoff))
-        losses = (m["d_loss"].item(), m["g_loss"].item())
-        log(f"train check on {device.type} {dtype}: losses {losses}, "
-            f"{time.perf_counter() - t0:.1f} s")
-        results.append((losses, {
-            k: {n: t.detach().cpu().double() for n, t in getattr(state, k)
-                .state_dict().items()}
-            for k in ("generator", "discriminator", "g_shadow")},
-            moments(state)))
+                    mixing=(put(latents2), MIXING_CUTOFF))
+        results.append(step_result(m, state))
+        log(f"train check on {device.type} {dtype}: losses "
+            f"{results[-1][0]}, {time.perf_counter() - t0:.1f} s")
         del state, step, gen, dis
         torch.cuda.empty_cache()
-    (lc, wc, mc), (lh, _, mh), (_, w64, m64) = results
+    report = dict(check_vs_float64(cfg, *results, "card", "cpu"),
+                  depth=CHECK_DEPTH)
+    log(json.dumps({"train_card_vs_cpu": report}))
+    return report
+
+
+MIXING_CUTOFF = 5    # the pinned mixing: layers >= 5 of the 12 at depth 5
+
+
+def pinned_inputs(cfg, batch, seed):
+    """Seeded reals, z, the noise maps of CHECK_DEPTH and the second
+    latents of the style mixing, for steps whose draws are pinned."""
+    from stylegan_torch.models import generator_config_from_cfg
+    from stylegan_torch.models.synthesis import layer_resolution
+    rs = np.random.default_rng(seed)
+    reals, z = train_batch(generator_config_from_cfg(cfg), batch, seed + 1)
+    noises = [torch.from_numpy(rs.standard_normal(
+        (batch, layer_resolution(i), layer_resolution(i), 1),
+        dtype=np.float32)) for i in range(2 * (CHECK_DEPTH + 1))]
+    latents2 = torch.from_numpy(rs.standard_normal(tuple(z.shape),
+                                                   dtype=np.float32))
+    return reals, z, noises, latents2
+
+
+def step_result(m, state):
+    """(losses, weights by module, Adam's first moments) of a train step,
+    on the CPU in float64."""
+    return ((m["d_loss"].item(), m["g_loss"].item()),
+            {k: {n: t.detach().cpu().double() for n, t in getattr(state, k)
+                 .state_dict().items()}
+             for k in ("generator", "discriminator", "g_shadow")},
+            moments(state))
+
+
+def check_vs_float64(cfg, got, yard, truth, what, yard_what):
+    """Hold a float32 step's result (`got`, a step_result) to the float64
+    one (`truth`), with a yardstick float32 step (`yard`) that is known
+    good: losses within CHECK_LOSS_RTOL of the yardstick's; each gradient
+    (Adam's first moment) within CHECK_GRAD_FACTOR times the yardstick's
+    error from float64, plus 1e-5 of its scale; each weight within 1e-4 of
+    float64 wherever its gradient is not 0 up to float32 rounding, and
+    within 2 lr everywhere (Adam moves a weight whose gradient is 0 up to
+    rounding by +-lr); the shadow within 2 lr (1 - ema_decay)."""
+    (lc, wc, mc), (lh, _, mh), (_, w64, m64) = got, yard, truth
     worst = {}
     for a, b, name in zip(lc, lh, ("d_loss", "g_loss")):
         rel = abs(a - b) / max(1.0, abs(b))
         worst[name] = rel
         if not rel <= CHECK_LOSS_RTOL:
-            fail(f"card vs CPU {name}: {a} vs {b}")
-    grad = {"bar_ratio": 0.0, "card_rel": 0.0, "cpu_rel": 0.0}
+            fail(f"{what} vs {yard_what} {name}: {a} vs {b}")
+    grad = {"bar_ratio": 0.0, f"{what}_rel": 0.0, f"{yard_what}_rel": 0.0}
     noise = {}      # per tensor: the float32 gradient's error bar
-    for name, truth in m64.items():
-        scale = float(truth.abs().max())
-        err_card = float((mc[name] - truth).abs().max())
-        err_cpu = float((mh[name] - truth).abs().max())
-        bar = noise[name] = CHECK_GRAD_FACTOR * err_cpu + 1e-5 * scale
+    for name, t64 in m64.items():
+        scale = float(t64.abs().max())
+        err = float((mc[name] - t64).abs().max())
+        err_yard = float((mh[name] - t64).abs().max())
+        bar = noise[name] = CHECK_GRAD_FACTOR * err_yard + 1e-5 * scale
         if bar > 0:     # else no gradient flows there: both exactly 0
-            grad["bar_ratio"] = max(grad["bar_ratio"], err_card / bar)
+            grad["bar_ratio"] = max(grad["bar_ratio"], err / bar)
         if scale > 0:
-            grad["card_rel"] = max(grad["card_rel"], err_card / scale)
-            grad["cpu_rel"] = max(grad["cpu_rel"], err_cpu / scale)
-        if not err_card <= bar:
-            fail(f"card gradient (Adam first moment) {name}: {err_card} "
-                 f"from float64, the CPU's float32 {err_cpu}")
+            grad[f"{what}_rel"] = max(grad[f"{what}_rel"], err / scale)
+            grad[f"{yard_what}_rel"] = max(grad[f"{yard_what}_rel"],
+                                           err_yard / scale)
+        if not err <= bar:
+            fail(f"{what} gradient (Adam first moment) {name}: {err} from "
+                 f"float64, the {yard_what}'s float32 {err_yard}")
     lr = cfg.model.g_optim.learning_rate
     weights = {"max_abs_diff": 0.0, "beyond_1e-4": 0, "elements": 0}
     for k, label in (("generator", "G"), ("discriminator", "D")):
-        for name, truth in w64[k].items():
-            d = (wc[k][name] - truth).abs()
+        for name, t64 in w64[k].items():
+            d = (wc[k][name] - t64).abs()
             key = f"{label} {name}"
             # buffers (the W-average) have no gradient of their own
             sure = (m64[key].abs() > noise[key] if key in m64
@@ -1068,19 +1120,16 @@ def phase_train_vs_cpu(dev):
             weights["beyond_1e-4"] += int(beyond.sum())
             weights["elements"] += d.numel()
             if bool((beyond & sure).any()) or not float(d.max()) <= 2 * lr:
-                fail(f"card vs float64 {k} {name}: max |diff| "
+                fail(f"{what} vs float64 {k} {name}: max |diff| "
                      f"{float(d.max())}, {int((beyond & sure).sum())} "
                      "elements beyond 1e-4 whose gradient is not 0 up to "
                      "float32 rounding")
     shadow = max(float((wc["g_shadow"][n] - t).abs().max())
                  for n, t in w64["g_shadow"].items())
     if not shadow <= 2 * lr * (1 - cfg.ema_decay) + 1e-5:
-        fail(f"card vs float64 shadow: max |diff| {shadow}")
-    report = {"loss_rel_diff": worst, "grads_vs_float64": grad,
-              "weights_vs_float64": weights, "shadow_max_abs_diff": shadow,
-              "depth": CHECK_DEPTH}
-    log(json.dumps({"train_card_vs_cpu": report}))
-    return report
+        fail(f"{what} vs float64 shadow: max |diff| {shadow}")
+    return {"loss_rel_diff": worst, "grads_vs_float64": grad,
+            "weights_vs_float64": weights, "shadow_max_abs_diff": shadow}
 
 
 def moments(state):
@@ -1090,7 +1139,10 @@ def moments(state):
     for label, module, opt in (("G", state.generator, state.g_optimizer),
                                ("D", state.discriminator, state.d_optimizer)):
         for name, p in module.named_parameters():
-            out[f"{label} {name}"] = opt.state[p]["exp_avg"].detach().cpu()
+            # a copy: on the CPU .cpu() would alias the moment a later
+            # step updates in place
+            out[f"{label} {name}"] = opt.state[p]["exp_avg"].detach() \
+                .cpu().clone()
     return out
 
 
@@ -2756,6 +2808,364 @@ def bf16_cli(dev, tmp):
     return report
 
 
+PAR_STEPS = 3
+PAR_BATCH = 4             # the two ranks' global batch: 2 each, as 5(b)'s
+PAR_TIMEOUT = 600         # s: each collective's wait, and the two ranks' run
+PAR_OUT = os.path.join(REPO, "build", "chip_smoke", "parallel")
+PAR_CLI_IMAGES = 8
+
+
+def phase_parallel(dev, train):
+    """Phase 10: the data-parallel path (stylegan_torch/parallel, the mesh=
+    step, the train CLI under torchrun) on FFHQ-1024, each part fatal."""
+    from stylegan_torch.parallel import spawn
+    t_phase = time.perf_counter()
+    report = {"one_rank_nccl": parallel_one_rank(dev, train)}
+    shutil.rmtree(PAR_OUT, ignore_errors=True)
+    os.makedirs(PAR_OUT)
+    t0 = time.perf_counter()
+    spawn(parallel_rank, 2, (PAR_OUT,), backend="gloo", device="cuda:0",
+          timeout=PAR_TIMEOUT, join_timeout=PAR_TIMEOUT)
+    log(f"parallel: two ranks on one card over gloo, "
+        f"{time.perf_counter() - t0:.1f} s")
+    report["two_ranks_gloo"] = parallel_two_ranks(train)
+    report["vs_one_process"] = parallel_vs_one_process(dev)
+    with tempfile.TemporaryDirectory(dir=os.path.dirname(PAR_OUT)) as tmp:
+        report["cli_torchrun"] = parallel_cli(tmp)
+    shutil.rmtree(PAR_OUT)
+    report["phase_s"] = time.perf_counter() - t_phase
+    log(f"phase 10: {report['phase_s']:.1f} s")
+    return report
+
+
+def ffhq_cfg():
+    from stylegan_torch.config import apply_runtime_knobs, get_default_cfg
+    cfg = get_default_cfg()
+    cfg.merge_from_file(CONFIG)
+    cfg.freeze()
+    apply_runtime_knobs(cfg)          # float32, TF32 off
+    return cfg
+
+
+def reset_train_counts():
+    from stylegan_torch.ops import fused
+    from stylegan_torch.ops.kernels import epilogue as kern
+    kern.launches = kern.backward_launches = fused.plain_calls = 0
+
+
+def train_counts():
+    from stylegan_torch.ops import fused
+    from stylegan_torch.ops.kernels import epilogue as kern
+    return {"forward_calls": kern.launches,
+            "backward_calls": kern.backward_launches,
+            "plain_calls": fused.plain_calls}
+
+
+def check_train_counts(counts, steps, what):
+    want = {"forward_calls": 36 * steps, "backward_calls": 18 * steps,
+            "plain_calls": 0}
+    if counts != want:
+        fail(f"{what}: epilogue calls {counts}, want {want}")
+
+
+def free_port():
+    import socket
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+def parallel_one_rank(dev, train):
+    """10(a): a world of one rank over NCCL; the mesh= step at depth 8,
+    batch 2, logistic + R1.  Its first step from the seeded state against
+    two runs of the mesh=None step from the same state on the same inputs
+    and draws (rank 0's): losses and gradients (Adam's first moments)
+    within CHECK_GRAD_FACTOR times the two plain runs' spread (cuDNN's
+    backward algorithms sum in no fixed order), plus 1e-5 of the scale;
+    then PAR_STEPS timed steps: ms per step beside 5(b)'s, 36 forward and
+    18 backward kernel calls per step, no plain call; and `replicate` over
+    the rank leaves the state's digests as they were."""
+    from stylegan_torch.models.synthesis import stream_seed
+    from stylegan_torch.parallel import (create_mesh, initialize_distributed,
+                                         replicate)
+    from stylegan_torch.train import create_train_state
+    from stylegan_torch.train.steps import SHARD_STREAM
+
+    cfg = ffhq_cfg()
+    batch = cfg.sched.batch_sizes[TRAIN_DEPTH]
+    rank_dev = initialize_distributed(f"localhost:{free_port()}", 1, 0,
+                                      device=dev, timeout=PAR_TIMEOUT)
+    try:
+        if torch.distributed.get_backend() != "nccl":
+            fail(f"10(a): backend {torch.distributed.get_backend()}")
+        mesh = create_mesh(1)
+        alpha = torch.tensor(0.5, device=rank_dev)
+        results = {}
+        for label, m in (("plain", None), ("plain_again", None),
+                         ("mesh", mesh)):
+            gen_cfg, dis_cfg, gen, dis = train_models(cfg, rank_dev)
+            state = create_train_state(gen, dis, dict(cfg.model.g_optim),
+                                       dict(cfg.model.d_optim),
+                                       use_ema=cfg.use_ema)
+            step = train_step_fn(cfg, gen_cfg, dis_cfg, TRAIN_DEPTH,
+                                 cfg.loss, mesh=m)
+            reals, z = (t.to(rank_dev) for t in train_batch(gen_cfg, batch,
+                                                            40))
+            # the mesh step folds its rank into the seed (shard_rng)
+            seed = 5 if m is not None else stream_seed(5, SHARD_STREAM, 0)
+            _, out = step(state, reals, z, seed, alpha)
+            results[label] = step_result(out, state)
+            if m is not None:
+                batches = [tuple(t.to(rank_dev) for t in train_batch(
+                    gen_cfg, batch, 41 + i)) for i in range(PAR_STEPS)]
+                torch.cuda.synchronize()
+                reset_train_counts()
+                t0 = time.perf_counter()
+                losses = []
+                for i, b in enumerate(batches):
+                    _, out = step(state, *b, 6 + i, alpha)
+                    losses.append((out["d_loss"].item(),
+                                   out["g_loss"].item()))
+                ms = (time.perf_counter() - t0) / PAR_STEPS * 1e3
+                counts = train_counts()
+                # NCCL takes only card tensors: Adam's step counts (on the
+                # host) travel through the card, and come back unchanged
+                before = state_digests(state)
+                replicate(mesh, state)
+                if state_digests(state) != before:
+                    fail("10(a): replicate over one NCCL rank changed the "
+                         "state")
+            del state, step, gen, dis
+            torch.cuda.empty_cache()
+    finally:
+        torch.distributed.destroy_process_group()
+    (lp, _, mp), (la, _, ma), (lm, _, mm) = (
+        results[k] for k in ("plain", "plain_again", "mesh"))
+    loss_diff = [abs(a - b) for a, b in zip(lm, lp)]
+    loss_spread = [abs(a - b) for a, b in zip(la, lp)]
+    ratio = 0.0
+    for name, ref in mp.items():
+        spread = float((ma[name] - ref).abs().max())
+        err = float((mm[name] - ref).abs().max())
+        bar = CHECK_GRAD_FACTOR * spread + 1e-5 * float(ref.abs().max())
+        if bar > 0:
+            ratio = max(ratio, err / bar)
+        if not err <= bar:
+            fail(f"10(a): mesh step gradient {name} {err} from the plain "
+                 f"step's, whose two runs differ by {spread}")
+    for d, sp, ref in zip(loss_diff, loss_spread, lp):
+        if not d <= CHECK_GRAD_FACTOR * sp + 1e-5 * max(1.0, abs(ref)):
+            fail(f"10(a): mesh step losses {lm}, plain {lp}, {la}")
+    if not all(math.isfinite(v) for pair in losses for v in pair):
+        fail(f"10(a): losses not finite: {losses}")
+    check_train_counts(counts, PAR_STEPS, "10(a)")
+    report = {"backend": "nccl", "world": 1, "ms_per_step": ms,
+              "phase5b_ms_per_step": train["ms_per_step"],
+              "first_step_losses": {"mesh": lm, "plain": lp,
+                                    "plain_again": la},
+              "grad_bar_ratio": ratio, "losses": losses, **counts}
+    log(json.dumps({"phase10_one_rank_nccl": report}))
+    return report
+
+
+def state_digests(state):
+    """sha256 of each part of a TrainState: G, D and the shadow (parameters
+    and buffers, the W-average among them) and both Adams' moments and
+    counts."""
+    import hashlib
+    out = {}
+    for label, module in (("G", state.generator), ("D", state.discriminator),
+                          ("shadow", state.g_shadow)):
+        h = hashlib.sha256()
+        for name, t in module.state_dict().items():
+            h.update(name.encode())
+            h.update(t.detach().cpu().numpy().tobytes())
+        out[label] = h.hexdigest()
+    for label, module, opt in (("G_adam", state.generator, state.g_optimizer),
+                               ("D_adam", state.discriminator,
+                                state.d_optimizer)):
+        h = hashlib.sha256()
+        for name, p in module.named_parameters():
+            for key, v in sorted(opt.state[p].items()):
+                h.update(f"{name}/{key}".encode())
+                h.update(v.detach().cpu().numpy().tobytes())
+        out[label] = h.hexdigest()
+    return out
+
+
+def parallel_rank(rank, device, out_dir):
+    """One of the two ranks of 10(b) and 10(c), on the one card over gloo.
+    (b): the mesh= step at depth 8, global batch PAR_BATCH, logistic + R1:
+    a warm-up and PAR_STEPS timed steps, the state's digests after each,
+    the kernel calls and ms per step into b_rank{rank}.json.  (c): one
+    depth-5 step on this rank's rows of pinned_inputs(cfg, PAR_BATCH, 70),
+    rank 0's result into c_rank0.pt."""
+    from stylegan_torch.parallel import create_mesh, global_shard, replicate
+    from stylegan_torch.train import create_train_state
+
+    cfg = ffhq_cfg()
+    mesh = create_mesh(2)
+    gen_cfg, dis_cfg, gen, dis = train_models(cfg, device)
+    state = create_train_state(gen, dis, dict(cfg.model.g_optim),
+                               dict(cfg.model.d_optim), use_ema=cfg.use_ema)
+    replicate(mesh, state)
+    step = train_step_fn(cfg, gen_cfg, dis_cfg, TRAIN_DEPTH, cfg.loss,
+                         mesh=mesh)
+    alpha = torch.tensor(0.5, device=device)
+    batches = [tuple(global_shard(mesh, t).to(device) for t in train_batch(
+        gen_cfg, PAR_BATCH, 50 + i)) for i in range(PAR_STEPS + 1)]
+    _, out = step(state, *batches[0], 0, alpha)         # warm-up
+    digests = [state_digests(state)]
+    reset_train_counts()
+    times, losses = [], []
+    for i in range(PAR_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, out = step(state, *batches[1 + i], 1 + i, alpha)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        losses.append((out["d_loss"].item(), out["g_loss"].item()))
+        digests.append(state_digests(state))
+    counts = train_counts()
+    with open(os.path.join(out_dir, f"b_rank{rank}.json"), "w") as f:
+        json.dump({"ms_per_step": times, "losses": losses,
+                   "digests": digests, **counts}, f)
+    del state, step, gen, dis, batches
+    torch.cuda.empty_cache()
+
+    reals, z, noises, latents2 = (
+        [global_shard(mesh, t).to(device) for t in x] if isinstance(x, list)
+        else global_shard(mesh, x).to(device)
+        for x in pinned_inputs(cfg, PAR_BATCH, 70))
+    gen_cfg, dis_cfg, gen, dis = train_models(cfg, device)
+    state = create_train_state(gen, dis, dict(cfg.model.g_optim),
+                               dict(cfg.model.d_optim))
+    step = train_step_fn(cfg, gen_cfg, dis_cfg, CHECK_DEPTH, cfg.loss,
+                         mesh=mesh)
+    _, out = step(state, reals, z, 0, alpha, noises=noises,
+                  mixing=(latents2, MIXING_CUTOFF))
+    if rank == 0:
+        torch.save(step_result(out, state),
+                   os.path.join(out_dir, "c_rank0.pt"))
+
+
+def parallel_two_ranks(train):
+    """10(b)'s verdict from the ranks' files: the same state digests after
+    the warm-up and after every step, finite losses, each rank's kernel
+    calls as 10(a)'s, no plain call."""
+    ranks = []
+    for r in (0, 1):
+        with open(os.path.join(PAR_OUT, f"b_rank{r}.json")) as f:
+            ranks.append(json.load(f))
+    for i, (a, b) in enumerate(zip(ranks[0]["digests"],
+                                   ranks[1]["digests"])):
+        if a != b:
+            bad = [k for k in a if a[k] != b[k]]
+            fail(f"10(b): the ranks' {bad} differ after step {i}")
+    for r, rep in enumerate(ranks):
+        if not all(math.isfinite(v) for pair in rep["losses"] for v in pair):
+            fail(f"10(b): rank {r} losses not finite: {rep['losses']}")
+        check_train_counts({k: rep[k] for k in ("forward_calls",
+                                                "backward_calls",
+                                                "plain_calls")},
+                           PAR_STEPS, f"10(b) rank {r}")
+    if ranks[0]["losses"] != ranks[1]["losses"]:
+        fail(f"10(b): the ranks report other losses: {ranks[0]['losses']}, "
+             f"{ranks[1]['losses']}")
+    report = {"backend": "gloo", "world": 2, "global_batch": PAR_BATCH,
+              "note": "two ranks sharing one card: a correctness run, not "
+                      "a scaling figure",
+              "ms_per_step_by_rank": [r["ms_per_step"] for r in ranks],
+              "phase5b_ms_per_step": train["ms_per_step"],
+              "losses": ranks[0]["losses"],
+              "digests_equal_after_steps": len(ranks[0]["digests"]),
+              "calls_by_rank": [{k: r[k] for k in ("forward_calls",
+                                                   "backward_calls",
+                                                   "plain_calls")}
+                                for r in ranks]}
+    log(json.dumps({"phase10_two_ranks_gloo": report}))
+    return report
+
+
+def parallel_vs_one_process(dev):
+    """10(c): the two ranks' depth-5 step (c_rank0.pt) against the
+    one-process step on the global batch with chunks=2 minibatch stddev
+    (the ranks' shard-local statistic), the same pinned draws: on the card
+    (the yardstick) and on the CPU in float64 (the truth), within phase
+    5(c)'s bars (check_vs_float64)."""
+    from stylegan_torch.train import create_train_state
+
+    cfg = ffhq_cfg()
+    reals, z, noises, latents2 = pinned_inputs(cfg, PAR_BATCH, 70)
+    results = []
+    for device, dtype in ((dev, torch.float32),
+                          (torch.device("cpu"), torch.float64)):
+        gen_cfg, dis_cfg, gen, dis = train_models(cfg, device, dtype)
+        state = create_train_state(gen, dis, dict(cfg.model.g_optim),
+                                   dict(cfg.model.d_optim))
+        step = train_step_fn(cfg, gen_cfg, dis_cfg, CHECK_DEPTH, cfg.loss,
+                             mbstd_chunks=2)
+        put = lambda t: t.to(device, dtype)
+        _, m = step(state, put(reals), put(z), 0,
+                    torch.tensor(0.5, device=device, dtype=dtype),
+                    noises=[put(n) for n in noises],
+                    mixing=(put(latents2), MIXING_CUTOFF))
+        results.append(step_result(m, state))
+        del state, step, gen, dis
+        torch.cuda.empty_cache()
+    got = torch.load(os.path.join(PAR_OUT, "c_rank0.pt"))
+    report = dict(check_vs_float64(cfg, got, results[0], results[1],
+                                   "two_ranks", "one_process"),
+                  depth=CHECK_DEPTH, global_batch=PAR_BATCH)
+    log(json.dumps({"phase10_vs_one_process": report}))
+    return report
+
+
+def parallel_cli(tmp):
+    """10(d): `torchrun --standalone --nproc_per_node 1 -m
+    stylegan_torch.cli.train` on the FFHQ yaml over PAR_CLI_IMAGES seeded
+    1024^2 PNGs, depths 7 and 8, one epoch each: the CLI joins torchrun's
+    world (NCCL), finite losses in metrics.jsonl, the five checkpoint files
+    of tags 7_1 and 8_1 written once."""
+    import yaml
+    data_dir, out = os.path.join(tmp, "ffhq"), os.path.join(tmp, "run")
+    write_pngs(data_dir, PAR_CLI_IMAGES, 1024, seed=95)
+    with open(CONFIG) as f:
+        doc = yaml.safe_load(f)
+    doc.update(output_dir=out, num_samples=4)
+    doc["dataset"]["img_dir"] = data_dir
+    doc["sched"]["epochs"] = [1] * 9
+    path = os.path.join(tmp, "ffhq.yaml")
+    with open(path, "w") as f:
+        yaml.safe_dump(doc, f)
+    t0 = time.perf_counter()
+    run([sys.executable, "-m", "torch.distributed.run", "--standalone",
+         "--nproc_per_node", "1", "-m", "stylegan_torch.cli.train",
+         "--config", path, "--start_depth", str(TRAINER_START_DEPTH)],
+        "train CLI under torchrun")
+    wall = time.perf_counter() - t0
+    with open(os.path.join(out, "metrics.jsonl")) as f:
+        rows = [json.loads(line) for line in f]
+    with open(os.path.join(out, "log.txt")) as f:
+        text = f.read()
+    if not rows or not all(math.isfinite(r["d_loss"]) and
+                           math.isfinite(r["g_loss"]) for r in rows):
+        fail(f"10(d): losses not finite: {rows}")
+    if "up to 1 rank(s)" not in text:
+        fail("10(d): the log does not show the rank budget")
+    files = sorted(os.listdir(os.path.join(out, "models")))
+    want = sorted(f"GAN_{k}_{d}_1.npz" for d in (
+        TRAINER_START_DEPTH, TRAINER_START_DEPTH + 1) for k in (
+        "GEN", "DIS", "GEN_OPTIM", "DIS_OPTIM", "GEN_SHADOW"))
+    if files != want:
+        fail(f"10(d): checkpoint files {files}, want {want}")
+    report = {"wall_s": wall, "feedback_rows": len(rows),
+              "losses": [(r["d_loss"], r["g_loss"]) for r in rows],
+              "checkpoints": len(files)}
+    log(json.dumps({"phase10_cli": report}))
+    return report
+
+
 def run_all(cmds, label="tools"):
     """Start every command at once from the repo root; fail with the output
     of any that fails; returns each one's wall time in s."""
@@ -2786,7 +3196,7 @@ def main(argv=None):
     import argparse
     parser = argparse.ArgumentParser()
     parser.add_argument("--only", type=int, nargs="+", default=None,
-                        help="run only these of the phases 2-9 after the "
+                        help="run only these of the phases 8-10 after the "
                         "build (to try a change; prints no result line)")
     only = parser.parse_args(argv).only
     if not torch.cuda.is_available():
@@ -2809,7 +3219,8 @@ def main(argv=None):
             t0 = time.perf_counter()
             {8: lambda: phase_export_project(dev, phase_kernel(dev)[
                 "per_forward"], 0.0, {"img_per_s": 0.0}),
-             9: lambda: phase_bf16(dev)}[n]()
+             9: lambda: phase_bf16(dev),
+             10: lambda: phase_parallel(dev, {"ms_per_step": None})}[n]()
             log(f"phase {n} alone: {time.perf_counter() - t0:.1f} s")
         return 0
 
@@ -2830,6 +3241,8 @@ def main(argv=None):
     proj = p8["project"]
     p9 = phase_bf16(dev)
     b9 = p9["train"]
+    p10 = phase_parallel(dev, train)
+    par_a, par_b = p10["one_rank_nccl"], p10["two_ranks_gloo"]
 
     kernels = [{
         "name": "epilogue", "route": "cuda",
@@ -2857,6 +3270,10 @@ def main(argv=None):
                                                           "off_step")},
         "bf16_in_step_ms": {k: b9[k]["epilogue_kernels_in_step_ms"]
                             for k in ("r1_step", "off_step")},
+        "parallel_launches": {
+            "one_rank_nccl": par_a["forward_calls"],
+            "two_ranks_gloo": [c["forward_calls"]
+                               for c in par_b["calls_by_rank"]]},
         "tool_batches_max_abs_err": batches,
         "shapes": "the 18 float32 calls of one batch-8 1024^2 forward; ms "
                   "and plain_ms device time (CUDA graph replay, x warm in "
@@ -2876,6 +3293,9 @@ def main(argv=None):
                   "updates' calls of one bf16 perf-config step (remat "
                   "recomputes 16 in G's backward), bf16_in_step_ms the "
                   "kernels' device time inside one profiled bf16 step, "
+                  "parallel_launches over phase 10's 3 timed data-parallel "
+                  "steps at depth 8 (one rank over NCCL; each of two "
+                  "ranks over gloo), "
                   "tool_batches_max_abs_err the float32 error at the 9 "
                   "shapes by batch (projection's 1, the tool CLIs')",
     }, {
@@ -2898,6 +3318,10 @@ def main(argv=None):
         "project_launches": proj["backward_calls"],
         "bf16_train_launches": {k: b9[k]["epilogue_calls_per_step"][
             "g_update_backward"] for k in ("r1_step", "off_step")},
+        "parallel_launches": {
+            "one_rank_nccl": par_a["backward_calls"],
+            "two_ranks_gloo": [c["backward_calls"]
+                               for c in par_b["calls_by_rank"]]},
         "shapes": "the 18 float32 calls of one batch-2 1024^2 G backward "
                   "(dx, dnoise_weight, dstyle); ms and plain_ms (the plain "
                   "analytic VJP) device time by CUDA graph replay, cold_ms "
@@ -2908,7 +3332,8 @@ def main(argv=None):
                   "100 projection steps (dx and dstyle only), "
                   "bf16_train_launches per bf16 perf-config step of "
                   "phase 9(b), whose in-step times are in the forward's "
-                  "bf16_in_step_ms",
+                  "bf16_in_step_ms; parallel_launches over phase 10's 3 "
+                  "timed data-parallel steps",
     }, {
         "name": "epilogue_batch1", "route": "cuda",
         "source": "stylegan_torch/csrc/epilogue.cu",
@@ -2947,6 +3372,7 @@ def main(argv=None):
     log(json.dumps({"tools": tools}))
     log(json.dumps({"phase8": p8}))
     log(json.dumps({"phase9": p9}))
+    log(json.dumps({"phase10": p10}))
     log(card)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

@@ -9,18 +9,38 @@ The flags, the yaml configs, the refusal of an existing ``output_dir``, the
 source snapshot into ``<output_dir>/src`` and the resume precedence are
 ``train.py``'s.  Checkpoints are the JAX package's ``.npz`` files, which
 either trainer resumes from; the ``*_file`` flags also take the reference's
-``.pth`` files.  Runs on CUDA unless ``--device cpu``; one device only
-(``--num_devices`` above 1 raises until the port's parallel slice).
+``.pth`` files.  Runs on CUDA unless ``--device cpu``.
+
+Data parallelism: the JAX CLI drives up to N devices from one process, N
+being ``--num_devices``, else the yaml's ``parallel.data_axis``, else every
+visible device (``resolve_max_devices``).  PyTorch runs one process per
+device instead, so N devices are N ranks, each on its own card:
+
+* under ``torchrun --nproc_per_node N -m stylegan_torch.cli.train ...``
+  each process joins torchrun's world, and the world is the device budget;
+* otherwise, when N > 1, this command starts the N ranks itself (one
+  process per card, over tcp://localhost) and waits for them, so the
+  command line stays the JAX one.  Asking for more cards than are visible
+  raises.  With ``--device cpu`` the ranks are gloo processes on the host,
+  the counterpart of JAX's forced host devices, and N is 1 unless asked.
+
+The trainer then sizes the group per depth (train/trainer.py).  Rank 0
+alone makes ``output_dir`` and writes the log, checkpoints, grids and
+metrics; the other ranks log warnings only.
 """
 
 from __future__ import annotations
 
 import argparse
+import logging
 import os
 import shutil
 
 REPO_ROOT = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
+# seconds a collective may wait: a rank outside a depth's smaller group
+# waits through that whole depth in one
+RANK_TIMEOUT = 30 * 24 * 3600
 
 
 def parse_arguments(argv=None):
@@ -41,7 +61,8 @@ def parse_arguments(argv=None):
                         default=None,
                         help="saved state of discriminator optimizer")
     parser.add_argument("--num_devices", type=int, default=None,
-                        help="devices to train on (not yet ported: at most 1)")
+                        help="limit the data-parallel group (ranks, one per "
+                             "device)")
     parser.add_argument("--resume", type=str, default=None,
                         help="full train-state checkpoint (from "
                              "save_full_state) to restore G, D, EMA and both "
@@ -86,33 +107,76 @@ def build_trainer(opt, device, num_devices=None):
                     device=device)
 
 
-def main(args):
-    from stylegan_torch import resolve_device
-    from stylegan_torch.config import (apply_runtime_knobs, get_default_cfg,
-                                       resolve_fuse_scores)
-
-    if (args.num_devices or 1) > 1:
-        raise NotImplementedError(
-            "--num_devices > 1 arrives with the port's parallel slice "
-            "(ROADMAP queue 1, parallelism)")
+def _config(args):
+    from stylegan_torch.config import get_default_cfg
     opt = get_default_cfg()
     opt.merge_from_file(args.config)
     opt.freeze()
+    return opt
+
+
+def main(args):
+    """Train on this process's device, or start the ranks of a
+    data-parallel run and wait for them (the module docstring)."""
+    import torch
+
+    from stylegan_torch import resolve_device
+    from stylegan_torch.parallel import (initialize_distributed,
+                                         resolve_max_devices, spawn)
+
     device = resolve_device(args.device)
+    opt = _config(args)
+    if "RANK" in os.environ and "WORLD_SIZE" in os.environ:   # torchrun
+        rank_device = initialize_distributed(device=args.device,
+                                             timeout=RANK_TIMEOUT)
+        try:
+            _train(args, opt, rank_device)
+        finally:
+            torch.distributed.destroy_process_group()
+        return
+    n = resolve_max_devices(opt.parallel, args.num_devices, device)
+    if device.type == "cuda" and n > torch.cuda.device_count():
+        raise ValueError(f"{n} devices asked for, "
+                         f"{torch.cuda.device_count()} visible")
+    if n > 1:
+        spawn(_rank_main, n, (args,), device=device.type,
+              timeout=RANK_TIMEOUT)
+    else:
+        _train(args, opt, device)
+
+
+def _rank_main(rank, device, args):
+    _train(args, _config(args), device)
+
+
+def _train(args, opt, device):
+    import torch
+
+    from stylegan_torch.config import apply_runtime_knobs, resolve_fuse_scores
+    from stylegan_torch.parallel import (device_count, host_index,
+                                         resolve_max_devices)
+    from stylegan_torch.utils import make_logger, snapshot_sources
 
     output_dir = opt.output_dir
-    if os.path.exists(output_dir):
-        raise FileExistsError(
-            f"output_dir '{output_dir}' already exists — refusing to "
-            "clobber a previous run (pick a new dir or remove it)")
-    os.makedirs(output_dir)
-
-    # snapshot sources + config for reproducibility
-    from stylegan_torch.utils import make_logger, snapshot_sources
-    snapshot_sources(REPO_ROOT, os.path.join(output_dir, "src"))
-    shutil.copy2(args.config, output_dir)
-    logger = make_logger("project", opt.output_dir, "log")
-    logger.info("Training on %s", device)
+    if host_index() == 0:
+        if os.path.exists(output_dir):
+            raise FileExistsError(
+                f"output_dir '{output_dir}' already exists — refusing to "
+                "clobber a previous run (pick a new dir or remove it)")
+        os.makedirs(output_dir)
+        # snapshot sources + config for reproducibility
+        snapshot_sources(REPO_ROOT, os.path.join(output_dir, "src"))
+        shutil.copy2(args.config, output_dir)
+        logger = make_logger("project", opt.output_dir, "log")
+    else:
+        logger = make_logger(f"project.rank{host_index()}", None, "log")
+        logger.setLevel(logging.WARNING)
+    max_devices = resolve_max_devices(opt.parallel, args.num_devices, device)
+    if torch.distributed.is_initialized() and max_devices > device_count():
+        raise ValueError(f"{max_devices} devices asked for, the world has "
+                         f"{device_count()} ranks")
+    logger.info("Training on %s, up to %d rank(s), per-depth adaptive data "
+                "parallelism", device, max_devices)
 
     apply_runtime_knobs(opt)
     if opt.precision.activations == "bfloat16":
@@ -124,7 +188,7 @@ def main(args):
     from stylegan_torch.data import make_dataset
     dataset = make_dataset(opt.dataset, conditional=opt.conditional)
 
-    style_gan = build_trainer(opt, device, args.num_devices)
+    style_gan = build_trainer(opt, device, max_devices)
 
     start_depth = args.start_depth
     if args.resume is not None:

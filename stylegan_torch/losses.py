@@ -16,8 +16,11 @@ Formulas (held against the JAX package in tests/test_torch_losses.py):
   wgan, wgan-gp               the ProGAN formulation the reference names
                               but leaves out (GAN.py:464-470, 517)
 
-Data-parallel means over a process group (``axis_name`` in the JAX package)
-arrive with the port's parallelism.
+Data-parallel exactness: every loss takes ``axis_name``, a parallel.Mesh
+(the JAX package names a mesh axis; torch passes the group).  Given one,
+each batch mean is the group's mean of the shards' means (JAX's pmean) and
+the R1 penalty the group's sum (psum), so every rank computes the
+global-batch loss; parallel/distributed.py says how its gradient is taken.
 """
 
 from __future__ import annotations
@@ -27,10 +30,17 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
+from .parallel.distributed import pmean, psum
 
-def _bce_with_logits(logits, target: float):
+
+def _mean(x, axis_name=None):
+    m = torch.mean(x)
+    return m if axis_name is None else pmean(m, axis_name)
+
+
+def _bce_with_logits(logits, target: float, axis_name=None):
     # mean(softplus(x) - x * t) == BCEWithLogitsLoss
-    return torch.mean(F.softplus(logits) - logits * target)
+    return _mean(F.softplus(logits) - logits * target, axis_name)
 
 
 def _score_pair(dis_fn, reals, fakes):
@@ -45,45 +55,47 @@ def _score_pair(dis_fn, reals, fakes):
 
 # ---------------------------------------------------------------- standard --
 
-def standard_dis_loss(dis_fn, reals, fakes):
+def standard_dis_loss(dis_fn, reals, fakes, axis_name=None):
     r, f = _score_pair(dis_fn, reals, fakes)
     r, f = torch.squeeze(r), torch.squeeze(f)
-    return (_bce_with_logits(r, 1.0) + _bce_with_logits(f, 0.0)) / 2
+    return (_bce_with_logits(r, 1.0, axis_name)
+            + _bce_with_logits(f, 0.0, axis_name)) / 2
 
 
-def standard_gen_loss(dis_fn, reals, fakes):
+def standard_gen_loss(dis_fn, reals, fakes, axis_name=None):
     # the intended math of the reference's StandardGAN.gen_loss, whose
     # tuple unpacking (Losses.py:131) would crash
-    return _bce_with_logits(torch.squeeze(dis_fn(fakes)), 1.0)
+    return _bce_with_logits(torch.squeeze(dis_fn(fakes)), 1.0, axis_name)
 
 
 # ------------------------------------------------------------------- hinge --
 
-def hinge_dis_loss(dis_fn, reals, fakes):
+def hinge_dis_loss(dis_fn, reals, fakes, axis_name=None):
     r, f = _score_pair(dis_fn, reals, fakes)
-    return torch.mean(F.relu(1.0 - r)) + torch.mean(F.relu(1.0 + f))
+    return _mean(F.relu(1.0 - r), axis_name) + _mean(F.relu(1.0 + f),
+                                                     axis_name)
 
 
-def hinge_gen_loss(dis_fn, reals, fakes):
-    return -torch.mean(dis_fn(fakes))
+def hinge_gen_loss(dis_fn, reals, fakes, axis_name=None):
+    return -_mean(dis_fn(fakes), axis_name)
 
 
 # ------------------------------------------------------ relativistic-hinge --
 
-def relativistic_hinge_dis_loss(dis_fn, reals, fakes):
+def relativistic_hinge_dis_loss(dis_fn, reals, fakes, axis_name=None):
     r, f = _score_pair(dis_fn, reals, fakes)
-    r_f_diff = r - torch.mean(f)
-    f_r_diff = f - torch.mean(r)
-    return (torch.mean(F.relu(1.0 - r_f_diff))
-            + torch.mean(F.relu(1.0 + f_r_diff)))
+    r_f_diff = r - _mean(f, axis_name)
+    f_r_diff = f - _mean(r, axis_name)
+    return (_mean(F.relu(1.0 - r_f_diff), axis_name)
+            + _mean(F.relu(1.0 + f_r_diff), axis_name))
 
 
-def relativistic_hinge_gen_loss(dis_fn, reals, fakes):
+def relativistic_hinge_gen_loss(dis_fn, reals, fakes, axis_name=None):
     r, f = _score_pair(dis_fn, reals, fakes)
-    r_f_diff = r - torch.mean(f)
-    f_r_diff = f - torch.mean(r)
-    return (torch.mean(F.relu(1.0 + r_f_diff))
-            + torch.mean(F.relu(1.0 - f_r_diff)))
+    r_f_diff = r - _mean(f, axis_name)
+    f_r_diff = f - _mean(r, axis_name)
+    return (_mean(F.relu(1.0 + r_f_diff), axis_name)
+            + _mean(F.relu(1.0 - f_r_diff), axis_name))
 
 
 # ---------------------------------------------------------- logistic + R1 --
@@ -96,38 +108,42 @@ def _input_grad(dis_fn, x):
     return grad
 
 
-def r1_penalty(dis_fn, reals):
+def r1_penalty(dis_fn, reals, axis_name=None):
     """Sum over batch and pixels of ||dD(x)/dx||^2 (Losses.py:197-211):
-    the reference *sums* over the batch, and so does this."""
-    return _input_grad(dis_fn, reals).square().sum()
+    the reference *sums* over the batch, and so does this (over the
+    group's global batch, given `axis_name`)."""
+    pen = _input_grad(dis_fn, reals).square().sum()
+    return pen if axis_name is None else psum(pen, axis_name)
 
 
-def logistic_dis_loss(dis_fn, reals, fakes, r1_gamma: float = 10.0):
+def logistic_dis_loss(dis_fn, reals, fakes, axis_name=None,
+                      r1_gamma: float = 10.0):
     r, f = _score_pair(dis_fn, reals, fakes)
-    loss = torch.mean(F.softplus(f)) + torch.mean(F.softplus(-r))
+    loss = _mean(F.softplus(f), axis_name) + _mean(F.softplus(-r), axis_name)
     if r1_gamma != 0.0:
-        loss = loss + r1_penalty(dis_fn, reals) * (r1_gamma * 0.5)
+        loss = loss + r1_penalty(dis_fn, reals, axis_name) * (r1_gamma * 0.5)
     return loss
 
 
-def logistic_gen_loss(dis_fn, reals, fakes):
-    return torch.mean(F.softplus(-dis_fn(fakes)))
+def logistic_gen_loss(dis_fn, reals, fakes, axis_name=None):
+    return _mean(F.softplus(-dis_fn(fakes)), axis_name)
 
 
 # ----------------------------------------------------------- wgan, wgan-gp --
 
-def wgan_dis_loss(dis_fn, reals, fakes, drift: float = 0.001):
+def wgan_dis_loss(dis_fn, reals, fakes, axis_name=None, drift: float = 0.001):
     r, f = _score_pair(dis_fn, reals, fakes)
-    return torch.mean(f) - torch.mean(r) + drift * torch.mean(r.square())
+    return (_mean(f, axis_name) - _mean(r, axis_name)
+            + drift * _mean(r.square(), axis_name))
 
 
-def wgan_gen_loss(dis_fn, reals, fakes):
-    return -torch.mean(dis_fn(fakes))
+def wgan_gen_loss(dis_fn, reals, fakes, axis_name=None):
+    return -_mean(dis_fn(fakes), axis_name)
 
 
 def gradient_penalty(dis_fn, reals, fakes,
                      generator: Optional[torch.Generator] = None,
-                     eps: Optional[torch.Tensor] = None):
+                     eps: Optional[torch.Tensor] = None, axis_name=None):
     """mean((||dD/dx_hat||_2 - 1)^2) over per-sample interpolates x_hat =
     eps * reals + (1 - eps) * fakes, eps ~ U[0, 1) of shape (B, 1, 1, 1):
     drawn from `generator`, or given as `eps`."""
@@ -138,32 +154,32 @@ def gradient_penalty(dis_fn, reals, fakes,
     merged = (eps * reals + (1.0 - eps) * fakes).detach()
     grads = _input_grad(dis_fn, merged)
     norms = torch.sqrt(grads.reshape(b, -1).square().sum(dim=1) + 1e-12)
-    return torch.mean(torch.square(norms - 1.0))
+    return _mean(torch.square(norms - 1.0), axis_name)
 
 
-def wgan_gp_dis_loss(dis_fn, reals, fakes, generator=None, eps=None,
-                     drift: float = 0.001, gp_lambda: float = 10.0):
+def wgan_gp_dis_loss(dis_fn, reals, fakes, axis_name=None, generator=None,
+                     eps=None, drift: float = 0.001, gp_lambda: float = 10.0):
     if generator is None and eps is None:
         raise ValueError("wgan-gp needs a torch.Generator or eps= for the "
                          "interpolates")
-    loss = wgan_dis_loss(dis_fn, reals, fakes, drift)
+    loss = wgan_dis_loss(dis_fn, reals, fakes, axis_name, drift)
     return loss + gp_lambda * gradient_penalty(dis_fn, reals, fakes,
-                                               generator, eps)
+                                               generator, eps, axis_name)
 
 
-def wgan_gp_gen_loss(dis_fn, reals, fakes):
-    return -torch.mean(dis_fn(fakes))
+def wgan_gp_gen_loss(dis_fn, reals, fakes, axis_name=None):
+    return -_mean(dis_fn(fakes), axis_name)
 
 
 # ------------------------------------------------------------- conditional --
 
-def conditional_dis_loss(dis_fn, reals, fakes):
+def conditional_dis_loss(dis_fn, reals, fakes, axis_name=None):
     # dis_fn already closes over the labels
-    return standard_dis_loss(dis_fn, reals, fakes)
+    return standard_dis_loss(dis_fn, reals, fakes, axis_name)
 
 
-def conditional_gen_loss(dis_fn, reals, fakes):
-    return _bce_with_logits(torch.squeeze(dis_fn(fakes)), 1.0)
+def conditional_gen_loss(dis_fn, reals, fakes, axis_name=None):
+    return _bce_with_logits(torch.squeeze(dis_fn(fakes)), 1.0, axis_name)
 
 
 # ------------------------------------------ registry (GAN.py:535-555 names) --

@@ -72,11 +72,13 @@ class DiscriminatorTop(nn.Module):
                                       use_wscale=cfg.use_wscale,
                                       generator=generator)
 
-    def forward(self, x: torch.Tensor, mbstd_chunks: int = 1) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, mbstd_chunks: int = 1,
+                mbstd_axis=None) -> torch.Tensor:
         cfg, act = self.cfg, _act(self.cfg)
         if cfg.mbstd_group_size > 1:
             x = minibatch_stddev(x, cfg.mbstd_group_size,
-                                 cfg.mbstd_num_features, chunks=mbstd_chunks)
+                                 cfg.mbstd_num_features, chunks=mbstd_chunks,
+                                 axis_name=mbstd_axis)
         x = act(self.conv(x))
         # channel-major flatten for the reference's dense weight layout
         x = to_nchw(x).reshape(x.shape[0], -1)
@@ -144,7 +146,7 @@ class Discriminator(nn.Module):
 
     def forward(self, images: torch.Tensor, depth: int, alpha=1.0,
                 labels: Optional[torch.Tensor] = None,
-                mbstd_chunks: int = 1) -> torch.Tensor:
+                mbstd_chunks: int = 1, mbstd_axis=None) -> torch.Tensor:
         cfg = self.cfg
         assert depth < cfg.depth, "Requested output depth cannot be produced"
         if cfg.conditional and labels is None:
@@ -156,7 +158,7 @@ class Discriminator(nn.Module):
             x = self.from_rgb[0](images)
             for i in range(len(self.blocks)):
                 x = self._block(i, x)
-            return self.final_block(x, mbstd_chunks)
+            return self.final_block(x, mbstd_chunks, mbstd_axis)
         if cfg.structure != "linear":
             raise KeyError(f"Unknown structure: {cfg.structure}")
 
@@ -175,4 +177,4 @@ class Discriminator(nn.Module):
             if cfg.conditional:
                 images = self._label_planes(-1, images, labels)
             x = self.from_rgb[-1](images)
-        return self.final_block(x, mbstd_chunks)
+        return self.final_block(x, mbstd_chunks, mbstd_axis)

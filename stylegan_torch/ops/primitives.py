@@ -23,6 +23,9 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from ..parallel.distributed import all_gather
+from ..parallel.mesh import Mesh
+
 
 def to_nchw(x: torch.Tensor) -> torch.Tensor:
     """NHWC view -> NCHW view (channels_last storage when x is contiguous)."""
@@ -157,17 +160,28 @@ def minibatch_stddev(x: torch.Tensor, group_size: int = 4,
 
     `chunks` restricts grouping to that many equal contiguous batch chunks,
     each grouped alone (the fused real/fake scoring runs one batch-2B pass
-    with chunks=2).  `axis_name` (the statistic over a data-parallel
-    group's global batch) arrives with the port's parallelism."""
+    with chunks=2; a one-process run of the data-parallel step's
+    shard-local statistic uses chunks = the group's size).  `axis_name` (a
+    parallel.Mesh) takes the statistic over the group's global batch
+    instead: x, the small 4x4 head input, is all-gathered, grouped as one
+    process groups the global batch, and this rank's rows are kept."""
+    if axis_name is not None and not isinstance(axis_name, Mesh):
+        raise TypeError("axis_name is the data-parallel group's "
+                        f"parallel.Mesh, got {axis_name!r}")
+    if axis_name is not None and chunks > 1:
+        raise ValueError("axis_name (global scope) and chunks (local scope) "
+                         "are exclusive")
+    b = x.shape[0]
+    if b % chunks:
+        raise ValueError(f"batch {b} not divisible into {chunks} chunks")
+    y = _f32_stats(x)
     if axis_name is not None:
-        raise NotImplementedError(
-            "minibatch_stddev(axis_name=...) needs the data-parallel path, "
-            "which is not ported yet")
-    if x.shape[0] % chunks:
-        raise ValueError(f"batch {x.shape[0]} not divisible into {chunks} "
-                         "chunks")
-    feat = torch.cat([_stddev_feature(t, group_size, num_new_features)
-                      for t in _f32_stats(x).chunk(chunks)])
+        full = _stddev_feature(all_gather(y, axis_name), group_size,
+                               num_new_features)
+        feat = full[axis_name.rank * b:(axis_name.rank + 1) * b]
+    else:
+        feat = torch.cat([_stddev_feature(t, group_size, num_new_features)
+                          for t in y.chunk(chunks)])
     return torch.cat([x, feat.to(x.dtype)], dim=-1)
 
 

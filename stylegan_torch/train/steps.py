@@ -27,8 +27,24 @@ Every parameter gets a gradient in each update, zero where none flows (a
 from_rgb or to_rgb the depth does not use), as the JAX package's dense
 gradient trees do, so that Adam's moments and step counts match it.
 
-Data parallelism (``mesh=``, and with it the minibatch-stddev scope) is not
-ported yet.
+Data parallelism (``mesh=``, a parallel.Mesh): every rank of the mesh runs
+the step at once on its own shard of the global batch (reals, z, labels and
+any pinned draws are the rank's rows), with the same seed and alpha and a
+replicated TrainState.  The losses' batch means are the group's means and
+R1 the group's sum (losses.py), so each rank's loss is the global-batch
+loss; after each backward the gradients are averaged over the group (one
+all-reduce per module and update: R1 differentiates twice through D, which
+DistributedDataParallel's hooks do not follow, and the JAX step averages
+explicitly after each update too), so G's clipping and both Adams see the
+global gradient on every rank.  The W-average of each G forward is rank
+0's (the global batch's first sample, as on one device), and the returned
+losses are the group's mean.  With `shard_rng` (the default) rank r draws
+its noise, mixing and GP interpolates from stream_seed(seed, SHARD_STREAM,
+r), independent per rank as JAX's fold_in(key, axis_index) is; without
+it every rank draws from `seed`.  Minibatch stddev is shard-local (groups
+of min(4, local batch)) unless mbstd_scope='global', which takes it over
+the group's global batch; `mbstd_chunks` is the one-process form of the
+shard-local statistic.
 """
 
 from __future__ import annotations
@@ -44,9 +60,12 @@ from ..losses import (LOGISTIC_LIKE, NEEDS_KEY, get_loss, logistic_dis_loss,
 from ..models.ema import ema_update
 from ..models.synthesis import stream_seed
 from ..ops import avg_pool2d, upscale2d
+from ..parallel.distributed import average_gradients, broadcast_, pmean
+from ..parallel.mesh import Mesh
 from .state import TrainState
 
 GP_STREAM = 0x6B    # the gradient penalty's stream of a repeat's seed
+SHARD_STREAM = 0x5D  # a rank's stream of the step's seed (shard_rng)
 
 
 def progressive_downsample(reals: torch.Tensor, total_depth: int, depth: int,
@@ -94,11 +113,40 @@ def _wide(loss: torch.Tensor) -> torch.Tensor:
     return loss.detach().to(torch.promote_types(loss.dtype, torch.float32))
 
 
-def _with_avg(generator, avg):
-    """Store the truncation W-average a train-mode forward returned."""
+def _with_avg(generator, avg, mesh=None):
+    """Store the truncation W-average a train-mode forward returned; under
+    a mesh, rank 0's (each rank computes it from its own first sample)."""
     if avg is not None and hasattr(generator, "truncation"):
         with torch.no_grad():
+            if mesh is not None:
+                avg = avg.clone()
+                broadcast_([avg], mesh)
             generator.truncation.avg_latent.copy_(avg)
+
+
+def _check_mesh(mesh):
+    if mesh is None:
+        return
+    if not isinstance(mesh, Mesh):
+        raise TypeError(f"mesh must be a parallel.Mesh, got {type(mesh)}")
+    if not mesh.is_member:
+        raise ValueError("this rank is not in the mesh")
+
+
+def _rank_seed(seed: int, mesh, shard_rng: bool) -> int:
+    """The seed of this rank's draws."""
+    if mesh is None or not shard_rng:
+        return seed
+    return stream_seed(seed, SHARD_STREAM, mesh.rank)
+
+
+def _group_mean(losses: dict, mesh) -> dict:
+    """The group's mean of the (detached) losses: one all-reduce."""
+    if mesh is None:
+        return losses
+    with torch.no_grad():
+        means = pmean(torch.stack(list(losses.values())), mesh)
+    return dict(zip(losses, means.unbind()))
 
 
 class _Phases:
@@ -106,7 +154,11 @@ class _Phases:
     and loss, shared by build_train_step, build_d_step and build_g_step."""
 
     def __init__(self, dis_cfg, depth, loss, conditional, drift,
-                 r1_gamma=None, r1_separate_reg=False, fuse_scores=False):
+                 r1_gamma=None, r1_separate_reg=False, fuse_scores=False,
+                 mesh=None, mbstd_scope=None, mbstd_chunks=1):
+        _check_mesh(mesh)
+        if mbstd_scope not in (None, "local", "global"):
+            raise ValueError(f"mbstd_scope {mbstd_scope!r}")
         # `loss` is a registry name or a (dis_loss_fn, gen_loss_fn) pair
         if isinstance(loss, tuple):
             dis_loss_fn, gen_loss_fn = loss
@@ -126,11 +178,16 @@ class _Phases:
         self.dis_cfg, self.depth = dis_cfg, depth
         self.loss, self.drift, self.conditional = loss, drift, conditional
         self.dis_loss_fn, self.gen_loss_fn = dis_loss_fn, gen_loss_fn
-        # the fused real/fake pass, where no R1 pass would reuse D(reals)
+        self.mesh = mesh
+        self.mbstd_axis = mesh if mbstd_scope == "global" else None
+        self.mbstd_chunks = mbstd_chunks
+        # the fused real/fake pass, where no R1 pass would reuse D(reals),
+        # and whose per-half stddev groups neither scope above changes
         in_loss_r1 = (loss in LOGISTIC_LIKE and not r1_separate_reg
                       and (r1_gamma is None or r1_gamma != 0.0))
-        self.fuse = fuse_scores and not (in_loss_r1
-                                         or self.reg_gamma is not None)
+        self.fuse = (fuse_scores and self.mbstd_axis is None
+                     and mbstd_chunks == 1
+                     and not (in_loss_r1 or self.reg_gamma is not None))
 
     def reals_at_depth(self, reals, alpha):
         return progressive_downsample(reals, self.dis_cfg.depth, self.depth,
@@ -140,7 +197,9 @@ class _Phases:
         depth = self.depth
 
         def fn(images):
-            return discriminator(images, depth, alpha, labels)
+            return discriminator(images, depth, alpha, labels,
+                                 mbstd_chunks=self.mbstd_chunks,
+                                 mbstd_axis=self.mbstd_axis)
         if self.fuse:
             def score_pair(reals, fakes):
                 b = reals.shape[0]
@@ -158,16 +217,24 @@ class _Phases:
                          labels=labels, noises=noises, mixing=mixing)
 
     def dis_loss(self, dis_fn, reals, fakes, seed, gp_eps):
+        axis = self.mesh
         if self.loss in NEEDS_KEY:      # wgan-gp: the interpolates' draws
             gen = None
             if gp_eps is None:
                 gen = torch.Generator(device=reals.device)
                 gen.manual_seed(stream_seed(seed, GP_STREAM))
-            return self.dis_loss_fn(dis_fn, reals, fakes, generator=gen,
+            return self.dis_loss_fn(dis_fn, reals, fakes, axis, generator=gen,
                                     eps=gp_eps, drift=self.drift)
         if self.loss == "wgan":
-            return self.dis_loss_fn(dis_fn, reals, fakes, drift=self.drift)
-        return self.dis_loss_fn(dis_fn, reals, fakes)
+            return self.dis_loss_fn(dis_fn, reals, fakes, axis,
+                                    drift=self.drift)
+        return self.dis_loss_fn(dis_fn, reals, fakes, axis)
+
+    def backward(self, loss, module):
+        """loss.backward(), then the group's mean of `module`'s gradients."""
+        loss.backward()
+        if self.mesh is not None:
+            average_gradients(module, self.mesh)
 
     def d_update(self, generator, discriminator, d_optimizer, reals_cur, z,
                  seed, alpha, labels, noises, mixing, gp_eps, fakes=None):
@@ -178,11 +245,11 @@ class _Phases:
                 out = self.g_forward(generator, z, seed, alpha, labels,
                                      noises, mixing)
             fakes = out.images
-            _with_avg(generator, out.avg_latent)
+            _with_avg(generator, out.avg_latent, self.mesh)
         _zero_grads(discriminator)
         loss = self.dis_loss(self.dis_fn(discriminator, alpha, labels),
                              reals_cur, fakes, seed, gp_eps)
-        loss.backward()
+        self.backward(loss, discriminator)
         d_optimizer.step()
         return _wide(loss)
 
@@ -206,7 +273,8 @@ class _Phases:
         state.lazy_reg_adam_correction)."""
         _zero_grads(discriminator)
         dis_fn = self.dis_fn(discriminator, alpha, labels)
-        (r1_penalty(dis_fn, reals_cur) * (self.reg_gamma * 0.5)).backward()
+        self.backward(r1_penalty(dis_fn, reals_cur, self.mesh)
+                      * (self.reg_gamma * 0.5), discriminator)
         d_optimizer.step()
 
     def g_update(self, generator, discriminator, g_optimizer, shadow,
@@ -222,27 +290,24 @@ class _Phases:
             _zero_grads(generator)
             loss = self.gen_loss_fn(
                 self.dis_fn(discriminator, alpha, labels), reals_cur,
-                out.images)
-            loss.backward()
+                out.images, self.mesh)
+            self.backward(loss, generator)
         g_optimizer.step()
-        _with_avg(generator, out.avg_latent)
+        _with_avg(generator, out.avg_latent, self.mesh)
         if shadow is not None:
             ema_update(shadow, generator, ema_decay)
         return _wide(loss)
-
-
-def _refuse_parallel(mesh):
-    if mesh is not None:
-        raise NotImplementedError(
-            "the data-parallel train step (mesh=) is not ported yet")
 
 
 def build_train_step(gen_cfg, dis_cfg, *, depth: int,
                      loss="relativistic-hinge", d_repeats: int = 1,
                      use_ema: bool = True, ema_decay: float = 0.999,
                      conditional: bool = False, drift: float = 0.001,
-                     mesh=None, r1_gamma: Optional[float] = None,
+                     mesh=None, shard_rng: bool = True,
+                     r1_gamma: Optional[float] = None,
                      r1_separate_reg: bool = False,
+                     mbstd_scope: Optional[str] = None,
+                     mbstd_chunks: int = 1,
                      fuse_scores: bool = False, reuse_g_fwd: bool = False):
     """Returns step(state, reals, z, seed, alpha, labels=None, *,
     noises=None, mixing=None, gp_eps=None) -> (state, metrics).  gen_cfg
@@ -251,27 +316,30 @@ def build_train_step(gen_cfg, dis_cfg, *, depth: int,
     reals: (B, R, R, C) at the *final* resolution (downsampled on the device
     to the depth's, like the reference); z: (B, latent); seed: int; alpha:
     float or 0-d tensor.  metrics: {"d_loss", "g_loss"}, 0-d tensors on the
-    device (reading them waits for the step).
+    device (reading them waits for the step).  Under `mesh`, B is this
+    rank's shard of the global batch (the module docstring).
 
     r1_gamma overrides the logistic loss's R1 coefficient (default 10);
     r1_separate_reg applies R1 as a separate Adam update after the D update
     (pair it with state.lazy_reg_adam_correction).  fuse_scores scores
     reals and fakes in one batch-2B D pass with minibatch-stddev groups
-    chunked per half (the same math), where no R1 pass is active.
+    chunked per half (the same math), where no R1 pass is active and the
+    stddev scope is the plain one.
     reuse_g_fwd (d_repeats == 1) runs G's forward once: its detached images
     feed the D update, then the G loss through the updated D backpropagates
     through the same forward's graph; the D and G phases then share their
     noise and mixing draws (stream_seed(seed, 0)), and the forward sees the
     W-average before the D phase's update."""
-    _refuse_parallel(mesh)
     phases = _Phases(dis_cfg, depth, loss, conditional, drift, r1_gamma,
-                     r1_separate_reg, fuse_scores)
+                     r1_separate_reg, fuse_scores, mesh, mbstd_scope,
+                     mbstd_chunks)
     reuse = reuse_g_fwd and d_repeats == 1
 
     def step(state: TrainState, reals, z, seed: int, alpha, labels=None, *,
              noises=None, mixing=None, gp_eps=None):
         G, D = state.generator, state.discriminator
         shadow = state.g_shadow if use_ema else None
+        seed = _rank_seed(seed, mesh, shard_rng)
         reals_cur = phases.reals_at_depth(reals, alpha)
         if reuse:
             seed0 = stream_seed(seed, 0)
@@ -287,16 +355,18 @@ def build_train_step(gen_cfg, dis_cfg, *, depth: int,
             g_loss = phases.g_update(G, D, state.g_optimizer, shadow,
                                      reals_cur, z, seed0, alpha, labels,
                                      noises, mixing, ema_decay, out=out)
-            return state, {"d_loss": d_loss, "g_loss": g_loss}
-        d_loss = phases.d_phase(G, D, state.d_optimizer, reals_cur, z, seed,
-                                alpha, labels, noises, mixing, gp_eps,
-                                d_repeats)
-        if phases.reg_gamma is not None:  # StyleGAN2's order: D, then R1
-            phases.reg_update(D, state.d_optimizer, reals_cur, alpha, labels)
-        g_loss = phases.g_update(G, D, state.g_optimizer, shadow, reals_cur,
-                                 z, stream_seed(seed, d_repeats), alpha,
-                                 labels, noises, mixing, ema_decay)
-        return state, {"d_loss": d_loss, "g_loss": g_loss}
+        else:
+            d_loss = phases.d_phase(G, D, state.d_optimizer, reals_cur, z,
+                                    seed, alpha, labels, noises, mixing,
+                                    gp_eps, d_repeats)
+            if phases.reg_gamma is not None:  # StyleGAN2's order: D, then R1
+                phases.reg_update(D, state.d_optimizer, reals_cur, alpha,
+                                  labels)
+            g_loss = phases.g_update(G, D, state.g_optimizer, shadow,
+                                     reals_cur, z,
+                                     stream_seed(seed, d_repeats), alpha,
+                                     labels, noises, mixing, ema_decay)
+        return state, _group_mean({"d_loss": d_loss, "g_loss": g_loss}, mesh)
 
     return step
 
@@ -307,18 +377,19 @@ def build_d_step(gen_cfg, dis_cfg, *, depth: int, loss="relativistic-hinge",
     """The standalone D update (reference optimize_discriminator,
     GAN.py:591-622): step(generator, discriminator, d_optimizer, reals, z,
     seed, alpha, labels=None, *, noises=None, mixing=None, gp_eps=None) ->
-    the mean loss; updates D and G's W-average in place."""
-    _refuse_parallel(mesh)
+    the mean loss; updates D and G's W-average in place.  Under `mesh`, as
+    build_train_step's (each rank's draws its own)."""
     if isinstance(loss, tuple):
         loss = (loss[0], None)
-    phases = _Phases(dis_cfg, depth, loss, conditional, drift)
+    phases = _Phases(dis_cfg, depth, loss, conditional, drift, mesh=mesh)
 
     def step(generator, discriminator, d_optimizer, reals, z, seed: int,
              alpha, labels=None, *, noises=None, mixing=None, gp_eps=None):
-        return phases.d_phase(generator, discriminator, d_optimizer,
-                              phases.reals_at_depth(reals, alpha), z, seed,
-                              alpha, labels, noises, mixing, gp_eps,
-                              d_repeats)
+        loss = phases.d_phase(generator, discriminator, d_optimizer,
+                              phases.reals_at_depth(reals, alpha), z,
+                              _rank_seed(seed, mesh, True), alpha, labels,
+                              noises, mixing, gp_eps, d_repeats)
+        return _group_mean({"loss": loss}, mesh)["loss"]
 
     return step
 
@@ -330,19 +401,19 @@ def build_g_step(gen_cfg, dis_cfg, *, depth: int, loss="relativistic-hinge",
     GAN.py:624-659): step(generator, discriminator, g_optimizer, g_shadow,
     reals, z, seed, alpha, labels=None, *, noises=None, mixing=None) -> the
     loss; updates G, its W-average and (with use_ema) the shadow in
-    place."""
-    _refuse_parallel(mesh)
+    place.  Under `mesh`, as build_train_step's."""
     if isinstance(loss, tuple):
         loss = (None, loss[1])
-    phases = _Phases(dis_cfg, depth, loss, conditional, 0.0)
+    phases = _Phases(dis_cfg, depth, loss, conditional, 0.0, mesh=mesh)
 
     def step(generator, discriminator, g_optimizer, g_shadow, reals, z,
              seed: int, alpha, labels=None, *, noises=None, mixing=None):
         reals_cur = phases.reals_at_depth(reals, alpha)
-        return phases.g_update(generator, discriminator, g_optimizer,
+        loss = phases.g_update(generator, discriminator, g_optimizer,
                                g_shadow if use_ema else None, reals_cur, z,
-                               seed, alpha, labels, noises, mixing,
-                               ema_decay)
+                               _rank_seed(seed, mesh, True), alpha, labels,
+                               noises, mixing, ema_decay)
+        return _group_mean({"loss": loss}, mesh)["loss"]
 
     return step
 

@@ -33,10 +33,22 @@ samples and the split update API (optimize_discriminator /
 optimize_generator) take float32 latents and reals.  The process's TF32
 setting is ``config.apply_runtime_knobs``'s.
 
-Not ported yet, and refused: data parallelism (``mesh``, ``max_devices >
-1``, ``spatial_devices > 1``, more than one process: ROADMAP queue 1,
-parallelism).  ``packed_layout`` and ``fold_blur`` are accepted and give
-the unpacked math.
+Data parallelism runs over ranks, one process per device
+(parallel/distributed.py): `mesh` (a parallel.Mesh) fixes the group for
+every step; `max_devices` sizes it per depth instead, the largest group of
+at most max_devices ranks that the depth's global batch divides with a
+whole minibatch-stddev group on every rank (`_mesh_for_batch`).  Every rank
+runs `train` with the same arguments.  At a depth whose group is smaller
+than the world, the ranks outside it skip the depth and wait at its end;
+the state (modules, optimizers, the update count and the z stream) is
+broadcast from rank 0 whenever a rank starts training under a new group,
+so replicas are bitwise equal again when the group grows.  Each rank of
+the group loads its own stripe of every epoch (shard_index = its rank in
+the group, num_shards = the group's size, batch = global batch / size) and
+draws the whole global z, keeping its rows.  Checkpoints, grids and
+metrics.jsonl are written by rank 0 only.  Not ported yet, and refused:
+``spatial_devices > 1`` (ROADMAP queue 1, parallelism).  ``packed_layout``
+and ``fold_blur`` are accepted and give the unpacked math.
 """
 
 from __future__ import annotations
@@ -59,6 +71,9 @@ from ..models import Discriminator, Generator
 from ..models.configs import (discriminator_config_from_args,
                               generator_config_from_args)
 from ..models.synthesis import stream_seed
+from ..parallel.distributed import (broadcast_, global_shard, host_count,
+                                    host_index, replicate)
+from ..parallel.mesh import Mesh, compatible_mesh_size, create_mesh
 from ..utils.profiling import MetricsWriter
 from .state import create_train_state, lazy_reg_adam_correction
 from .steps import (build_d_step, build_g_step, build_sample_fn,
@@ -67,20 +82,7 @@ from .steps import (build_d_step, build_g_step, build_sample_fn,
 # streams of `seed`: module init; the fused step of each update; the other
 # draws (feedback samples, the split update API)
 _INIT, _STEP, _DRAW = 0x49, 0x53, 0x44
-
-
-def _refuse_parallel(mesh, max_devices, spatial_devices):
-    if mesh is not None or (max_devices or 1) > 1 \
-            or (spatial_devices or 0) > 1:
-        raise NotImplementedError(
-            "data and spatial parallelism (mesh, max_devices > 1, "
-            "spatial_devices > 1) are not ported yet (ROADMAP queue 1, "
-            "parallelism)")
-    if torch.distributed.is_available() and torch.distributed.is_initialized() \
-            and torch.distributed.get_world_size() > 1:
-        raise NotImplementedError(
-            "multi-process training is not ported yet (ROADMAP queue 1, "
-            "parallelism)")
+_UNSET = object()   # no group yet (None is a group of one: this device)
 
 
 class StyleGAN:
@@ -102,12 +104,25 @@ class StyleGAN:
             raise ValueError(f"unknown structure {structure!r}")
         if conditional and n_classes <= 0:
             raise ValueError("Conditional GANs require n_classes > 0")
-        _refuse_parallel(mesh, max_devices, spatial_devices)
+        if (spatial_devices or 0) > 1:
+            raise NotImplementedError(
+                "spatial parallelism (spatial_devices > 1) is not ported yet "
+                "(ROADMAP queue 1, parallelism)")
+        if mesh is not None and not isinstance(mesh, Mesh):
+            raise TypeError(f"mesh must be a parallel.Mesh, got {type(mesh)}")
         if activations_dtype not in ("float32", "bfloat16"):
             raise ValueError(f"activations_dtype {activations_dtype!r}")
-        # one device: a shard-local and a global minibatch-stddev agree
+        # minibatch-stddev scope: None = each step's natural (shard-local)
+        # statistic; 'local' | 'global' pin one across every step
         if mbstd_scope not in (None, "auto", "local", "global"):
             raise ValueError(f"mbstd_scope {mbstd_scope!r}")
+        self.mbstd_scope = None if mbstd_scope == "auto" else mbstd_scope
+        self.mesh = mesh
+        self.max_devices = max_devices
+        self.rank, self.world = host_index(), host_count()
+        self._meshes = {}           # group size -> Mesh
+        self._last_mesh = _UNSET     # the group the state was last placed on
+        self._train_mesh = _UNSET    # the depth's group inside train()
 
         self.device = resolve_device(device)
         self.structure = structure
@@ -170,13 +185,78 @@ class StyleGAN:
         self._sample_fns = {}   # depth -> sampler
 
     # ------------------------------------------------------------------
-    def _get_step(self, depth: int, with_r1: bool = True):
-        """The fused step of `depth`.  Under lazy R1 two exist per depth:
-        the regularized one (gamma * interval) and a gamma = 0 one with no
-        double backward.  Keyed as the JAX trainer keys its programs
-        (depth, mesh size, R1 phase)."""
+    def _mesh_for_batch(self, batch_size: int):
+        """The fixed mesh if given; else the largest group of at most
+        max_devices ranks that the global batch divides (None = one
+        device).
+
+        Minibatch-stddev groups are shard-local, so the group is also
+        capped so that every rank holds at least one whole stddev group:
+        batch 8 over 8 ranks would leave groups of 1, a constant stddev
+        feature, and D would lose the reference's group = min(4, B)
+        statistic (CustomLayers.py:294).  Creating a group is collective:
+        every rank calls this with the same batch sizes in the same order."""
+        if self.mesh is not None:
+            return self.mesh
+        if not self.max_devices or self.max_devices <= 1:
+            return None
+        group = max(1, int(self.dis_cfg.mbstd_group_size))
+        cap = min(self.max_devices, max(1, batch_size // group))
+        n = compatible_mesh_size(cap, [batch_size])
+        if n <= 1:
+            return None
+        if n not in self._meshes:
+            self._meshes[n] = create_mesh(n)
+        return self._meshes[n]
+
+    def _call_mesh(self, batch: int):
+        """The mesh and global batch of a train_on_batch / optimize_* call:
+        in one process `batch` is the global batch and the group adapts to
+        it; across processes each rank passes its shard, and the group is
+        the fixed `mesh` (the JAX package asks the same of several hosts)
+        or, inside `train`, the depth's group."""
+        if self.world == 1:
+            return self._mesh_for_batch(batch), batch
+        mesh = self.mesh if self.mesh is not None else self._train_mesh
+        if mesh is _UNSET:
+            raise ValueError(
+                "several processes: train_on_batch and optimize_* need a "
+                "fixed mesh (StyleGAN(mesh=create_mesh())) outside train(), "
+                "which sizes the group per depth")
+        return mesh, batch * (mesh.size if mesh is not None else 1)
+
+    def _ensure_placement(self, mesh):
+        """Make this rank's state rank 0's when it starts training under a
+        new group (the JAX trainer re-places its arrays on a mesh change):
+        the modules, both optimizers, the update count and the z stream.
+        Ranks that sat out a depth thereby catch up."""
+        if self._last_mesh is mesh:
+            return
+        if mesh is not None:
+            replicate(mesh, self.state)
+            counters = torch.tensor([self._update_count, self._draws])
+            z_state = self._z.get_state()
+            broadcast_([counters, z_state], mesh)
+            self._update_count, self._draws = map(int, counters.tolist())
+            self._z.set_state(z_state)
+        self._last_mesh = mesh
+
+    def _rank0_says(self, flag: bool, mesh) -> bool:
+        """Rank 0's `flag`, on every rank of `mesh` (None: as it is)."""
+        if mesh is None:
+            return flag
+        t = torch.tensor([int(flag)])
+        broadcast_([t], mesh)
+        return bool(t.item())
+
+    def _get_step(self, depth: int, with_r1: bool = True, mesh=None):
+        """The fused step of (depth, group).  Under lazy R1 two exist per
+        key: the regularized one (gamma * interval) and a gamma = 0 one
+        with no double backward.  Keyed as the JAX trainer keys its
+        programs (depth, mesh size, R1 phase)."""
         lazy = self.r1_interval > 1
-        key = (depth, 1, with_r1 if lazy else True)
+        key = (depth, mesh.size if mesh is not None else 1,
+               with_r1 if lazy else True)
         if key not in self._steps:
             r1_gamma = None
             if lazy:
@@ -192,9 +272,9 @@ class StyleGAN:
                 self.gen_cfg, self.dis_cfg, depth=depth, loss=self.loss_name,
                 d_repeats=self.d_repeats, use_ema=self.use_ema,
                 ema_decay=self.ema_decay, conditional=self.conditional,
-                drift=self.drift, r1_gamma=r1_gamma,
-                r1_separate_reg=separate, fuse_scores=self.fuse_scores,
-                reuse_g_fwd=self.reuse_g_fwd)
+                drift=self.drift, mesh=mesh, r1_gamma=r1_gamma,
+                r1_separate_reg=separate, mbstd_scope=self.mbstd_scope,
+                fuse_scores=self.fuse_scores, reuse_g_fwd=self.reuse_g_fwd)
         return self._steps[key]
 
     def _get_sample_fn(self, depth: int):
@@ -226,12 +306,14 @@ class StyleGAN:
     # Reference-parity single-network update API (GAN.py:591-659)
     def optimize_discriminator(self, noise, real_batch, depth, alpha,
                                labels=None):
-        key = ("d", depth, 1)
+        mesh, _ = self._call_mesh(len(real_batch))
+        self._ensure_placement(mesh)
+        key = ("d", depth, mesh.size if mesh is not None else 1)
         if key not in self._steps:
             self._steps[key] = build_d_step(
                 self.gen_cfg, self.dis_cfg, depth=depth, loss=self.loss_name,
                 d_repeats=self.d_repeats, conditional=self.conditional,
-                drift=self.drift)
+                drift=self.drift, mesh=mesh)
         s = self.state
         loss = self._steps[key](
             s.generator, s.discriminator, s.d_optimizer,
@@ -241,12 +323,14 @@ class StyleGAN:
 
     def optimize_generator(self, noise, real_batch, depth, alpha,
                            labels=None):
-        key = ("g", depth, 1)
+        mesh, _ = self._call_mesh(len(real_batch))
+        self._ensure_placement(mesh)
+        key = ("g", depth, mesh.size if mesh is not None else 1)
         if key not in self._steps:
             self._steps[key] = build_g_step(
                 self.gen_cfg, self.dis_cfg, depth=depth, loss=self.loss_name,
                 use_ema=self.use_ema, ema_decay=self.ema_decay,
-                conditional=self.conditional)
+                conditional=self.conditional, mesh=mesh)
         s = self.state
         loss = self._steps[key](
             s.generator, s.discriminator, s.g_optimizer, s.g_shadow,
@@ -265,14 +349,25 @@ class StyleGAN:
         """One fused D+G update on a batch of full-resolution reals (numpy,
         or a tensor, on any device).
 
+        One process: `images` is the global batch.  Several processes
+        (after parallel.initialize_distributed): `images` is this rank's
+        shard of the global batch (global batch = shard * the mesh's size),
+        under the fixed `mesh`, whose every rank calls this at once.
+
         fetch=False returns the two losses as device tensors and does not
         wait for the device: nothing here reads a device value, so steps
         queue back to back until the caller reads one."""
+        mesh, global_batch = self._call_mesh(len(images))
+        self._ensure_placement(mesh)
         with_r1 = (self._update_count % self.r1_interval) == 0
         self._update_count += 1
-        step = self._get_step(depth, with_r1)
+        step = self._get_step(depth, with_r1, mesh)
         reals = self._tensor(images, self.activations_dtype)
-        z = self._draw_z(reals.shape[0])
+        # every rank draws the global z and keeps its rows: the z streams
+        # stay equal, and the global z is the one-process run's
+        z = self._draw_z(global_batch)
+        if mesh is not None:
+            z = global_shard(mesh, z)
         # the update count, which a full-state resume restores, seeds the
         # step's noise and style mixing
         seed = stream_seed(self.seed, _STEP, self._update_count)
@@ -302,18 +397,17 @@ class StyleGAN:
     def train(self, dataset, num_workers, epochs, batch_sizes,
               fade_in_percentage, logger, output, num_samples=36,
               start_depth=0, feedback_factor=100, checkpoint_factor=1):
-        """Progressive training loop (reference GAN.py:682-826)."""
+        """Progressive training loop (reference GAN.py:682-826).  Across
+        processes every rank calls it with the same arguments; batch sizes
+        are global."""
         for name, sched in (("epochs", epochs), ("batch_sizes", batch_sizes),
                             ("fade_in_percentage", fade_in_percentage)):
             if self.depth > len(sched):
                 raise ValueError(f"{name} not compatible with depth")
 
-        metrics_writer = MetricsWriter(os.path.join(output, "metrics.jsonl"))
-        window_t0 = time.perf_counter()
-        window_imgs, window_steps = 0, 0
+        writer = (MetricsWriter(os.path.join(output, "metrics.jsonl"))
+                  if self.rank == 0 else None)
         abort_file = os.path.join(output, "abort.txt")
-
-        global_time = time.time()
         fixed_input = torch.randn(
             (num_samples, self.latent_size),
             generator=torch.Generator().manual_seed(42)).to(self.device)
@@ -325,92 +419,127 @@ class StyleGAN:
         logger.info("Starting the training process ... \n")
         if self.structure == "fixed":
             start_depth = self.depth - 1
-        step_count = 1
-        for current_depth in range(start_depth, self.depth):
-            current_res = 2 ** (current_depth + 2)
-            logger.info("Currently working on depth: %d", current_depth + 1)
-            logger.info("Current resolution: %d x %d", current_res, current_res)
-            ticker = 1
-            data = get_data_loader(dataset, batch_sizes[current_depth],
-                                   num_workers)
-            ring = (PinnedRing(self.device) if self.device.type == "cuda"
-                    else None)
-            for epoch in range(1, epochs[current_depth] + 1):
-                start = time.time()
-                logger.info("Epoch: [%d]", epoch)
-                total_batches = len(data)
-                fade_point = int((fade_in_percentage[current_depth] / 100)
-                                 * epochs[current_depth] * total_batches)
+        # every depth's group, created up front in the same order on every
+        # rank (creating one is collective; a rank that sits out a depth
+        # must not wait inside a creation)
+        meshes = {d: self._mesh_for_batch(batch_sizes[d])
+                  for d in range(start_depth, self.depth)}
+        world = (Mesh(self.world, self.rank, torch.distributed.group.WORLD)
+                 if self.world > 1 else None)
+        clock = {"global": time.time(), "step": 1}
+        try:
+            for current_depth in range(start_depth, self.depth):
+                mesh = meshes[current_depth]
+                if mesh.is_member if mesh is not None else self.rank == 0:
+                    self._train_mesh = mesh
+                    stop = self._train_depth(
+                        dataset, num_workers, current_depth, mesh,
+                        batch_sizes[current_depth], epochs[current_depth],
+                        fade_in_percentage[current_depth], logger, output,
+                        writer, abort_file, fixed_input, fixed_labels,
+                        feedback_factor, checkpoint_factor, clock)
+                else:   # outside this depth's group: wait for its end
+                    self._last_mesh, stop = _UNSET, False
+                # rank 0's verdict reaches the ranks that sat it out
+                if self._rank0_says(stop, world):
+                    return
+            logger.info("Training completed.\n")
+        finally:
+            self._train_mesh = _UNSET
+            if writer is not None:
+                writer.close()
 
-                for i, batch in enumerate(
-                        device_prefetch(iter(data), self.device, ring=ring),
-                        1):
-                    alpha = ticker / fade_point if ticker <= fade_point else 1
-                    if self.conditional:
-                        images, labels = batch
-                    else:
-                        images, labels = batch, None
-                    dis_loss, gen_loss = self.train_on_batch(
-                        images, current_depth, alpha, labels, fetch=False)
-                    window_imgs += len(images)
-                    window_steps += 1
+    def _train_depth(self, dataset, num_workers, current_depth, mesh,
+                     batch_size, n_epochs, fade_in, logger, output, writer,
+                     abort_file, fixed_input, fixed_labels, feedback_factor,
+                     checkpoint_factor, clock) -> bool:
+        """One depth of `train` on this rank of `mesh` (or alone); True when
+        abort.txt stopped the run."""
+        current_res = 2 ** (current_depth + 2)
+        logger.info("Currently working on depth: %d", current_depth + 1)
+        logger.info("Current resolution: %d x %d", current_res, current_res)
+        n = mesh.size if mesh is not None else 1
+        ticker = 1
+        data = get_data_loader(dataset, batch_size // n, num_workers,
+                               shard_index=mesh.rank if mesh else 0,
+                               num_shards=n)
+        ring = PinnedRing(self.device) if self.device.type == "cuda" else None
+        window_t0 = time.perf_counter()
+        window_imgs, window_steps = 0, 0
+        for epoch in range(1, n_epochs + 1):
+            start = time.time()
+            logger.info("Epoch: [%d]", epoch)
+            total_batches = len(data)
+            fade_point = int((fade_in / 100) * n_epochs * total_batches)
 
-                    if i % int(total_batches / feedback_factor + 1) == 0 \
-                            or i == 1:
-                        # float() waits for every queued step, so window
-                        # wall time over window images is the throughput
-                        dis_loss, gen_loss = float(dis_loss), float(gen_loss)
-                        now = time.perf_counter()
-                        ips = (window_imgs / (now - window_t0)
-                               if now > window_t0 and i > 1 else None)
-                        step_time = ((now - window_t0) / max(1, window_steps)
-                                     if i > 1 else None)
-                        elapsed = str(datetime.timedelta(
-                            seconds=time.time() - global_time)).split(".")[0]
-                        logger.info(
-                            "Elapsed: [%s] Step: %d  Batch: %d  "
-                            "D_Loss: %f  G_Loss: %f  imgs/s: %s",
-                            elapsed, step_count, i, dis_loss, gen_loss,
-                            f"{ips:.1f}" if ips else "n/a")
-                        metrics_writer.write(
-                            step=step_count, depth=current_depth, epoch=epoch,
-                            batch=i, alpha=float(alpha), d_loss=dis_loss,
-                            g_loss=gen_loss,
+            for i, batch in enumerate(
+                    device_prefetch(iter(data), self.device, ring=ring), 1):
+                alpha = ticker / fade_point if ticker <= fade_point else 1
+                if self.conditional:
+                    images, labels = batch
+                else:
+                    images, labels = batch, None
+                dis_loss, gen_loss = self.train_on_batch(
+                    images, current_depth, alpha, labels, fetch=False)
+                window_imgs += batch_size
+                window_steps += 1
+
+                if i % int(total_batches / feedback_factor + 1) == 0 \
+                        or i == 1:
+                    # float() waits for every queued step, so window
+                    # wall time over window images is the throughput
+                    dis_loss, gen_loss = float(dis_loss), float(gen_loss)
+                    now = time.perf_counter()
+                    ips = (window_imgs / (now - window_t0)
+                           if now > window_t0 and i > 1 else None)
+                    step_time = ((now - window_t0) / max(1, window_steps)
+                                 if i > 1 else None)
+                    elapsed = str(datetime.timedelta(
+                        seconds=time.time() - clock["global"])).split(".")[0]
+                    logger.info(
+                        "Elapsed: [%s] Step: %d  Batch: %d  "
+                        "D_Loss: %f  G_Loss: %f  imgs/s: %s",
+                        elapsed, clock["step"], i, dis_loss, gen_loss,
+                        f"{ips:.1f}" if ips else "n/a")
+                    # every rank samples: the shadow's W-average moves
+                    samples = self.sample(current_depth, alpha,
+                                          z=fixed_input, labels=fixed_labels)
+                    if writer is not None:
+                        writer.write(
+                            step=clock["step"], depth=current_depth,
+                            epoch=epoch, batch=i, alpha=float(alpha),
+                            d_loss=dis_loss, g_loss=gen_loss,
                             step_time=step_time, imgs_per_sec=ips)
-                        grid_file = os.path.join(
-                            output, "samples",
-                            f"gen_{current_depth}_{epoch}_{i}.png")
-                        samples = self.sample(current_depth, alpha,
-                                              z=fixed_input,
-                                              labels=fixed_labels)
                         scale = (2 ** (self.depth - current_depth - 1)
                                  if self.structure == "linear" else 1)
-                        save_image_grid(
-                            adjust01(samples), grid_file, scale_factor=scale)
-                        # the next window starts after the grid is written
-                        window_t0 = time.perf_counter()
-                        window_imgs, window_steps = 0, 0
-                    ticker += 1
-                    step_count += 1
+                        save_image_grid(adjust01(samples), os.path.join(
+                            output, "samples",
+                            f"gen_{current_depth}_{epoch}_{i}.png"),
+                            scale_factor=scale)
+                    # the next window starts after the grid is written
+                    window_t0 = time.perf_counter()
+                    window_imgs, window_steps = 0, 0
+                ticker += 1
+                clock["step"] += 1
 
-                elapsed = str(datetime.timedelta(
-                    seconds=time.time() - start)).split(".")[0]
-                logger.info("Time taken for epoch: %s\n", elapsed)
+            elapsed = str(datetime.timedelta(
+                seconds=time.time() - start)).split(".")[0]
+            logger.info("Time taken for epoch: %s\n", elapsed)
 
-                if epoch % checkpoint_factor == 0 or epoch == 1 \
-                        or epoch == epochs[current_depth]:
-                    self.save_checkpoints(output, current_depth, epoch, logger)
+            if self.rank == 0 and (epoch % checkpoint_factor == 0
+                                   or epoch == 1 or epoch == n_epochs):
+                self.save_checkpoints(output, current_depth, epoch, logger)
 
-                # graceful stop: the reference's abort.txt polling
-                # (dnnlib/submission/run_context.py:60-75)
-                if os.path.exists(abort_file):
-                    logger.info("abort.txt found — checkpointing and "
-                                "stopping.\n")
-                    self.save_checkpoints(output, current_depth, epoch, logger)
-                    metrics_writer.close()
-                    return
-        metrics_writer.close()
-        logger.info("Training completed.\n")
+            # graceful stop: the reference's abort.txt polling
+            # (dnnlib/submission/run_context.py:60-75), rank 0's reading
+            if self._rank0_says(os.path.exists(abort_file), mesh):
+                logger.info("abort.txt found — checkpointing and "
+                            "stopping.\n")
+                if self.rank == 0:
+                    self.save_checkpoints(output, current_depth, epoch,
+                                          logger)
+                return True
+        return False
 
     # ------------------------------------------------------------------
     def save_checkpoints(self, output, depth, epoch, logger=None):

@@ -88,8 +88,8 @@ def _record_step_inputs(trainer):
     seen = []
     real = trainer._get_step
 
-    def get_step(depth, with_r1=True):
-        step = real(depth, with_r1)
+    def get_step(depth, with_r1=True, mesh=None):
+        step = real(depth, with_r1, mesh)
 
         def wrapped(state, reals, z, *args, **kwargs):
             hooks = [state.generator.register_forward_hook(

@@ -198,10 +198,18 @@ def test_train_cli_runs_and_resumes_on_cpu(train_toy):
             np.load(models / "GAN_GEN_OPTIM_1_1.npz")["1.0.count"])
 
 
-def test_train_cli_refuses_more_devices(train_toy):
+def test_train_cli_refuses_more_devices(train_toy, monkeypatch):
+    """--num_devices above the visible cards raises before a rank starts
+    (one card seen here); the two-rank CPU run is in
+    tests/test_torch_parallel.py."""
+    import torch
+
     from stylegan_torch.cli import train
-    _, config = train_toy
+    tmp, config = train_toy
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
     args = train.parse_arguments(["--config", config("many"),
-                                  "--num_devices", "2", "--device", "cpu"])
-    with pytest.raises(NotImplementedError, match="queue 1, parallelism"):
+                                  "--num_devices", "2"])
+    with pytest.raises(ValueError, match="2 devices asked for, 1 visible"):
         train.main(args)
+    assert not (tmp / "many").exists()

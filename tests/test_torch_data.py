@@ -61,8 +61,24 @@ def _tree(tmp_path, kind):
 KINDS = ["flat", "folders", "class_folders", "npy", "synthetic"]
 
 
+@pytest.fixture
+def same_decoder(monkeypatch):
+    """Both packages' datasets decode JPEG and PNG files with one decoder,
+    so that their pixels can be held bitwise: the C++ core on both sides
+    where both built it, else PIL on both.  The JAX package builds its
+    library in place at first use (stylegan_tpu/data/native.py), so a
+    process that loads it while another is writing it falls back to PIL
+    for its lifetime, and PIL differs from the C++ core by up to 2/255
+    (test_native_decoder_agrees_with_pil_and_jax holds the two cores to
+    each other and to PIL)."""
+    if native.available() != jnative.available():
+        for mod in (native, jnative):
+            monkeypatch.setattr(mod, "available", lambda: False)
+    return native.decoder()
+
+
 @pytest.mark.parametrize("kind", KINDS)
-def test_dataset_items_equal_jax(tmp_path, kind):
+def test_dataset_items_equal_jax(tmp_path, kind, same_decoder):
     name, args = _tree(tmp_path, kind)
     kw = {"n_classes": 3, "random_flip": True} if kind == "synthetic" else {}
     theirs = getattr(jdata, name)(*args, **kw)
@@ -87,7 +103,7 @@ def test_dataset_items_equal_jax(tmp_path, kind):
                                 "3_shards_ordered"])
 @pytest.mark.parametrize("kind", ["folders", "class_folders", "synthetic"])
 def test_loader_batches_equal_jax(tmp_path, kind, seed, shards, flip,
-                                  shuffle):
+                                  shuffle, same_decoder):
     """Over two epochs and every shard: the same batches, bitwise."""
     name, args = _tree(tmp_path, kind)
     kw = ({"n_classes": 3, "random_flip": flip} if kind == "synthetic"
@@ -109,7 +125,7 @@ def test_loader_batches_equal_jax(tmp_path, kind, seed, shards, flip,
                     assert x.dtype == y.dtype and np.array_equal(x, y)
 
 
-def test_get_data_loader_and_make_dataset(tmp_path):
+def test_get_data_loader_and_make_dataset(tmp_path, same_decoder):
     _write_images(str(tmp_path / "sub"), 4)
 
     class Cfg(dict):

@@ -119,7 +119,8 @@ def test_minibatch_stddev_groups_are_strided():
 def test_minibatch_stddev_keeps_bf16_and_refuses_axis_name():
     x = torch.randn(4, 4, 4, 8).bfloat16()
     assert tprim.minibatch_stddev(x, 4).dtype == torch.bfloat16
-    with pytest.raises(NotImplementedError):
+    # the port names the group by its Mesh, not by a JAX axis name
+    with pytest.raises(TypeError, match="Mesh"):
         tprim.minibatch_stddev(x, 4, axis_name="data")
 
 

@@ -57,3 +57,17 @@ def test_importing_the_port_loads_no_jax():
                        capture_output=True, text=True, timeout=120)
     assert r.returncode == 0, r.stderr
     assert r.stdout.strip() == "[]", r.stdout
+
+
+def test_parallel_package_and_rank_bodies_import_no_jax():
+    """stylegan_torch/parallel/ is in the scan above, and the rank bodies
+    that tests/test_torch_parallel.py spawns import neither JAX nor the
+    JAX package (a rank imports torch and the port only)."""
+    for name in ("__init__", "mesh", "distributed"):
+        assert os.path.join(REPO, "stylegan_torch", "parallel",
+                            f"{name}.py") in SOURCES
+    worker = os.path.join(REPO, "tests", "torch_parallel_worker.py")
+    with open(worker) as f:
+        names = list(_imported_names(ast.parse(f.read(), worker)))
+    assert "stylegan_torch.parallel" in names
+    assert not [n for n in names if n.split(".")[0] in FORBIDDEN], names

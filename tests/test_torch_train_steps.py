@@ -298,9 +298,13 @@ def test_step_draws_come_from_the_seed(monkeypatch):
 
 
 def test_parallel_options_are_refused():
+    """A mesh is a parallel.Mesh (the mesh= path itself runs in
+    tests/test_torch_parallel.py); the R1 knobs need the logistic loss."""
     _, (tg, td) = _configs()
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(TypeError, match="parallel.Mesh"):
         build_train_step(tg, td, depth=1, mesh=object())
+    with pytest.raises(ValueError, match="mbstd_scope"):
+        build_train_step(tg, td, depth=1, mbstd_scope="host")
     with pytest.raises(ValueError, match="logistic"):
         build_train_step(tg, td, depth=1, loss="hinge", r1_gamma=5.0)
 

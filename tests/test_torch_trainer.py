@@ -191,8 +191,8 @@ def test_full_state_round_trip_keeps_update_count(tmp_path):
     # the next update seeds its noise and style mixing alike in both
     seeds = []
     for trainer in (t, fresh):
-        def spy(depth, with_r1, get_step=trainer._get_step):
-            step = get_step(depth, with_r1)
+        def spy(depth, with_r1, mesh=None, get_step=trainer._get_step):
+            step = get_step(depth, with_r1, mesh)
 
             def run(state, reals, z, seed, *rest):
                 seeds.append(seed)
@@ -247,9 +247,9 @@ def test_lazy_r1_step_keys_equal_jax():
     seen = []
     real = t._get_step
 
-    def get_step(depth, with_r1=True):
+    def get_step(depth, with_r1=True, mesh=None):
         seen.append(with_r1)
-        return real(depth, with_r1)
+        return real(depth, with_r1, mesh)
     t._get_step = get_step
     for _ in range(3):
         d, g = t.train_on_batch(imgs, depth=1, alpha=1.0)
@@ -399,12 +399,32 @@ def test_remat_blocks_reaches_both_networks():
     assert np.isfinite(d) and np.isfinite(g)
 
 
-@pytest.mark.parametrize("kw", [
-    {"mesh": object()}, {"max_devices": 2}, {"spatial_devices": 2}],
-    ids=["mesh", "max_devices", "spatial_devices"])
+@pytest.mark.parametrize("kw", [{"spatial_devices": 2}],
+                         ids=["spatial_devices"])
 def test_unported_options_raise(kw):
     with pytest.raises(NotImplementedError, match="queue 1, parallelism"):
         make_trainer(**kw)
+
+
+@pytest.mark.parametrize("case", ["mesh", "max_devices"])
+def test_data_parallel_options_in_one_process(case):
+    """The data-parallel options are ported (tests/test_torch_parallel.py
+    runs them on two ranks).  In one process: `mesh` must be a
+    parallel.Mesh; max_devices=2 trains alone where the stddev cap leaves
+    one device (batch 4, group 4), and where the batch asks for a second
+    rank (batch 8) it raises, as JAX's create_mesh asserts on one device."""
+    if case == "mesh":
+        with pytest.raises(TypeError, match="parallel.Mesh"):
+            make_trainer(mesh=object())
+        return
+    t = make_trainer(max_devices=2)
+    rs = np.random.RandomState(9)
+    d, g = t.train_on_batch(rs.randn(4, RES, RES, 3).astype(np.float32),
+                            depth=1, alpha=0.5)
+    assert np.isfinite(d) and np.isfinite(g)
+    with pytest.raises(ValueError, match="requested 2 devices, have 1"):
+        t.train_on_batch(rs.randn(8, RES, RES, 3).astype(np.float32),
+                         depth=1, alpha=0.5)
 
 
 def test_accepted_layout_options_give_the_same_init():

@@ -155,9 +155,29 @@ Phases, each fatal on failure:
            --nproc_per_node 1` (NCCL) on 8 seeded 1024^2 PNGs, depths 7-8:
            finite losses, the checkpoint files written once.  It prints its
            seconds.
+11. spatial serving (stylegan_torch/parallel/spatial.py), each 1024^2
+           image split by height over ranks: (a) the split epilogue
+           (K1-partial, the rank-order merge, K2-apply) at the 9 shapes cut
+           into 2 and 4 slabs, batch 1 and 8, float32 and bf16, against the
+           split plain version (phase 2's bars), against the unsplit kernel
+           and bitwise on repeat, each entry timed against its bytes bound
+           on R/n rows; (b) a one-rank NCCL mesh bitwise equal to
+           make_serving_fn; (c) 2 and 4 ranks sharing the card over gloo,
+           batch 1 and 8: rank 0's gathered images within 1e-2 and JAX's
+           rtol=1e-3, atol=1e-3 of the one-process forward, each rank's
+           slab equal to its rows, each rank's kernel calls per request,
+           peak memory beside the one-process forward's and
+           spatial_hbm_estimate, ms per request (a correctness and memory
+           run, not a scaling figure), a bf16 request within the drift bar;
+           (d) the 2-rank artifact, exported in one process, on both ranks
+           bitwise equal to the live spatial fn and to itself when served
+           twice; (e) generate_samples --spatial_devices 2 (its PNGs within
+           a level of the one-process --eval CLI's) and export_generator
+           --spatial_devices 2 --check (depth 5) as subprocesses.  It
+           prints its seconds.
 
-`python3 chip_smoke.py --only 8 9 10` runs the build and just those phases
-(to try a change; no result lines).
+`python3 chip_smoke.py --only 8 9 10 11` runs the build and just those
+phases (to try a change; no result lines).
 
 The last two lines are {"kernels": [...]} with the kernels' measurements and
 {"ok": true, "device": {...}}; the card's name and power limit precede them.
@@ -1988,6 +2008,7 @@ def phase_export_project(dev, per_forward, serve_img_s, train):
 def reset_counts(kern, fused):
     kern.launches = kern.cuda_launches = kern.backward_launches = 0
     kern.backward_cuda_launches = kern.backward_g_copies = 0
+    kern.partial_launches = kern.apply_launches = 0
     fused.plain_calls = 0
 
 
@@ -3192,11 +3213,419 @@ def run_all(cmds, label="tools"):
     return times
 
 
+# ------------------------------------------------------------------------
+# Phase 11: spatial serving (stylegan_torch/parallel/spatial.py)
+
+SPATIAL_RES = 2 ** (DEPTH + 2)  # 1024
+SPATIAL_RANKS = (2, 4)
+SPATIAL_BATCHES = (1, BATCH)    # generate_samples' batch, serving's
+SPATIAL_REQUESTS = 2
+SPATIAL_SEED = 70
+SPATIAL_TIMEOUT = 300           # s: each collective's wait, and a world's run
+SPATIAL_OUT = os.path.join(REPO, "build", "chip_smoke", "spatial")
+JAX_SPATIAL_TOL = dict(rtol=1e-3, atol=1e-3)  # the JAX export CLI's bar
+
+
+def phase_spatial(dev):
+    """Phase 11: each 1024^2 image split by height over ranks, each part
+    fatal: (a) the split epilogue entries at every shape, (b) a one-rank
+    NCCL mesh bitwise against make_serving_fn, (c) 2 and 4 ranks sharing
+    the card over gloo against the one-process forward, with their kernel
+    calls and peak memory, (d) the 2-rank artifact against the live fn,
+    (e) the two CLIs as subprocesses."""
+    t_phase = time.perf_counter()
+    shutil.rmtree(SPATIAL_OUT, ignore_errors=True)
+    os.makedirs(SPATIAL_OUT)
+    report = {"kernels": spatial_kernels(dev)}
+    report["one_rank_nccl"] = spatial_one_rank(dev)
+    report["ranks"] = spatial_ranks(dev)
+    report["cli"] = spatial_cli()
+    shutil.rmtree(SPATIAL_OUT)
+    report["phase_s"] = time.perf_counter() - t_phase
+    log(f"phase 11: {report['phase_s']:.1f} s")
+    return report
+
+
+def split_epilogue(kern, fused, x, nw, noise, style, n, plain=False):
+    """The split epilogue over n slabs of x's rows in one process: each
+    slab's K1-partial (kernel or plain version), the rank-order merge, each
+    slab's K2-apply; (the slabs' outputs concatenated, the merged (mean,
+    rstd * (s0 + 1)))."""
+    partial = fused._reference_partial if plain else kern.epilogue_partial
+    apply = fused._reference_apply if plain else kern.epilogue_apply
+    xs = [t.contiguous() for t in x.chunk(n, dim=1)]
+    ns = [t.contiguous() for t in noise.chunk(n, dim=1)]
+    parts = torch.stack([partial(a, nw, b) for a, b in zip(xs, ns)])
+    stats = fused.split_stats(parts, xs[0].shape[1] * xs[0].shape[2], style)
+    return torch.cat([apply(a, nw, b, style, stats)
+                      for a, b in zip(xs, ns)], dim=1), stats
+
+
+def spatial_kernels(dev):
+    """11(a): K1-partial, the merge and K2-apply at the 9 epilogue shapes
+    cut into 2 and 4 slabs, batch 1 and 8, float32 and bf16: against the
+    split plain version (phase 2's bars), against the unsplit kernel
+    (float32 1e-4 * max(1, |ref|); bf16 phase 2's ulp bar), two runs
+    bitwise; each entry timed (CUDA graph replay, as phase 2) on one slab
+    of each stage that the forward splits (res >= 4n), beside its bytes
+    bound on the R/n rows and the plain version.  The partial's error is
+    that of the merged statistics K2-apply reads.  Returns the sums over a
+    rank's split calls of one forward (two per split stage), by case."""
+    from stylegan_torch.ops import fused
+    from stylegan_torch.ops.kernels import epilogue as kern
+    g = torch.Generator(device=dev).manual_seed(11)
+    sums, vs_unsplit = {}, 0.0
+    for dtype in (torch.float32, torch.bfloat16):
+        name = "f32" if dtype == torch.float32 else "bf16"
+        for batch in SPATIAL_BATCHES:
+            for n in SPATIAL_RANKS:
+                s = sums[f"{name}_b{batch}_n{n}"] = dict.fromkeys(
+                    ("partial_ms", "apply_ms", "plain_partial_ms",
+                     "plain_apply_ms", "partial_bound_ms", "apply_bound_ms",
+                     "stats_max_abs_err", "max_abs_err", "calls_per_forward"),
+                    0.0)
+                for res, c in EPILOGUE_SHAPES:
+                    args = epilogue_inputs(g, dev, dtype, res, c, batch)
+                    x, nw, noise, style = args
+                    with torch.no_grad():
+                        got, stats = split_epilogue(kern, fused, *args, n)
+                        again, _ = split_epilogue(kern, fused, *args, n)
+                        ref, ref_stats = split_epilogue(kern, fused, *args,
+                                                        n, plain=True)
+                        unsplit = fused.fused_epilogue(*args)
+                    torch.cuda.synchronize()
+                    where = f"split epilogue {batch}x{res}x{res}x{c}/{n} {name}"
+                    if got.dtype != dtype or got.shape != x.shape:
+                        fail(f"{where}: {got.dtype} {tuple(got.shape)}")
+                    if not torch.equal(got, again):
+                        fail(f"{where}: two runs differ")
+                    err = float((got.float() - ref.float()).abs().max())
+                    tol = F32_TOL if dtype == torch.float32 \
+                        else bf16_bound(ref)
+                    if not err <= tol:
+                        fail(f"{where}: {err} from the split plain version "
+                             f"(bar {tol})")
+                    err_u = float((got.float() - unsplit.float()).abs().max())
+                    tol_u = F32_TOL * max(1.0, float(unsplit.abs().max())) \
+                        if dtype == torch.float32 else bf16_bound(unsplit)
+                    if not err_u <= tol_u:
+                        fail(f"{where}: {err_u} from the unsplit kernel "
+                             f"(bar {tol_u})")
+                    s["max_abs_err"] = max(s["max_abs_err"], err)
+                    s["stats_max_abs_err"] = max(
+                        s["stats_max_abs_err"],
+                        float((stats - ref_stats).abs().max()))
+                    vs_unsplit = max(vs_unsplit, err_u)
+                    if res >= 4 * n:          # a stage the forward splits
+                        s.update(spatial_times(kern, fused, s, args, n))
+                        s["calls_per_forward"] += 2
+                    del x, noise, got, again, ref, unsplit, args
+        log(json.dumps({"phase11_split_epilogue": {
+            k: v for k, v in sums.items() if k.startswith(name)}}))
+    f32 = [v for k, v in sums.items() if k.startswith("f32")]
+    return {"by_case": sums, "main": sums[f"f32_b{BATCH}_n2"],
+            "max_abs_err": max(v["max_abs_err"] for v in f32),
+            "stats_max_abs_err": max(v["stats_max_abs_err"] for v in f32),
+            "max_abs_err_vs_unsplit": vs_unsplit}
+
+
+def spatial_times(kern, fused, s, args, n):
+    """s's sums plus this stage's two calls of each entry on slab 0 (the
+    others are the same size): device ms by graph replay, the plain
+    versions', and the bytes bounds on the slab's rows."""
+    x, nw, noise, style = args
+    xs, ns = x.chunk(n, dim=1)[0].contiguous(), \
+        noise.chunk(n, dim=1)[0].contiguous()
+    with torch.no_grad():
+        parts = torch.stack([kern.epilogue_partial(xs, nw, ns)] * n)
+        stats = fused.split_stats(parts, xs.shape[1] * xs.shape[2], style)
+        times = {
+            "partial_ms": graph_time_ms(
+                lambda i: kern.epilogue_partial(xs, nw, ns)),
+            "apply_ms": graph_time_ms(
+                lambda i: kern.epilogue_apply(xs, nw, ns, style, stats)),
+            "plain_partial_ms": graph_time_ms(
+                lambda i: fused._reference_partial(xs, nw, ns)),
+            "plain_apply_ms": graph_time_ms(
+                lambda i: fused._reference_apply(xs, nw, ns, style, stats)),
+        }
+    times["partial_bound_ms"] = kern.bytes_moved_partial(xs) \
+        / HBM_BYTES_PER_S * 1e3
+    times["apply_bound_ms"] = kern.bytes_moved_apply(xs) \
+        / HBM_BYTES_PER_S * 1e3
+    return {k: s[k] + 2 * v for k, v in times.items()}
+
+
+def spatial_generator(dev):
+    """FFHQ-1024's generator with phase 3's seeded weights, on `dev`."""
+    from stylegan_torch.models import Generator, generator_config_from_cfg
+    gen = Generator(generator_config_from_cfg(ffhq_cfg()))
+    gen.load_state_dict(random_state_dict(gen), strict=True)
+    return gen.requires_grad_(False).eval().to(dev)
+
+
+def spatial_z(batch, latent, i=0):
+    rs = np.random.default_rng(SPATIAL_SEED + 100 * batch + i)
+    return torch.from_numpy(rs.standard_normal((batch, latent),
+                                               dtype=np.float32))
+
+
+def spatial_one_rank(dev):
+    """11(b): a world of one NCCL rank: build_spatial_sample_fn on
+    create_spatial_mesh(1) bitwise equal to make_serving_fn on the same
+    (z, seed), batch 8 at 1024^2."""
+    from stylegan_torch.parallel import (build_spatial_sample_fn,
+                                         create_spatial_mesh,
+                                         initialize_distributed)
+    from stylegan_torch.serving import make_serving_fn
+    rank_dev = initialize_distributed(f"localhost:{free_port()}", 1, 0,
+                                      device=dev, timeout=SPATIAL_TIMEOUT)
+    try:
+        if torch.distributed.get_backend() != "nccl":
+            fail(f"11(b): backend {torch.distributed.get_backend()}")
+        gen = spatial_generator(rank_dev)
+        z = spatial_z(BATCH, gen.cfg.latent_size)
+        mesh = create_spatial_mesh(1)
+        got = build_spatial_sample_fn(gen.cfg, gen, mesh, depth=DEPTH)(z, 5)
+        want = make_serving_fn(gen.cfg, gen, depth=DEPTH,
+                               device=rank_dev)(z, 5)
+        if not torch.equal(got, want):
+            fail(f"11(b): the one-rank mesh differs from make_serving_fn by "
+                 f"{float((got - want).abs().max())}")
+    finally:
+        torch.distributed.destroy_process_group()
+    del gen, got, want
+    torch.cuda.empty_cache()
+    report = {"backend": "nccl", "world": 1, "bitwise": True,
+              "shape": [BATCH, SPATIAL_RES, SPATIAL_RES, 3]}
+    log(json.dumps({"phase11_one_rank_nccl": report}))
+    return report
+
+
+def spatial_rank(rank, device, n, artifact):
+    """A rank of 11(c)/(d), sharing the card over gloo: per batch, a
+    warm-up, then SPATIAL_REQUESTS timed requests with the kernel counts
+    and the peak memory; its slab against its rows of the gathered image;
+    rank 0 keeps the gathered images.  With `artifact` (n = 2): loaded
+    here, its rows against the live fn's and a request served twice; and a
+    bf16 request."""
+    from stylegan_torch.ops import fused
+    from stylegan_torch.ops.kernels import epilogue as kern
+    from stylegan_torch.parallel import (build_spatial_sample_fn,
+                                         create_spatial_mesh, gather_rows)
+    from stylegan_torch.serving import load_exported
+
+    ffhq_cfg()                          # float32, TF32 off
+    gen = spatial_generator(device)
+    mesh = create_spatial_mesh(n)
+    fn = build_spatial_sample_fn(gen.cfg, gen, mesh, depth=DEPTH)
+    rows = SPATIAL_RES // n
+    report, keep = {"rank": rank}, {}
+    for batch in SPATIAL_BATCHES:
+        zs = [spatial_z(batch, gen.cfg.latent_size, i)
+              for i in range(SPATIAL_REQUESTS + 1)]
+        fn(zs[-1], 99)                  # warm-up
+        torch.cuda.synchronize()
+        reset_counts(kern, fused)
+        torch.cuda.reset_peak_memory_stats(device)
+        t0 = time.perf_counter()
+        for i in range(SPATIAL_REQUESTS):
+            slab = fn(zs[i], i)
+            torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) / SPATIAL_REQUESTS * 1e3
+        counts = {"partial": kern.partial_launches,
+                  "apply": kern.apply_launches, "unsplit": kern.launches,
+                  "plain": fused.plain_calls}
+        peak = torch.cuda.max_memory_allocated(device)
+        full = gather_rows(slab, mesh)
+        if not torch.equal(slab, full[:, rank * rows:(rank + 1) * rows]):
+            fail(f"11(c) rank {rank}/{n}: its slab differs from its rows of "
+                 "the gathered image")
+        report[f"b{batch}"] = {"ms_per_request": ms, "calls": counts,
+                               "peak_bytes": peak}
+        keep[f"b{batch}"] = full.cpu()
+        del full, slab
+    if artifact:
+        t0 = time.perf_counter()
+        serve = load_exported(artifact, device=device, mesh=mesh)
+        z = spatial_z(BATCH, gen.cfg.latent_size)
+        got, again, live = serve(z, 3), serve(z, 3), fn(z, 3)
+        if not (torch.equal(got, live) and torch.equal(again, got)):
+            fail(f"11(d) rank {rank}: the artifact differs from the live "
+                 f"spatial fn by {float((got - live).abs().max())}, or "
+                 "from itself")
+        report["artifact"] = {"bitwise_live": True, "replay_bitwise": True,
+                              "load_and_3_requests_s":
+                                  time.perf_counter() - t0}
+        z1 = spatial_z(1, gen.cfg.latent_size)
+        keep["bf16"] = gather_rows(fn(z1.to(torch.bfloat16), 0), mesh).cpu()
+    with open(os.path.join(SPATIAL_OUT, f"n{n}_rank{rank}.json"), "w") as f:
+        json.dump(report, f)
+    if rank == 0:
+        torch.save(keep, os.path.join(SPATIAL_OUT, f"n{n}_images.pt"))
+
+
+def spatial_ranks(dev):
+    """11(c) and (d): the worlds of 2 and 4 ranks on the card over gloo
+    (NCCL refuses two ranks on one device): rank 0's gathered images
+    against the one-process forward (<= 1e-2 and JAX's 1e-3/1e-3), each
+    rank's calls (K1-partial and K2-apply per split stage, the unsplit
+    kernel per whole stage, no plain call), its peak memory beside the
+    one-process forward's and spatial_hbm_estimate, ms per request (a
+    correctness and memory run: the ranks share one card); the 2-rank
+    artifact exported here, in one process, and checked on the ranks."""
+    from stylegan_torch.ops.kernels import epilogue as kern
+    from stylegan_torch.parallel import spatial_hbm_estimate, spawn
+    from stylegan_torch.serving import export_generator, make_serving_fn
+
+    gen = spatial_generator(dev)
+    serve = make_serving_fn(gen.cfg, gen, depth=DEPTH, device=dev)
+    want, one_peak, one_ms = {}, {}, {}
+    for batch in SPATIAL_BATCHES:
+        zs = [spatial_z(batch, gen.cfg.latent_size, i)
+              for i in range(SPATIAL_REQUESTS + 1)]
+        serve(zs[-1], 99)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.perf_counter()
+        for i in range(SPATIAL_REQUESTS):
+            out = serve(zs[i], i)
+            torch.cuda.synchronize()
+        one_ms[batch] = (time.perf_counter() - t0) / SPATIAL_REQUESTS * 1e3
+        one_peak[batch] = torch.cuda.max_memory_allocated(dev)
+        want[f"b{batch}"] = out.cpu()
+    with torch.inference_mode():
+        want["bf16"] = gen(spatial_z(1, gen.cfg.latent_size).to(dev).to(
+            torch.bfloat16), depth=DEPTH, alpha=1.0, seed=0).images.float() \
+            .cpu()
+    t0 = time.perf_counter()
+    artifact = os.path.join(SPATIAL_OUT, "spatial2.pt2")
+    with open(artifact, "wb") as f:
+        f.write(export_generator(gen.cfg, gen, depth=DEPTH, batch_size=BATCH,
+                                 spatial_devices=2))
+    export_s = time.perf_counter() - t0
+    del gen, serve, out
+    torch.cuda.empty_cache()
+
+    report = {"note": "ranks sharing one card over gloo: a correctness and "
+                      "memory run, not a scaling figure",
+              "one_process": {f"b{b}": {"ms_per_request": one_ms[b],
+                                        "peak_bytes": one_peak[b]}
+                              for b in SPATIAL_BATCHES},
+              "export_s": export_s}
+    for n in SPATIAL_RANKS:
+        t0 = time.perf_counter()
+        spawn(spatial_rank, n, (n, artifact if n == 2 else None),
+              backend="gloo", device="cuda:0", timeout=SPATIAL_TIMEOUT,
+              join_timeout=SPATIAL_TIMEOUT)
+        wall = time.perf_counter() - t0
+        ranks = []
+        for r in range(n):
+            with open(os.path.join(SPATIAL_OUT, f"n{n}_rank{r}.json")) as f:
+                ranks.append(json.load(f))
+        got = torch.load(os.path.join(SPATIAL_OUT, f"n{n}_images.pt"))
+        split = sum(1 for res, _ in EPILOGUE_SHAPES if res >= 4 * n)
+        want_calls = {"partial": 2 * split, "apply": 2 * split,
+                      "unsplit": 2 * (len(EPILOGUE_SHAPES) - split),
+                      "plain": 0}
+        rep = {"world": n, "wall_s": wall, "by_rank": ranks}
+        for batch in SPATIAL_BATCHES:
+            key = f"b{batch}"
+            a, b = got[key], want[key]
+            if tuple(a.shape) != (batch, SPATIAL_RES, SPATIAL_RES, 3) or \
+                    not bool(torch.isfinite(a).all()):
+                fail(f"11(c) {n} ranks batch {batch}: {tuple(a.shape)}, or "
+                     "non-finite values")
+            err = float((a - b).abs().max())
+            if not err <= CPU_TOL:
+                fail(f"11(c) {n} ranks batch {batch}: max |diff| {err} from "
+                     f"the one-process forward (bar {CPU_TOL})")
+            if not torch.allclose(a, b, **JAX_SPATIAL_TOL):
+                fail(f"11(c) {n} ranks batch {batch}: outside rtol=1e-3, "
+                     "atol=1e-3 of the one-process forward")
+            for r in ranks:
+                calls = r[key]["calls"]
+                if calls != {k: v * SPATIAL_REQUESTS
+                             for k, v in want_calls.items()}:
+                    fail(f"11(c) {n} ranks batch {batch} rank {r['rank']}: "
+                         f"calls {calls}, want {want_calls} per request")
+            est = spatial_hbm_estimate(SPATIAL_RES, 16, n, 4) * batch
+            rep[key] = {
+                "max_abs_diff": err, "bar": CPU_TOL,
+                "jax_tol": JAX_SPATIAL_TOL,
+                "ms_per_request_by_rank": [r[key]["ms_per_request"]
+                                           for r in ranks],
+                "one_process_ms": one_ms[batch],
+                "peak_bytes_by_rank": [r[key]["peak_bytes"] for r in ranks],
+                "one_process_peak_bytes": one_peak[batch],
+                "hbm_estimate_1024x16_f32": est,
+                "calls_per_request": want_calls}
+        if n == 2:
+            d = (got["bf16"] - want["bf16"]).abs()
+            span = float(want["bf16"].max() - want["bf16"].min())
+            drift = {"mean_abs": float(d.mean()), "max_abs": float(d.max()),
+                     "span": span}
+            if not (drift["mean_abs"] < BF16_DRIFT_MEAN * span
+                    and drift["max_abs"] < BF16_DRIFT_MAX * span):
+                fail(f"11(c) bf16 over 2 ranks: drift {drift} from the "
+                     "one-process bf16 forward")
+            rep["bf16_drift"] = drift
+            rep["artifact"] = [r["artifact"] for r in ranks]
+        log(json.dumps({f"phase11_{n}_ranks_gloo": rep}))
+        report[f"n{n}"] = rep
+    return report
+
+
+def spatial_cli():
+    """11(e): generate_samples --spatial_devices 2 (1024^2) and
+    export_generator --spatial_devices 2 --check (at depth 5: 11(d) holds
+    the 1024^2 artifact) as subprocesses, two gloo ranks each on the card,
+    beside the one-process generate_samples --eval: the same PNGs within a
+    level of 255 (the 1e-3 bar after rounding)."""
+    from PIL import Image
+    from stylegan_torch.convert import save_generator_file
+    gen = spatial_generator(torch.device("cpu"))
+    npz = os.path.join(SPATIAL_OUT, "gen.npz")
+    save_generator_file(gen, npz)
+    del gen
+    base = [sys.executable, "-m"]
+    common = ["--config", CONFIG, "--generator_file", npz]
+    spatial = ["--spatial_devices", "2", "--device", "cuda:0"]
+    dirs = {k: os.path.join(SPATIAL_OUT, k) for k in ("split", "one")}
+    times = run_all({
+        "generate_samples_spatial": base + [
+            "stylegan_torch.cli.generate_samples"] + common + [
+            "--num_samples", "2", "--seed", "3", "--output_dir",
+            dirs["split"]] + spatial,
+        "generate_samples_eval": base + [
+            "stylegan_torch.cli.generate_samples"] + common + [
+            "--num_samples", "2", "--seed", "3", "--output_dir",
+            dirs["one"], "--eval"],
+        "export_generator_spatial_check": base + [
+            "stylegan_torch.cli.export_generator"] + common + [
+            "--output", os.path.join(SPATIAL_OUT, "cli.pt2"), "--batch", "2",
+            "--out_depth", str(CHECK_DEPTH), "--check"] + spatial},
+        label="phase 11")
+    worst = 0
+    for i in (1, 2):
+        a, b = (np.asarray(Image.open(os.path.join(dirs[k], f"{i}.png")))
+                .astype(int) for k in ("split", "one"))
+        if a.shape != (SPATIAL_RES, SPATIAL_RES, 3):
+            fail(f"11(e): sample {i}.png has shape {a.shape}")
+        worst = max(worst, int(np.abs(a - b).max()))
+    if worst > 1:
+        fail(f"11(e): the split CLI's PNGs differ from the one-process "
+             f"CLI's by {worst} levels")
+    report = {"wall_s": times, "png_max_level_diff": worst}
+    log(json.dumps({"phase11_cli": report}))
+    return report
+
+
 def main(argv=None):
     import argparse
     parser = argparse.ArgumentParser()
     parser.add_argument("--only", type=int, nargs="+", default=None,
-                        help="run only these of the phases 8-10 after the "
+                        help="run only these of the phases 8-11 after the "
                         "build (to try a change; prints no result line)")
     only = parser.parse_args(argv).only
     if not torch.cuda.is_available():
@@ -3220,7 +3649,8 @@ def main(argv=None):
             {8: lambda: phase_export_project(dev, phase_kernel(dev)[
                 "per_forward"], 0.0, {"img_per_s": 0.0}),
              9: lambda: phase_bf16(dev),
-             10: lambda: phase_parallel(dev, {"ms_per_step": None})}[n]()
+             10: lambda: phase_parallel(dev, {"ms_per_step": None}),
+             11: lambda: phase_spatial(dev)}[n]()
             log(f"phase {n} alone: {time.perf_counter() - t0:.1f} s")
         return 0
 
@@ -3243,6 +3673,11 @@ def main(argv=None):
     b9 = p9["train"]
     p10 = phase_parallel(dev, train)
     par_a, par_b = p10["one_rank_nccl"], p10["two_ranks_gloo"]
+    p11 = phase_spatial(dev)
+    split, n2 = p11["kernels"], p11["ranks"]["n2"]
+    split_calls = {f"n{n}": [r[f"b{BATCH}"]["calls"]
+                             for r in p11["ranks"][f"n{n}"]["by_rank"]]
+                   for n in SPATIAL_RANKS}
 
     kernels = [{
         "name": "epilogue", "route": "cuda",
@@ -3362,7 +3797,35 @@ def main(argv=None):
                   "dstyle only: the 18 float32 calls of one 1024^2 "
                   "backward, device time by CUDA graph replay (phase "
                   "5(a)); launches over phase 8(d)'s 100 steps",
-    }]
+    }] + [{
+        "name": f"epilogue_{entry}", "route": "cuda",
+        "source": "stylegan_torch/csrc/epilogue.cu",
+        "replaces": "stylegan_tpu/ops/pallas/epilogue.py:" + line,
+        "launches": n2["by_rank"][0][f"b{BATCH}"]["calls"][entry],
+        "launches_by_world": {k: [c[entry] for c in v]
+                              for k, v in split_calls.items()},
+        "max_abs_err": split["stats_max_abs_err"] if entry == "partial"
+        else split["max_abs_err"],
+        "max_abs_err_vs_unsplit": split["max_abs_err_vs_unsplit"],
+        "ms": split["main"][f"{entry}_ms"],
+        "plain_ms": split["main"][f"plain_{entry}_ms"],
+        "bound_ms": split["main"][f"{entry}_bound_ms"], "bound_by": "bytes",
+        "library_ms": None,
+        "bf16_ms": split["by_case"][f"bf16_b{BATCH}_n2"][f"{entry}_ms"],
+        "batch1_ms": split["by_case"]["f32_b1_n2"][f"{entry}_ms"],
+        "n4_ms": split["by_case"][f"f32_b{BATCH}_n4"][f"{entry}_ms"],
+        "shapes": "one rank's 16 split calls of a batch-8 1024^2 forward "
+                  "over 2 ranks (the stages 8^2 to 1024^2, R/2 rows each), "
+                  "float32, device time by CUDA graph replay (phase 11(a)); "
+                  "bf16_ms, batch1_ms and n4_ms (14 calls over 4 ranks) the "
+                  "same sums; max_abs_err "
+                  + ("of the merged (mean, rstd*(s0+1)) that K2-apply reads"
+                     if entry == "partial" else "of the split output")
+                  + " against the split plain version; launches rank 0's "
+                  f"over phase 11(c)'s {SPATIAL_REQUESTS} batch-8 requests "
+                  "on 2 ranks (launches_by_world: each rank's, 2 and 4 "
+                  "ranks)",
+    } for entry, line in (("partial", "73"), ("apply", "101"))]
     log(json.dumps({"serve_img_per_s": img_s, "batch": BATCH,
                     "resolution": 1024, "dtype": "float32"}))
     log(json.dumps({"train": {k: v for k, v in train.items()
@@ -3373,6 +3836,8 @@ def main(argv=None):
     log(json.dumps({"phase8": p8}))
     log(json.dumps({"phase9": p9}))
     log(json.dumps({"phase10": p10}))
+    log(json.dumps({"phase11": {k: v for k, v in p11.items()
+                                if k != "kernels"}}))
     log(card)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

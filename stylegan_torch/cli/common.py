@@ -32,6 +32,16 @@ def load_generator(opt, path: str, device):
     return generator.requires_grad_(False).to(device)
 
 
+def rank_backend(device):
+    """The process group backend of the ranks of a --spatial_devices run on
+    `device`: gloo where every rank shares card i ('cuda:i': NCCL refuses
+    two ranks on one device), else initialize_distributed's default (NCCL
+    on the card, gloo on the CPU)."""
+    device = torch.device(device)
+    return "gloo" if device.type == "cuda" and device.index is not None \
+        else None
+
+
 def device_of(module) -> torch.device:
     return next(module.parameters()).device
 

@@ -49,7 +49,17 @@
 //      launch interleaving the passes of neighbouring batch items, were
 //      both slower on the card and are gone (PERF.md).
 //
-// Common to both: noise is read as one scalar per row, never broadcast to
+// The split-plane form serves a plane whose rows lie on several ranks (the
+// spatial serving path, parallel/spatial.py), where no launch sees the whole
+// plane: K1-partial (stats_kernel with PARTIAL) leaves this rank's merged
+// (mean, M2) per (b, c); the ranks gather those, each merges them in rank
+// order (Chan's formula, on the host's side of the launch: a few (B, C)
+// tensor ops) into (mean, rstd * (s0 + 1)), and K2-apply (apply_kernel)
+// normalises this rank's rows from them.  Both take path 2's geometry at
+// every slab size (sgt_epilogue_split_plan), one launch each; they are bound
+// by bytes as the unsplit passes are, and read x twice, as path 2 does.
+//
+// Common to all: noise is read as one scalar per row, never broadcast to
 // (B, R, C) in memory; every thread moves 16 bytes per load and store along
 // C (VEC = 4 floats or 8 bf16), or scalars where C or a pointer does not
 // allow it; partials merge with Chan's pairwise formula, never as
@@ -326,11 +336,14 @@ onepass_kernel(const T* __restrict__ x, const T* __restrict__ noise,
 // grid (splits, chunks, B), block (TX, TY) with TX * TY == kThreads
 // and TY a power of two.  Thread (tx, ty) owns channels c0 .. c0 + VEC - 1
 // and rows r0 + ty, r0 + ty + TY, ...  The last block of a (b, chunk) merges
-// its splits and writes stats (mean, rstd * (s0 + 1)).
+// its splits and writes stats (mean, rstd * (s0 + 1)); with PARTIAL (K1 of
+// a plane whose rows lie on several ranks) it writes the merged (mean, M2)
+// of its R rows instead, and reads neither style nor saved.
 // Each thread issues UNROLL loads before their Welford updates.  bf16's
 // 8-wide vectors already hold 8 Welford states a thread: more loads in
 // flight cost occupancy and lost on the H100 (PERF.md).
-template <typename T, int VEC, int UNROLL = VEC == 8 ? 1 : 4>
+template <typename T, int VEC, bool PARTIAL = false,
+          int UNROLL = VEC == 8 ? 1 : 4>
 __global__ void __launch_bounds__(kThreads)
 stats_kernel(const T* __restrict__ x, const T* __restrict__ noise,
              const float* __restrict__ nw, const float* __restrict__ style,
@@ -481,11 +494,15 @@ stats_kernel(const T* __restrict__ x, const T* __restrict__ noise,
     __syncthreads();
   }
   if (g == 0 && c < C) {
-    const float rstd = rsqrtf(s_m2[tid] / (float)R + kEps);
-    stats[(size_t)b * C + c] =
-        make_float2(s_mean[tid], rstd * (style[(size_t)b * 2 * C + c] + 1.f));
-    if (saved != nullptr)
-      saved[(size_t)b * C + c] = make_float2(s_mean[tid], rstd);
+    if constexpr (PARTIAL) {
+      stats[(size_t)b * C + c] = make_float2(s_mean[tid], s_m2[tid]);
+    } else {
+      const float rstd = rsqrtf(s_m2[tid] / (float)R + kEps);
+      stats[(size_t)b * C + c] = make_float2(
+          s_mean[tid], rstd * (style[(size_t)b * 2 * C + c] + 1.f));
+      if (saved != nullptr)
+        saved[(size_t)b * C + c] = make_float2(s_mean[tid], rstd);
+    }
   }
   if (tid == 0) *ticket = 0;  // ready for the next call
 }
@@ -1138,6 +1155,41 @@ cudaError_t launch(const SgtPlan& p, const void* xv, const void* noisev,
   return cudaGetLastError();
 }
 
+// The split-plane forward (a plane whose rows lie on several ranks), on a
+// plan of sgt_epilogue_split_plan: K1-partial writes this rank's (mean, M2)
+// per (b, c) over its R rows into `partial`; after the caller's rank-order
+// merge, K2-apply reads (mean, rstd * (s0 + 1)) per (b, c) from `stats`.
+template <typename T, int VEC>
+cudaError_t launch_partial(const SgtPlan& p, const void* xv,
+                           const void* noisev, const void* nwv,
+                           void* partialv, void* workspace, int B, int64_t R,
+                           int C, cudaStream_t stream) {
+  unsigned char* ws = static_cast<unsigned char*>(workspace);
+  stats_kernel<T, VEC, true>
+      <<<dim3(p.splits, p.chunks, B), dim3(p.tx, p.ty), 0, stream>>>(
+          static_cast<const T*>(xv), static_cast<const T*>(noisev),
+          static_cast<const float*>(nwv), nullptr,
+          reinterpret_cast<float2*>(ws), static_cast<float2*>(partialv),
+          nullptr, reinterpret_cast<int*>(ws + p.tickets_offset), R, C,
+          p.rows_per_split);
+  return cudaGetLastError();
+}
+
+template <typename T, int VEC>
+cudaError_t launch_apply(const SgtPlan& p, const void* xv, const void* noisev,
+                         const void* nwv, const void* stylev,
+                         const void* statsv, void* outv, int B, int64_t R,
+                         int C, cudaStream_t stream) {
+  const unsigned row_blocks = (unsigned)sgt::cdiv(R, p.rows_per_block);
+  apply_kernel<T, VEC>
+      <<<dim3(row_blocks, p.chunks, B), dim3(p.tx, p.ty), 0, stream>>>(
+          static_cast<const T*>(xv), static_cast<const T*>(noisev),
+          static_cast<const float*>(nwv), static_cast<const float*>(stylev),
+          static_cast<const float2*>(statsv), static_cast<T*>(outv), R, C,
+          p.rows_per_block);
+  return cudaGetLastError();
+}
+
 template <typename T, int VEC>
 cudaError_t launch_bwd(const SgtBwdPlan& p, const void* gv, const void* xv,
                        const void* noisev, const void* nwv,
@@ -1242,6 +1294,59 @@ extern "C" int sgt_epilogue_backward(
 #define SGT_LAUNCH(T, V)                                                    \
   launch_bwd<T, V>(p, g, x, noise, noise_weight, style, saved, dx, dnw, dn, \
                    dstyle, workspace, B, R, C, s)
+  if (!is_bf16 && p.vec == 4) return (int)SGT_LAUNCH(float, 4);
+  if (!is_bf16 && p.vec == 1) return (int)SGT_LAUNCH(float, 1);
+  if (is_bf16 && p.vec == 8) return (int)SGT_LAUNCH(__nv_bfloat16, 8);
+  if (is_bf16 && p.vec == 1) return (int)SGT_LAUNCH(__nv_bfloat16, 1);
+#undef SGT_LAUNCH
+  return (int)cudaErrorInvalidValue;
+}
+
+// K1-partial: the per-(b, c) (mean, M2) of y = lrelu(x + nw * noise) over
+// this rank's R rows of a split plane, into `partial`, (B, C) float2, on
+// `stream`; one launch.  x (B, R, C) and noise (B, R) in one dtype,
+// noise_weight (C,) float32; the plan is sgt_epilogue_split_plan's, and the
+// workspace its workspace_bytes with the tickets (from tickets_offset)
+// zero, which the kernel leaves at zero.  Returns 0 or a cudaError_t, as
+// sgt_epilogue_forward does.
+extern "C" int sgt_epilogue_partial(const void* x, const void* noise,
+                                    const void* noise_weight, void* partial,
+                                    void* workspace, long long workspace_bytes,
+                                    int is_bf16, int B, long long R, int C,
+                                    const SgtPlan* plan, void* stream) {
+  const SgtPlan& p = *plan;
+  if (p.path != 2 || (p.vec > 1 && (uintptr_t)x % 16 != 0) ||
+      p.workspace_bytes > workspace_bytes)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define SGT_LAUNCH(T, V) \
+  launch_partial<T, V>(p, x, noise, noise_weight, partial, workspace, B, R, \
+                       C, s)
+  if (!is_bf16 && p.vec == 4) return (int)SGT_LAUNCH(float, 4);
+  if (!is_bf16 && p.vec == 1) return (int)SGT_LAUNCH(float, 1);
+  if (is_bf16 && p.vec == 8) return (int)SGT_LAUNCH(__nv_bfloat16, 8);
+  if (is_bf16 && p.vec == 1) return (int)SGT_LAUNCH(__nv_bfloat16, 1);
+#undef SGT_LAUNCH
+  return (int)cudaErrorInvalidValue;
+}
+
+// K2-apply: out = (y - mean) * scale + s1 over this rank's R rows, with
+// (mean, scale = rstd * (s0 + 1)) per (b, c) read from `stats`, (B, C)
+// float2, which the caller merged from every rank's K1-partial; style
+// (B, 2C) float32 gives s1.  One launch on `stream`, no workspace; the plan
+// is sgt_epilogue_split_plan's.  Returns 0 or a cudaError_t.
+extern "C" int sgt_epilogue_apply(const void* x, const void* noise,
+                                  const void* noise_weight, const void* style,
+                                  const void* stats, void* out, int is_bf16,
+                                  int B, long long R, int C,
+                                  const SgtPlan* plan, void* stream) {
+  const SgtPlan& p = *plan;
+  const bool aligned = (((uintptr_t)x | (uintptr_t)out) % 16) == 0;
+  if (p.path != 2 || (p.vec > 1 && !aligned))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define SGT_LAUNCH(T, V) \
+  launch_apply<T, V>(p, x, noise, noise_weight, style, stats, out, B, R, C, s)
   if (!is_bf16 && p.vec == 4) return (int)SGT_LAUNCH(float, 4);
   if (!is_bf16 && p.vec == 1) return (int)SGT_LAUNCH(float, 1);
   if (is_bf16 && p.vec == 8) return (int)SGT_LAUNCH(__nv_bfloat16, 8);

@@ -11,9 +11,9 @@
 //   2  two-pass: a first pass whose last block per (b, chunk) merges the row
 //      splits, then a second pass; two launches.
 //
-// Exported: sgt_epilogue_plan and sgt_epilogue_bwd_plan (defined once, in
-// the translation unit that includes this header: the kernel library or the
-// test's shim).
+// Exported: sgt_epilogue_plan, sgt_epilogue_split_plan and
+// sgt_epilogue_bwd_plan (defined once, in the translation unit that includes
+// this header: the kernel library or the test's shim).
 
 #ifndef SGT_EPILOGUE_PLAN_H_
 #define SGT_EPILOGUE_PLAN_H_
@@ -236,6 +236,24 @@ inline int make_plan(int is_bf16, int B, long long R, int C, int aligned,
   return 0;
 }
 
+// The plan of the split-plane forward (K1-partial, then K2-apply, on each
+// rank's rows of a plane split over ranks): the two-pass geometry at every
+// size, small slabs included, so that one code path serves every slab.
+// Each of the two entries launches one kernel; K1-partial takes the
+// workspace (its stats part unused: it writes the caller's buffer).
+inline int make_split_plan(int is_bf16, int B, long long R, int C,
+                           int aligned, SgtPlan* out) {
+  if (!valid_call(B, R, C)) return -1;
+  SgtPlan p = {};
+  int max_tx = 1;
+  lanes(is_bf16, C, aligned, &p.vec, &max_tx);
+  p.cluster = 1;
+  two_pass(p, B, R, C, max_tx);
+  p.launches = 1;
+  *out = p;
+  return 0;
+}
+
 // The backward's plan: one pass where the slabs of g and x fit on chip (as
 // the forward's path 1), else two passes over the forward's two-pass chunks
 // with the backward's own split target.
@@ -291,6 +309,11 @@ inline int make_bwd_plan(int is_bf16, int B, long long R, int C, int aligned,
 extern "C" int sgt_epilogue_plan(int is_bf16, int B, long long R, int C,
                                  int aligned, SgtPlan* plan) {
   return sgt::make_plan(is_bf16, B, R, C, aligned, plan);
+}
+
+extern "C" int sgt_epilogue_split_plan(int is_bf16, int B, long long R,
+                                       int C, int aligned, SgtPlan* plan) {
+  return sgt::make_split_plan(is_bf16, B, R, C, aligned, plan);
 }
 
 extern "C" int sgt_epilogue_bwd_plan(int is_bf16, int B, long long R, int C,

@@ -92,8 +92,10 @@ class Generator(nn.Module):
     def forward(self, latents: torch.Tensor, depth: int, alpha=1.0,
                 seed: Optional[int] = None, train: bool = False,
                 labels: Optional[torch.Tensor] = None, noises=None,
-                mixing=None) -> GeneratorOutput:
-        """latents: (B, latent_size) -> images (B, H, W, C)."""
+                mixing=None, spatial=None) -> GeneratorOutput:
+        """latents: (B, latent_size) -> images (B, H, W, C); with `spatial`
+        (a parallel.halo.SpatialContext) this rank's rows of them
+        (GSynthesis.forward)."""
         cfg = self.cfg
         if cfg.conditional:
             if labels is None:
@@ -124,5 +126,5 @@ class Generator(nn.Module):
                                              cfg.truncation_cutoff)
 
         images = self.g_synthesis(dlatents, depth=depth, alpha=alpha,
-                                  seed=seed, noises=noises)
+                                  seed=seed, noises=noises, spatial=spatial)
         return GeneratorOutput(images=images, avg_latent=new_avg)

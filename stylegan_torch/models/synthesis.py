@@ -31,6 +31,7 @@ from ..ops import (EqualizedConv2d, EqualizedLinear, add_noise, instance_norm,
                    leaky_relu, make_blur_kernel, pixel_norm, style_modulate,
                    upscale2d)
 from ..ops.fused import fused_epilogue
+from ..parallel import halo
 from .configs import SynthesisConfig
 
 _GAIN = math.sqrt(2)
@@ -91,20 +92,21 @@ class LayerEpilogue(nn.Module):
                                       cfg.use_wscale, generator=generator)
 
     def forward(self, x: torch.Tensor, dlatent: Optional[torch.Tensor],
-                noise: Optional[torch.Tensor]) -> torch.Tensor:
+                noise: Optional[torch.Tensor], spatial=None) -> torch.Tensor:
         cfg = self.cfg
         style = self.style_mod.lin(dlatent) if cfg.use_styles else None
         if (cfg.use_noise and not cfg.use_pixel_norm and cfg.use_instance_norm
                 and cfg.use_styles and cfg.nonlinearity == "lrelu"):
             # the kernel hardcodes lrelu(0.2)
-            return fused_epilogue(x, self.top_epi["noise"].weight, noise, style)
+            return fused_epilogue(x, self.top_epi["noise"].weight, noise,
+                                  style, spatial)
         if cfg.use_noise:
             x = add_noise(x, self.top_epi["noise"].weight, noise)
         x = leaky_relu(x) if cfg.nonlinearity == "lrelu" else torch.relu(x)
         if cfg.use_pixel_norm:
             x = pixel_norm(x)
         if cfg.use_instance_norm:
-            x = instance_norm(x)
+            x = instance_norm(x, spatial=spatial)
         if cfg.use_styles:
             x = style_modulate(x, style)
         return x
@@ -166,11 +168,13 @@ class GSynthesisBlock(nn.Module):
         self.epi2 = LayerEpilogue(cfg, out_ch, generator=generator)
 
     def forward(self, x: torch.Tensor, dlatents: torch.Tensor, n0, n1,
-                blur_kernel: Optional[torch.Tensor]) -> torch.Tensor:
-        x = self.conv0_up(x, upscale=True, blur_kernel=blur_kernel)
-        x = self.epi1(x, dlatents[:, 0], n0)
-        x = self.conv1(x)
-        return self.epi2(x, dlatents[:, 1], n1)
+                blur_kernel: Optional[torch.Tensor],
+                spatial=None) -> torch.Tensor:
+        x = self.conv0_up(x, upscale=True, blur_kernel=blur_kernel,
+                          spatial=spatial)
+        x = self.epi1(x, dlatents[:, 0], n0, spatial)
+        x = self.conv1(x, spatial=spatial)
+        return self.epi2(x, dlatents[:, 1], n1, spatial)
 
 
 # --------------------------------------------------------------------------
@@ -202,11 +206,23 @@ class GSynthesis(nn.Module):
 
     def forward(self, dlatents: torch.Tensor, depth: int = 0, alpha=0.0,
                 seed: Optional[int] = None,
-                noises: Optional[Sequence[torch.Tensor]] = None) -> torch.Tensor:
+                noises: Optional[Sequence[torch.Tensor]] = None,
+                spatial=None) -> torch.Tensor:
         """dlatents: (B, num_layers, D) -> images (B, H, W, C) in [-1, 1]-ish.
 
         A Python `alpha` equal to 1.0 (fade complete) skips the residual
-        branch; a tensor alpha always blends (reference GAN.py:175-208)."""
+        branch; a tensor alpha always blends (reference GAN.py:175-208).
+
+        `spatial` (a parallel.halo.SpatialContext of n ranks; forward only)
+        splits each image by height: a stage of side res >= 4n runs on this
+        rank's slab of res/n rows, and the images returned are the rank's
+        rows (B, H/n, W, C).  Shorter stages run whole on every rank, and
+        the rank cuts its slab from the input of the first stage that
+        splits: 8x8 for n = 2 (the 4x4 stage whole), 16x16 for n = 4 (4x4
+        and 8x8 whole).  Noise: each rank draws the full map of a split
+        layer and takes its rows, so the draws are the unsplit forward's;
+        a pinned map of a split layer may be the full map or the rank's
+        rows."""
         cfg = self.cfg
         assert depth < cfg.depth, "Requested output depth cannot be produced"
         batch = dlatents.shape[0]
@@ -214,23 +230,37 @@ class GSynthesis(nn.Module):
         def noise(layer_idx):
             if not cfg.use_noise:
                 return None
+            res = layer_resolution(layer_idx)
             if noises is not None:
                 n = noises[layer_idx]
                 if n.shape[0] == 1 and batch > 1:
                     # a map pinned for every image (the video's frames):
                     # the kernel takes (B, H, W, 1), contiguous
                     n = n.expand(batch, *n.shape[1:]).contiguous()
-                return n
-            if seed is None:
+            elif seed is None:
                 raise ValueError("synthesis needs a seed when use_noise=True")
-            return make_noise(seed, layer_idx, batch,
-                              layer_resolution(layer_idx), dlatents.device,
-                              dlatents.dtype)
+            else:
+                n = make_noise(seed, layer_idx, batch, res, dlatents.device,
+                               dlatents.dtype)
+            if halo.splits(res, spatial) and n.shape[1] == res:
+                n = halo.take_rows(n, spatial)
+            return n
+
+        def enter(i, x):
+            # the slab of block i's input, where block i is the first to
+            # split
+            if halo.splits(2 ** (i + 3), spatial) and \
+                    x.shape[1] == 2 ** (i + 2):
+                return halo.take_rows(x, spatial)
+            return x
 
         def block(i, x):
             layer0 = 2 * (i + 1)
-            args = (x, dlatents[:, layer0:layer0 + 2], noise(layer0),
-                    noise(layer0 + 1), self.blur_kernel)
+            res = 2 ** (i + 3)
+            args = (enter(i, x), dlatents[:, layer0:layer0 + 2],
+                    noise(layer0), noise(layer0 + 1), self.blur_kernel)
+            if halo.splits(res, spatial):
+                return self.blocks[i](*args, spatial=spatial)
             if cfg.remat and torch.is_grad_enabled():
                 # the noise maps are drawn here and handed in, so the
                 # recompute sees the same ones; the block's two epilogues
@@ -239,6 +269,8 @@ class GSynthesis(nn.Module):
             return self.blocks[i](*args)
 
         x = self.init_block(dlatents[:, 0:2], noise(0), noise(1))
+        if halo.splits(4, spatial):
+            x = halo.take_rows(x, spatial)
 
         if cfg.structure == "fixed":
             for i in range(len(self.blocks)):
@@ -256,6 +288,7 @@ class GSynthesis(nn.Module):
 
         for i in range(depth - 1):
             x = block(i, x)
+        x = enter(depth - 1, x)
         # to_rgb before the nearest upsample: a 1x1 conv commutes with it
         residual = upscale2d(self.to_rgb[depth - 1](x))
         straight = self.to_rgb[depth](block(depth - 1, x))

@@ -14,14 +14,30 @@ A call that needs no gradient goes, on either device, through the
 registers (`_reference_epilogue`): a program that ``torch.export`` traces
 anywhere holds the op's node, and launches the kernel once moved to the
 card.
+
+On a slab of rows of a plane split over ranks (the spatial serving path,
+``parallel/spatial.py``) no rank sees the whole plane, so the epilogue runs
+split, forward only: K1-partial (``stylegan_torch::epilogue_partial``)
+gives this rank's per-(b, c) (mean, M2), the ranks gather those and each
+merges them in rank order with Chan's formula (`split_stats`: every rank
+gets the same bits), and K2-apply (``stylegan_torch::epilogue_apply``)
+normalises and modulates this rank's rows.  The ops launch the kernels on
+the card; their CPU implementations, registered here, are the plain
+versions `_reference_partial` and `_reference_apply`.
 """
 
 from __future__ import annotations
 
 import torch
 
-from .kernels.epilogue import epilogue_op, kernel_epilogue, needs_grad
-from .primitives import add_noise, instance_norm, leaky_relu, style_modulate
+from ..parallel import halo
+from .kernels.epilogue import (epilogue_apply_op, epilogue_op,
+                               epilogue_partial_op, kernel_epilogue,
+                               needs_grad)
+from .primitives import (_f32_stats, add_noise, instance_norm, leaky_relu,
+                         merge_moments, moments, style_modulate)
+
+EPS = 1e-5
 
 # Calls of the plain versions (forward and VJP).  On the card's main path
 # this stays 0: a count there means a plain version ran where a kernel should.
@@ -74,7 +90,41 @@ def _reference_epilogue_vjp(x, noise_weight, noise, style, g):
             dstyle.to(style.dtype))
 
 
+def _reference_partial(x, noise_weight, noise):
+    """K1-partial's plain version: the (B, C, 2) (mean, M2) of
+    y = lrelu(x + nw * noise) over x's rows, in float32 (or x's dtype
+    where it is wider), two passes."""
+    global plain_calls
+    plain_calls += 1
+    return moments(_f32_stats(leaky_relu(add_noise(x, noise_weight, noise))))
+
+
+def split_stats(parts, rows: int, style):
+    """The (B, C, 2) (mean, rstd * (s0 + 1)) K2-apply reads, from the
+    ranks' K1-partials `parts` (n, B, C, 2), each over `rows` rows, merged
+    in rank order."""
+    mean, m2, count = merge_moments(parts, rows)
+    rstd = torch.rsqrt(m2 / count + EPS)
+    s0 = style[:, :mean.shape[-1]].to(rstd.dtype)
+    return torch.stack([mean, rstd * (s0 + 1.0)], dim=-1)
+
+
+def _reference_apply(x, noise_weight, noise, style, stats):
+    """K2-apply's plain version: (y - mean) * scale + s1 over x's rows in
+    float32 (or wider), rounded once to x's dtype."""
+    global plain_calls
+    plain_calls += 1
+    y = _f32_stats(leaky_relu(add_noise(x, noise_weight, noise)))
+    mean, scale = stats[..., 0], stats[..., 1]
+    s1 = style[:, x.shape[-1]:].to(scale.dtype)
+    out = (y - mean[:, None, None]) * scale[:, None, None] \
+        + s1[:, None, None]
+    return out.to(x.dtype)
+
+
 epilogue_op.register_kernel("cpu")(_reference_epilogue)
+epilogue_partial_op.register_kernel("cpu")(_reference_partial)
+epilogue_apply_op.register_kernel("cpu")(_reference_apply)
 
 
 class _PlainEpilogue(torch.autograd.Function):
@@ -94,7 +144,8 @@ class _PlainEpilogue(torch.autograd.Function):
 
 
 def fused_epilogue(x: torch.Tensor, noise_weight: torch.Tensor,
-                   noise: torch.Tensor, style: torch.Tensor) -> torch.Tensor:
+                   noise: torch.Tensor, style: torch.Tensor,
+                   spatial=None) -> torch.Tensor:
     """noise-add -> lrelu(0.2) -> instance-norm(eps 1e-5) -> AdaIN.
 
     x: (B, H, W, C); noise: (B, H, W, 1); noise_weight: (C,); style: (B, 2C).
@@ -106,7 +157,13 @@ def fused_epilogue(x: torch.Tensor, noise_weight: torch.Tensor,
     plain versions in the inputs' dtypes, as the JAX package's unfused
     composition does.  Without a gradient to record, both go through the
     ``stylegan_torch::epilogue`` op.
+
+    With `spatial` (a parallel.halo.SpatialContext) x and noise are this
+    rank's slab of rows of the plane: the split form of the module
+    docstring, forward only.
     """
+    if spatial is not None:
+        return _split_epilogue(x, noise_weight, noise, style, spatial)
     if x.device.type == "cuda":
         return kernel_epilogue(x, noise_weight, noise,
                                style.to(torch.float32))
@@ -115,3 +172,15 @@ def fused_epilogue(x: torch.Tensor, noise_weight: torch.Tensor,
     if needs_grad(x, noise_weight, noise, style):
         return _PlainEpilogue.apply(x, noise_weight, noise, style)
     return epilogue_op(x, noise_weight, noise, style)
+
+
+def _split_epilogue(x, noise_weight, noise, style, spatial):
+    if needs_grad(x, noise_weight, noise, style):
+        raise ValueError("the split epilogue (a slab of rows) is a forward "
+                         "only: call it without a gradient to record")
+    if x.device.type == "cuda":
+        style = style.to(torch.float32)
+    partial = epilogue_partial_op(x, noise_weight, noise)
+    stats = split_stats(halo.all_gather(partial, spatial),
+                        x.shape[1] * x.shape[2], style)
+    return epilogue_apply_op(x, noise_weight, noise, style, stats)

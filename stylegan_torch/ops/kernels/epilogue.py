@@ -41,15 +41,27 @@ card:
   order (dx, dnoise_weight, dnoise, dstyle): a custom op returns no
   optional tensors.
 
+* ``stylegan_torch::epilogue_partial`` (x, noise_weight, noise) -> (B, C, 2)
+  float32 (mean, M2) over x's rows, and ``stylegan_torch::epilogue_apply``
+  (x, noise_weight, noise, style, stats) -> out: the split-plane forward
+  (K1-partial, K2-apply) of a plane whose rows lie on several ranks, between
+  which ``ops/fused.py`` gathers the ranks' partials and merges them into
+  the (B, C, 2) (mean, rstd * (s0 + 1)) that K2-apply reads.  Their CUDA
+  implementations are `epilogue_partial` and `epilogue_apply`, one launch
+  each on the plan of ``sgt_epilogue_split_plan`` (path 2's geometry at
+  every size); their CPU implementations, registered by ``ops/fused.py``,
+  are the plain versions.
+
 The training path is the ``torch.autograd.Function`` `_KernelEpilogue`
 (the counterpart of the JAX ``pallas_epilogue`` custom VJP), whose forward
-and backward call the last two ops; the Function, not
-``register_autograd``, keeps the once-differentiable error and the
-incoming gradient's copy to NHWC where they were.  The training ops' one
-implementation serves every device and launches the kernels, which raise
-on anything but a CUDA tensor: ``ops/fused.py`` sends a CPU tensor that
-needs a gradient to the plain versions and never to these ops.  The
-launch itself is still the ``ctypes`` call below, inside the op.
+and backward call ``::epilogue_train`` and ``::epilogue_backward``; the
+Function, not ``register_autograd``, keeps the once-differentiable error
+and the incoming gradient's copy to NHWC where they were.  The training
+ops' one implementation serves every device and launches the kernels,
+which raise on anything but a CUDA tensor: ``ops/fused.py`` sends a CPU
+tensor that needs a gradient to the plain versions and never to these
+ops.  The launch itself is still the ``ctypes`` call below, inside the
+op.
 """
 
 from __future__ import annotations
@@ -86,12 +98,17 @@ cuda_launches = 0
 backward_launches = 0
 backward_cuda_launches = 0
 backward_g_copies = 0
+# Launches of the split-plane entries (one CUDA launch each).
+partial_launches = 0
+apply_launches = 0
 
 _lib = None
 _plans: dict = {}        # (is_bf16, B, rows, C, aligned) -> Plan
 _workspaces: dict = {}   # (plan key, device, stream) -> eager workspace
 _bwd_plans: dict = {}    # (is_bf16, B, rows, C, aligned, want_dn) -> BwdPlan
 _bwd_workspaces: dict = {}
+_split_plans: dict = {}  # (is_bf16, B, rows, C, aligned) -> Plan
+_split_workspaces: dict = {}
 
 
 class Plan(ctypes.Structure):
@@ -159,7 +176,21 @@ def bind(lib):
     lib.sgt_epilogue_bwd_plan.argtypes = [i, i, ll, i, i, i,
                                           ctypes.POINTER(BwdPlan)]
     lib.sgt_epilogue_bwd_plan.restype = ctypes.c_int
+    lib.sgt_epilogue_split_plan.argtypes = [i, i, ll, i, i,
+                                            ctypes.POINTER(Plan)]
+    lib.sgt_epilogue_split_plan.restype = ctypes.c_int
     if hasattr(lib, "sgt_epilogue_forward"):
+        lib.sgt_epilogue_partial.argtypes = [
+            p, p, p, p,           # x noise noise_weight partial
+            p, ll,                # workspace, its bytes
+            i, i, ll, i,          # is_bf16 B R C
+            ctypes.POINTER(Plan), p]  # plan, stream
+        lib.sgt_epilogue_partial.restype = ctypes.c_int
+        lib.sgt_epilogue_apply.argtypes = [
+            p, p, p, p, p, p,     # x noise noise_weight style stats out
+            i, i, ll, i,          # is_bf16 B R C
+            ctypes.POINTER(Plan), p]  # plan, stream
+        lib.sgt_epilogue_apply.restype = ctypes.c_int
         lib.sgt_epilogue_forward.argtypes = [
             p, p, p, p, p,        # x noise noise_weight style out
             p, ll,                # workspace, its bytes
@@ -211,21 +242,26 @@ def plan_for(x: torch.Tensor) -> dict:
                      int(x.data_ptr() % 16 == 0)).as_dict()
 
 
-def _check_layout(x, noise_weight, noise, style, g=None, saved=None):
+def _check_layout(x, noise_weight, noise, style, g=None, saved=None,
+                  stats=None):
     """Raise unless the tensors have the shapes, dtypes, device and layout
-    the kernels take (see epilogue_forward and epilogue_backward); the ops'
-    fakes run this, where the device is whatever the trace's is."""
+    the kernels take (see epilogue_forward, epilogue_backward and the split
+    entries, where style may be None); the ops' fakes run this, where the
+    device is whatever the trace's is."""
     if x.ndim != 4 or x.dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"x must be 4-D float32/bfloat16 NHWC, got "
                          f"{tuple(x.shape)} {x.dtype}")
     b, h, w, c = x.shape
     checks = [("noise", noise, (b, h, w, 1), x.dtype),
-              ("noise_weight", noise_weight, (c,), torch.float32),
-              ("style", style, (b, 2 * c), torch.float32)]
+              ("noise_weight", noise_weight, (c,), torch.float32)]
+    if style is not None:
+        checks.append(("style", style, (b, 2 * c), torch.float32))
     if g is not None:
         checks.append(("g", g, (b, h, w, c), x.dtype))
     if saved is not None:
         checks.append(("saved", saved, (b, c, 2), torch.float32))
+    if stats is not None:
+        checks.append(("stats", stats, (b, c, 2), torch.float32))
     for name, t, shape, dtype in checks:
         if tuple(t.shape) != shape or t.dtype != dtype or t.device != x.device:
             raise ValueError(f"{name} must be {shape} {dtype} on {x.device}, "
@@ -236,10 +272,11 @@ def _check_layout(x, noise_weight, noise, style, g=None, saved=None):
         raise ValueError("x must be contiguous NHWC (channels_last NCHW)")
 
 
-def _check_inputs(x, noise_weight, noise, style, g=None, saved=None):
+def _check_inputs(x, noise_weight, noise, style, g=None, saved=None,
+                  stats=None):
     """Raise unless the tensors are what the kernels take: _check_layout,
     and on a CUDA device."""
-    _check_layout(x, noise_weight, noise, style, g, saved)
+    _check_layout(x, noise_weight, noise, style, g, saved, stats)
     if x.device.type != "cuda":
         raise ValueError(
             f"epilogue kernel needs a CUDA tensor, got {x.device}")
@@ -388,6 +425,99 @@ def _launch_backward(g, x, noise_weight, noise, style, saved, dx, dnw, dn,
     backward_cuda_launches += plan.launches
 
 
+# --------------------------------------------------------------------------
+# The split-plane forward: K1-partial and K2-apply on one rank's rows.
+
+def make_split_plan(lib, is_bf16: int, b: int, rows: int, c: int,
+                    aligned: int) -> Plan:
+    """The split entries' plan of one call, from sgt_epilogue_split_plan."""
+    plan = Plan()
+    if lib.sgt_epilogue_split_plan(is_bf16, b, rows, c, aligned, plan) != 0:
+        raise ValueError(f"no split epilogue plan for B={b} R={rows} C={c} "
+                         f"bf16={is_bf16} aligned={aligned}")
+    return plan
+
+
+def _split_plan(x, aligned):
+    b, h, w, c = x.shape
+    key = (int(x.dtype == torch.bfloat16), b, h * w, c, aligned)
+    plan = _split_plans.get(key)
+    if plan is None:
+        plan = _split_plans[key] = make_split_plan(_library(), *key)
+    return key, plan
+
+
+def epilogue_partial(x: torch.Tensor, noise_weight: torch.Tensor,
+                     noise: torch.Tensor) -> torch.Tensor:
+    """Launch K1-partial: the (B, C, 2) float32 (mean, M2) per (b, c) of
+    y = lrelu(x + noise_weight * noise, 0.2) over x's rows (this rank's slab
+    of a split plane).  Inputs as for epilogue_forward; raises on anything
+    else, never copies."""
+    _check_inputs(x, noise_weight, noise, None)
+    partial = torch.empty((x.shape[0], x.shape[-1], 2), dtype=torch.float32,
+                          device=x.device)
+    _on_device(x.device, _launch_partial, x, noise_weight, noise, partial)
+    return partial
+
+
+def _launch_partial(x, noise_weight, noise, partial):
+    global partial_launches
+    b, h, w, c = x.shape
+    key, plan = _split_plan(x, int(x.data_ptr() % 16 == 0))
+    stream = _stream(x.device)
+    ws_key, ws = _workspace_for(_split_workspaces, key, plan, x.device,
+                                stream)
+    err = _library().sgt_epilogue_partial(
+        x.data_ptr(), noise.data_ptr(), noise_weight.data_ptr(),
+        partial.data_ptr(), _ptr(ws), plan.workspace_bytes, key[0], b,
+        h * w, c, plan, stream)
+    if err != 0:
+        _split_workspaces.pop(ws_key, None)
+        raise RuntimeError(f"epilogue K1-partial launch failed: cudaError "
+                           f"{err}")
+    partial_launches += 1
+
+
+def epilogue_apply(x: torch.Tensor, noise_weight: torch.Tensor,
+                   noise: torch.Tensor, style: torch.Tensor,
+                   stats: torch.Tensor) -> torch.Tensor:
+    """Launch K2-apply: (y - mean) * scale + s1 over x's rows, with
+    `stats` the (B, C, 2) float32 (mean, scale = rstd * (s0 + 1)) merged
+    from every rank's K1-partial and s1 the second half of style.  Inputs
+    as for epilogue_forward; raises on anything else, never copies."""
+    _check_inputs(x, noise_weight, noise, style, stats=stats)
+    out = torch.empty_like(x)
+    _on_device(x.device, _launch_apply, x, noise_weight, noise, style, stats,
+               out)
+    return out
+
+
+def _launch_apply(x, noise_weight, noise, style, stats, out):
+    global apply_launches
+    b, h, w, c = x.shape
+    key, plan = _split_plan(x, int((x.data_ptr() | out.data_ptr()) % 16 == 0))
+    err = _library().sgt_epilogue_apply(
+        x.data_ptr(), noise.data_ptr(), noise_weight.data_ptr(),
+        style.data_ptr(), stats.data_ptr(), out.data_ptr(), key[0], b, h * w,
+        c, plan, _stream(x.device))
+    if err != 0:
+        raise RuntimeError(f"epilogue K2-apply launch failed: cudaError {err}")
+    apply_launches += 1
+
+
+def bytes_moved_partial(x: torch.Tensor) -> int:
+    """Bytes K1-partial must move: x and noise read once, noise_weight
+    read, the (B, C, 2) float32 partials written."""
+    b, h, w, c = x.shape
+    return x.element_size() * b * h * w * (c + 1) + 4 * (c + 2 * b * c)
+
+
+def bytes_moved_apply(x: torch.Tensor) -> int:
+    """Bytes K2-apply must move: x and noise read once, out written once,
+    plus noise_weight, style and the (B, C, 2) statistics (float32)."""
+    return bytes_moved(x) + 8 * x.shape[0] * x.shape[-1]
+
+
 def bytes_moved(x: torch.Tensor) -> int:
     """Bytes the epilogue must move: x and noise read once, out written once,
     plus noise_weight and style (float32)."""
@@ -459,6 +589,37 @@ def _(g, x, noise_weight, noise, style, saved, needs):
     _check_layout(x, noise_weight, noise, style, g=g, saved=saved)
     return [torch.empty_like(t) for t, need in
             zip((x, noise_weight, noise, style), needs) if need]
+
+
+@torch.library.custom_op("stylegan_torch::epilogue_partial", mutates_args=(),
+                         device_types="cuda")
+def epilogue_partial_op(x: torch.Tensor, noise_weight: torch.Tensor,
+                        noise: torch.Tensor) -> torch.Tensor:
+    """K1-partial: the kernel on the card; on the CPU the plain version
+    (registered by ops/fused.py)."""
+    return epilogue_partial(x, noise_weight, noise)
+
+
+@epilogue_partial_op.register_fake
+def _(x, noise_weight, noise):
+    _check_layout(x, noise_weight, noise, None)
+    return x.new_empty((x.shape[0], x.shape[-1], 2), dtype=torch.float32)
+
+
+@torch.library.custom_op("stylegan_torch::epilogue_apply", mutates_args=(),
+                         device_types="cuda")
+def epilogue_apply_op(x: torch.Tensor, noise_weight: torch.Tensor,
+                      noise: torch.Tensor, style: torch.Tensor,
+                      stats: torch.Tensor) -> torch.Tensor:
+    """K2-apply: the kernel on the card; on the CPU the plain version
+    (registered by ops/fused.py)."""
+    return epilogue_apply(x, noise_weight, noise, style, stats)
+
+
+@epilogue_apply_op.register_fake
+def _(x, noise_weight, noise, style, stats):
+    _check_layout(x, noise_weight, noise, style, stats=stats)
+    return torch.empty_like(x)
 
 
 class _KernelEpilogue(torch.autograd.Function):

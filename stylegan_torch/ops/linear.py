@@ -21,6 +21,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..parallel.halo import exchange_halo
 from .primitives import blur2d, downscale2d, to_nchw, to_nhwc, upscale2d
 
 
@@ -56,7 +57,8 @@ def conv2d_apply(x: torch.Tensor, weight: torch.Tensor,
                  downscale: bool = False,
                  blur_kernel: Optional[torch.Tensor] = None,
                  pre_blur_kernel: Optional[torch.Tensor] = None,
-                 fused_resample_threshold: int = 128) -> torch.Tensor:
+                 fused_resample_threshold: int = 128,
+                 spatial=None) -> torch.Tensor:
     """Equalized conv of NHWC x with weight (O, I, k, k), SAME padding.
 
     Dispatch mirrors CustomLayers.py:137-180: with `upscale`, an output
@@ -67,6 +69,12 @@ def conv2d_apply(x: torch.Tensor, weight: torch.Tensor,
     average-pools 2x2.  `blur_kernel` (the G path) sits between the conv and
     the bias add, as does the small downscale's pooling; `pre_blur_kernel`
     (the D path) blurs the input of a downscale.
+
+    With `spatial` (a parallel.halo.SpatialContext) x is this rank's slab of
+    rows of a square plane and the output the rank's slab of the output
+    plane: each op that reads neighbouring rows (the 3x3 conv, the sub-pixel
+    upscale, the blur) takes one row from each neighbour first.  G's forward
+    only: no downscale.
     """
     _, in_ch, kh, kw = weight.shape
     _, w_mul = equalized_scales(gain, in_ch * kh * kw, lrmul, use_wscale)
@@ -75,6 +83,19 @@ def conv2d_apply(x: torch.Tensor, weight: torch.Tensor,
         bias = (bias * lrmul).to(x.dtype)
     if upscale and downscale:
         raise ValueError("conv2d_apply: upscale and downscale are exclusive")
+
+    if spatial is not None:
+        if downscale or pre_blur_kernel is not None:
+            raise ValueError("conv2d_apply: a slab of rows takes no "
+                             "downscale (the spatial path is G's forward)")
+        # a slab's width is its plane's side
+        if upscale and x.shape[2] * 2 >= fused_resample_threshold:
+            y = _subpixel_upscale_conv(x, w, spatial)
+        else:
+            y = _slab_conv(upscale2d(x) if upscale else x, w, spatial)
+        if blur_kernel is not None:
+            y = blur2d(y, blur_kernel, spatial)
+        return y if bias is None else y + bias
 
     if downscale and pre_blur_kernel is not None:
         x = blur2d(x, pre_blur_kernel)
@@ -126,7 +147,8 @@ def _transposed_upscale_conv(x: torch.Tensor, w: torch.Tensor
     return to_nhwc(y)
 
 
-def _subpixel_upscale_conv(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+def _subpixel_upscale_conv(x: torch.Tensor, w: torch.Tensor,
+                           spatial=None) -> torch.Tensor:
     """The same sums as a sub-pixel convolution.  Output pixel (2m + a,
     2n + b) reads a 2x2 window of the input padded by 1, at offset (a, b):
     along each axis, phase 0 takes the 4x4 kernel's taps (3, 1) and phase 1
@@ -135,17 +157,32 @@ def _subpixel_upscale_conv(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     padding 1, whose (H+1, W+1) output holds each phase's (H, W) window at
     its offset; the phases are then interleaved into (2H, 2W).  FLOPs
     (H+1)(W+1)/HW of the transposed conv's; cuDNN's forward algorithms give
-    the same bits on every run.  Its gradients are convolutions (`conv`)."""
+    the same bits on every run.  Its gradients are convolutions (`conv`).
+    On a slab of rows (`spatial`) the neighbours' rows stand in for the
+    padding rows, and the output is the slab's rows of the (2H, 2W) plane."""
     b, h, wd, _ = x.shape
     o = w.shape[0]
     # slices, not index lists: an index list is copied to the card each call
     wf = _summed_taps(w).flip(2, 3)
     phases = torch.cat([wf[:, :, a::2, c::2] for a in (0, 1) for c in (0, 1)])
-    y = to_nhwc(conv(to_nchw(x), phases, 1, 1)).reshape(b, h + 1, wd + 1,
-                                                        2, 2, o)
+    if spatial is None:
+        y = conv(to_nchw(x), phases, 1, 1)
+    else:
+        y = F.conv2d(to_nchw(exchange_halo(x, spatial)), phases, None, 1,
+                     (0, 1))
+    y = to_nhwc(y).reshape(b, h + 1, wd + 1, 2, 2, o)
     rows = [torch.stack([y[:, a:a + h, c:c + wd, a, c] for c in (0, 1)], 3)
             for a in (0, 1)]
     return torch.stack(rows, 2).reshape(b, 2 * h, 2 * wd, o)
+
+
+def _slab_conv(x: torch.Tensor, w: torch.Tensor, spatial) -> torch.Tensor:
+    """Stride-1 SAME conv of this rank's slab of rows: the neighbours'
+    rows in place of the padding rows, padding along the width only."""
+    p = (w.shape[-1] - 1) // 2
+    if p:
+        x = exchange_halo(x, spatial, p)
+    return to_nhwc(F.conv2d(to_nchw(x), w, None, 1, (0, p)))
 
 
 def _fused_downscale_conv(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -285,10 +322,10 @@ class EqualizedConv2d(nn.Module):
     def forward(self, x: torch.Tensor, upscale: bool = False,
                 blur_kernel: Optional[torch.Tensor] = None,
                 downscale: bool = False,
-                pre_blur_kernel: Optional[torch.Tensor] = None
-                ) -> torch.Tensor:
+                pre_blur_kernel: Optional[torch.Tensor] = None,
+                spatial=None) -> torch.Tensor:
         return conv2d_apply(x, self.weight, self.bias, gain=self.gain,
                             use_wscale=self.use_wscale, lrmul=self.lrmul,
                             upscale=upscale, downscale=downscale,
                             blur_kernel=blur_kernel,
-                            pre_blur_kernel=pre_blur_kernel)
+                            pre_blur_kernel=pre_blur_kernel, spatial=spatial)

@@ -23,6 +23,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from ..parallel import halo
 from ..parallel.distributed import all_gather
 from ..parallel.mesh import Mesh
 
@@ -88,11 +89,15 @@ def make_blur_kernel(taps, normalize: bool = True) -> torch.Tensor:
     return k
 
 
-def _depthwise(x: torch.Tensor, kernel2d: torch.Tensor) -> torch.Tensor:
-    # the grouped convolution itself, SAME padding for an odd kernel
+def _depthwise(x: torch.Tensor, kernel2d: torch.Tensor,
+               pad_rows: bool = True) -> torch.Tensor:
+    # the grouped convolution itself, SAME padding for an odd kernel (along
+    # the width only without `pad_rows`: a slab that holds its halo rows)
     c, k = x.shape[-1], kernel2d.shape[0]
     kern = kernel2d.to(x.dtype)[None, None].expand(c, 1, k, k)
-    return to_nhwc(F.conv2d(to_nchw(x), kern, padding=(k - 1) // 2, groups=c))
+    p = (k - 1) // 2
+    return to_nhwc(F.conv2d(to_nchw(x), kern, padding=p if pad_rows
+                            else (0, p), groups=c))
 
 
 class _Blur(torch.autograd.Function):
@@ -113,18 +118,55 @@ class _Blur(torch.autograd.Function):
         return _Blur.apply(g, kernel2d.flip(0, 1)), None
 
 
-def blur2d(x: torch.Tensor, kernel2d: torch.Tensor) -> torch.Tensor:
+def blur2d(x: torch.Tensor, kernel2d: torch.Tensor,
+           spatial=None) -> torch.Tensor:
     """Depthwise blur of NHWC with a constant (k, k) kernel, k odd, SAME
-    padding, stride 1 (the only blur the networks run)."""
+    padding, stride 1 (the only blur the networks run).  With `spatial` (a
+    parallel.halo.SpatialContext) x is this rank's slab of rows: it takes
+    its neighbours' rows first (forward only)."""
     if not kernel2d.shape[0] % 2:
         raise ValueError(f"blur2d needs an odd kernel, got {kernel2d.shape[0]}")
+    if spatial is not None:
+        return _depthwise(halo.exchange_halo(x, spatial, kernel2d.shape[0] // 2),
+                          kernel2d, pad_rows=False)
     return _Blur.apply(x, kernel2d.detach())
 
 
-def instance_norm(x: torch.Tensor, epsilon: float = 1e-5) -> torch.Tensor:
+def moments(y: torch.Tensor) -> torch.Tensor:
+    """(B, C, 2): the per-(b, c) mean of NHWC y over its rows and columns
+    and the sum of squared deviations from it (M2), two passes."""
+    mean = torch.mean(y, dim=(1, 2), keepdim=True)
+    m2 = torch.sum(torch.square(y - mean), dim=(1, 2))
+    return torch.stack([mean[:, 0, 0], m2], dim=-1)
+
+
+def merge_moments(parts: torch.Tensor, rows: int):
+    """(mean, M2, count) of a plane from its n slabs' (mean, M2), `parts`
+    (n, B, C, 2), each over `rows` rows: Chan's pairwise formula in rank
+    order, so every rank that merges the same parts gets the same bits.
+    Never sums and sums of squares, which cancel over large planes."""
+    mean, m2 = parts[0, ..., 0], parts[0, ..., 1]
+    count = rows
+    for k in range(1, parts.shape[0]):
+        f = rows / (count + rows)
+        d = parts[k, ..., 0] - mean
+        mean = mean + d * f
+        m2 = m2 + parts[k, ..., 1] + d * d * (count * f)
+        count += rows
+    return mean, m2, count
+
+
+def instance_norm(x: torch.Tensor, epsilon: float = 1e-5,
+                  spatial=None) -> torch.Tensor:
     """Per-sample per-channel spatial normalization of NHWC, no affine,
-    biased variance, two-pass float32 statistics."""
+    biased variance, two-pass float32 statistics.  With `spatial` x is this
+    rank's slab of rows; the slabs' statistics are gathered and merged."""
     xf = _f32_stats(x)
+    if spatial is not None:
+        mean, m2, count = merge_moments(
+            halo.all_gather(moments(xf), spatial), x.shape[1] * x.shape[2])
+        rstd = torch.rsqrt(m2 / count + epsilon)
+        return ((xf - mean[:, None, None]) * rstd[:, None, None]).to(x.dtype)
     mean = torch.mean(xf, dim=(1, 2), keepdim=True)
     var = torch.mean(torch.square(xf - mean), dim=(1, 2), keepdim=True)
     return ((xf - mean) * torch.rsqrt(var + epsilon)).to(x.dtype)

@@ -26,12 +26,15 @@ import torch.distributed as dist
 
 @dataclass(frozen=True, eq=False)
 class Mesh:
-    """A 1-D data-parallel group: `size` ranks, global ranks 0..size-1, and
-    this process's index in it (`rank`, None outside the group).  Rank 0 of
-    the group is rank 0 of the world."""
+    """A 1-D group: `size` ranks, global ranks 0..size-1, and this
+    process's index in it (`rank`, None outside the group).  Rank 0 of the
+    group is rank 0 of the world.  `axis_name` says what the group splits:
+    'data' (the batch) or 'spatial' (each image's rows,
+    parallel/spatial.py)."""
     size: int
     rank: Optional[int]
     group: object           # the torch.distributed process group
+    axis_name: str = "data"
 
     @property
     def is_member(self) -> bool:
@@ -56,8 +59,8 @@ def create_mesh(n_devices: Optional[int] = None,
     Every rank of the world calls it, in the same order, because creating a
     process group is itself a collective; the ranks outside the group get a
     Mesh whose `rank` is None.  Raises when n exceeds the world's ranks, as
-    the JAX package asserts when n exceeds its devices.  `axis_name` is
-    accepted for the JAX signature; a port mesh has one axis."""
+    the JAX package asserts when n exceeds its devices.  `axis_name` names
+    the mesh's one axis."""
     initialized = dist.is_available() and dist.is_initialized()
     world = dist.get_world_size() if initialized else 1
     n = world if n_devices is None else int(n_devices)
@@ -69,7 +72,8 @@ def create_mesh(n_devices: Optional[int] = None,
                            "parallel.initialize_distributed() first")
     group = dist.group.WORLD if n == world else dist.new_group(list(range(n)))
     rank = dist.get_rank()
-    return Mesh(size=n, rank=rank if rank < n else None, group=group)
+    return Mesh(size=n, rank=rank if rank < n else None, group=group,
+                axis_name=axis_name)
 
 
 def compatible_mesh_size(n_devices: int, batch_sizes) -> int:

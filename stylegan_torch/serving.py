@@ -33,6 +33,16 @@ the mixing latents and cutoff) are inputs of the program, drawn by
 `load_exported`'s serve from the seed with the same functions
 `make_serving_fn` uses, so that the two compute the same images, bit for
 bit on either device.
+
+A spatial artifact (``spatial_devices=N``) holds the forward split by
+height over N ranks (``parallel/spatial.py``): one program for every rank,
+whose rank is an input (a 0-d int64 tensor that picks the halo rows and
+the statistics' slot) and whose collectives are ``_c10d_functional``
+nodes.  It exports from one process (the nodes name a process group; no
+group is needed to trace them); each of N ranks loads it, and the loader
+puts its mesh's group in those nodes.  Its serve draws the full noise of
+every layer and passes the rank's rows of the split layers, and returns the
+rank's rows of the images.
 """
 
 from __future__ import annotations
@@ -49,6 +59,7 @@ from .models.generator import draw_mixing
 from .models.synthesis import layer_resolution, make_noise
 from .ops import fused  # noqa: F401  (the artifact's epilogue ops)
 from .ops.precision import get_precision, set_precision
+from .parallel import halo
 
 # What load_exported needs to draw a request's inputs, stored beside the
 # program.
@@ -93,18 +104,42 @@ def _noise_layers(gen_cfg, depth: int) -> int:
 
 class _Served(nn.Module):
     """What export_generator traces: one forward at `depth` with the
-    request's draws as inputs."""
+    request's draws as inputs; split over `spatial_devices` ranks, whose
+    rank is an input too."""
 
-    def __init__(self, generator, depth: int, train_quirks: bool):
+    def __init__(self, generator, depth: int, train_quirks: bool,
+                 spatial_devices: int = 1):
         super().__init__()
         self.generator, self.depth = generator, depth
         self.train_quirks = train_quirks
+        self.spatial_devices = spatial_devices
 
-    def forward(self, z, noises, labels=None, latents2=None, cutoff=None):
+    def forward(self, z, noises, labels=None, latents2=None, cutoff=None,
+                rank=None):
         mixing = None if latents2 is None else (latents2, cutoff)
+        spatial = None if rank is None else halo.SpatialContext(
+            self.spatial_devices, rank, halo.WORLD_GROUP)
         return self.generator(z, depth=self.depth, alpha=1.0,
                               train=self.train_quirks, labels=labels,
-                              noises=noises, mixing=mixing).images
+                              noises=noises, mixing=mixing,
+                              spatial=spatial).images
+
+
+def _rank_noises(noises, n: int, rank: torch.Tensor):
+    """The maps a rank's program takes: its rows of a split layer's map,
+    a short layer's map whole."""
+    ctx = halo.SpatialContext(n, rank)
+    return [halo.take_rows(m, ctx) if halo.splits(m.shape[1], ctx) else m
+            for m in noises]
+
+
+def _regroup(ep, group_name: str):
+    """Point the exported program's collectives at `group_name`."""
+    for node in ep.graph.nodes:
+        if node.op == "call_function" and \
+                node.target is torch.ops._c10d_functional.all_reduce.default:
+            node.args = (*node.args[:2], group_name)
+    ep.graph_module.recompile()
 
 
 def _draws(meta: dict, seed: int, batch: int, device):
@@ -131,7 +166,11 @@ def export_generator(gen_cfg, generator, *, depth: int, batch_size: int,
     fakes give the shapes).  Shapes are static: one artifact per (batch,
     depth).  `platforms` may name 'cuda' and 'cpu', the devices
     `load_exported` can move the program to; its weights are saved on the
-    host either way.  Returns the bytes of ``torch.export.save``."""
+    host either way.  `spatial_devices` N > 1 exports the forward split by
+    height over N ranks (the module docstring), from this one process; it
+    refuses what the JAX package refuses: a conditional model, and an output
+    resolution that does not divide by 4N.  Returns the bytes of
+    ``torch.export.save``."""
     platforms = tuple(platforms)
     if "tpu" in platforms:
         raise ValueError("the port exports for 'cuda' and 'cpu'; a TPU "
@@ -142,24 +181,31 @@ def export_generator(gen_cfg, generator, *, depth: int, batch_size: int,
         raise ValueError(f"unknown platforms {unknown or platforms}: "
                          f"{PLATFORMS}")
     if spatial_devices > 1:
-        raise NotImplementedError(
-            "spatial_devices > 1 (a spatially sharded artifact) arrives with "
-            "the port's parallel slice (ROADMAP queue 1, parallelism)")
+        if gen_cfg.conditional:
+            raise ValueError("spatial export does not support conditional "
+                             "models (same restriction as generate_samples "
+                             "--spatial_devices)")
+        halo.check_shards(2 ** (depth + 2), spatial_devices)
     device = next(generator.parameters()).device
     meta = {"depth": depth, "platforms": list(platforms),
             "conditional": bool(gen_cfg.conditional),
             "noise_layers": _noise_layers(gen_cfg, depth),
             "mixes": bool(train_quirks and gen_cfg.style_mixing_prob),
             "style_mixing_prob": gen_cfg.style_mixing_prob,
-            "mapping_latent": gen_cfg.mapping.latent_size}
+            "mapping_latent": gen_cfg.mapping.latent_size,
+            "spatial_devices": int(spatial_devices)}
     z = torch.zeros((batch_size, gen_cfg.latent_size), device=device)
     noises, kwargs = _draws(meta, 0, batch_size, device)
     if gen_cfg.conditional:
         kwargs["labels"] = torch.zeros((batch_size,), dtype=torch.long,
                                        device=device)
+    if spatial_devices > 1:
+        kwargs["rank"] = torch.zeros((), dtype=torch.long, device=device)
+        noises = _rank_noises(noises, spatial_devices, kwargs["rank"])
     with torch.no_grad():
-        ep = torch.export.export(_Served(generator, depth, train_quirks),
-                                 (z, noises), kwargs)
+        ep = torch.export.export(
+            _Served(generator, depth, train_quirks, spatial_devices),
+            (z, noises), kwargs)
     ep.example_inputs = None        # the program needs no sample inputs
     if device.type != "cpu":
         ep = move_to_device_pass(ep, "cpu")
@@ -168,7 +214,7 @@ def export_generator(gen_cfg, generator, *, depth: int, batch_size: int,
     return buf.getvalue()
 
 
-def load_exported(path_or_bytes, device=None):
+def load_exported(path_or_bytes, device=None, mesh=None):
     """Load an export_generator artifact onto `device` (CUDA unless the
     caller passes 'cpu'); returns serve(z, seed[, labels]) -> images, with
     the ``ExportedProgram`` as ``serve.exported``.
@@ -176,7 +222,15 @@ def load_exported(path_or_bytes, device=None):
     z: (B, latent) float32 at the artifact's batch (another batch is
     rejected by the program); seed: int; labels: (B,) int64, only for a
     conditional model.  Applies the process precision policy, as
-    make_serving_fn does."""
+    make_serving_fn does.
+
+    A spatial artifact of N ranks runs on `mesh`, a spatial mesh of N
+    ranks that holds this one (default: ``create_spatial_mesh(N)``, which
+    every rank of the world calls); it needs a process group of at least N
+    ranks and raises otherwise, as the JAX package needs N devices.  Every
+    rank of the mesh calls serve with the same arguments and gets its rows
+    (B, H/N, W, 3) of the images (``parallel.gather_rows`` gathers
+    them)."""
     device = resolve_device(device)
     if isinstance(path_or_bytes, (bytes, bytearray)):
         path_or_bytes = io.BytesIO(bytes(path_or_bytes))
@@ -186,6 +240,11 @@ def load_exported(path_or_bytes, device=None):
     if device.type not in meta["platforms"]:
         raise ValueError(f"the artifact was exported for {meta['platforms']}"
                          f", not {device.type}")
+    n = meta.get("spatial_devices", 1)
+    rank = None
+    if n > 1:
+        rank, group_name = _spatial_rank(n, mesh, device)
+        _regroup(ep, group_name)
     if any(t.device.type != device.type for t in ep.state_dict.values()):
         ep = move_to_device_pass(ep, str(device))
     set_precision(get_precision())
@@ -195,6 +254,9 @@ def load_exported(path_or_bytes, device=None):
     def serve(z, seed, labels=None):
         z = torch.as_tensor(z, dtype=torch.float32, device=device)
         noises, kwargs = _draws(meta, int(seed), z.shape[0], device)
+        if rank is not None:
+            kwargs["rank"] = rank
+            noises = _rank_noises(noises, n, rank)
         if labels is not None:
             kwargs["labels"] = torch.as_tensor(labels, dtype=torch.long,
                                                device=device)
@@ -208,3 +270,23 @@ def load_exported(path_or_bytes, device=None):
             return serve(z, seed)
     call.exported = ep
     return call
+
+
+def _spatial_rank(n: int, mesh, device):
+    """(this rank as a 0-d tensor on `device`, its mesh's group name) for
+    an artifact of `n` ranks."""
+    import torch.distributed as dist
+
+    from .parallel.spatial import create_spatial_mesh
+    world = dist.get_world_size() if dist.is_initialized() else 1
+    if world < n:
+        raise RuntimeError(f"the artifact was exported for {n} spatial "
+                           f"devices, but this process group has {world} "
+                           f"rank(s)")
+    mesh = create_spatial_mesh(n) if mesh is None else mesh
+    if mesh.size != n or not mesh.is_member:
+        raise ValueError(f"the artifact runs on a spatial mesh of {n} ranks "
+                         f"that holds this one, got {mesh.size} ranks and "
+                         f"rank {mesh.rank}")
+    return (torch.tensor(mesh.rank, dtype=torch.long, device=device),
+            mesh.group.group_name)

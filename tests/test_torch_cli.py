@@ -12,7 +12,6 @@ import pytest
 import torch
 from PIL import Image
 
-from stylegan_torch.cli import generate_samples
 from stylegan_torch.config import get_default_cfg
 from stylegan_torch.convert import save_generator_file
 from stylegan_torch.models import Generator, generator_config_from_cfg
@@ -97,12 +96,27 @@ def test_cli_refuses_missing_cuda(toy):
 
 
 def test_cli_spatial_devices_not_ported(toy):
+    """--spatial_devices 2 (two gloo ranks that the CLI starts, each image
+    split by height) writes the PNGs that the one-process CLI writes with
+    --eval (the spatial path's semantics): the split forward is within
+    rtol=1e-3, atol=1e-3 of the one-process one (JAX's bar), which moves a
+    pixel of [0, 255] by at most one level after rounding."""
     tmp, cfg_path, npz = toy
-    args = generate_samples.parse_arguments(
-        ["--config", str(cfg_path), "--generator_file", str(npz),
-         "--spatial_devices", "2", "--device", "cpu"])
-    with pytest.raises(NotImplementedError):
-        generate_samples.main(args)
+    outs = {}
+    for mode, extra in (("split", ["--spatial_devices", "2"]),
+                        ("one_process", ["--eval"])):
+        outs[mode] = tmp / f"spatial_{mode}"
+        _run(["--config", str(cfg_path), "--generator_file", str(npz),
+              "--num_samples", "2", "--output_dir", str(outs[mode]),
+              "--seed", "4", "--device", "cpu"] + extra)
+    for i in (1, 2):
+        a, b = (np.asarray(Image.open(outs[m] / f"{i}.png")).astype(int)
+                for m in ("split", "one_process"))
+        assert a.shape == (RES, RES, 3)
+        assert np.abs(a - b).max() <= 1
+    from stylegan_torch.cli.common import rank_backend
+    assert [rank_backend(d) for d in ("cpu", "cuda", "cuda:0")] == \
+        [None, None, "gloo"]
 
 
 # --------------------------------------------------------------------------

@@ -140,3 +140,69 @@ def test_traced_call_keeps_the_ops_node():
         ep = torch.export.export(Epi(), _inputs((2, 4, 4, 8)))
     targets = [n.target for n in ep.graph.nodes if n.op == "call_function"]
     assert targets == [OPS.epilogue.default]
+
+
+# ------------------------------------------- the split-plane forward's ops --
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_split_fakes_give_the_real_shapes(dtype):
+    """K1-partial's fake gives the (B, C, 2) float32 partials, K2-apply's
+    the slab's shape and dtype."""
+    x, nw, noise, style = _inputs((2, 4, 8, 32), dtype=dtype)
+    with FakeTensorMode() as mode:
+        fx, fnw, fn, fs = (mode.from_tensor(t) for t in (x, nw, noise, style))
+        part = OPS.epilogue_partial(fx, fnw, fn)
+        assert (part.shape, part.dtype) == ((2, 32, 2), torch.float32)
+        out = OPS.epilogue_apply(fx, fnw, fn, fs, part)
+        assert (out.shape, out.dtype) == ((2, 4, 8, 32), dtype)
+
+
+@pytest.mark.parametrize("case", list(_bad_inputs()))
+def test_split_fakes_refuse_what_the_launch_refuses(case):
+    args = _bad_inputs()[case]
+    stats = torch.zeros(args[0].shape[0], args[0].shape[-1], 2)
+    with FakeTensorMode() as mode:
+        fake = [mode.from_tensor(t) for t in args]
+        if case not in ("bf16 style", "short style"):   # K1 reads no style
+            with pytest.raises(ValueError, match="must be"):
+                OPS.epilogue_partial(*fake[:3])
+        with pytest.raises(ValueError, match="must be"):
+            OPS.epilogue_apply(*fake, mode.from_tensor(stats))
+
+
+def test_apply_fake_refuses_wrong_statistics():
+    x, nw, noise, style = _inputs((2, 4, 4, 8))
+    with FakeTensorMode() as mode:
+        fake = [mode.from_tensor(t) for t in (x, nw, noise, style)]
+        for bad in (torch.zeros(2, 8), torch.zeros(2, 8, 2).double()):
+            with pytest.raises(ValueError, match="stats must be"):
+                OPS.epilogue_apply(*fake, mode.from_tensor(bad))
+
+
+def test_split_cpu_ops_are_the_plain_versions_bitwise():
+    """On the CPU the split ops run the plain versions (one plain call
+    each), and K1-partial then K2-apply on a whole plane is the unsplit
+    epilogue to float32 roundoff."""
+    args = _inputs((2, 8, 8, 16), seed=4)
+    x, nw, noise, style = args
+    before = fused.plain_calls
+    part = OPS.epilogue_partial(x, nw, noise)
+    assert torch.equal(part, fused._reference_partial(x, nw, noise))
+    stats = fused.split_stats(part[None], 64, style)
+    out = OPS.epilogue_apply(x, nw, noise, style, stats)
+    assert torch.equal(out, fused._reference_apply(x, nw, noise, style,
+                                                   stats))
+    assert fused.plain_calls == before + 4
+    np.testing.assert_allclose(out.numpy(),
+                               fused._reference_epilogue(*args).numpy(),
+                               rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("op", ["epilogue_partial", "epilogue_apply"])
+def test_split_ops_pass_torch_library_opcheck(op):
+    x, nw, noise, style = _inputs((2, 4, 4, 8))
+    args = (x, nw, noise) if op == "epilogue_partial" else (
+        x, nw, noise, style,
+        fused.split_stats(fused._reference_partial(x, nw, noise)[None], 16,
+                          style))
+    torch.library.opcheck(getattr(OPS, op).default, args)

@@ -51,7 +51,7 @@ def _pow2(n):
     return n > 0 and n & (n - 1) == 0
 
 
-def check_plan(p, b, rows, c, bf16, aligned):
+def check_plan(p, b, rows, c, bf16, aligned, launches=2):
     elem = 2 if bf16 else 4
     vec = (8 if bf16 else 4) if c % (8 if bf16 else 4) == 0 and aligned else 1
     assert p.vec == vec
@@ -86,7 +86,7 @@ def check_plan(p, b, rows, c, bf16, aligned):
         # the last block's merge gives each channel 256 // chunk_c threads
         assert 256 % p.chunk_c == 0
         assert b <= 65535
-        assert p.launches == 2
+        assert p.launches == launches
         # partials, stats, tickets
         assert p.stats_offset == _align16(b * p.splits * c * 8)
         assert p.tickets_offset == p.stats_offset + _align16(b * c * 8)
@@ -126,6 +126,39 @@ def test_ragged_plans(plan_lib, shape, bf16):
     check_plan(p, b, h * w, c, bf16, aligned)
     if c % (8 if bf16 else 4) or not aligned:
         assert p.vec == 1
+
+
+# the slabs the split entries take on a 1024^2 forward split over n ranks:
+# (res / n rows of res, channels) for every stage of res >= 4n
+SPLIT_SLABS = [(n, res, c) for n in (2, 4) for res, c in MAIN_SHAPES
+               if res >= 4 * n]
+
+
+@pytest.mark.parametrize("bf16", [0, 1], ids=["f32", "bf16"])
+@pytest.mark.parametrize("batch", [1, BATCH], ids=["b1", f"b{BATCH}"])
+@pytest.mark.parametrize("n,res,c", SPLIT_SLABS,
+                         ids=[f"{r}x{r}x{c}_over{n}"
+                              for n, r, c in SPLIT_SLABS])
+def test_split_plans(plan_lib, n, res, c, batch, bf16):
+    """K1-partial and K2-apply (a plane whose rows lie on n ranks) take the
+    two-pass geometry on every slab, the small ones too: one code path, one
+    launch per entry, splits covering the slab's rows once."""
+    rows = res // n * res
+    p = kern.make_split_plan(plan_lib, bf16, batch, rows, c, 1)
+    assert p.path == 2 and p.launches == 1
+    check_plan(p, batch, rows, c, bf16, 1, launches=1)
+
+
+@pytest.mark.parametrize("bf16", [0, 1], ids=["f32", "bf16"])
+@pytest.mark.parametrize("shape", RAGGED_SHAPES,
+                         ids=["x".join(map(str, s)) for s in RAGGED_SHAPES])
+def test_split_plans_ragged(plan_lib, shape, bf16):
+    b, h, w, c, offset = shape
+    aligned = int(offset * (2 if bf16 else 4) % 16 == 0)
+    p = kern.make_split_plan(plan_lib, bf16, b, h * w, c, aligned)
+    check_plan(p, b, h * w, c, bf16, aligned, launches=1)
+    with pytest.raises(ValueError, match="no split epilogue plan"):
+        kern.make_split_plan(plan_lib, bf16, 0, h * w, c, aligned)
 
 
 SWEEP_B = [1, 2, 3, 8]

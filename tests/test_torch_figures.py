@@ -232,9 +232,9 @@ def test_batch1_noise_reaches_synthesis_expanded(toy):
     import stylegan_torch.models.synthesis as syn
     orig = syn.fused_epilogue
 
-    def spy(x, nw, noise, style):
+    def spy(x, nw, noise, style, *rest):
         seen.append((tuple(noise.shape), noise.is_contiguous()))
-        return orig(x, nw, noise, style)
+        return orig(x, nw, noise, style, *rest)
     dl = torch.from_numpy(rs.randn(3, n_layers, 512).astype(np.float32))
     with torch.inference_mode():
         try:

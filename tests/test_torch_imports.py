@@ -71,3 +71,17 @@ def test_parallel_package_and_rank_bodies_import_no_jax():
         names = list(_imported_names(ast.parse(f.read(), worker)))
     assert "stylegan_torch.parallel" in names
     assert not [n for n in names if n.split(".")[0] in FORBIDDEN], names
+
+
+def test_spatial_modules_and_rank_bodies_import_no_jax():
+    """The spatial path's modules are in the scan above, and the rank
+    bodies that tests/test_torch_spatial.py spawns import neither JAX nor
+    the JAX package."""
+    for name in ("spatial", "halo"):
+        assert os.path.join(REPO, "stylegan_torch", "parallel",
+                            f"{name}.py") in SOURCES
+    worker = os.path.join(REPO, "tests", "torch_spatial_worker.py")
+    with open(worker) as f:
+        names = list(_imported_names(ast.parse(f.read(), worker)))
+    assert "stylegan_torch.parallel" in names
+    assert not [n for n in names if n.split(".")[0] in FORBIDDEN], names

@@ -173,14 +173,20 @@ def test_exported_wrong_shape_rejected():
         serve(torch.zeros(2, 16), 0)          # latent 16 != 32
 
 
-@pytest.mark.parametrize("kw,err", [
-    (dict(spatial_devices=2), NotImplementedError),
-    (dict(platforms=("tpu", "cpu")), ValueError),
-    (dict(platforms=("rocm",)), ValueError),
-], ids=["spatial", "tpu", "unknown"])
-def test_export_refuses_what_it_cannot_make(kw, err):
-    cfg = small_cfg()
-    with pytest.raises(err, match="parallel|JAX package|unknown"):
+@pytest.mark.parametrize("kw,match", [
+    (dict(spatial_devices=8), "must divide over 8 spatial shards"),
+    (dict(spatial_devices=2, conditional=True), "conditional models"),
+    (dict(platforms=("tpu", "cpu")), "JAX package"),
+    (dict(platforms=("rocm",)), "unknown"),
+], ids=["spatial", "spatial_conditional", "tpu", "unknown"])
+def test_export_refuses_what_it_cannot_make(kw, match):
+    """What the JAX package's export refuses, with its words: a spatial
+    artifact whose resolution does not divide by 4N (16 over 8 ranks) or
+    of a conditional model; and a platform the port does not export for."""
+    kw = dict(kw)
+    conditional = kw.pop("conditional", False)
+    cfg = small_cfg(conditional=conditional, n_classes=3 * conditional)
+    with pytest.raises(ValueError, match=match):
         export_generator(cfg, _generator(cfg), depth=DEPTH, batch_size=2,
                          **kw)
 

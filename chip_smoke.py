@@ -138,8 +138,10 @@ Phases, each fatal on failure:
 10. parallel data parallelism on FFHQ-1024 (stylegan_torch/parallel, the
            mesh= step): (a) a world of one rank over NCCL, the mesh= step at
            depth 8, batch 2, logistic + R1: its first step's losses and
-           gradients within 10x the spread of two runs of the mesh=None
-           step on the same inputs and draws, then 3 timed steps (ms per
+           gradients, under cuDNN's deterministic algorithms, bitwise equal
+           to two runs of the mesh=None step on the same inputs and draws
+           (a tensor that is not is named, and held to 10x the two plain
+           runs' spread), then 3 timed steps (ms per
            step beside 5(b)'s), 36 forward and 18 backward kernel calls per
            step, no plain call; (b) two ranks spawned on the one card over
            gloo (NCCL refuses two ranks on one device), the same step at
@@ -175,8 +177,27 @@ Phases, each fatal on failure:
            a level of the one-process --eval CLI's) and export_generator
            --spatial_devices 2 --check (depth 5) as subprocesses.  It
            prints its seconds.
+12. spatial train the (data x spatial) train step
+           (train/steps.py::build_spatial_train_step): (a) K3's split entries
+           (K3-partial, the rank-order sum, K3-apply; csrc/epilogue.cu's
+           sgt_epilogue_backward_partial / _apply) at the 9 shapes cut into
+           2 and 4 slabs, batch 2, float32 and bf16, against the split plain
+           version and the unsplit K3 (phase 5(a)'s bars), bitwise on
+           repeat, each entry timed over one rank's 16 calls of a batch-2
+           1024^2 G backward over 2 ranks against its bytes bound; (b) one
+           depth-5 step on (1 x 2) and (2 x 2) grids of gloo ranks sharing
+           the card, global batch 4, draws pinned: every rank's state
+           bitwise rank 0's, rank 0's within phase 5(c)'s bars of the
+           one-process step and float64; (c) depth-8 batch-2 logistic + R1
+           steps on the (1 x 2) grid: each rank's kernel calls per step
+           (counted from 0 just before the timed steps), no plain call, ms
+           per step and peak memory beside phase 5(b)'s one-process peak
+           (a correctness and memory run, not a scaling figure); (d) the
+           train CLI with parallel.spatial: 2, --num_devices 2 --device
+           cuda:0 on 24 seeded 1024^2 PNGs, depths 7-8 on (1 x 2) grids.
+           It prints its seconds.
 
-`python3 chip_smoke.py --only 8 9 10 11` runs the build and just those
+`python3 chip_smoke.py --only 8 9 10 11 12` runs the build and just those
 phases (to try a change; no result lines).
 
 The last two lines are {"kernels": [...]} with the kernels' measurements and
@@ -2896,16 +2917,31 @@ def free_port():
         return sock.getsockname()[1]
 
 
+@contextlib.contextmanager
+def cudnn_deterministic():
+    """cuDNN's deterministic algorithms inside, the process's setting
+    restored after."""
+    before = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.deterministic = before
+
+
 def parallel_one_rank(dev, train):
     """10(a): a world of one rank over NCCL; the mesh= step at depth 8,
     batch 2, logistic + R1.  Its first step from the seeded state against
     two runs of the mesh=None step from the same state on the same inputs
-    and draws (rank 0's): losses and gradients (Adam's first moments)
-    within CHECK_GRAD_FACTOR times the two plain runs' spread (cuDNN's
-    backward algorithms sum in no fixed order), plus 1e-5 of the scale;
-    then PAR_STEPS timed steps: ms per step beside 5(b)'s, 36 forward and
-    18 backward kernel calls per step, no plain call; and `replicate` over
-    the rank leaves the state's digests as they were."""
+    and draws (rank 0's), the three under cuDNN's deterministic algorithms
+    (an all-reduce over one rank and a mean over one change no bit): the
+    losses and gradients (Adam's first moments) bitwise equal; a tensor
+    that is not is reported by name and held to within CHECK_GRAD_FACTOR
+    times the two plain runs' spread plus 1e-5 of the scale; then
+    PAR_STEPS timed steps (cuDNN's default algorithms): ms per step beside
+    5(b)'s, 36 forward and 18 backward kernel calls per step, no plain
+    call; and `replicate` over the rank leaves the state's digests as they
+    were."""
     from stylegan_torch.models.synthesis import stream_seed
     from stylegan_torch.parallel import (create_mesh, initialize_distributed,
                                          replicate)
@@ -2934,8 +2970,9 @@ def parallel_one_rank(dev, train):
                                                             40))
             # the mesh step folds its rank into the seed (shard_rng)
             seed = 5 if m is not None else stream_seed(5, SHARD_STREAM, 0)
-            _, out = step(state, reals, z, seed, alpha)
-            results[label] = step_result(out, state)
+            with cudnn_deterministic():
+                _, out = step(state, reals, z, seed, alpha)
+                results[label] = step_result(out, state)
             if m is not None:
                 batches = [tuple(t.to(rank_dev) for t in train_batch(
                     gen_cfg, batch, 41 + i)) for i in range(PAR_STEPS)]
@@ -2964,6 +3001,9 @@ def parallel_one_rank(dev, train):
         results[k] for k in ("plain", "plain_again", "mesh"))
     loss_diff = [abs(a - b) for a, b in zip(lm, lp)]
     loss_spread = [abs(a - b) for a, b in zip(la, lp)]
+    differ = [name for name, ref in mp.items()
+              if not torch.equal(mm[name], ref)]
+    differ += [k for k, a, b in zip(("d_loss", "g_loss"), lm, lp) if a != b]
     ratio = 0.0
     for name, ref in mp.items():
         spread = float((ma[name] - ref).abs().max())
@@ -2982,6 +3022,8 @@ def parallel_one_rank(dev, train):
     check_train_counts(counts, PAR_STEPS, "10(a)")
     report = {"backend": "nccl", "world": 1, "ms_per_step": ms,
               "phase5b_ms_per_step": train["ms_per_step"],
+              "cudnn_deterministic_bitwise": not differ,
+              "differ_from_plain": differ,
               "first_step_losses": {"mesh": lm, "plain": lp,
                                     "plain_again": la},
               "grad_bar_ratio": ratio, "losses": losses, **counts}
@@ -3621,11 +3663,514 @@ def spatial_cli():
     return report
 
 
+# ------------------------------------------------------------------------
+# Phase 12: the spatial train step (train/steps.py::build_spatial_train_step)
+
+SP_TRAIN_GRIDS = ((1, 2), (2, 2))   # (data, spatial) grids of 12(b)
+SP_TRAIN_WORLD = 4
+SP_TRAIN_STEPS = 2                  # timed depth-8 steps of 12(c)
+SP_TRAIN_SPLITS = (2, 4)            # slabs of one plane in 12(a)
+SP_TRAIN_OUT = os.path.join(REPO, "build", "chip_smoke", "spatial_train")
+SP_CLI_IMAGES = 24                  # seeded 1024^2 PNGs, as phase 6 writes
+# kernel calls of one depth-8 step on a (1, 2) grid, per rank: two G
+# forwards, 8 split stages (8^2 .. 1024^2) of two epilogues each, the 4^2
+# stage whole; one G backward
+SP_STEP_CALLS = {"forward": 4, "partial": 32, "apply": 32, "backward": 2,
+                 "backward_partial": 16, "backward_apply": 16, "plain": 0}
+
+
+def phase_spatial_train(dev, train):
+    """Phase 12: the (data x spatial) train step on FFHQ-1024, each part
+    fatal: (a) K3's split entries at every split shape, (b) a depth-5 step
+    on (1 x 2) and (2 x 2) grids of gloo ranks sharing the card against
+    the one-process step and float64, (c) depth-8 steps on the (1 x 2)
+    grid with each rank's kernel calls and peak memory, (d) cli.train with
+    parallel.spatial: 2 on the card."""
+    from stylegan_torch.parallel import spawn
+    t_phase = time.perf_counter()
+    shutil.rmtree(SP_TRAIN_OUT, ignore_errors=True)
+    os.makedirs(SP_TRAIN_OUT)
+    parts_s = {}
+    report = {"kernels": spatial_train_kernels(dev)}
+    one_peak = train.get("peak_memory_GiB") or one_process_peak_gib(dev)
+    parts_s["a"] = time.perf_counter() - t_phase
+    t0 = time.perf_counter()
+    spawn(spatial_train_rank, SP_TRAIN_WORLD, (SP_TRAIN_OUT,),
+          backend="gloo", device="cuda:0", timeout=PAR_TIMEOUT,
+          join_timeout=PAR_TIMEOUT)
+    parts_s["ranks"] = time.perf_counter() - t0
+    log(f"spatial train: {SP_TRAIN_WORLD} ranks on one card over gloo, "
+        f"{parts_s['ranks']:.1f} s")
+    report["depth8"] = spatial_train_depth8(one_peak)
+    # the CLI's ranks run on the card while this process computes 12(b)'s
+    # references (one float32 step on the card, one float64 on the CPU)
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(dir=SP_TRAIN_OUT) as tmp:
+        cli = spatial_train_cli_start(tmp)
+        try:
+            report["vs_one_process"] = spatial_train_vs_one_process(dev)
+            parts_s["b_reference"] = time.perf_counter() - t0
+            report["cli"] = spatial_train_cli_finish(cli)
+        finally:
+            if cli["proc"].poll() is None:
+                cli["proc"].kill()
+                cli["proc"].wait()
+            cli["log"].close()
+    parts_s["b_and_d"] = time.perf_counter() - t0
+    shutil.rmtree(SP_TRAIN_OUT)
+    report["parts_s"] = parts_s
+    report["phase_s"] = time.perf_counter() - t_phase
+    log(f"phase 12: {report['phase_s']:.1f} s")
+    return report
+
+
+def split_backward(kern, fused, args, cot, n, plain=False):
+    """K3 split over n slabs of one plane in one process: the slabs'
+    K1-partials merged into the (mean, rstd) the split forward saves (by
+    the kernel), then each slab's K3-partial (kernel or plain version),
+    the rank-order sum, each slab's K3-apply; returns (dx, dnoise_weight,
+    dstyle) of the plane (the shares summed) and the merged sums."""
+    x, nw, noise, style = args
+    xs, ns, gs = ([t.contiguous() for t in a.chunk(n, dim=1)]
+                  for a in (x, noise, cot))
+    rows = xs[0].shape[1] * xs[0].shape[2]
+    mean, rstd = fused.split_moments(torch.stack([
+        kern.epilogue_partial(a, nw, b) for a, b in zip(xs, ns)]), rows)
+    saved = torch.stack([mean, rstd], -1).contiguous()
+    if plain:
+        partial = fused._reference_backward_partial
+        apply = lambda *a: fused._reference_backward_apply(
+            *a, [True, True, False])
+    else:
+        partial = kern.epilogue_backward_partial
+        apply = lambda *a: kern.epilogue_backward_apply(
+            *a, (True, True, False))[:2]
+    parts = [partial(g, a, nw, b, saved) for g, a, b in zip(gs, xs, ns)]
+    merged = parts[0][0]
+    for sums, _ in parts[1:]:
+        merged = merged + sums
+    grads = [apply(g, a, nw, b, style, saved, merged, n * rows)
+             for g, a, b in zip(gs, xs, ns)]
+    return (torch.cat([d[0] for d in grads], 1), sum(d[1] for d in grads),
+            sum(p[1] for p in parts)), merged
+
+
+def check_split_grads(got, ref, where, bf16_ref=None):
+    """Phase 5(a)'s bars between two (dx, dnoise_weight, dstyle): float32
+    F32_TOL * max(1, scale) each; bf16 dx within BF16_ULPS of `bf16_ref`'s
+    (or 1 ulp of the float32 plain version, `ref`, when none is given) and
+    the float32 gradients within F32_TOL.  Returns the worst f32-bar
+    ratio."""
+    worst = 0.0
+    for name, a, r in zip(("x", "noise_weight", "style"), got, ref):
+        a, r = a.float(), r.float()
+        if got[0].dtype == torch.bfloat16 and name == "x":
+            if bf16_ref is None:
+                u = ulps_from(a, r)
+                if not u <= 1.0:
+                    fail(f"{where} d{name}: {u} ulps from the f32 plain "
+                         "version")
+            else:
+                err, bar = float((a - r).abs().max()), bf16_bound(r)
+                if not err <= bar:
+                    fail(f"{where} d{name}: {err} from the unsplit kernel "
+                         f"(bar {bar})")
+            continue
+        err, bar = float((a - r).abs().max()), F32_TOL * max(
+            1.0, float(r.abs().max()))
+        worst = max(worst, err / bar)
+        if not err <= bar:
+            fail(f"{where} d{name}: max |diff| {err} > {bar}")
+    return worst
+
+
+def spatial_train_kernels(dev):
+    """12(a): K3-partial, the rank-order sum and K3-apply at the 9 epilogue
+    shapes cut into 2 and 4 slabs (the stages the step splits, res >= 4n),
+    batch 2, float32 and bf16: against the split plain version on the same
+    merged statistics and against the unsplit K3 (phase 5(a)'s bars), two
+    runs bitwise; each entry timed on slab 0 of each split stage of one
+    rank of 2 (CUDA graph replay) beside the plain version and its bytes
+    bound.  Returns the sums over a rank's 16 split backward calls of one
+    batch-2 1024^2 G backward over 2 ranks."""
+    from stylegan_torch.ops import fused
+    from stylegan_torch.ops.kernels import epilogue as kern
+    g = torch.Generator(device=dev).manual_seed(13)
+    keys = ("partial_ms", "apply_ms", "plain_partial_ms", "plain_apply_ms",
+            "partial_bound_ms", "apply_bound_ms")
+    sums = {"f32": dict.fromkeys(keys, 0.0), "bf16": dict.fromkeys(keys,
+                                                                   0.0)}
+    worst = {"max_abs_err": 0.0, "bar_ratio_vs_plain": 0.0,
+             "bar_ratio_vs_unsplit": 0.0}
+    for dtype in (torch.float32, torch.bfloat16):
+        name = "f32" if dtype == torch.float32 else "bf16"
+        for n in SP_TRAIN_SPLITS:
+            for res, c in EPILOGUE_SHAPES:
+                if res < 4 * n:
+                    continue
+                args = epilogue_inputs(g, dev, dtype, res, c, TRAIN_BATCH)
+                cot = torch.randn(args[0].shape, generator=g,
+                                  device=dev).to(dtype)
+                where = f"split backward {TRAIN_BATCH}x{res}x{res}x{c}/{n} " \
+                        f"{name}"
+                with torch.no_grad():
+                    got, merged = split_backward(kern, fused, args, cot, n)
+                    again, _ = split_backward(kern, fused, args, cot, n)
+                    f32 = [t.float() if t.dtype == torch.bfloat16 else t
+                           for t in args]
+                    ref, ref_sums = split_backward(kern, fused, f32,
+                                                   cot.float(), n, plain=True)
+                    unsplit = kernel_grads(kern, args, cot, TRAIN_NEEDS)
+                torch.cuda.synchronize()
+                for a, b in zip(got, again):
+                    if not torch.equal(a, b):
+                        fail(f"{where}: two runs differ")
+                if got[0].dtype != dtype or got[0].shape != args[0].shape:
+                    fail(f"{where}: dx {got[0].dtype} {tuple(got[0].shape)}")
+                worst["bar_ratio_vs_plain"] = max(
+                    worst["bar_ratio_vs_plain"],
+                    check_split_grads(got, ref, where + " vs plain"))
+                worst["bar_ratio_vs_unsplit"] = max(
+                    worst["bar_ratio_vs_unsplit"],
+                    check_split_grads(got, (unsplit[0], unsplit[1],
+                                            unsplit[3]),
+                                      where + " vs unsplit K3",
+                                      bf16_ref=unsplit[0]))
+                if dtype == torch.float32:
+                    worst["max_abs_err"] = max(
+                        worst["max_abs_err"],
+                        max(float((a - r).abs().max())
+                            for a, r in zip(got, ref)),
+                        float((merged - ref_sums).abs().max()))
+                if n == 2:
+                    s = sums[name]
+                    for k, v in split_backward_times(kern, fused, args, cot,
+                                                     n).items():
+                        s[k] += 2 * v
+                del args, cot, got, again, ref, unsplit
+    log(json.dumps({"phase12_split_backward": {"sums_over_16_calls": sums,
+                                               **worst}}))
+    return {"main": sums["f32"], "bf16": sums["bf16"], **worst}
+
+
+def split_backward_times(kern, fused, args, cot, n):
+    """Device ms of each split backward entry on slab 0 (the others are the
+    same size), by graph replay, the plain versions', and the bytes bounds
+    on the slab's rows (train-step calls: dx, dnoise_weight, dstyle)."""
+    x, nw, noise, style = args
+    xs, ns, gs = (a.chunk(n, dim=1)[0].contiguous() for a in (x, noise, cot))
+    rows = xs.shape[1] * xs.shape[2]
+    with torch.no_grad():
+        saved = torch.stack(fused.split_moments(torch.stack(
+            [kern.epilogue_partial(xs, nw, ns)] * n), rows), -1).contiguous()
+        sums, _ = kern.epilogue_backward_partial(gs, xs, nw, ns, saved)
+        sums = (sums * n).contiguous()
+        times = {
+            "partial_ms": graph_time_ms(lambda i: kern.epilogue_backward_partial(
+                gs, xs, nw, ns, saved)),
+            "apply_ms": graph_time_ms(lambda i: kern.epilogue_backward_apply(
+                gs, xs, nw, ns, style, saved, sums, n * rows,
+                (True, True, False))),
+        }
+        if x.dtype == torch.float32:
+            times["plain_partial_ms"] = graph_time_ms(
+                lambda i: fused._reference_backward_partial(gs, xs, nw, ns,
+                                                            saved))
+            times["plain_apply_ms"] = graph_time_ms(
+                lambda i: fused._reference_backward_apply(
+                    gs, xs, nw, ns, style, saved, sums, n * rows,
+                    [True, True, False]))
+    times["partial_bound_ms"] = kern.bytes_moved_backward_partial(xs) \
+        / HBM_BYTES_PER_S * 1e3
+    times["apply_bound_ms"] = kern.bytes_moved_backward_apply(xs) \
+        / HBM_BYTES_PER_S * 1e3
+    return times
+
+
+def one_process_peak_gib(dev):
+    """Phase 5(b)'s one-process peak when phase 5 did not run (--only):
+    a warm-up and one depth-8 batch-2 step."""
+    from stylegan_torch.train import create_train_state
+    cfg = ffhq_cfg()
+    gen_cfg, dis_cfg, gen, dis = train_models(cfg, dev)
+    state = create_train_state(gen, dis, dict(cfg.model.g_optim),
+                               dict(cfg.model.d_optim), use_ema=cfg.use_ema)
+    step = train_step_fn(cfg, gen_cfg, dis_cfg, TRAIN_DEPTH, cfg.loss)
+    alpha = torch.tensor(0.5, device=dev)
+    reals, z = (t.to(dev) for t in train_batch(gen_cfg, TRAIN_BATCH, 90))
+    step(state, reals, z, 0, alpha)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    step(state, reals, z, 1, alpha)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+    del state, step, gen, dis
+    torch.cuda.empty_cache()
+    return peak
+
+
+def spatial_step_fn(cfg, gen_cfg, dis_cfg, depth, mesh):
+    """The yaml's step over a (data, spatial) grid."""
+    from stylegan_torch.train import build_spatial_train_step
+    kw = {"r1_gamma": cfg.r1_gamma} if cfg.loss == "logistic" else {}
+    return build_spatial_train_step(
+        gen_cfg, dis_cfg, depth=depth, mesh=mesh, loss=cfg.loss,
+        d_repeats=cfg.d_repeats, use_ema=cfg.use_ema,
+        ema_decay=cfg.ema_decay, drift=cfg.drift, **kw)
+
+
+def spatial_train_counts():
+    from stylegan_torch.ops import fused
+    from stylegan_torch.ops.kernels import epilogue as kern
+    return {"forward": kern.launches, "partial": kern.partial_launches,
+            "apply": kern.apply_launches,
+            "backward": kern.backward_launches,
+            "backward_partial": kern.backward_partial_launches,
+            "backward_apply": kern.backward_apply_launches,
+            "plain": fused.plain_calls}
+
+
+def reset_spatial_train_counts():
+    from stylegan_torch.ops import fused
+    from stylegan_torch.ops.kernels import epilogue as kern
+    kern.launches = kern.partial_launches = kern.apply_launches = 0
+    kern.backward_launches = kern.backward_partial_launches = 0
+    kern.backward_apply_launches = fused.plain_calls = 0
+
+
+def spatial_train_rank(rank, device, out_dir):
+    """A rank of 12(b) and (c), sharing the card over gloo.  (b): on each
+    grid of SP_TRAIN_GRIDS it is in, one depth-5 step on its data shard of
+    pinned_inputs(cfg, PAR_BATCH, 80) (the noise maps and mixing latents
+    its shard's), its state's digests; rank 0's result to b_{grid}.pt.
+    (c): on the (1, 2) grid, a warm-up and SP_TRAIN_STEPS depth-8 batch-2
+    steps, timed, with the kernel calls counted from 0 just before them and
+    read just after, and the peak memory; all into rank{rank}.json."""
+    from stylegan_torch.parallel import create_mesh_2d
+    from stylegan_torch.train import create_train_state
+
+    cfg = ffhq_cfg()
+    grids = {shape: create_mesh_2d(*shape) for shape in SP_TRAIN_GRIDS}
+    alpha = torch.tensor(0.5, device=device)
+    reals, z, noises, latents2 = pinned_inputs(cfg, PAR_BATCH, 80)
+    report = {"rank": rank}
+    for shape, mesh in grids.items():
+        if not mesh.is_member:
+            continue
+        tag = f"{shape[0]}x{shape[1]}"
+        b = PAR_BATCH // shape[0]
+        lo = mesh.data.rank * b
+
+        def cut(t):
+            return t[lo:lo + b].to(device)
+        gen_cfg, dis_cfg, gen, dis = train_models(cfg, device)
+        state = create_train_state(gen, dis, dict(cfg.model.g_optim),
+                                   dict(cfg.model.d_optim),
+                                   use_ema=cfg.use_ema)
+        step = spatial_step_fn(cfg, gen_cfg, dis_cfg, CHECK_DEPTH, mesh)
+        _, m = step(state, cut(reals), cut(z), 0, alpha,
+                    noises=[cut(n) for n in noises],
+                    mixing=(cut(latents2), MIXING_CUTOFF))
+        report[tag] = {"digests": state_digests(state),
+                       "losses": [m["d_loss"].item(), m["g_loss"].item()]}
+        if rank == 0:
+            torch.save(step_result(m, state),
+                       os.path.join(out_dir, f"b_{tag}.pt"))
+        del state, step, gen, dis
+        torch.cuda.empty_cache()
+
+    mesh = grids[(1, 2)]
+    if mesh.is_member:
+        gen_cfg, dis_cfg, gen, dis = train_models(cfg, device)
+        state = create_train_state(gen, dis, dict(cfg.model.g_optim),
+                                   dict(cfg.model.d_optim),
+                                   use_ema=cfg.use_ema)
+        step = spatial_step_fn(cfg, gen_cfg, dis_cfg, TRAIN_DEPTH, mesh)
+        batches = [tuple(t.to(device) for t in train_batch(
+            gen_cfg, TRAIN_BATCH, 90 + i)) for i in range(SP_TRAIN_STEPS + 1)]
+        step(state, *batches[0], 0, alpha)          # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(device)
+        reset_spatial_train_counts()
+        times, losses = [], []
+        for i in range(SP_TRAIN_STEPS):
+            t0 = time.perf_counter()
+            _, m = step(state, *batches[1 + i], 1 + i, alpha)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+            losses.append([m["d_loss"].item(), m["g_loss"].item()])
+        report["depth8"] = {
+            "ms_per_step": times, "losses": losses,
+            "calls": spatial_train_counts(),
+            "peak_GiB": torch.cuda.max_memory_allocated(device) / 2 ** 30,
+            "digests": state_digests(state)}
+        del state, step, gen, dis, batches
+        torch.cuda.empty_cache()
+    with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+        json.dump(report, f)
+
+
+def spatial_train_ranks():
+    ranks = []
+    for r in range(SP_TRAIN_WORLD):
+        with open(os.path.join(SP_TRAIN_OUT, f"rank{r}.json")) as f:
+            ranks.append(json.load(f))
+    return ranks
+
+
+def spatial_train_vs_one_process(dev):
+    """12(b)'s verdict: on each grid every rank's state digests equal
+    (replicas bitwise across each row and column) and its losses rank 0's;
+    rank 0's step against the one-process step on the global batch with
+    the same pinned draws, on the card (the yardstick) and on the CPU in
+    float64 (the truth), within phase 5(c)'s bars (check_vs_float64)."""
+    from stylegan_torch.train import create_train_state
+
+    ranks = spatial_train_ranks()
+    cfg = ffhq_cfg()
+    reals, z, noises, latents2 = pinned_inputs(cfg, PAR_BATCH, 80)
+    results = []
+    for device, dtype in ((dev, torch.float32),
+                          (torch.device("cpu"), torch.float64)):
+        gen_cfg, dis_cfg, gen, dis = train_models(cfg, device, dtype)
+        state = create_train_state(gen, dis, dict(cfg.model.g_optim),
+                                   dict(cfg.model.d_optim),
+                                   use_ema=cfg.use_ema)
+        step = train_step_fn(cfg, gen_cfg, dis_cfg, CHECK_DEPTH, cfg.loss)
+        put = lambda t: t.to(device, dtype)
+        _, m = step(state, put(reals), put(z), 0,
+                    torch.tensor(0.5, device=device, dtype=dtype),
+                    noises=[put(n) for n in noises],
+                    mixing=(put(latents2), MIXING_CUTOFF))
+        results.append(step_result(m, state))
+        del state, step, gen, dis
+        torch.cuda.empty_cache()
+    report = {"depth": CHECK_DEPTH, "global_batch": PAR_BATCH}
+    for shape in SP_TRAIN_GRIDS:
+        tag = f"{shape[0]}x{shape[1]}"
+        members = [r for r in ranks if tag in r]
+        if len(members) != shape[0] * shape[1]:
+            fail(f"12(b) {tag}: {len(members)} ranks reported")
+        for r in members[1:]:
+            if r[tag]["digests"] != members[0][tag]["digests"]:
+                bad = [k for k in r[tag]["digests"]
+                       if r[tag]["digests"][k] != members[0][tag]["digests"][k]]
+                fail(f"12(b) {tag}: rank {r['rank']}'s {bad} differ from "
+                     "rank 0's")
+            if r[tag]["losses"] != members[0][tag]["losses"]:
+                fail(f"12(b) {tag}: rank {r['rank']} reports other losses")
+        got = torch.load(os.path.join(SP_TRAIN_OUT, f"b_{tag}.pt"))
+        report[tag] = dict(check_vs_float64(cfg, got, results[0], results[1],
+                                            f"grid_{tag}", "one_process"),
+                           replicas_bitwise=len(members))
+    log(json.dumps({"phase12_vs_one_process": report}))
+    return report
+
+
+def spatial_train_depth8(one_peak_gib):
+    """12(c)'s verdict: each (1 x 2) rank's kernel calls per step
+    (SP_STEP_CALLS), finite losses equal on both ranks, the replicas'
+    digests equal, ms per step and peak memory beside the one-process
+    peak (two ranks share the card: not a scaling figure)."""
+    ranks = [r for r in spatial_train_ranks() if "depth8" in r]
+    if len(ranks) != 2:
+        fail(f"12(c): {len(ranks)} ranks reported")
+    want = {k: v * SP_TRAIN_STEPS for k, v in SP_STEP_CALLS.items()}
+    for r in ranks:
+        d8 = r["depth8"]
+        if d8["calls"] != want:
+            fail(f"12(c) rank {r['rank']}: kernel calls {d8['calls']}, want "
+                 f"{want}")
+        if not all(math.isfinite(v) for pair in d8["losses"] for v in pair):
+            fail(f"12(c) rank {r['rank']}: losses {d8['losses']}")
+    if ranks[0]["depth8"]["digests"] != ranks[1]["depth8"]["digests"] or \
+            ranks[0]["depth8"]["losses"] != ranks[1]["depth8"]["losses"]:
+        fail("12(c): the two ranks' states or losses differ")
+    report = {"grid": [1, 2], "depth": TRAIN_DEPTH, "batch": TRAIN_BATCH,
+              "note": "two ranks sharing one card over gloo: a correctness "
+                      "and memory run, not a scaling figure",
+              "ms_per_step_by_rank": [r["depth8"]["ms_per_step"]
+                                      for r in ranks],
+              "peak_GiB_by_rank": [r["depth8"]["peak_GiB"] for r in ranks],
+              "one_process_peak_GiB": one_peak_gib,
+              "losses": ranks[0]["depth8"]["losses"],
+              "calls_per_step": SP_STEP_CALLS,
+              "calls_by_rank": [r["depth8"]["calls"] for r in ranks]}
+    log(json.dumps({"phase12_depth8": report}))
+    return report
+
+
+def spatial_train_cli_start(tmp):
+    """12(d), started: `python -m stylegan_torch.cli.train --num_devices 2
+    --device cuda:0` on the FFHQ yaml with parallel.spatial: 2 over
+    SP_CLI_IMAGES seeded 1024^2 PNGs, depths 7 and 8, one epoch each: two
+    gloo ranks on the card, each depth on a (1 x 2) grid (its batch of 4
+    and 2 leaves the second rank idle).  Returns what
+    spatial_train_cli_finish waits for; the caller ends the process."""
+    import yaml
+    data_dir, out = os.path.join(tmp, "ffhq"), os.path.join(tmp, "run")
+    write_pngs(data_dir, SP_CLI_IMAGES, 1024, seed=97)
+    with open(CONFIG) as f:
+        doc = yaml.safe_load(f)
+    doc.update(output_dir=out, num_samples=4, feedback_factor=1)
+    doc["dataset"]["img_dir"] = data_dir
+    doc["sched"]["epochs"] = [1] * 9
+    doc.setdefault("parallel", {})["spatial"] = 2
+    path = os.path.join(tmp, "ffhq.yaml")
+    with open(path, "w") as f:
+        yaml.safe_dump(doc, f)
+    log_path = os.path.join(tmp, "cli.log")
+    log_file = open(log_path, "w")
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "stylegan_torch.cli.train", "--config", path,
+         "--start_depth", str(TRAINER_START_DEPTH), "--num_devices", "2",
+         "--device", "cuda:0"], cwd=REPO, stdout=log_file,
+        stderr=subprocess.STDOUT, text=True)
+    return {"proc": proc, "log": log_file, "log_path": log_path, "out": out,
+            "t0": time.perf_counter()}
+
+
+def spatial_train_cli_finish(cli):
+    """12(d)'s verdict: the command exits 0 within 600 s, finite losses in
+    metrics.jsonl, the log shows a (1 x 2) grid at both depths, the five
+    checkpoint files of tags 7_1 and 8_1 written once."""
+    try:
+        rc = cli["proc"].wait(timeout=600)
+    except subprocess.TimeoutExpired:
+        fail("12(d): the train CLI did not finish in 600 s")
+    wall = time.perf_counter() - cli["t0"]
+    cli["log"].flush()
+    if rc != 0:
+        with open(cli["log_path"]) as f:
+            fail(f"12(d): the train CLI exited {rc}:\n{f.read()[-6000:]}")
+    out = cli["out"]
+    with open(os.path.join(out, "metrics.jsonl")) as f:
+        rows = [json.loads(line) for line in f]
+    with open(os.path.join(out, "log.txt")) as f:
+        text = f.read()
+    if not rows or not all(math.isfinite(r["d_loss"]) and
+                           math.isfinite(r["g_loss"]) for r in rows):
+        fail(f"12(d): losses not finite: {rows}")
+    if text.count("Spatial grid: 1 data x 2 spatial ranks") != 2:
+        fail("12(d): the log does not show a (1 x 2) grid at both depths")
+    files = sorted(os.listdir(os.path.join(out, "models")))
+    want = sorted(f"GAN_{k}_{d}_1.npz" for d in (
+        TRAINER_START_DEPTH, TRAINER_START_DEPTH + 1) for k in (
+        "GEN", "DIS", "GEN_OPTIM", "DIS_OPTIM", "GEN_SHADOW"))
+    if files != want:
+        fail(f"12(d): checkpoint files {files}, want {want}")
+    report = {"wall_s": wall, "feedback_rows": len(rows),
+              "losses": [(r["d_loss"], r["g_loss"]) for r in rows],
+              "checkpoints": len(files)}
+    log(json.dumps({"phase12_cli": report}))
+    return report
+
+
 def main(argv=None):
     import argparse
     parser = argparse.ArgumentParser()
     parser.add_argument("--only", type=int, nargs="+", default=None,
-                        help="run only these of the phases 8-11 after the "
+                        help="run only these of the phases 8-12 after the "
                         "build (to try a change; prints no result line)")
     only = parser.parse_args(argv).only
     if not torch.cuda.is_available():
@@ -3650,7 +4195,8 @@ def main(argv=None):
                 "per_forward"], 0.0, {"img_per_s": 0.0}),
              9: lambda: phase_bf16(dev),
              10: lambda: phase_parallel(dev, {"ms_per_step": None}),
-             11: lambda: phase_spatial(dev)}[n]()
+             11: lambda: phase_spatial(dev),
+             12: lambda: phase_spatial_train(dev, {})}[n]()
             log(f"phase {n} alone: {time.perf_counter() - t0:.1f} s")
         return 0
 
@@ -3678,6 +4224,8 @@ def main(argv=None):
     split_calls = {f"n{n}": [r[f"b{BATCH}"]["calls"]
                              for r in p11["ranks"][f"n{n}"]["by_rank"]]
                    for n in SPATIAL_RANKS}
+    p12 = phase_spatial_train(dev, train)
+    k3s, d8 = p12["kernels"], p12["depth8"]
 
     kernels = [{
         "name": "epilogue", "route": "cuda",
@@ -3825,7 +4373,31 @@ def main(argv=None):
                   f"over phase 11(c)'s {SPATIAL_REQUESTS} batch-8 requests "
                   "on 2 ranks (launches_by_world: each rank's, 2 and 4 "
                   "ranks)",
-    } for entry, line in (("partial", "73"), ("apply", "101"))]
+    } for entry, line in (("partial", "73"), ("apply", "101"))] + [{
+        "name": f"epilogue_backward_{entry}", "route": "cuda",
+        "source": "stylegan_torch/csrc/epilogue.cu",
+        "replaces": "stylegan_tpu/ops/pallas/epilogue.py:139",
+        "launches": d8["calls_by_rank"][0][f"backward_{entry}"],
+        "launches_by_rank": [c[f"backward_{entry}"]
+                             for c in d8["calls_by_rank"]],
+        "max_abs_err": k3s["max_abs_err"],
+        "bar_ratio_vs_unsplit": k3s["bar_ratio_vs_unsplit"],
+        "ms": k3s["main"][f"{entry}_ms"],
+        "plain_ms": k3s["main"][f"plain_{entry}_ms"],
+        "bound_ms": k3s["main"][f"{entry}_bound_ms"], "bound_by": "bytes",
+        "library_ms": None,
+        "bf16_ms": k3s["bf16"][f"{entry}_ms"],
+        "bf16_bound_ms": k3s["bf16"][f"{entry}_bound_ms"],
+        "shapes": "one rank's 16 split backward calls of a batch-2 1024^2 "
+                  "G backward over 2 ranks (the stages 8^2 to 1024^2, R/2 "
+                  "rows each; dx, dnoise_weight, dstyle), float32, device "
+                  "time by CUDA graph replay (phase 12(a)); bf16_ms the "
+                  "same in bfloat16; max_abs_err the float32 split "
+                  "gradients' (and merged sums') against the split plain "
+                  "version; launches rank 0's over phase 12(c)'s "
+                  f"{SP_TRAIN_STEPS} depth-8 steps on a (1 x 2) grid "
+                  "(launches_by_rank: each rank's)",
+    } for entry in ("partial", "apply")]
     log(json.dumps({"serve_img_per_s": img_s, "batch": BATCH,
                     "resolution": 1024, "dtype": "float32"}))
     log(json.dumps({"train": {k: v for k, v in train.items()
@@ -3837,6 +4409,8 @@ def main(argv=None):
     log(json.dumps({"phase9": p9}))
     log(json.dumps({"phase10": p10}))
     log(json.dumps({"phase11": {k: v for k, v in p11.items()
+                                if k != "kernels"}}))
+    log(json.dumps({"phase12": {k: v for k, v in p12.items()
                                 if k != "kernels"}}))
     log(card)
     log(json.dumps({"kernels": kernels}))

@@ -22,9 +22,14 @@ device instead, so N devices are N ranks, each on its own card:
   process per card, over tcp://localhost) and waits for them, so the
   command line stays the JAX one.  Asking for more cards than are visible
   raises.  With ``--device cpu`` the ranks are gloo processes on the host,
-  the counterpart of JAX's forced host devices, and N is 1 unless asked.
+  the counterpart of JAX's forced host devices, and N is 1 unless asked;
+  ``--device cuda:i`` puts every rank on card i, over gloo (NCCL refuses
+  two ranks on one device).
 
-The trainer then sizes the group per depth (train/trainer.py).  Rank 0
+The trainer then sizes the group per depth (train/trainer.py); with the
+yaml's ``parallel.spatial`` (as ``train.py`` reads it) a depth whose batch
+leaves ranks idle trains on a (data, spatial) grid of them, each image's
+rows split over the spatial axis.  Rank 0
 alone makes ``output_dir`` and writes the log, checkpoints, grids and
 metrics; the other ranks log warnings only.
 """
@@ -124,10 +129,14 @@ def main(args):
     from stylegan_torch.parallel import (initialize_distributed,
                                          resolve_max_devices, spawn)
 
+    from stylegan_torch.cli.common import rank_backend
+
     device = resolve_device(args.device)
     opt = _config(args)
+    backend = rank_backend(args.device)
     if "RANK" in os.environ and "WORLD_SIZE" in os.environ:   # torchrun
         rank_device = initialize_distributed(device=args.device,
+                                             backend=backend,
                                              timeout=RANK_TIMEOUT)
         try:
             _train(args, opt, rank_device)
@@ -135,12 +144,14 @@ def main(args):
             torch.distributed.destroy_process_group()
         return
     n = resolve_max_devices(opt.parallel, args.num_devices, device)
-    if device.type == "cuda" and n > torch.cuda.device_count():
+    if device.type == "cuda" and device.index is None and \
+            n > torch.cuda.device_count():
         raise ValueError(f"{n} devices asked for, "
                          f"{torch.cuda.device_count()} visible")
     if n > 1:
-        spawn(_rank_main, n, (args,), device=device.type,
-              timeout=RANK_TIMEOUT)
+        spawn(_rank_main, n, (args,), backend=backend,
+              device=args.device if device.index is not None
+              else device.type, timeout=RANK_TIMEOUT)
     else:
         _train(args, opt, device)
 
@@ -176,7 +187,9 @@ def _train(args, opt, device):
         raise ValueError(f"{max_devices} devices asked for, the world has "
                          f"{device_count()} ranks")
     logger.info("Training on %s, up to %d rank(s), per-depth adaptive data "
-                "parallelism", device, max_devices)
+                "parallelism%s", device, max_devices,
+                f", up to {opt.parallel.spatial} spatial rank(s)"
+                if opt.parallel.spatial > 1 else "")
 
     apply_runtime_knobs(opt)
     if opt.precision.activations == "bfloat16":

@@ -95,6 +95,17 @@
 // partials, a ticket, and a fixed-order merge in the last block; no float
 // atomics.
 //
+// The split-plane backward serves a plane whose rows lie on several ranks
+// (the spatial train step): K3-partial (bwd_sums_kernel with PARTIAL) leaves
+// this rank's per-(b, c) (sum g, sum g * (y - mean)) over its rows, with
+// (mean, rstd) the merged statistics its forward saved, and its share of
+// dstyle; the ranks gather those and each adds them in rank order (on the
+// host's side of the launch), and K3-apply (bwd_dx_kernel with SPLIT) forms
+// the coefficients from the merged sums over the plane's row count and
+// writes this rank's dx, its share of dnoise_weight and its rows of dnoise.
+// Both take path 2's geometry at every slab size (sgt_epilogue_bwd_split_plan),
+// one launch each, and are bound by bytes as the unsplit passes are.
+//
 // Times on an NVIDIA H100 80GB HBM3 at 700 W are in PERF.md, measured by
 // chip_smoke.py; none is stated here.
 
@@ -903,21 +914,34 @@ onepass_bwd_kernel(const T* __restrict__ g, const T* __restrict__ x,
 }
 
 // ------------------------------------------------------ backward, path 2 --
+// coef = (mean, a, a * mean(g), a * r * mean(g * yh)) with a = (s0 + 1) * r,
+// from st = (mean, r) and the sums of g and g * (y - mean) over the plane's
+// rows (inv_rows = 1 / rows), so that pass 2 computes
+// dy = a * g - coef.z - (y - mean) * coef.w.
+__device__ __forceinline__ float4 bwd_coef(float2 st, float sum_g,
+                                           float sum_gym, float s0,
+                                           float inv_rows) {
+  const float sum_gy = sum_gym * st.y;  // * r: sum g * yh
+  const float a = (s0 + 1.f) * st.y;
+  return make_float4(st.x, a, a * sum_g * inv_rows,
+                     a * sum_gy * inv_rows * st.y);
+}
+
 // Pass 1: partials (sum g, sum g * (y - mean)) per (b, split, c); the last
 // block of a (b, chunk) adds the splits in a fixed order and writes dstyle
-// (when asked) and coef = (mean, a, a * mean(g), a * r * mean(g * yh)) with
-// a = (s0 + 1) * r, so that pass 2 computes
-// dy = a * g - coef.z - (y - mean) * coef.w.
-template <typename T, int VEC,
+// (when asked) and coef (bwd_coef).  With PARTIAL (K3-partial: this rank's
+// rows of a split plane) it writes the added sums into `sums` instead of
+// coef, and dstyle (when asked) as this rank's share; it reads no style.
+template <typename T, int VEC, bool PARTIAL = false,
           int UNROLL = VEC == 8 ? kBwdSumsUnrollBf16 : kBwdSumsUnroll>
 __global__ void __launch_bounds__(kThreads)
 bwd_sums_kernel(const T* __restrict__ g, const T* __restrict__ x,
                 const T* __restrict__ noise, const float* __restrict__ nw,
                 const float* __restrict__ style,
                 const float2* __restrict__ saved, float2* __restrict__ parts,
-                float4* __restrict__ coef, float* __restrict__ dstyle,
-                int* __restrict__ tickets, int64_t R, int C,
-                int64_t rows_per_split) {
+                float4* __restrict__ coef, float2* __restrict__ sums,
+                float* __restrict__ dstyle, int* __restrict__ tickets,
+                int64_t R, int C, int64_t rows_per_split) {
   __shared__ float s_g[kThreads * VEC];
   __shared__ float s_gy[kThreads * VEC];
   __shared__ int s_flag;
@@ -984,16 +1008,18 @@ bwd_sums_kernel(const T* __restrict__ g, const T* __restrict__ x,
   const int tid = ty * TX + tx, c = c_base + tid;
   if (tid < nch && c < C) {
     const float2 st = saved[(size_t)b * C + c];
-    const float sum_g = s_g[tid], sum_gy = s_gy[tid] * st.y;  // * r: sum g*yh
-    const float* sb = style + (size_t)b * 2 * C;
-    const float a = (sb[c] + 1.f) * st.y;
+    const float sum_g = s_g[tid], sum_gym = s_gy[tid];
     if (dstyle != nullptr) {
-      dstyle[(size_t)b * 2 * C + c] = sum_gy;
+      dstyle[(size_t)b * 2 * C + c] = sum_gym * st.y;  // * r: sum g * yh
       dstyle[(size_t)b * 2 * C + C + c] = sum_g;
     }
-    const float inv_r = 1.f / (float)R;
-    coef[(size_t)b * C + c] = make_float4(st.x, a, a * sum_g * inv_r,
-                                          a * sum_gy * inv_r * st.y);
+    if constexpr (PARTIAL) {
+      sums[(size_t)b * C + c] = make_float2(sum_g, sum_gym);
+    } else {
+      coef[(size_t)b * C + c] = bwd_coef(st, sum_g, sum_gym,
+                                         style[(size_t)b * 2 * C + c],
+                                         1.f / (float)R);
+    }
   }
   if (tid == 0) *ticket = 0;  // ready for the next call
 }
@@ -1003,7 +1029,11 @@ bwd_sums_kernel(const T* __restrict__ g, const T* __restrict__ x,
 // in the reverse of pass 1's order, so that it first re-reads what pass 1
 // read last (PERF.md).  Every thread runs the same row iterations, so that
 // the TX lanes of a row can add their channels' dn terms with warp shuffles.
-template <typename T, int VEC,
+// With SPLIT (K3-apply: this rank's rows of a split plane) each thread forms
+// its channels' coef itself (bwd_coef) from `saved`, the ranks' merged
+// `sums` and style, over the plane's rows (inv_rows), instead of reading
+// pass 1's; dnw is then this rank's share.
+template <typename T, int VEC, bool SPLIT = false,
           int UNROLL = VEC == 8 ? kBwdDxUnrollBf16 : kBwdDxUnroll>
 __global__ void __launch_bounds__(kThreads)
 bwd_dx_kernel(const T* __restrict__ g, const T* __restrict__ x,
@@ -1012,7 +1042,10 @@ bwd_dx_kernel(const T* __restrict__ g, const T* __restrict__ x,
               float* __restrict__ dnw, T* __restrict__ dn,
               float* __restrict__ dnw_parts, float* __restrict__ dn_parts,
               int* __restrict__ tickets_w, int* __restrict__ tickets_n,
-              int64_t R, int C, int64_t rows_per_split) {
+              int64_t R, int C, int64_t rows_per_split,
+              const float2* __restrict__ saved,
+              const float2* __restrict__ sums,
+              const float* __restrict__ style, float inv_rows) {
   __shared__ float s_w[kThreads * VEC];
   __shared__ int s_flag;
   const int tx = threadIdx.x, ty = threadIdx.y;
@@ -1030,8 +1063,17 @@ bwd_dx_kernel(const T* __restrict__ g, const T* __restrict__ x,
   float w[VEC], mean[VEC], a[VEC], k0[VEC], k1[VEC], acc[VEC];
 #pragma unroll
   for (int i = 0; i < VEC; ++i) {
-    const float4 k = active ? coef[(size_t)b * C + c0 + i]
-                            : make_float4(0.f, 0.f, 0.f, 0.f);
+    float4 k = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (active) {
+      const size_t bc = (size_t)b * C + c0 + i;
+      if constexpr (SPLIT) {
+        const float2 sm = sums[bc];
+        k = bwd_coef(saved[bc], sm.x, sm.y, style[(size_t)b * 2 * C + c0 + i],
+                     inv_rows);
+      } else {
+        k = coef[bc];
+      }
+    }
     w[i] = active ? nw[c0 + i] : 0.f;
     mean[i] = k.x;
     a[i] = k.y;
@@ -1226,13 +1268,65 @@ cudaError_t launch_bwd(const SgtBwdPlan& p, const void* gv, const void* xv,
   }
   const dim3 grid(p.splits, p.chunks, B);
   bwd_sums_kernel<T, VEC><<<grid, block, 0, stream>>>(
-      g, x, noise, nw, style, saved, parts, coef, dstyle, tickets, R, C,
-      p.rows_per_split);
+      g, x, noise, nw, style, saved, parts, coef, nullptr, dstyle, tickets, R,
+      C, p.rows_per_split);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   bwd_dx_kernel<T, VEC><<<grid, block, 0, stream>>>(
       g, x, noise, nw, coef, dx, dnw, dn, dnw_parts, dn_parts, tickets_w,
-      tickets_n, R, C, p.rows_per_split);
+      tickets_n, R, C, p.rows_per_split, nullptr, nullptr, nullptr, 0.f);
+  return cudaGetLastError();
+}
+
+// The split-plane backward (a plane whose rows lie on several ranks), on a
+// plan of sgt_epilogue_bwd_split_plan: K3-partial writes this rank's
+// (sum g, sum g * (y - mean)) per (b, c) over its R rows into `sums` and,
+// where dstyle is not null, this rank's share of dstyle; after the caller's
+// rank-order sum, K3-apply writes dx, dnw (this rank's share) and dn from the
+// merged sums over the plane's rows.  Their workspace parts do not overlap:
+// K3-partial takes the pass-1 partials and tickets, K3-apply the dnw and dn
+// partials and their tickets.
+template <typename T, int VEC>
+cudaError_t launch_bwd_partial(const SgtBwdPlan& p, const void* gv,
+                               const void* xv, const void* noisev,
+                               const void* nwv, const void* savedv,
+                               void* sumsv, void* dstylev, void* workspace,
+                               int B, int64_t R, int C, cudaStream_t stream) {
+  unsigned char* ws = static_cast<unsigned char*>(workspace);
+  bwd_sums_kernel<T, VEC, true>
+      <<<dim3(p.splits, p.chunks, B), dim3(p.tx, p.ty), 0, stream>>>(
+          static_cast<const T*>(gv), static_cast<const T*>(xv),
+          static_cast<const T*>(noisev), static_cast<const float*>(nwv),
+          nullptr, static_cast<const float2*>(savedv),
+          reinterpret_cast<float2*>(ws), nullptr,
+          static_cast<float2*>(sumsv), static_cast<float*>(dstylev),
+          reinterpret_cast<int*>(ws + p.tickets_offset), R, C,
+          p.rows_per_split);
+  return cudaGetLastError();
+}
+
+template <typename T, int VEC>
+cudaError_t launch_bwd_apply(const SgtBwdPlan& p, const void* gv,
+                             const void* xv, const void* noisev,
+                             const void* nwv, const void* stylev,
+                             const void* savedv, const void* sumsv,
+                             long long plane_rows, void* dxv, void* dnwv,
+                             void* dnv, void* workspace, int B, int64_t R,
+                             int C, cudaStream_t stream) {
+  unsigned char* ws = static_cast<unsigned char*>(workspace);
+  int* tickets_w =
+      reinterpret_cast<int*>(ws + p.tickets_offset) + (size_t)B * p.chunks;
+  bwd_dx_kernel<T, VEC, true>
+      <<<dim3(p.splits, p.chunks, B), dim3(p.tx, p.ty), 0, stream>>>(
+          static_cast<const T*>(gv), static_cast<const T*>(xv),
+          static_cast<const T*>(noisev), static_cast<const float*>(nwv),
+          nullptr, static_cast<T*>(dxv), static_cast<float*>(dnwv),
+          static_cast<T*>(dnv), reinterpret_cast<float*>(ws + p.dnw_offset),
+          reinterpret_cast<float*>(ws + p.dn_offset), tickets_w,
+          tickets_w + p.chunks, R, C, p.rows_per_split,
+          static_cast<const float2*>(savedv),
+          static_cast<const float2*>(sumsv), static_cast<const float*>(stylev),
+          1.f / (float)plane_rows);
   return cudaGetLastError();
 }
 
@@ -1347,6 +1441,68 @@ extern "C" int sgt_epilogue_apply(const void* x, const void* noise,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define SGT_LAUNCH(T, V) \
   launch_apply<T, V>(p, x, noise, noise_weight, style, stats, out, B, R, C, s)
+  if (!is_bf16 && p.vec == 4) return (int)SGT_LAUNCH(float, 4);
+  if (!is_bf16 && p.vec == 1) return (int)SGT_LAUNCH(float, 1);
+  if (is_bf16 && p.vec == 8) return (int)SGT_LAUNCH(__nv_bfloat16, 8);
+  if (is_bf16 && p.vec == 1) return (int)SGT_LAUNCH(__nv_bfloat16, 1);
+#undef SGT_LAUNCH
+  return (int)cudaErrorInvalidValue;
+}
+
+// K3-partial: this rank's (sum g, sum g * (y - mean)) per (b, c) over its R
+// rows of a split plane into `sums`, (B, C) float2, and, where dstyle is not
+// null, its share of dstyle, (B, 2C) float32: [sum g * yh | sum g].  saved
+// is the (B, C) float2 (mean, rstd) merged over the plane that the split
+// forward saved.  g and x (B, R, C) and noise (B, R) in one dtype,
+// noise_weight (C,) float32; the plan is sgt_epilogue_bwd_split_plan's, the
+// workspace its workspace_bytes with the tickets zero, which the kernel
+// leaves at zero.  One launch on `stream`; returns 0 or a cudaError_t.
+extern "C" int sgt_epilogue_backward_partial(
+    const void* g, const void* x, const void* noise, const void* noise_weight,
+    const void* saved, void* sums, void* dstyle, void* workspace,
+    long long workspace_bytes, int is_bf16, int B, long long R, int C,
+    const SgtBwdPlan* plan, void* stream) {
+  const SgtBwdPlan& p = *plan;
+  const bool aligned = (((uintptr_t)g | (uintptr_t)x) % 16) == 0;
+  if (p.path != 2 || (p.vec > 1 && !aligned) ||
+      p.workspace_bytes > workspace_bytes)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define SGT_LAUNCH(T, V)                                                    \
+  launch_bwd_partial<T, V>(p, g, x, noise, noise_weight, saved, sums, dstyle, \
+                           workspace, B, R, C, s)
+  if (!is_bf16 && p.vec == 4) return (int)SGT_LAUNCH(float, 4);
+  if (!is_bf16 && p.vec == 1) return (int)SGT_LAUNCH(float, 1);
+  if (is_bf16 && p.vec == 8) return (int)SGT_LAUNCH(__nv_bfloat16, 8);
+  if (is_bf16 && p.vec == 1) return (int)SGT_LAUNCH(__nv_bfloat16, 1);
+#undef SGT_LAUNCH
+  return (int)cudaErrorInvalidValue;
+}
+
+// K3-apply: dx (B, R, C), this rank's share of dnoise_weight (C,) float32
+// and its rows of dnoise (B, R), each where not null, from `sums`, the
+// (B, C) float2 that every rank's K3-partial gave, added in rank order, over
+// the plane's `plane_rows` rows; style (B, 2C) float32 and saved as for
+// K3-partial.  The plan is sgt_epilogue_bwd_split_plan's (want_dn as dn is
+// given), the workspace its workspace_bytes with the tickets zero.  One
+// launch on `stream`; returns 0 or a cudaError_t.
+extern "C" int sgt_epilogue_backward_apply(
+    const void* g, const void* x, const void* noise, const void* noise_weight,
+    const void* style, const void* saved, const void* sums,
+    long long plane_rows, void* dx, void* dnw, void* dn, void* workspace,
+    long long workspace_bytes, int is_bf16, int B, long long R, int C,
+    const SgtBwdPlan* plan, void* stream) {
+  const SgtBwdPlan& p = *plan;
+  const bool aligned =
+      (((uintptr_t)g | (uintptr_t)x | (uintptr_t)dx) % 16) == 0;
+  if (p.path != 2 || (p.vec > 1 && !aligned) ||
+      p.workspace_bytes > workspace_bytes || plane_rows < R ||
+      (dn != nullptr && p.chunks > 1 && !p.dn_partials))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define SGT_LAUNCH(T, V)                                                     \
+  launch_bwd_apply<T, V>(p, g, x, noise, noise_weight, style, saved, sums,  \
+                         plane_rows, dx, dnw, dn, workspace, B, R, C, s)
   if (!is_bf16 && p.vec == 4) return (int)SGT_LAUNCH(float, 4);
   if (!is_bf16 && p.vec == 1) return (int)SGT_LAUNCH(float, 1);
   if (is_bf16 && p.vec == 8) return (int)SGT_LAUNCH(__nv_bfloat16, 8);

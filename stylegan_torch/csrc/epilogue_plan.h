@@ -11,9 +11,9 @@
 //   2  two-pass: a first pass whose last block per (b, chunk) merges the row
 //      splits, then a second pass; two launches.
 //
-// Exported: sgt_epilogue_plan, sgt_epilogue_split_plan and
-// sgt_epilogue_bwd_plan (defined once, in the translation unit that includes
-// this header: the kernel library or the test's shim).
+// Exported: sgt_epilogue_plan, sgt_epilogue_split_plan, sgt_epilogue_bwd_plan
+// and sgt_epilogue_bwd_split_plan (defined once, in the translation unit that
+// includes this header: the kernel library or the test's shim).
 
 #ifndef SGT_EPILOGUE_PLAN_H_
 #define SGT_EPILOGUE_PLAN_H_
@@ -256,17 +256,19 @@ inline int make_split_plan(int is_bf16, int B, long long R, int C,
 
 // The backward's plan: one pass where the slabs of g and x fit on chip (as
 // the forward's path 1), else two passes over the forward's two-pass chunks
-// with the backward's own split target.
+// with the backward's own split target.  `split` (the split-plane backward,
+// K3-partial then K3-apply on each rank's rows of a plane split over ranks)
+// takes the two-pass geometry at every size, one launch per entry.
 // `aligned`: g, x and dx start on 16-byte boundaries.
 inline int make_bwd_plan(int is_bf16, int B, long long R, int C, int aligned,
-                         int want_dn, SgtBwdPlan* out) {
+                         int want_dn, SgtBwdPlan* out, bool split = false) {
   if (!valid_call(B, R, C)) return -1;
   SgtBwdPlan p = {};
   const int elem = is_bf16 ? 2 : 4;
   int max_tx = 1;
   lanes(is_bf16, C, aligned, &p.vec, &max_tx);
   OnePass f;
-  if (fit_one_pass(p.vec, elem, 2, B, R, C, max_tx, &f)) {
+  if (!split && fit_one_pass(p.vec, elem, 2, B, R, C, max_tx, &f)) {
     p.path = 1;
     p.tx = f.tx;
     // the last block's merges give each channel ty / vec >= 1 threads
@@ -283,7 +285,7 @@ inline int make_bwd_plan(int is_bf16, int B, long long R, int C, int aligned,
     p.rows_per_split =
         split_rows(kTargetBwdBlocks, B, R, cdiv(C, p.tx * p.vec), p.ty);
     p.splits = (int)cdiv(R, p.rows_per_split);
-    p.launches = 2;
+    p.launches = split ? 1 : 2;
   }
   p.chunk_c = p.tx * p.vec;
   p.chunks = (int)cdiv(C, p.chunk_c);
@@ -320,6 +322,12 @@ extern "C" int sgt_epilogue_bwd_plan(int is_bf16, int B, long long R, int C,
                                      int aligned, int want_dn,
                                      SgtBwdPlan* plan) {
   return sgt::make_bwd_plan(is_bf16, B, R, C, aligned, want_dn, plan);
+}
+
+extern "C" int sgt_epilogue_bwd_split_plan(int is_bf16, int B, long long R,
+                                           int C, int aligned, int want_dn,
+                                           SgtBwdPlan* plan) {
+  return sgt::make_bwd_plan(is_bf16, B, R, C, aligned, want_dn, plan, true);
 }
 
 #endif  // SGT_EPILOGUE_PLAN_H_

@@ -21,6 +21,14 @@ Data-parallel exactness: every loss takes ``axis_name``, a parallel.Mesh
 each batch mean is the group's mean of the shards' means (JAX's pmean) and
 the R1 penalty the group's sum (psum), so every rank computes the
 global-batch loss; parallel/distributed.py says how its gradient is taken.
+
+Spatial exactness (the spatial train step): a `dis_fn` with a ``spatial``
+attribute (a parallel.halo.SpatialContext of n ranks) takes this rank's
+rows of the images and gives the whole scores on every rank of its row.
+The input gradient of R1 and the gradient penalty is then seeded 1/n on
+each rank, so that the n seeds through the gather's transpose give each
+slab its true rows of dD/dx; R1's per-pixel sum and the penalty's squared
+per-sample norms are summed over the row before anything else.
 """
 
 from __future__ import annotations
@@ -30,6 +38,7 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
+from .parallel import halo
 from .parallel.distributed import pmean, psum
 
 
@@ -102,17 +111,29 @@ def relativistic_hinge_gen_loss(dis_fn, reals, fakes, axis_name=None):
 
 def _input_grad(dis_fn, x):
     """d sum(D(x)) / dx, kept differentiable (create_graph) so that the
-    penalty's backward reaches D's parameters."""
+    penalty's backward reaches D's parameters; over a spatial row, each
+    rank's rows of it (seeded 1/n: the module docstring)."""
     x = x.detach().requires_grad_(True)
-    (grad,) = torch.autograd.grad(dis_fn(x).sum(), x, create_graph=True)
+    scores = dis_fn(x).sum()
+    spatial = getattr(dis_fn, "spatial", None)
+    if spatial is not None:
+        scores = scores / spatial.n
+    (grad,) = torch.autograd.grad(scores, x, create_graph=True)
     return grad
+
+
+def _row_sum(t, dis_fn):
+    """t summed over the dis_fn's spatial row (itself where there is
+    none)."""
+    spatial = getattr(dis_fn, "spatial", None)
+    return t if spatial is None else halo.psum(t, spatial)
 
 
 def r1_penalty(dis_fn, reals, axis_name=None):
     """Sum over batch and pixels of ||dD(x)/dx||^2 (Losses.py:197-211):
     the reference *sums* over the batch, and so does this (over the
     group's global batch, given `axis_name`)."""
-    pen = _input_grad(dis_fn, reals).square().sum()
+    pen = _row_sum(_input_grad(dis_fn, reals).square().sum(), dis_fn)
     return pen if axis_name is None else psum(pen, axis_name)
 
 
@@ -153,7 +174,8 @@ def gradient_penalty(dis_fn, reals, fakes,
                          device=reals.device, dtype=reals.dtype)
     merged = (eps * reals + (1.0 - eps) * fakes).detach()
     grads = _input_grad(dis_fn, merged)
-    norms = torch.sqrt(grads.reshape(b, -1).square().sum(dim=1) + 1e-12)
+    sq = _row_sum(grads.reshape(b, -1).square().sum(dim=1), dis_fn)
+    norms = torch.sqrt(sq + 1e-12)
     return _mean(torch.square(norms - 1.0), axis_name)
 
 

@@ -12,6 +12,15 @@ NHWC tensors, as in the generator.
 
 The head flattens the 4x4 map in channel-major (NCHW) order, so the dense
 weights stay interchangeable with the reference's (View(-1), Blocks.py:127).
+
+With ``spatial`` (a parallel.halo.SpatialContext of n ranks: the spatial
+train step) the images are this rank's slab of rows: a stage of side
+res >= 4n runs on slabs (from_rgb per pixel; the 3x3 convs, the pre-blur and
+the fused stride-2 downscale with one halo row of each neighbour; the small
+downscale's 2x2 pool and the fade's pooled residual row-aligned), and the
+first stage that does not split gathers the rows (``gather_rows``), the
+mirror of the generator's cut: the 4x4 head for n = 2, from 8x8 for n = 4.
+The head, minibatch stddev inside it, runs whole on every rank of the row.
 """
 
 from __future__ import annotations
@@ -27,6 +36,7 @@ from torch.utils.checkpoint import checkpoint
 from ..ops import (EqualizedConv2d, EqualizedLinear, avg_pool2d, leaky_relu,
                    make_blur_kernel, minibatch_stddev)
 from ..ops.primitives import to_nchw
+from ..parallel import halo
 from .configs import DiscriminatorConfig
 
 _GAIN = math.sqrt(2)
@@ -47,11 +57,12 @@ class DiscriminatorBlock(nn.Module):
         self.conv0 = EqualizedConv2d(in_ch, in_ch, 3, **kw)
         self.conv1_down = EqualizedConv2d(in_ch, out_ch, 3, **kw)
 
-    def forward(self, x: torch.Tensor,
-                blur_kernel: torch.Tensor) -> torch.Tensor:
-        x = self.act(self.conv0(x))
+    def forward(self, x: torch.Tensor, blur_kernel: torch.Tensor,
+                spatial=None) -> torch.Tensor:
+        x = self.act(self.conv0(x, spatial=spatial))
         return self.act(self.conv1_down(x, downscale=True,
-                                        pre_blur_kernel=blur_kernel))
+                                        pre_blur_kernel=blur_kernel,
+                                        spatial=spatial))
 
 
 class DiscriminatorTop(nn.Module):
@@ -129,24 +140,47 @@ class Discriminator(nn.Module):
         return emb
 
     def _label_planes(self, idx: int, images: torch.Tensor,
-                      labels: torch.Tensor) -> torch.Tensor:
+                      labels: torch.Tensor, spatial=None) -> torch.Tensor:
         """The label embedding as image planes, channel-concatenated
-        (reference GAN.py:402-437; its view is NCHW, channel-major)."""
-        b, h, w, _ = images.shape
+        (reference GAN.py:402-437; its view is NCHW, channel-major); on a
+        slab of rows (`spatial`), the slab's rows of the square planes."""
+        b, _, w, _ = images.shape
         emb = F.embedding(labels, self.embeddings[idx].weight)
-        emb = emb.reshape(b, -1, h, w).permute(0, 2, 3, 1)
+        emb = emb.reshape(b, -1, w, w).permute(0, 2, 3, 1)
+        if spatial is not None:
+            emb = halo.take_rows(emb, spatial)
         return torch.cat([images, emb.to(images.dtype)], dim=-1)
 
-    def _block(self, i: int, x: torch.Tensor) -> torch.Tensor:
-        """Block i, recomputed in the backward pass when cfg.remat."""
+    def _block(self, i: int, x: torch.Tensor, spatial=None) -> torch.Tensor:
+        """Block i (input side 2^(resolution_log2 - i)), recomputed in the
+        backward pass when cfg.remat; on slabs where its input splits over
+        `spatial` (and then not recomputed)."""
+        if halo.splits(2 ** (self.cfg.resolution_log2 - i), spatial):
+            return self.blocks[i](x, self.blur_kernel, spatial)
         if self.cfg.remat and torch.is_grad_enabled():
             return checkpoint(self.blocks[i], x, self.blur_kernel,
                               use_reentrant=False)
         return self.blocks[i](x, self.blur_kernel)
 
+    def _down(self, i: int, x: torch.Tensor, spatial=None) -> torch.Tensor:
+        """Block i, its output gathered whole where it stops splitting."""
+        return self._whole(self._block(i, x, spatial),
+                           2 ** (self.cfg.resolution_log2 - i - 1), spatial)
+
+    @staticmethod
+    def _whole(x, res, spatial):
+        """x at side `res`, gathered whole where the stage above split and
+        this one does not."""
+        if halo.splits(2 * res, spatial) and not halo.splits(res, spatial):
+            return halo.gather_rows(x, spatial)
+        return x
+
     def forward(self, images: torch.Tensor, depth: int, alpha=1.0,
                 labels: Optional[torch.Tensor] = None,
-                mbstd_chunks: int = 1, mbstd_axis=None) -> torch.Tensor:
+                mbstd_chunks: int = 1, mbstd_axis=None,
+                spatial=None) -> torch.Tensor:
+        """images: (B, H, W, C), or with `spatial` this rank's rows of them
+        (the module docstring) -> scores (B, 1) on every rank."""
         cfg = self.cfg
         assert depth < cfg.depth, "Requested output depth cannot be produced"
         if cfg.conditional and labels is None:
@@ -154,10 +188,10 @@ class Discriminator(nn.Module):
 
         if cfg.structure == "fixed":
             if cfg.conditional:
-                images = self._label_planes(0, images, labels)
+                images = self._label_planes(0, images, labels, spatial)
             x = self.from_rgb[0](images)
             for i in range(len(self.blocks)):
-                x = self._block(i, x)
+                x = self._down(i, x, spatial)
             return self.final_block(x, mbstd_chunks, mbstd_axis)
         if cfg.structure != "linear":
             raise KeyError(f"Unknown structure: {cfg.structure}")
@@ -165,16 +199,17 @@ class Discriminator(nn.Module):
         if depth > 0:
             top = cfg.depth - depth - 1      # the block at this resolution
             if cfg.conditional:
-                images = self._label_planes(top, images, labels)
+                images = self._label_planes(top, images, labels, spatial)
             residual = self.from_rgb[top + 1](avg_pool2d(images, 2))
-            straight = self._block(top, self.from_rgb[top](images))
+            straight = self._block(top, self.from_rgb[top](images), spatial)
             # blend in the activation dtype (alpha may be a float32 tensor)
             x = (alpha * straight + (1.0 - alpha) * residual).to(
                 straight.dtype)
+            x = self._whole(x, 2 ** (depth + 1), spatial)
             for i in range(top + 1, len(self.blocks)):
-                x = self._block(i, x)
+                x = self._down(i, x, spatial)
         else:
             if cfg.conditional:
-                images = self._label_planes(-1, images, labels)
+                images = self._label_planes(-1, images, labels, spatial)
             x = self.from_rgb[-1](images)
         return self.final_block(x, mbstd_chunks, mbstd_axis)

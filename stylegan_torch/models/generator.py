@@ -26,6 +26,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops import truncate_dlatents, update_moving_average
+from ..parallel.distributed import broadcast_
 from .configs import GeneratorConfig
 from .mapping import GMapping
 from .synthesis import GSynthesis, stream_seed
@@ -92,10 +93,13 @@ class Generator(nn.Module):
     def forward(self, latents: torch.Tensor, depth: int, alpha=1.0,
                 seed: Optional[int] = None, train: bool = False,
                 labels: Optional[torch.Tensor] = None, noises=None,
-                mixing=None, spatial=None) -> GeneratorOutput:
+                mixing=None, spatial=None, avg_from=None) -> GeneratorOutput:
         """latents: (B, latent_size) -> images (B, H, W, C); with `spatial`
         (a parallel.halo.SpatialContext) this rank's rows of them
-        (GSynthesis.forward)."""
+        (GSynthesis.forward).  `avg_from` (a parallel.Mesh whose rank 0
+        holds the global batch's first sample, where `latents` is a shard of
+        it): train mode's W average is updated from that sample's W on every
+        rank, as the forward on the global batch updates it."""
         cfg = self.cfg
         if cfg.conditional:
             if labels is None:
@@ -108,7 +112,11 @@ class Generator(nn.Module):
         new_avg = self.truncation.avg_latent if cfg.use_truncation else None
         if train:
             if cfg.use_truncation:
-                new_avg = update_moving_average(new_avg, dlatents[0, 0].detach(),
+                w0 = dlatents[0, 0].detach()
+                if avg_from is not None:
+                    w0 = w0.clone()
+                    broadcast_([w0], avg_from)
+                new_avg = update_moving_average(new_avg, w0,
                                                 cfg.dlatent_avg_beta)
             if cfg.style_mixing_prob is not None and cfg.style_mixing_prob > 0:
                 if mixing is None:

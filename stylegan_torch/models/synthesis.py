@@ -213,9 +213,10 @@ class GSynthesis(nn.Module):
         A Python `alpha` equal to 1.0 (fade complete) skips the residual
         branch; a tensor alpha always blends (reference GAN.py:175-208).
 
-        `spatial` (a parallel.halo.SpatialContext of n ranks; forward only)
-        splits each image by height: a stage of side res >= 4n runs on this
-        rank's slab of res/n rows, and the images returned are the rank's
+        `spatial` (a parallel.halo.SpatialContext of n ranks) splits each
+        image by height: a stage of side res >= 4n runs on this rank's slab
+        of res/n rows (differentiable, once through the epilogue; not
+        recomputed under cfg.remat), and the images returned are the rank's
         rows (B, H/n, W, C).  Shorter stages run whole on every rank, and
         the rank cuts its slab from the input of the first stage that
         splits: 8x8 for n = 2 (the 4x4 stage whole), 16x16 for n = 4 (4x4

@@ -15,15 +15,26 @@ registers (`_reference_epilogue`): a program that ``torch.export`` traces
 anywhere holds the op's node, and launches the kernel once moved to the
 card.
 
-On a slab of rows of a plane split over ranks (the spatial serving path,
+On a slab of rows of a plane split over ranks (the spatial path,
 ``parallel/spatial.py``) no rank sees the whole plane, so the epilogue runs
-split, forward only: K1-partial (``stylegan_torch::epilogue_partial``)
+split: K1-partial (``stylegan_torch::epilogue_partial``)
 gives this rank's per-(b, c) (mean, M2), the ranks gather those and each
 merges them in rank order with Chan's formula (`split_stats`: every rank
 gets the same bits), and K2-apply (``stylegan_torch::epilogue_apply``)
 normalises and modulates this rank's rows.  The ops launch the kernels on
 the card; their CPU implementations, registered here, are the plain
 versions `_reference_partial` and `_reference_apply`.
+
+Under autograd (the spatial train step) the split form is `_SplitEpilogue`,
+whose forward is the same and keeps the merged (mean, rstd), and whose
+backward is split the same way: K3-partial
+(``stylegan_torch::epilogue_backward_partial``) gives this rank's per-(b, c)
+(sum g, sum g * (y - mean)) and its share of dstyle, the ranks gather the
+sums and each adds them in rank order, and K3-apply
+(``stylegan_torch::epilogue_backward_apply``) gives dx, this rank's share of
+dnoise_weight and its rows of dnoise from them.  The plain versions are
+`_reference_backward_partial` and `_reference_backward_apply`.  Like the
+unsplit kernels' backward, it differentiates once.
 """
 
 from __future__ import annotations
@@ -31,7 +42,9 @@ from __future__ import annotations
 import torch
 
 from ..parallel import halo
-from .kernels.epilogue import (epilogue_apply_op, epilogue_op,
+from .kernels.epilogue import (epilogue_apply_op,
+                               epilogue_backward_apply_op,
+                               epilogue_backward_partial_op, epilogue_op,
                                epilogue_partial_op, kernel_epilogue,
                                needs_grad)
 from .primitives import (_f32_stats, add_noise, instance_norm, leaky_relu,
@@ -99,12 +112,18 @@ def _reference_partial(x, noise_weight, noise):
     return moments(_f32_stats(leaky_relu(add_noise(x, noise_weight, noise))))
 
 
+def split_moments(parts, rows: int):
+    """The plane's per-(b, c) (mean, rstd) from the ranks' K1-partials
+    `parts` (n, B, C, 2), each over `rows` rows, merged in rank order."""
+    mean, m2, count = merge_moments(parts, rows)
+    return mean, torch.rsqrt(m2 / count + EPS)
+
+
 def split_stats(parts, rows: int, style):
     """The (B, C, 2) (mean, rstd * (s0 + 1)) K2-apply reads, from the
     ranks' K1-partials `parts` (n, B, C, 2), each over `rows` rows, merged
     in rank order."""
-    mean, m2, count = merge_moments(parts, rows)
-    rstd = torch.rsqrt(m2 / count + EPS)
+    mean, rstd = split_moments(parts, rows)
     s0 = style[:, :mean.shape[-1]].to(rstd.dtype)
     return torch.stack([mean, rstd * (s0 + 1.0)], dim=-1)
 
@@ -122,9 +141,62 @@ def _reference_apply(x, noise_weight, noise, style, stats):
     return out.to(x.dtype)
 
 
+def _backward_terms(g, x, noise_weight, noise, saved):
+    """(wide dtype, g, noise, u = x + nw * noise, y - mean with y =
+    lrelu(u), rstd) over x's rows, in float32 or wider."""
+    wide = torch.promote_types(x.dtype, torch.float32)
+    nf = noise.to(wide)
+    u = x.to(wide) + noise_weight.to(wide) * nf
+    st = saved.to(wide)
+    return (wide, g.to(wide), nf, u,
+            torch.where(u < 0, u * 0.2, u) - st[:, None, None, :, 0],
+            st[..., 1])
+
+
+def _reference_backward_partial(g, x, noise_weight, noise, saved):
+    """K3-partial's plain version: ((B, C, 2) (sum g, sum g * (y - mean))
+    over x's rows, (B, 2C) dstyle share [sum g * yh | sum g]) in float32
+    (or wider), with `saved` the plane's (B, C, 2) (mean, rstd)."""
+    global plain_calls
+    plain_calls += 1
+    _, gf, _, _, centred, rstd = _backward_terms(g, x, noise_weight, noise,
+                                                 saved)
+    sg = gf.sum((1, 2))
+    sgy = (gf * centred).sum((1, 2))
+    return torch.stack([sg, sgy], dim=-1), torch.cat([sgy * rstd, sg], 1)
+
+
+def _reference_backward_apply(g, x, noise_weight, noise, style, saved, sums,
+                              rows, needs):
+    """K3-apply's plain version: of (dx, dnoise_weight share, dnoise rows)
+    over x's rows those asked for by `needs`, from the ranks' merged
+    `sums` over the plane's `rows` rows (the formula of
+    _reference_epilogue_vjp with the plane's means), in the inputs'
+    dtypes."""
+    global plain_calls
+    plain_calls += 1
+    wide, gf, nf, u, centred, rstd = _backward_terms(g, x, noise_weight,
+                                                     noise, saved)
+    c = x.shape[-1]
+    r = rstd[:, None, None, :]
+    a = (style.to(wide)[:, :c][:, None, None, :] + 1.0) * r
+    sm = sums.to(wide)[:, None, None, :, :]
+    dy = a * gf - a * sm[..., 0] / rows \
+        - centred * (a * (sm[..., 1] * r) / rows * r)
+    du = torch.where(u < 0, dy * 0.2, dy)
+    grads = (lambda: du.to(x.dtype),
+             lambda: (du * nf).sum((0, 1, 2)).to(noise_weight.dtype),
+             lambda: (du * noise_weight.to(wide)).sum(-1, keepdim=True)
+             .to(noise.dtype))
+    return [d() for d, need in zip(grads, needs) if need]
+
+
 epilogue_op.register_kernel("cpu")(_reference_epilogue)
 epilogue_partial_op.register_kernel("cpu")(_reference_partial)
 epilogue_apply_op.register_kernel("cpu")(_reference_apply)
+epilogue_backward_partial_op.register_kernel("cpu")(
+    _reference_backward_partial)
+epilogue_backward_apply_op.register_kernel("cpu")(_reference_backward_apply)
 
 
 class _PlainEpilogue(torch.autograd.Function):
@@ -160,7 +232,7 @@ def fused_epilogue(x: torch.Tensor, noise_weight: torch.Tensor,
 
     With `spatial` (a parallel.halo.SpatialContext) x and noise are this
     rank's slab of rows of the plane: the split form of the module
-    docstring, forward only.
+    docstring, differentiable once.
     """
     if spatial is not None:
         return _split_epilogue(x, noise_weight, noise, style, spatial)
@@ -175,12 +247,56 @@ def fused_epilogue(x: torch.Tensor, noise_weight: torch.Tensor,
 
 
 def _split_epilogue(x, noise_weight, noise, style, spatial):
-    if needs_grad(x, noise_weight, noise, style):
-        raise ValueError("the split epilogue (a slab of rows) is a forward "
-                         "only: call it without a gradient to record")
     if x.device.type == "cuda":
         style = style.to(torch.float32)
+    if needs_grad(x, noise_weight, noise, style):
+        return _SplitEpilogue.apply(x, noise_weight, noise, style, spatial)
     partial = epilogue_partial_op(x, noise_weight, noise)
     stats = split_stats(halo.all_gather(partial, spatial),
                         x.shape[1] * x.shape[2], style)
     return epilogue_apply_op(x, noise_weight, noise, style, stats)
+
+
+class _SplitEpilogue(torch.autograd.Function):
+    """The split epilogue under autograd (the module docstring): the
+    forward keeps the merged (mean, rstd) as the backward's `saved`, the
+    backward runs K3-partial, the rank-order sum of the gathered sums and
+    K3-apply.  Each rank's dstyle and dnoise_weight are its slab's share:
+    it holds style and noise_weight whole, but they reach only its rows."""
+
+    @staticmethod
+    def forward(ctx, x, noise_weight, noise, style, spatial):
+        rows = x.shape[1] * x.shape[2]
+        partial = epilogue_partial_op(x, noise_weight, noise)
+        mean, rstd = split_moments(halo.all_gather(partial, spatial), rows)
+        s0 = style[:, :mean.shape[-1]].to(rstd.dtype)
+        out = epilogue_apply_op(x, noise_weight, noise, style,
+                                torch.stack([mean, rstd * (s0 + 1.0)], -1))
+        ctx.save_for_backward(x, noise_weight, noise, style,
+                              torch.stack([mean, rstd], -1))
+        ctx.spatial = spatial
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        # autograd runs a backward with grad mode on only for create_graph
+        if torch.is_grad_enabled():
+            raise RuntimeError(
+                "the split epilogue's backward is once differentiable: a "
+                "second derivative through it (create_graph=True) is not "
+                "implemented")
+        x, noise_weight, noise, style, saved = ctx.saved_tensors
+        g = g.contiguous()
+        sums, dstyle = epilogue_backward_partial_op(g, x, noise_weight, noise,
+                                                    saved)
+        parts = halo.all_gather(sums, ctx.spatial)
+        merged = parts[0]
+        for k in range(1, parts.shape[0]):
+            merged = merged + parts[k]
+        needs = list(ctx.needs_input_grad[:3])
+        grads = iter(epilogue_backward_apply_op(
+            g, x, noise_weight, noise, style, saved, merged,
+            ctx.spatial.n * x.shape[1] * x.shape[2], needs))
+        out = [next(grads) if need else None for need in needs]
+        return (*out, dstyle.to(style.dtype)
+                if ctx.needs_input_grad[3] else None, None)

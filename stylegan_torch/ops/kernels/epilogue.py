@@ -51,6 +51,21 @@ card:
   each on the plan of ``sgt_epilogue_split_plan`` (path 2's geometry at
   every size); their CPU implementations, registered by ``ops/fused.py``,
   are the plain versions.
+* ``stylegan_torch::epilogue_backward_partial`` (g, x, noise_weight, noise,
+  saved) -> (sums, dstyle) and ``stylegan_torch::epilogue_backward_apply``
+  (g, x, noise_weight, noise, style, saved, sums, rows, needs) -> the
+  gradients asked for of (dx, dnoise_weight, dnoise): the split-plane
+  backward (K3-partial, K3-apply).  K3-partial gives this rank's (B, C, 2)
+  float32 (sum g, sum g * (y - mean)) over its rows, with `saved` the
+  merged (mean, rstd) its split forward kept, and its share of dstyle;
+  ``ops/fused.py`` gathers the ranks' sums and adds them in rank order, and
+  K3-apply writes dx, this rank's share of dnoise_weight and its rows of
+  dnoise from the merged sums over the plane's `rows` rows.  Their CUDA
+  implementations are `epilogue_backward_partial` and
+  `epilogue_backward_apply`, one launch each on the plan of
+  ``sgt_epilogue_bwd_split_plan`` (the backward's path 2 geometry at every
+  size); their CPU implementations, registered by ``ops/fused.py``, are the
+  plain versions.
 
 The training path is the ``torch.autograd.Function`` `_KernelEpilogue`
 (the counterpart of the JAX ``pallas_epilogue`` custom VJP), whose forward
@@ -98,9 +113,12 @@ cuda_launches = 0
 backward_launches = 0
 backward_cuda_launches = 0
 backward_g_copies = 0
-# Launches of the split-plane entries (one CUDA launch each).
+# Launches of the split-plane entries (one CUDA launch each), forward and
+# backward.
 partial_launches = 0
 apply_launches = 0
+backward_partial_launches = 0
+backward_apply_launches = 0
 
 _lib = None
 _plans: dict = {}        # (is_bf16, B, rows, C, aligned) -> Plan
@@ -109,6 +127,8 @@ _bwd_plans: dict = {}    # (is_bf16, B, rows, C, aligned, want_dn) -> BwdPlan
 _bwd_workspaces: dict = {}
 _split_plans: dict = {}  # (is_bf16, B, rows, C, aligned) -> Plan
 _split_workspaces: dict = {}
+_bwd_split_plans: dict = {}  # (is_bf16, B, rows, C, aligned, want_dn)
+_bwd_split_workspaces: dict = {}
 
 
 class Plan(ctypes.Structure):
@@ -179,6 +199,9 @@ def bind(lib):
     lib.sgt_epilogue_split_plan.argtypes = [i, i, ll, i, i,
                                             ctypes.POINTER(Plan)]
     lib.sgt_epilogue_split_plan.restype = ctypes.c_int
+    lib.sgt_epilogue_bwd_split_plan.argtypes = [i, i, ll, i, i, i,
+                                                ctypes.POINTER(BwdPlan)]
+    lib.sgt_epilogue_bwd_split_plan.restype = ctypes.c_int
     if hasattr(lib, "sgt_epilogue_forward"):
         lib.sgt_epilogue_partial.argtypes = [
             p, p, p, p,           # x noise noise_weight partial
@@ -204,6 +227,21 @@ def bind(lib):
             i, i, ll, i,          # is_bf16 B R C
             ctypes.POINTER(BwdPlan), p]  # plan, stream
         lib.sgt_epilogue_backward.restype = ctypes.c_int
+        lib.sgt_epilogue_backward_partial.argtypes = [
+            p, p, p, p, p,        # g x noise noise_weight saved
+            p, p,                 # sums dstyle
+            p, ll,                # workspace, its bytes
+            i, i, ll, i,          # is_bf16 B R C
+            ctypes.POINTER(BwdPlan), p]  # plan, stream
+        lib.sgt_epilogue_backward_partial.restype = ctypes.c_int
+        lib.sgt_epilogue_backward_apply.argtypes = [
+            p, p, p, p, p, p, p,  # g x noise noise_weight style saved sums
+            ll,                   # the plane's rows
+            p, p, p,              # dx dnoise_weight dnoise
+            p, ll,                # workspace, its bytes
+            i, i, ll, i,          # is_bf16 B R C
+            ctypes.POINTER(BwdPlan), p]  # plan, stream
+        lib.sgt_epilogue_backward_apply.restype = ctypes.c_int
     return lib
 
 
@@ -505,6 +543,132 @@ def _launch_apply(x, noise_weight, noise, style, stats, out):
     apply_launches += 1
 
 
+# --------------------------------------------------------------------------
+# The split-plane backward: K3-partial and K3-apply on one rank's rows.
+
+def make_bwd_split_plan(lib, is_bf16: int, b: int, rows: int, c: int,
+                        aligned: int, want_dn: int) -> BwdPlan:
+    """The split backward entries' plan of one call, from
+    sgt_epilogue_bwd_split_plan."""
+    plan = BwdPlan()
+    if lib.sgt_epilogue_bwd_split_plan(is_bf16, b, rows, c, aligned, want_dn,
+                                       plan) != 0:
+        raise ValueError(f"no split epilogue backward plan for B={b} "
+                         f"R={rows} C={c} bf16={is_bf16} aligned={aligned}")
+    return plan
+
+
+def _bwd_split_plan(x, aligned, want_dn):
+    b, h, w, c = x.shape
+    key = (int(x.dtype == torch.bfloat16), b, h * w, c, aligned, want_dn)
+    plan = _bwd_split_plans.get(key)
+    if plan is None:
+        plan = _bwd_split_plans[key] = make_bwd_split_plan(_library(), *key)
+    return key, plan
+
+
+def epilogue_backward_partial(g: torch.Tensor, x: torch.Tensor,
+                              noise_weight: torch.Tensor,
+                              noise: torch.Tensor, saved: torch.Tensor):
+    """Launch K3-partial: (sums, dstyle), sums the (B, C, 2) float32
+    (sum g, sum g * (y - mean)) per (b, c) over x's rows (this rank's slab
+    of a split plane) and dstyle the (B, 2C) float32 [sum g * yh | sum g]
+    over them (this rank's share); `saved` is the (B, C, 2) float32
+    (mean, rstd) of the whole plane.  Inputs as for epilogue_backward;
+    raises on anything else, never copies."""
+    _check_inputs(x, noise_weight, noise, None, g=g, saved=saved)
+    b, c = x.shape[0], x.shape[-1]
+    sums = torch.empty((b, c, 2), dtype=torch.float32, device=x.device)
+    dstyle = torch.empty((b, 2 * c), dtype=torch.float32, device=x.device)
+    _on_device(x.device, _launch_backward_partial, g, x, noise_weight, noise,
+               saved, sums, dstyle)
+    return sums, dstyle
+
+
+def _launch_backward_partial(g, x, noise_weight, noise, saved, sums, dstyle):
+    global backward_partial_launches
+    b, h, w, c = x.shape
+    key, plan = _bwd_split_plan(
+        x, int((g.data_ptr() | x.data_ptr()) % 16 == 0), 0)
+    stream = _stream(x.device)
+    ws_key, ws = _workspace_for(_bwd_split_workspaces, key, plan, x.device,
+                                stream)
+    err = _library().sgt_epilogue_backward_partial(
+        g.data_ptr(), x.data_ptr(), noise.data_ptr(), noise_weight.data_ptr(),
+        saved.data_ptr(), sums.data_ptr(), dstyle.data_ptr(), _ptr(ws),
+        plan.workspace_bytes, key[0], b, h * w, c, plan, stream)
+    if err != 0:
+        _bwd_split_workspaces.pop(ws_key, None)
+        raise RuntimeError(f"epilogue K3-partial launch failed: cudaError "
+                           f"{err}")
+    backward_partial_launches += 1
+
+
+def epilogue_backward_apply(g, x, noise_weight, noise, style, saved, sums,
+                            rows: int, needs=(True, True, True)):
+    """Launch K3-apply: the gradients (dx, dnoise_weight, dnoise) over x's
+    rows whose entry of `needs` is true (else None): dx, this rank's share
+    of dnoise_weight and its rows of dnoise, from `sums`, the (B, C, 2)
+    float32 that every rank's K3-partial gave, added in rank order, over
+    the plane's `rows` rows.  style (B, 2C) and saved (B, C, 2) float32;
+    inputs as for epilogue_backward; raises on anything else, never
+    copies."""
+    _check_inputs(x, noise_weight, noise, style, g=g, saved=saved,
+                  stats=sums)
+    if rows < x.shape[1] * x.shape[2]:
+        raise ValueError(f"the plane's rows ({rows}) must hold this slab's "
+                         f"{x.shape[1] * x.shape[2]}")
+    dx = torch.empty_like(x) if needs[0] else None
+    dnw = torch.empty_like(noise_weight) if needs[1] else None
+    dn = torch.empty_like(noise) if needs[2] else None
+    _on_device(x.device, _launch_backward_apply, g, x, noise_weight, noise,
+               style, saved, sums, rows, dx, dnw, dn)
+    return dx, dnw, dn
+
+
+def _launch_backward_apply(g, x, noise_weight, noise, style, saved, sums,
+                           rows, dx, dnw, dn):
+    global backward_apply_launches
+    b, h, w, c = x.shape
+    key, plan = _bwd_split_plan(
+        x, int((g.data_ptr() | x.data_ptr() | _ptr(dx)) % 16 == 0),
+        int(dn is not None))
+    stream = _stream(x.device)
+    ws_key, ws = _workspace_for(_bwd_split_workspaces, key, plan, x.device,
+                                stream)
+    err = _library().sgt_epilogue_backward_apply(
+        g.data_ptr(), x.data_ptr(), noise.data_ptr(), noise_weight.data_ptr(),
+        style.data_ptr(), saved.data_ptr(), sums.data_ptr(), rows, _ptr(dx),
+        _ptr(dnw), _ptr(dn), _ptr(ws), plan.workspace_bytes, key[0], b,
+        h * w, c, plan, stream)
+    if err != 0:
+        _bwd_split_workspaces.pop(ws_key, None)
+        raise RuntimeError(f"epilogue K3-apply launch failed: cudaError "
+                           f"{err}")
+    backward_apply_launches += 1
+
+
+def bytes_moved_backward_partial(x: torch.Tensor) -> int:
+    """Bytes K3-partial must move: g, x and noise read once, plus
+    noise_weight and the saved statistics, the (B, C, 2) sums and the
+    (B, 2C) dstyle share written (float32)."""
+    b, h, w, c = x.shape
+    n = b * h * w
+    return x.element_size() * (2 * n * c + n) + 4 * (c + 2 * b * c
+                                                     + 2 * b * c + 2 * b * c)
+
+
+def bytes_moved_backward_apply(x: torch.Tensor) -> int:
+    """Bytes K3-apply must move in a train step (no dnoise): g, x and noise
+    read once, dx written once, plus noise_weight, style, the saved
+    statistics and the merged sums read and dnoise_weight written
+    (float32)."""
+    b, h, w, c = x.shape
+    n = b * h * w
+    return x.element_size() * (3 * n * c + n) + 4 * (2 * c + 2 * b * c
+                                                     + 4 * b * c)
+
+
 def bytes_moved_partial(x: torch.Tensor) -> int:
     """Bytes K1-partial must move: x and noise read once, noise_weight
     read, the (B, C, 2) float32 partials written."""
@@ -620,6 +784,49 @@ def epilogue_apply_op(x: torch.Tensor, noise_weight: torch.Tensor,
 def _(x, noise_weight, noise, style, stats):
     _check_layout(x, noise_weight, noise, style, stats=stats)
     return torch.empty_like(x)
+
+
+@torch.library.custom_op("stylegan_torch::epilogue_backward_partial",
+                         mutates_args=(), device_types="cuda")
+def epilogue_backward_partial_op(g: torch.Tensor, x: torch.Tensor,
+                                 noise_weight: torch.Tensor,
+                                 noise: torch.Tensor, saved: torch.Tensor
+                                 ) -> tuple[torch.Tensor, torch.Tensor]:
+    """K3-partial: the kernel on the card; on the CPU the plain version
+    (registered by ops/fused.py)."""
+    return epilogue_backward_partial(g, x, noise_weight, noise, saved)
+
+
+@epilogue_backward_partial_op.register_fake
+def _(g, x, noise_weight, noise, saved):
+    _check_layout(x, noise_weight, noise, None, g=g, saved=saved)
+    b, c = x.shape[0], x.shape[-1]
+    return (x.new_empty((b, c, 2), dtype=torch.float32),
+            x.new_empty((b, 2 * c), dtype=torch.float32))
+
+
+@torch.library.custom_op("stylegan_torch::epilogue_backward_apply",
+                         mutates_args=(), device_types="cuda")
+def epilogue_backward_apply_op(g: torch.Tensor, x: torch.Tensor,
+                               noise_weight: torch.Tensor,
+                               noise: torch.Tensor, style: torch.Tensor,
+                               saved: torch.Tensor, sums: torch.Tensor,
+                               rows: int, needs: list[bool]
+                               ) -> list[torch.Tensor]:
+    """K3-apply: the gradients asked for by `needs`, in the order (dx,
+    dnoise_weight, dnoise); the kernel on the card, on the CPU the plain
+    version (registered by ops/fused.py)."""
+    grads = epilogue_backward_apply(g, x, noise_weight, noise, style, saved,
+                                    sums, rows, tuple(needs))
+    return [d for d, need in zip(grads, needs) if need]
+
+
+@epilogue_backward_apply_op.register_fake
+def _(g, x, noise_weight, noise, style, saved, sums, rows, needs):
+    _check_layout(x, noise_weight, noise, style, g=g, saved=saved,
+                  stats=sums)
+    return [torch.empty_like(t) for t, need in
+            zip((x, noise_weight, noise), needs) if need]
 
 
 class _KernelEpilogue(torch.autograd.Function):

@@ -73,8 +73,11 @@ def conv2d_apply(x: torch.Tensor, weight: torch.Tensor,
     With `spatial` (a parallel.halo.SpatialContext) x is this rank's slab of
     rows of a square plane and the output the rank's slab of the output
     plane: each op that reads neighbouring rows (the 3x3 conv, the sub-pixel
-    upscale, the blur) takes one row from each neighbour first.  G's forward
-    only: no downscale.
+    upscale, the blur, the fused stride-2 downscale) takes one row from each
+    neighbour first; the small downscale's 2x2 pool is row-aligned.  The
+    upscale is always the sub-pixel form (the transposed conv has no slab
+    form).  Every slab op differentiates to any order (the halo exchange's
+    transpose, `conv`).
     """
     _, in_ch, kh, kw = weight.shape
     _, w_mul = equalized_scales(gain, in_ch * kh * kw, lrmul, use_wscale)
@@ -85,14 +88,17 @@ def conv2d_apply(x: torch.Tensor, weight: torch.Tensor,
         raise ValueError("conv2d_apply: upscale and downscale are exclusive")
 
     if spatial is not None:
-        if downscale or pre_blur_kernel is not None:
-            raise ValueError("conv2d_apply: a slab of rows takes no "
-                             "downscale (the spatial path is G's forward)")
+        if downscale and pre_blur_kernel is not None:
+            x = blur2d(x, pre_blur_kernel, spatial)
         # a slab's width is its plane's side
         if upscale and x.shape[2] * 2 >= fused_resample_threshold:
             y = _subpixel_upscale_conv(x, w, spatial)
+        elif downscale and x.shape[2] >= fused_resample_threshold:
+            y = _fused_downscale_conv(x, w, spatial)
         else:
             y = _slab_conv(upscale2d(x) if upscale else x, w, spatial)
+            if downscale:
+                y = downscale2d(y)
         if blur_kernel is not None:
             y = blur2d(y, blur_kernel, spatial)
         return y if bias is None else y + bias
@@ -168,8 +174,7 @@ def _subpixel_upscale_conv(x: torch.Tensor, w: torch.Tensor,
     if spatial is None:
         y = conv(to_nchw(x), phases, 1, 1)
     else:
-        y = F.conv2d(to_nchw(exchange_halo(x, spatial)), phases, None, 1,
-                     (0, 1))
+        y = conv(to_nchw(exchange_halo(x, spatial)), phases, 1, (0, 1))
     y = to_nhwc(y).reshape(b, h + 1, wd + 1, 2, 2, o)
     rows = [torch.stack([y[:, a:a + h, c:c + wd, a, c] for c in (0, 1)], 3)
             for a in (0, 1)]
@@ -182,17 +187,22 @@ def _slab_conv(x: torch.Tensor, w: torch.Tensor, spatial) -> torch.Tensor:
     p = (w.shape[-1] - 1) // 2
     if p:
         x = exchange_halo(x, spatial, p)
-    return to_nhwc(F.conv2d(to_nchw(x), w, None, 1, (0, p)))
+    return to_nhwc(conv(to_nchw(x), w, 1, (0, p)))
 
 
-def _fused_downscale_conv(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+def _fused_downscale_conv(x: torch.Tensor, w: torch.Tensor,
+                          spatial=None) -> torch.Tensor:
     """Stride-2 conv, padding 1, with the 4-tap-averaged 4x4 kernel
     (reference CustomLayers.py:158-163).  Both sides cross-correlate, so the
-    kernel is not flipped."""
+    kernel is not flipped.  On a slab of rows (`spatial`, an even number of
+    rows from an even offset) output row m reads input rows 2m - 1 .. 2m +
+    2: one row of each neighbour in place of the padding rows."""
     wp = F.pad(w, (1, 1, 1, 1))
     w4 = (wp[:, :, 1:, 1:] + wp[:, :, :-1, 1:]
           + wp[:, :, 1:, :-1] + wp[:, :, :-1, :-1]) * 0.25
-    return to_nhwc(conv(to_nchw(x), w4, 2, 1))
+    if spatial is None:
+        return to_nhwc(conv(to_nchw(x), w4, 2, 1))
+    return to_nhwc(conv(to_nchw(exchange_halo(x, spatial)), w4, 2, (0, 1)))
 
 
 # --------------------------------------------------------------------------
@@ -206,9 +216,11 @@ def _fused_downscale_conv(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 # w.r.t. the input is the adjoint convolution and the gradient w.r.t. the
 # weight is cuDNN's backward-filter (aten.convolution_backward), both again
 # differentiable through these same functions.  Same math as F.conv2d /
-# F.conv_transpose2d (groups 1, dilation 1, no bias).
+# F.conv_transpose2d (groups 1, dilation 1, no bias).  The padding is an int
+# or a (rows, columns) pair (a slab of rows that holds its halo rows pads
+# its columns only).
 
-def conv(x: torch.Tensor, w: torch.Tensor, stride: int, padding: int,
+def conv(x: torch.Tensor, w: torch.Tensor, stride: int, padding,
          transpose: bool = False) -> torch.Tensor:
     """F.conv2d(x, w, stride, padding), or with `transpose`
     F.conv_transpose2d(x, w, stride, padding), of NCHW x."""
@@ -224,14 +236,19 @@ def _conv(x, w, op):
     return F.conv2d(x, w, None, stride, padding)
 
 
+def _pair(v):
+    return tuple(v) if isinstance(v, (tuple, list)) else (v, v)
+
+
 def _adjoint(op, x_shape, y_shape, w_shape):
     """The op mapping y's gradient back to x's: conv <-> transposed conv,
-    with the output padding that restores x's size."""
+    with the output padding that restores x's size (per axis)."""
     stride, padding, transpose, _ = op
     if transpose:
         return stride, padding, False, 0
-    k = w_shape[-1]
-    extra = x_shape[-1] - ((y_shape[-1] - 1) * stride - 2 * padding + k)
+    extra = tuple(x_shape[d] - ((y_shape[d] - 1) * stride - 2 * p
+                                + w_shape[d])
+                  for d, p in zip((-2, -1), _pair(padding)))
     return stride, padding, True, extra
 
 
@@ -265,9 +282,8 @@ class _ConvWeightGrad(torch.autograd.Function):
         ctx.op, ctx.w_shape = op, w.shape
         stride, padding, transpose, output_padding = op
         return torch.ops.aten.convolution_backward(
-            gy, x, w, None, (stride, stride), (padding, padding), (1, 1),
-            transpose, (output_padding, output_padding), 1,
-            (False, True, False))[1]
+            gy, x, w, None, (stride, stride), _pair(padding), (1, 1),
+            transpose, _pair(output_padding), 1, (False, True, False))[1]
 
     @staticmethod
     def backward(ctx, ggw):

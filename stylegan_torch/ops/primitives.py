@@ -90,32 +90,37 @@ def make_blur_kernel(taps, normalize: bool = True) -> torch.Tensor:
 
 
 def _depthwise(x: torch.Tensor, kernel2d: torch.Tensor,
-               pad_rows: bool = True) -> torch.Tensor:
-    # the grouped convolution itself, SAME padding for an odd kernel (along
-    # the width only without `pad_rows`: a slab that holds its halo rows)
+               padding=None) -> torch.Tensor:
+    # the grouped convolution itself, padding (rows, columns); SAME for an
+    # odd kernel by default
     c, k = x.shape[-1], kernel2d.shape[0]
+    if padding is None:
+        padding = (k // 2, k // 2)
     kern = kernel2d.to(x.dtype)[None, None].expand(c, 1, k, k)
-    p = (k - 1) // 2
-    return to_nhwc(F.conv2d(to_nchw(x), kern, padding=p if pad_rows
-                            else (0, p), groups=c))
+    return to_nhwc(F.conv2d(to_nchw(x), kern, padding=padding, groups=c))
 
 
 class _Blur(torch.autograd.Function):
-    """The blur as a linear map with a constant kernel: its gradient is the
-    same blur with the flipped kernel, itself a _Blur, so every order of
-    derivative (R1's double backward through D) is one depthwise
-    convolution.  Autograd of the grouped conv instead runs its double
-    backward one channel at a time."""
+    """The blur as a linear map with a constant kernel, padding (rows,
+    columns): its gradient is the blur with the flipped kernel and padding
+    k - 1 - p, itself a _Blur, so every order of derivative (R1's double
+    backward through D) is one depthwise convolution.  Autograd of the
+    grouped conv instead runs its double backward one channel at a time.
+    SAME padding is (p, p) for p = (k - 1) / 2, its own adjoint's; a slab
+    that holds its halo rows pads its columns only, (0, p)."""
 
     @staticmethod
-    def forward(ctx, x, kernel2d):
+    def forward(ctx, x, kernel2d, padding):
         ctx.save_for_backward(kernel2d)
-        return _depthwise(x, kernel2d)
+        ctx.padding = padding
+        return _depthwise(x, kernel2d, padding)
 
     @staticmethod
     def backward(ctx, g):
         (kernel2d,) = ctx.saved_tensors
-        return _Blur.apply(g, kernel2d.flip(0, 1)), None
+        k = kernel2d.shape[0]
+        return _Blur.apply(g, kernel2d.flip(0, 1),
+                           tuple(k - 1 - p for p in ctx.padding)), None, None
 
 
 def blur2d(x: torch.Tensor, kernel2d: torch.Tensor,
@@ -123,13 +128,14 @@ def blur2d(x: torch.Tensor, kernel2d: torch.Tensor,
     """Depthwise blur of NHWC with a constant (k, k) kernel, k odd, SAME
     padding, stride 1 (the only blur the networks run).  With `spatial` (a
     parallel.halo.SpatialContext) x is this rank's slab of rows: it takes
-    its neighbours' rows first (forward only)."""
+    its neighbours' rows first."""
     if not kernel2d.shape[0] % 2:
         raise ValueError(f"blur2d needs an odd kernel, got {kernel2d.shape[0]}")
+    p = kernel2d.shape[0] // 2
     if spatial is not None:
-        return _depthwise(halo.exchange_halo(x, spatial, kernel2d.shape[0] // 2),
-                          kernel2d, pad_rows=False)
-    return _Blur.apply(x, kernel2d.detach())
+        return _Blur.apply(halo.exchange_halo(x, spatial, p),
+                           kernel2d.detach(), (0, p))
+    return _Blur.apply(x, kernel2d.detach(), (p, p))
 
 
 def moments(y: torch.Tensor) -> torch.Tensor:

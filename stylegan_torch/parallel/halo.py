@@ -15,6 +15,16 @@ tensors too (so that ranks can share one card), and made of
 records as ``_c10d_functional`` nodes.  The rank is a 0-d tensor, not a
 Python int, so that an exported program takes it as an input: one program
 serves every rank.
+
+Under autograd (the spatial train step) the all-reduce is `_AllReduce`,
+whose backward is the all-reduce again (its transpose), itself
+differentiable, so that R1 differentiates the slab ops twice; the
+functional collectives record no backward of their own (autograd passes a
+gradient through them unchanged, with a warning), and run only where no
+gradient is recorded.  Every op here is then differentiable with its
+transpose as backward: a halo row's gradient goes back to the neighbour
+that sent it and adds to its edge row, `all_gather`'s is each rank's slot
+of the all-reduced gradients, and `take_rows`'s zero-pads.
 """
 
 from __future__ import annotations
@@ -53,9 +63,34 @@ def splits(res: int, ctx) -> bool:
     return ctx is not None and res >= 4 * ctx.n
 
 
-def _all_reduce(t: torch.Tensor, ctx: SpatialContext) -> torch.Tensor:
+def _functional_all_reduce(t: torch.Tensor, group_name: str) -> torch.Tensor:
     ops = torch.ops._c10d_functional
-    return ops.wait_tensor(ops.all_reduce(t, "sum", ctx.group_name))
+    return ops.wait_tensor(ops.all_reduce(t, "sum", group_name))
+
+
+class _AllReduce(torch.autograd.Function):
+    """The sum over the group; its backward is the sum again (the
+    transpose), through this Function, so that it differentiates again."""
+
+    @staticmethod
+    def forward(ctx, t, group_name):
+        ctx.group_name = group_name
+        return _functional_all_reduce(t, group_name)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _AllReduce.apply(g.contiguous(), ctx.group_name), None
+
+
+def _all_reduce(t: torch.Tensor, ctx: SpatialContext) -> torch.Tensor:
+    if torch.is_grad_enabled() and t.requires_grad:
+        return _AllReduce.apply(t, ctx.group_name)
+    return _functional_all_reduce(t, ctx.group_name)
+
+
+def psum(t: torch.Tensor, ctx: SpatialContext) -> torch.Tensor:
+    """The sum of t over `ctx`'s ranks, on every rank (differentiable)."""
+    return _all_reduce(t, ctx)
 
 
 def _placed(t: torch.Tensor, slot: torch.Tensor, slots: int) -> torch.Tensor:

@@ -13,6 +13,13 @@ over the group's process group (NCCL on the card, gloo on the CPU).
 
 JAX's one process with N devices is the port's N ranks with one device
 each; the device budget (``resolve_max_devices``) counts ranks.
+
+A 2-D ('data', 'spatial') mesh (`Mesh2D`, the spatial train step's) is a
+grid of the first data * spatial ranks: rank r sits at (r // spatial,
+r % spatial), JAX's ``devices.reshape(data, spatial)``.  Each rank holds
+three 1-D groups: the whole grid, its data row (the ranks that split each
+image of its batch shard by rows: the spatial axis) and its spatial column
+(one rank per data row: the data axis).
 """
 
 from __future__ import annotations
@@ -39,6 +46,24 @@ class Mesh:
     @property
     def is_member(self) -> bool:
         return self.rank is not None
+
+
+@dataclass(frozen=True, eq=False)
+class Mesh2D:
+    """A (data, spatial) grid of ranks: `shape` (data, spatial); `grid`,
+    every rank of the grid (rank = global rank); `data`, this rank's
+    column along the data axis (rank = its data index); `spatial`, its row
+    along the spatial axis (rank = its spatial index).  Outside the grid
+    `data` and `spatial` are None and `grid.rank` is None."""
+    shape: tuple
+    grid: Mesh
+    data: Optional[Mesh]
+    spatial: Optional[Mesh]
+    axis_names = ("data", "spatial")
+
+    @property
+    def is_member(self) -> bool:
+        return self.grid.is_member
 
 
 def device_count(device="cuda") -> int:
@@ -74,6 +99,32 @@ def create_mesh(n_devices: Optional[int] = None,
     rank = dist.get_rank()
     return Mesh(size=n, rank=rank if rank < n else None, group=group,
                 axis_name=axis_name)
+
+
+def create_mesh_2d(data: int, spatial: int) -> Mesh2D:
+    """The (data, spatial) grid of the first data * spatial ranks.  Every
+    rank of the world calls it, in the same order: it creates the grid's
+    group, then each data row's, then each spatial column's, and creating
+    a group is a collective."""
+    data, spatial = int(data), int(spatial)
+    if data < 1 or spatial < 1:
+        raise ValueError(f"mesh shape ({data}, {spatial})")
+    grid = create_mesh(data * spatial)
+    rows = [_group([d * spatial + s for s in range(spatial)])
+            for d in range(data)]
+    cols = [_group([d * spatial + s for d in range(data)])
+            for s in range(spatial)]
+    if not grid.is_member:
+        return Mesh2D((data, spatial), grid, None, None)
+    d, s = divmod(grid.rank, spatial)
+    return Mesh2D((data, spatial), grid,
+                  Mesh(data, d, cols[s], axis_name="data"),
+                  Mesh(spatial, s, rows[d], axis_name="spatial"))
+
+
+def _group(ranks):
+    return dist.group.WORLD if len(ranks) == dist.get_world_size() \
+        else dist.new_group(ranks)
 
 
 def compatible_mesh_size(n_devices: int, batch_sizes) -> int:

@@ -45,6 +45,11 @@ it every rank draws from `seed`.  Minibatch stddev is shard-local (groups
 of min(4, local batch)) unless mbstd_scope='global', which takes it over
 the group's global batch; `mbstd_chunks` is the one-process form of the
 shard-local statistic.
+
+Spatial parallelism (`build_spatial_train_step`, a parallel.Mesh2D): the
+same step over a (data, spatial) grid of ranks, each image's rows split
+over the spatial axis and the batch over the data axis; its docstring says
+how its draws and gradients are taken.
 """
 
 from __future__ import annotations
@@ -58,10 +63,12 @@ import torch
 from ..losses import (LOGISTIC_LIKE, NEEDS_KEY, get_loss, logistic_dis_loss,
                       r1_penalty)
 from ..models.ema import ema_update
-from ..models.synthesis import stream_seed
+from ..models.generator import draw_mixing
+from ..models.synthesis import layer_resolution, make_noise, stream_seed
 from ..ops import avg_pool2d, upscale2d
 from ..parallel.distributed import average_gradients, broadcast_, pmean
-from ..parallel.mesh import Mesh
+from ..parallel.halo import SpatialContext
+from ..parallel.mesh import Mesh, Mesh2D
 from .state import TrainState
 
 GP_STREAM = 0x6B    # the gradient penalty's stream of a repeat's seed
@@ -178,7 +185,9 @@ class _Phases:
         self.dis_cfg, self.depth = dis_cfg, depth
         self.loss, self.drift, self.conditional = loss, drift, conditional
         self.dis_loss_fn, self.gen_loss_fn = dis_loss_fn, gen_loss_fn
-        self.mesh = mesh
+        self.mesh = mesh            # the losses' means and the gradients'
+        self.avg_mesh = mesh        # whose rank 0's W-average every rank takes
+        self.spatial = None         # a SpatialContext: D's images are slabs
         self.mbstd_axis = mesh if mbstd_scope == "global" else None
         self.mbstd_chunks = mbstd_chunks
         # the fused real/fake pass, where no R1 pass would reuse D(reals),
@@ -195,11 +204,13 @@ class _Phases:
 
     def dis_fn(self, discriminator, alpha, labels):
         depth = self.depth
+        kw = {} if self.spatial is None else {"spatial": self.spatial}
 
         def fn(images):
             return discriminator(images, depth, alpha, labels,
                                  mbstd_chunks=self.mbstd_chunks,
-                                 mbstd_axis=self.mbstd_axis)
+                                 mbstd_axis=self.mbstd_axis, **kw)
+        fn.spatial = self.spatial
         if self.fuse:
             def score_pair(reals, fakes):
                 b = reals.shape[0]
@@ -245,7 +256,7 @@ class _Phases:
                 out = self.g_forward(generator, z, seed, alpha, labels,
                                      noises, mixing)
             fakes = out.images
-            _with_avg(generator, out.avg_latent, self.mesh)
+            _with_avg(generator, out.avg_latent, self.avg_mesh)
         _zero_grads(discriminator)
         loss = self.dis_loss(self.dis_fn(discriminator, alpha, labels),
                              reals_cur, fakes, seed, gp_eps)
@@ -293,7 +304,7 @@ class _Phases:
                 out.images, self.mesh)
             self.backward(loss, generator)
         g_optimizer.step()
-        _with_avg(generator, out.avg_latent, self.mesh)
+        _with_avg(generator, out.avg_latent, self.avg_mesh)
         if shadow is not None:
             ema_update(shadow, generator, ema_decay)
         return _wide(loss)
@@ -337,36 +348,185 @@ def build_train_step(gen_cfg, dis_cfg, *, depth: int,
 
     def step(state: TrainState, reals, z, seed: int, alpha, labels=None, *,
              noises=None, mixing=None, gp_eps=None):
-        G, D = state.generator, state.discriminator
-        shadow = state.g_shadow if use_ema else None
-        seed = _rank_seed(seed, mesh, shard_rng)
-        reals_cur = phases.reals_at_depth(reals, alpha)
-        if reuse:
-            seed0 = stream_seed(seed, 0)
-            out = phases.g_forward(G, z, seed0, alpha, labels, noises,
-                                   mixing)
-            d_loss = phases.d_update(G, D, state.d_optimizer, reals_cur, z,
-                                     seed0, alpha, labels, noises, mixing,
-                                     None if gp_eps is None else gp_eps[0],
-                                     fakes=out.images.detach())
-            if phases.reg_gamma is not None:
-                phases.reg_update(D, state.d_optimizer, reals_cur, alpha,
-                                  labels)
-            g_loss = phases.g_update(G, D, state.g_optimizer, shadow,
-                                     reals_cur, z, seed0, alpha, labels,
-                                     noises, mixing, ema_decay, out=out)
-        else:
-            d_loss = phases.d_phase(G, D, state.d_optimizer, reals_cur, z,
-                                    seed, alpha, labels, noises, mixing,
-                                    gp_eps, d_repeats)
-            if phases.reg_gamma is not None:  # StyleGAN2's order: D, then R1
-                phases.reg_update(D, state.d_optimizer, reals_cur, alpha,
-                                  labels)
-            g_loss = phases.g_update(G, D, state.g_optimizer, shadow,
-                                     reals_cur, z,
-                                     stream_seed(seed, d_repeats), alpha,
-                                     labels, noises, mixing, ema_decay)
-        return state, _group_mean({"d_loss": d_loss, "g_loss": g_loss}, mesh)
+        losses = _fused_update(
+            phases, state, phases.reals_at_depth(reals, alpha), z,
+            _rank_seed(seed, mesh, shard_rng), alpha, labels, noises, mixing,
+            gp_eps, d_repeats, reuse, use_ema, ema_decay)
+        return state, _group_mean(losses, mesh)
+
+    return step
+
+
+def _fused_update(phases, state, reals_cur, z, seed, alpha, labels, noises,
+                  mixing, gp_eps, d_repeats, reuse, use_ema, ema_decay):
+    """The D phase, the separate R1 update where there is one, and the G
+    update with EMA, on the state in place; returns the two losses."""
+    G, D = state.generator, state.discriminator
+    shadow = state.g_shadow if use_ema else None
+    if reuse:
+        seed0 = stream_seed(seed, 0)
+        out = phases.g_forward(G, z, seed0, alpha, labels, noises, mixing)
+        d_loss = phases.d_update(G, D, state.d_optimizer, reals_cur, z,
+                                 seed0, alpha, labels, noises, mixing,
+                                 None if gp_eps is None else gp_eps[0],
+                                 fakes=out.images.detach())
+        if phases.reg_gamma is not None:
+            phases.reg_update(D, state.d_optimizer, reals_cur, alpha, labels)
+        g_loss = phases.g_update(G, D, state.g_optimizer, shadow, reals_cur,
+                                 z, seed0, alpha, labels, noises, mixing,
+                                 ema_decay, out=out)
+    else:
+        d_loss = phases.d_phase(G, D, state.d_optimizer, reals_cur, z, seed,
+                                alpha, labels, noises, mixing, gp_eps,
+                                d_repeats)
+        if phases.reg_gamma is not None:  # StyleGAN2's order: D, then R1
+            phases.reg_update(D, state.d_optimizer, reals_cur, alpha, labels)
+        g_loss = phases.g_update(G, D, state.g_optimizer, shadow, reals_cur,
+                                 z, stream_seed(seed, d_repeats), alpha,
+                                 labels, noises, mixing, ema_decay)
+    return {"d_loss": d_loss, "g_loss": g_loss}
+
+
+class _SpatialPhases(_Phases):
+    """_Phases on one rank of a (data, spatial) grid (build_spatial_train_
+    step): this rank's batch shard and rows of each image; the losses'
+    means over the data axis; D on slabs; each G forward's draws the
+    one-process step's for the global batch, cut to the shard (and by the
+    synthesis to the rows); gradients averaged over the grid."""
+
+    def __init__(self, dis_cfg, depth, loss, conditional, drift, r1_gamma,
+                 r1_separate_reg, mesh, mbstd_scope):
+        data = mesh.data if mesh.shape[0] > 1 else None
+        super().__init__(dis_cfg, depth, loss, conditional, drift, r1_gamma,
+                         r1_separate_reg, mesh=data)
+        # every rank takes the W of the global batch's first sample itself
+        self.avg_mesh = None
+        self.grid = mesh.grid
+        self.shape = mesh.shape
+        self.index = (mesh.data.rank, mesh.spatial.rank)
+        self.row = mesh.spatial
+        self.mbstd_axis = None if mbstd_scope == "local" else data
+
+    def bind(self, device):
+        """The row's SpatialContext on `device` (None for a row of one)."""
+        if self.shape[1] > 1 and (self.spatial is None
+                                  or self.spatial.rank.device != device):
+            self.spatial = SpatialContext(
+                self.shape[1], torch.tensor(self.index[1], device=device),
+                self.row.group.group_name)
+
+    def rows(self, t):
+        """This rank's rows (dim 1) of a tensor of the whole height."""
+        h = t.shape[1] // self.shape[1]
+        return t[:, self.index[1] * h:(self.index[1] + 1) * h]
+
+    def shard(self, t, b):
+        """This rank's batch shard of a global-batch tensor (b rows)."""
+        return t[self.index[0] * b:(self.index[0] + 1) * b]
+
+    def g_forward(self, generator, z, seed, alpha, labels, noises, mixing):
+        if self.conditional and labels is None:
+            raise ValueError("a conditional step needs labels")
+        cfg, b = generator.cfg, z.shape[0]
+        batch = b * self.shape[0]
+        if noises is None and cfg.synthesis.use_noise:
+            noises = [self.shard(make_noise(seed, i, batch,
+                                            layer_resolution(i), z.device,
+                                            z.dtype), b)
+                      for i in range(2 * (self.depth + 1))]
+        if mixing is None and cfg.style_mixing_prob:
+            latents2, cutoff = draw_mixing(
+                seed, (batch, cfg.mapping.latent_size), self.depth,
+                cfg.style_mixing_prob, z.device, z.dtype)
+            mixing = (self.shard(latents2, b), cutoff)
+        return generator(z, self.depth, alpha, seed=seed, train=True,
+                         labels=labels, noises=noises, mixing=mixing,
+                         spatial=self.spatial, avg_from=self.grid)
+
+    def dis_loss(self, dis_fn, reals, fakes, seed, gp_eps):
+        if self.loss in NEEDS_KEY and gp_eps is None:
+            b = reals.shape[0]
+            gen = torch.Generator(device=reals.device)
+            gen.manual_seed(stream_seed(seed, GP_STREAM))
+            gp_eps = self.shard(torch.rand(
+                (b * self.shape[0],) + (1,) * (reals.ndim - 1), generator=gen,
+                device=reals.device, dtype=reals.dtype), b)
+        return super().dis_loss(dis_fn, reals, fakes, seed, gp_eps)
+
+    def backward(self, loss, module):
+        loss.backward()
+        average_gradients(module, self.grid)
+
+
+def build_spatial_train_step(gen_cfg, dis_cfg, *, depth: int, mesh,
+                             loss="relativistic-hinge", d_repeats: int = 1,
+                             use_ema: bool = True, ema_decay: float = 0.999,
+                             conditional: bool = False, drift: float = 0.001,
+                             r1_gamma: Optional[float] = None,
+                             r1_separate_reg: bool = False,
+                             mbstd_scope: Optional[str] = None,
+                             reuse_g_fwd: bool = False):
+    """The fused step over a 2-D (data, spatial) grid of ranks (the port's
+    counterpart of the JAX package's build_gspmd_train_step): the same
+    step(state, reals, z, seed, alpha, labels=None, *, noises=None,
+    mixing=None, gp_eps=None) -> (state, metrics) as build_train_step's,
+    run by every rank of `mesh` (a parallel.Mesh2D) at once with the same
+    seed and alpha and a replicated TrainState.
+
+    reals, z and labels are this rank's data row's shard of the global
+    batch (the global batch / data ranks), reals at their whole height:
+    the step takes the rank's rows of every image, and every stage of side
+    res >= 4 * spatial runs on slabs of rows in G and in D (the shorter
+    ones whole on every rank of the row).  Pinned draws are the shard's:
+    noise maps whole or the rank's rows, mixing (latents2, cutoff), gp_eps
+    (one (b, 1, 1, 1) tensor per D repeat).  Unpinned, the draws are the
+    one-process step's for the global batch (seed is not folded with the
+    rank), cut to the shard and rows, and the W-average comes from the
+    global batch's first sample, as JAX's step is the one-device body.
+    Minibatch-stddev groups span the global batch (the data axis's
+    all-gather) unless mbstd_scope='local' (groups within each shard);
+    fused scoring is off.  The losses are the global batch's on every
+    rank.
+
+    Gradients: every rank seeds its copy of the loss with 1, and every
+    collective's backward is its transpose (parallel/halo.py), so a rank's
+    gradient is the grid's size times its share: a tensor that every rank
+    of a row holds whole (D's head, G's early stages, the styles) gets the
+    whole row's gradient on each, a slab op's parameters the row's size
+    times the slab's, and average_gradients over the grid gives the
+    gradient of the global loss on every rank.  The inner gradient of R1
+    and of the gradient penalty is a value, not a parameter gradient: it is
+    seeded 1/spatial on each rank (losses.py), so that the gather's
+    transpose gives each slab its true rows of dD/dx; seeded 1 it would
+    scale the penalty by spatial^2.  The split epilogue's backward gives
+    each rank its slab's share of dstyle and dnoise_weight.  Every
+    collective under autograd is one that records its transpose: the
+    functional collectives pass a gradient through unchanged."""
+    if not isinstance(mesh, Mesh2D):
+        names = getattr(mesh, "axis_names", (getattr(mesh, "axis_name",
+                                                     None),))
+        raise ValueError(f"gspmd mesh needs ('data', 'spatial') axes, got "
+                         f"{tuple(names)}")
+    if not mesh.is_member:
+        raise ValueError("this rank is not in the mesh")
+    res, n_sp = 2 ** (depth + 2), mesh.shape[1]
+    if res % (n_sp * 4):
+        raise ValueError(f"depth-{depth} resolution {res} must divide over "
+                         f"{n_sp} spatial shards with at least 4 rows each")
+    if mbstd_scope not in (None, "local", "global"):
+        raise ValueError(f"mbstd_scope {mbstd_scope!r}")
+    phases = _SpatialPhases(dis_cfg, depth, loss, conditional, drift,
+                            r1_gamma, r1_separate_reg, mesh, mbstd_scope)
+    reuse = reuse_g_fwd and d_repeats == 1
+
+    def step(state: TrainState, reals, z, seed: int, alpha, labels=None, *,
+             noises=None, mixing=None, gp_eps=None):
+        phases.bind(reals.device)
+        reals_cur = phases.rows(phases.reals_at_depth(reals, alpha))
+        losses = _fused_update(phases, state, reals_cur, z, seed, alpha,
+                               labels, noises, mixing, gp_eps, d_repeats,
+                               reuse, use_ema, ema_decay)
+        return state, losses
 
     return step
 

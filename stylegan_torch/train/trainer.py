@@ -46,9 +46,20 @@ so replicas are bitwise equal again when the group grows.  Each rank of
 the group loads its own stripe of every epoch (shard_index = its rank in
 the group, num_shards = the group's size, batch = global batch / size) and
 draws the whole global z, keeping its rows.  Checkpoints, grids and
-metrics.jsonl are written by rank 0 only.  Not ported yet, and refused:
-``spatial_devices > 1`` (ROADMAP queue 1, parallelism).  ``packed_layout``
-and ``fold_blur`` are accepted and give the unpacked math.
+metrics.jsonl are written by rank 0 only.  ``packed_layout`` and
+``fold_blur`` are accepted and give the unpacked math.
+
+Spatial parallelism (the JAX trainer's 2-D mesh): with `spatial_devices`
+and `max_devices`, a depth whose data group leaves ranks idle (the deep
+progressive tail, whose batches of 4 and 2 cap the data axis) and whose
+resolution divides by 4 * n trains on a (data, spatial) grid of ranks
+(parallel.Mesh2D, `_mesh_for_step`) through build_spatial_train_step: each
+data row loads its stripe of the epoch, and the ranks of a row split each
+image's rows.  A fixed Mesh2D may be passed as `mesh`.  The split update
+API (optimize_discriminator / optimize_generator) is data-parallel only,
+as in the JAX trainer.  In one process there is one device, so
+spatial_devices trains the one-process step, as the JAX trainer does on
+one device.
 """
 
 from __future__ import annotations
@@ -73,11 +84,12 @@ from ..models.configs import (discriminator_config_from_args,
 from ..models.synthesis import stream_seed
 from ..parallel.distributed import (broadcast_, global_shard, host_count,
                                     host_index, replicate)
-from ..parallel.mesh import Mesh, compatible_mesh_size, create_mesh
+from ..parallel.mesh import (Mesh, Mesh2D, compatible_mesh_size, create_mesh,
+                             create_mesh_2d)
 from ..utils.profiling import MetricsWriter
 from .state import create_train_state, lazy_reg_adam_correction
 from .steps import (build_d_step, build_g_step, build_sample_fn,
-                    build_train_step)
+                    build_spatial_train_step, build_train_step)
 
 # streams of `seed`: module init; the fused step of each update; the other
 # draws (feedback samples, the split update API)
@@ -104,12 +116,9 @@ class StyleGAN:
             raise ValueError(f"unknown structure {structure!r}")
         if conditional and n_classes <= 0:
             raise ValueError("Conditional GANs require n_classes > 0")
-        if (spatial_devices or 0) > 1:
-            raise NotImplementedError(
-                "spatial parallelism (spatial_devices > 1) is not ported yet "
-                "(ROADMAP queue 1, parallelism)")
-        if mesh is not None and not isinstance(mesh, Mesh):
-            raise TypeError(f"mesh must be a parallel.Mesh, got {type(mesh)}")
+        if mesh is not None and not isinstance(mesh, (Mesh, Mesh2D)):
+            raise TypeError(f"mesh must be a parallel.Mesh or Mesh2D, got "
+                            f"{type(mesh)}")
         if activations_dtype not in ("float32", "bfloat16"):
             raise ValueError(f"activations_dtype {activations_dtype!r}")
         # minibatch-stddev scope: None = each step's natural (shard-local)
@@ -119,8 +128,9 @@ class StyleGAN:
         self.mbstd_scope = None if mbstd_scope == "auto" else mbstd_scope
         self.mesh = mesh
         self.max_devices = max_devices
+        self.spatial_devices = int(spatial_devices or 0)
         self.rank, self.world = host_index(), host_count()
-        self._meshes = {}           # group size -> Mesh
+        self._meshes = {}           # group size or grid shape -> mesh
         self._last_mesh = _UNSET     # the group the state was last placed on
         self._train_mesh = _UNSET    # the depth's group inside train()
 
@@ -209,12 +219,38 @@ class StyleGAN:
             self._meshes[n] = create_mesh(n)
         return self._meshes[n]
 
+    def _mesh_for_step(self, batch_size: int, depth: int):
+        """The group of the fused step at this (global batch, depth): the
+        data group of _mesh_for_batch, upgraded to a (data, spatial) grid
+        when spatial_devices is set and the data axis leaves ranks idle
+        (the deep progressive tail, where batches of 4 and 2 cap data
+        parallelism): the most spatial ranks, at most spatial_devices and
+        the idle ranks' count, that the resolution divides by 4 times.
+        Collective where it creates groups, as _mesh_for_batch."""
+        data_mesh = self._mesh_for_batch(batch_size)
+        if (self.spatial_devices <= 1 or self.mesh is not None
+                or not self.max_devices):
+            return data_mesh
+        data_n = data_mesh.size if data_mesh is not None else 1
+        avail = min(self.max_devices, self.world)
+        sp_n = min(self.spatial_devices, avail // data_n)
+        res = 2 ** (depth + 2)
+        while sp_n > 1 and res % (sp_n * 4) != 0:
+            sp_n -= 1
+        if sp_n <= 1:
+            return data_mesh
+        key = (data_n, sp_n)
+        if key not in self._meshes:
+            self._meshes[key] = create_mesh_2d(data_n, sp_n)
+        return self._meshes[key]
+
     def _call_mesh(self, batch: int):
         """The mesh and global batch of a train_on_batch / optimize_* call:
         in one process `batch` is the global batch and the group adapts to
-        it; across processes each rank passes its shard, and the group is
-        the fixed `mesh` (the JAX package asks the same of several hosts)
-        or, inside `train`, the depth's group."""
+        it (one device: never a 2-D grid); across processes each rank
+        passes its data row's shard, and the group is the fixed `mesh` (the
+        JAX package asks the same of several hosts) or, inside `train`, the
+        depth's group."""
         if self.world == 1:
             return self._mesh_for_batch(batch), batch
         mesh = self.mesh if self.mesh is not None else self._train_mesh
@@ -223,7 +259,7 @@ class StyleGAN:
                 "several processes: train_on_batch and optimize_* need a "
                 "fixed mesh (StyleGAN(mesh=create_mesh())) outside train(), "
                 "which sizes the group per depth")
-        return mesh, batch * (mesh.size if mesh is not None else 1)
+        return mesh, batch * _data_size(mesh)
 
     def _ensure_placement(self, mesh):
         """Make this rank's state rank 0's when it starts training under a
@@ -232,31 +268,37 @@ class StyleGAN:
         Ranks that sat out a depth thereby catch up."""
         if self._last_mesh is mesh:
             return
-        if mesh is not None:
-            replicate(mesh, self.state)
+        group = _whole_group(mesh)
+        if group is not None:
+            replicate(group, self.state)
             counters = torch.tensor([self._update_count, self._draws])
             z_state = self._z.get_state()
-            broadcast_([counters, z_state], mesh)
+            broadcast_([counters, z_state], group)
             self._update_count, self._draws = map(int, counters.tolist())
             self._z.set_state(z_state)
         self._last_mesh = mesh
 
     def _rank0_says(self, flag: bool, mesh) -> bool:
         """Rank 0's `flag`, on every rank of `mesh` (None: as it is)."""
-        if mesh is None:
+        group = _whole_group(mesh)
+        if group is None:
             return flag
         t = torch.tensor([int(flag)])
-        broadcast_([t], mesh)
+        broadcast_([t], group)
         return bool(t.item())
 
     def _get_step(self, depth: int, with_r1: bool = True, mesh=None):
         """The fused step of (depth, group).  Under lazy R1 two exist per
         key: the regularized one (gamma * interval) and a gamma = 0 one
         with no double backward.  Keyed as the JAX trainer keys its
-        programs (depth, mesh size, R1 phase)."""
+        programs (depth, mesh size or ("spatial", data, spatial), R1
+        phase); a 2-D mesh takes build_spatial_train_step, without fused
+        scoring."""
         lazy = self.r1_interval > 1
-        key = (depth, mesh.size if mesh is not None else 1,
-               with_r1 if lazy else True)
+        spatial = isinstance(mesh, Mesh2D)
+        mesh_key = (("spatial",) + tuple(mesh.shape) if spatial
+                    else mesh.size if mesh is not None else 1)
+        key = (depth, mesh_key, with_r1 if lazy else True)
         if key not in self._steps:
             r1_gamma = None
             if lazy:
@@ -268,13 +310,19 @@ class StyleGAN:
             separate = self.r1_separate_reg and (with_r1 or not lazy)
             if separate and r1_gamma is None:
                 r1_gamma = self.r1_gamma
-            self._steps[key] = build_train_step(
-                self.gen_cfg, self.dis_cfg, depth=depth, loss=self.loss_name,
-                d_repeats=self.d_repeats, use_ema=self.use_ema,
-                ema_decay=self.ema_decay, conditional=self.conditional,
-                drift=self.drift, mesh=mesh, r1_gamma=r1_gamma,
-                r1_separate_reg=separate, mbstd_scope=self.mbstd_scope,
-                fuse_scores=self.fuse_scores, reuse_g_fwd=self.reuse_g_fwd)
+            common = dict(
+                depth=depth, loss=self.loss_name, d_repeats=self.d_repeats,
+                use_ema=self.use_ema, ema_decay=self.ema_decay,
+                conditional=self.conditional, drift=self.drift, mesh=mesh,
+                r1_gamma=r1_gamma, r1_separate_reg=separate,
+                mbstd_scope=self.mbstd_scope, reuse_g_fwd=self.reuse_g_fwd)
+            if spatial:
+                self._steps[key] = build_spatial_train_step(
+                    self.gen_cfg, self.dis_cfg, **common)
+            else:
+                self._steps[key] = build_train_step(
+                    self.gen_cfg, self.dis_cfg, fuse_scores=self.fuse_scores,
+                    **common)
         return self._steps[key]
 
     def _get_sample_fn(self, depth: int):
@@ -307,6 +355,7 @@ class StyleGAN:
     def optimize_discriminator(self, noise, real_batch, depth, alpha,
                                labels=None):
         mesh, _ = self._call_mesh(len(real_batch))
+        _refuse_2d(mesh)
         self._ensure_placement(mesh)
         key = ("d", depth, mesh.size if mesh is not None else 1)
         if key not in self._steps:
@@ -324,6 +373,7 @@ class StyleGAN:
     def optimize_generator(self, noise, real_batch, depth, alpha,
                            labels=None):
         mesh, _ = self._call_mesh(len(real_batch))
+        _refuse_2d(mesh)
         self._ensure_placement(mesh)
         key = ("g", depth, mesh.size if mesh is not None else 1)
         if key not in self._steps:
@@ -351,8 +401,10 @@ class StyleGAN:
 
         One process: `images` is the global batch.  Several processes
         (after parallel.initialize_distributed): `images` is this rank's
-        shard of the global batch (global batch = shard * the mesh's size),
-        under the fixed `mesh`, whose every rank calls this at once.
+        shard of the global batch (global batch = shard * the mesh's size;
+        on a 2-D mesh its data row's shard, at full height, and the shard
+        times the data axis's size), under the fixed `mesh`, whose every
+        rank calls this at once.
 
         fetch=False returns the two losses as device tensors and does not
         wait for the device: nothing here reads a device value, so steps
@@ -367,7 +419,7 @@ class StyleGAN:
         # stay equal, and the global z is the one-process run's
         z = self._draw_z(global_batch)
         if mesh is not None:
-            z = global_shard(mesh, z)
+            z = global_shard(_data_axis(mesh), z)
         # the update count, which a full-state resume restores, seeds the
         # step's noise and style mixing
         seed = stream_seed(self.seed, _STEP, self._update_count)
@@ -404,6 +456,23 @@ class StyleGAN:
                             ("fade_in_percentage", fade_in_percentage)):
             if self.depth > len(sched):
                 raise ValueError(f"{name} not compatible with depth")
+        if self.structure == "fixed":
+            start_depth = self.depth - 1
+        # a fixed mesh's data axis must split every depth's global batch (a
+        # 2-D mesh's height handles the rest)
+        data_n = _data_size(self.mesh)
+        for d in range(start_depth, self.depth):
+            if batch_sizes[d] % data_n:
+                raise ValueError(
+                    f"global batch {batch_sizes[d]} must divide evenly over "
+                    f"the mesh's {data_n}-device data axis (adjust "
+                    "sched.batch_sizes or the mesh, or use max_devices= for "
+                    "adaptive meshes)")
+        # every depth's group, created up front in the same order on every
+        # rank (creating one is collective; a rank that sits out a depth
+        # must not wait inside a creation)
+        meshes = {d: self._mesh_for_step(batch_sizes[d], d)
+                  for d in range(start_depth, self.depth)}
 
         writer = (MetricsWriter(os.path.join(output, "metrics.jsonl"))
                   if self.rank == 0 else None)
@@ -417,13 +486,6 @@ class StyleGAN:
                 0, self.n_classes - 1, num_samples).astype(np.int64)
 
         logger.info("Starting the training process ... \n")
-        if self.structure == "fixed":
-            start_depth = self.depth - 1
-        # every depth's group, created up front in the same order on every
-        # rank (creating one is collective; a rank that sits out a depth
-        # must not wait inside a creation)
-        meshes = {d: self._mesh_for_batch(batch_sizes[d])
-                  for d in range(start_depth, self.depth)}
         world = (Mesh(self.world, self.rank, torch.distributed.group.WORLD)
                  if self.world > 1 else None)
         clock = {"global": time.time(), "step": 1}
@@ -458,11 +520,14 @@ class StyleGAN:
         current_res = 2 ** (current_depth + 2)
         logger.info("Currently working on depth: %d", current_depth + 1)
         logger.info("Current resolution: %d x %d", current_res, current_res)
-        n = mesh.size if mesh is not None else 1
+        n = _data_size(mesh)
         ticker = 1
+        if isinstance(mesh, Mesh2D):
+            logger.info("Spatial grid: %d data x %d spatial ranks",
+                        *mesh.shape)
         data = get_data_loader(dataset, batch_size // n, num_workers,
-                               shard_index=mesh.rank if mesh else 0,
-                               num_shards=n)
+                               shard_index=_data_axis(mesh).rank if mesh
+                               else 0, num_shards=n)
         ring = PinnedRing(self.device) if self.device.type == "cuda" else None
         window_t0 = time.perf_counter()
         window_imgs, window_steps = 0, 0
@@ -603,6 +668,32 @@ class StyleGAN:
         if meta.get("update_count") is not None:
             self._update_count = int(meta["update_count"])
         return meta
+
+
+def _data_size(mesh) -> int:
+    """The ranks along a mesh's data axis (1 for none)."""
+    if isinstance(mesh, Mesh2D):
+        return mesh.shape[0]
+    return mesh.size if mesh is not None else 1
+
+
+def _data_axis(mesh):
+    """The 1-D group along a step mesh's data axis (a 2-D mesh's column
+    of this rank)."""
+    return mesh.data if isinstance(mesh, Mesh2D) else mesh
+
+
+def _whole_group(mesh):
+    """The 1-D group of every rank of a step's mesh (a 2-D mesh's grid)."""
+    return mesh.grid if isinstance(mesh, Mesh2D) else mesh
+
+
+def _refuse_2d(mesh):
+    if isinstance(mesh, Mesh2D):
+        raise NotImplementedError(
+            "the split optimize_discriminator/optimize_generator API is "
+            "data-parallel only; 2-D (data, spatial) meshes run through "
+            "the fused train_on_batch")
 
 
 def adjust01(samples) -> np.ndarray:

@@ -235,7 +235,7 @@ def test_wrapper_allocates_the_plans_workspace(plan_lib, monkeypatch, res, c):
 
 # ---------------------------------------------------------------- backward --
 
-def check_bwd_plan(p, b, rows, c, bf16, aligned, want_dn):
+def check_bwd_plan(p, b, rows, c, bf16, aligned, want_dn, launches=2):
     """The backward's plan.  Both paths: chunks cover every channel once;
     the last block's fixed-order merges give each channel tx * ty // chunk_c
     >= 1 threads; the workspace holds the pass-1 partials and coefficients
@@ -271,7 +271,7 @@ def check_bwd_plan(p, b, rows, c, bf16, aligned, want_dn):
         assert p.path == 2 and p.cluster == 1 and p.smem_bytes == 0
         assert p.tx * p.ty == 256 and 256 % p.chunk_c == 0
         assert p.rows_per_split % p.ty == 0
-        assert p.launches == 2
+        assert p.launches == launches
         parts = _align16(b * p.splits * c * 8)
         assert p.dnw_offset == p.coef_offset + _align16(b * c * 16)
     assert p.dn_partials == int(bool(want_dn) and p.chunks > 1)
@@ -332,3 +332,24 @@ def test_backward_empty_calls_refused(plan_lib, dims):
     b, rows, c = dims
     with pytest.raises(ValueError, match="no epilogue backward plan"):
         bwd_plan(plan_lib, 0, b, rows, c)
+
+
+@pytest.mark.parametrize("want_dn", [0, 1], ids=["no-dnoise", "dnoise"])
+@pytest.mark.parametrize("bf16", [0, 1], ids=["f32", "bf16"])
+@pytest.mark.parametrize("n,res,c", SPLIT_SLABS,
+                         ids=[f"{r}x{r}x{c}_over{n}"
+                              for n, r, c in SPLIT_SLABS])
+def test_backward_split_plans(plan_lib, n, res, c, bf16, want_dn):
+    """The split backward's entries (K3-partial, K3-apply) on each rank's
+    R/n rows of a split stage: path 2's geometry and workspace at every
+    slab size, small ones included, one launch per entry, the splits
+    covering the slab's rows once; the unaligned and ragged forms too."""
+    rows, batch = res * res // n, 2      # the 1024^2 step's batch
+    p = kern.make_bwd_split_plan(plan_lib, bf16, batch, rows, c, 1, want_dn)
+    check_bwd_plan(p, batch, rows, c, bf16, 1, want_dn, launches=1)
+    assert p.path == 2
+    q = kern.make_bwd_split_plan(plan_lib, bf16, batch, rows, c + 3, 0,
+                                 want_dn)
+    check_bwd_plan(q, batch, rows, c + 3, bf16, 0, want_dn, launches=1)
+    with pytest.raises(ValueError, match="no split epilogue backward plan"):
+        kern.make_bwd_split_plan(plan_lib, bf16, 0, rows, c, 1, want_dn)

@@ -82,6 +82,10 @@ def world(tmp_path_factory):
         "w": rs.randn(8, 8, 3, 3).astype(np.float32),
         "bias": rs.randn(8).astype(np.float32),
         "blur": np.outer([1., 2., 1.], [1., 2., 1.]).astype(np.float32) / 16,
+        "nw": (0.5 * rs.randn(8)).astype(np.float32),
+        "style": (0.5 * rs.randn(BATCH, 16)).astype(np.float32),
+        "noise": rs.randn(BATCH, 16, 16, 1).astype(np.float32),
+        "cot": rs.randn(BATCH, 16, 16, 8).astype(np.float32),
         "artifact": export_generator(worker.toy_config(), gen, depth=DEPTH,
                                      batch_size=BATCH, spatial_devices=2),
     }
@@ -165,11 +169,29 @@ def test_merge_moments_in_rank_order():
     assert torch.equal(again[0], mean) and torch.equal(again[1], m2)
 
 
-def test_split_epilogue_refuses_a_gradient():
-    x, nw, noise, style = _epilogue_inputs(torch.float32)
-    ctx = halo.SpatialContext(2, torch.tensor(0))
-    with pytest.raises(ValueError, match="forward only"):
-        fused.fused_epilogue(x.requires_grad_(), nw, noise, style, ctx)
+@pytest.mark.parametrize("n", worker.MESHES)
+def test_split_epilogue_refuses_a_gradient(world, n):
+    """Now a gradient: the split epilogue under autograd over n ranks (its
+    backward K3-partial, the rank-order sum, K3-apply; plain versions on
+    the CPU) gives each rank its rows of the unsplit dx and its shares of
+    dnoise_weight and dstyle, which sum over the ranks to the unsplit
+    ones: 1e-5 / 1e-4 in float32, 1e-12 in float64."""
+    spec, results, _ = world
+    for tag, dtype, tol in (("float32", torch.float32,
+                             dict(rtol=1e-4, atol=1e-5)),
+                            ("float64", torch.float64,
+                             dict(rtol=1e-12, atol=1e-12))):
+        x, nw, noise, style, cot = (torch.from_numpy(spec[k]).to(dtype)
+                                    for k in ("x", "nw", "noise", "style",
+                                              "cot"))
+        dx, dnw, _, dstyle = fused._reference_epilogue_vjp(x, nw, noise,
+                                                           style, cot)
+        np.testing.assert_allclose(results[f"epilogue_dx_{tag}_n{n}"],
+                                   dx.numpy(), **tol)
+        for name, want in (("dnw", dnw), ("dstyle", dstyle)):
+            shares = results[f"epilogue_{name}_{tag}_n{n}"]
+            assert shares.shape == (n,) + tuple(want.shape)
+            np.testing.assert_allclose(shares.sum(0), want.numpy(), **tol)
 
 
 # ------------------------------------------------------ halos and slab ops --

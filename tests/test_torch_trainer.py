@@ -402,8 +402,16 @@ def test_remat_blocks_reaches_both_networks():
 @pytest.mark.parametrize("kw", [{"spatial_devices": 2}],
                          ids=["spatial_devices"])
 def test_unported_options_raise(kw):
-    with pytest.raises(NotImplementedError, match="queue 1, parallelism"):
-        make_trainer(**kw)
+    """Nothing is refused any more: spatial_devices in one process (one
+    device, no world) trains the one-process step, as the JAX trainer does
+    with one device, bitwise equal to a trainer without it."""
+    imgs = np.random.RandomState(9).randn(2, RES, RES, 3).astype(np.float32)
+    results = []
+    for t in (make_trainer(max_devices=2, **kw), make_trainer()):
+        assert t._mesh_for_step(2, 2) is None
+        results.append(t.train_on_batch(imgs, depth=2, alpha=0.5))
+        assert [k[1] for k in t._steps] == [1]
+    assert results[0] == results[1] and all(np.isfinite(results[0]))
 
 
 @pytest.mark.parametrize("case", ["mesh", "max_devices"])

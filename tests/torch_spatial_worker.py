@@ -11,7 +11,7 @@ import torch
 
 from stylegan_torch.models import Generator
 from stylegan_torch.models import configs as tcfg
-from stylegan_torch.ops import blur2d, conv2d_apply, instance_norm
+from stylegan_torch.ops import blur2d, conv2d_apply, fused, instance_norm
 from stylegan_torch.parallel import (build_spatial_sample_fn,
                                      create_spatial_mesh, gather_rows)
 from stylegan_torch.parallel import halo
@@ -74,6 +74,18 @@ def halo_ops(spec, ctx, mesh):
         with torch.no_grad():
             for name, op in ops.items():
                 out[f"{name}_{tag}"] = gather_rows(op(slab), mesh)
+        # the split epilogue under autograd: dx rows, and this rank's
+        # shares of dnoise_weight and dstyle
+        leaves = [t.requires_grad_(True) for t in (
+            slab.clone(), torch.from_numpy(spec["nw"]).to(dtype),
+            torch.from_numpy(spec["style"]).to(dtype))]
+        noise = halo.take_rows(torch.from_numpy(spec["noise"]).to(dtype), ctx)
+        cot = halo.take_rows(torch.from_numpy(spec["cot"]).to(dtype), ctx)
+        y = fused.fused_epilogue(leaves[0], leaves[1], noise, leaves[2], ctx)
+        (y * cot).sum().backward()
+        out[f"epilogue_dx_{tag}"] = gather_rows(leaves[0].grad, mesh)
+        out[f"epilogue_dnw_{tag}"] = halo.all_gather(leaves[1].grad, ctx)
+        out[f"epilogue_dstyle_{tag}"] = halo.all_gather(leaves[2].grad, ctx)
     return out
 
 

@@ -162,8 +162,10 @@ Phases, each fatal on failure:
            (K1-partial, the rank-order merge, K2-apply) at the 9 shapes cut
            into 2 and 4 slabs, batch 1 and 8, float32 and bf16, against the
            split plain version (phase 2's bars), against the unsplit kernel
-           and bitwise on repeat, each entry timed against its bytes bound
-           on R/n rows; (b) a one-rank NCCL mesh bitwise equal to
+           and bitwise on repeat, each entry timed stage by stage against
+           its bytes bound on R/n rows and the launch floor (an empty
+           kernel's graph replay), K1-partial also cold in L2, one line per
+           case; (b) a one-rank NCCL mesh bitwise equal to
            make_serving_fn; (c) 2 and 4 ranks sharing the card over gloo,
            batch 1 and 8: rank 0's gathered images within 1e-2 and JAX's
            rtol=1e-3, atol=1e-3 of the one-process forward, each rank's
@@ -181,10 +183,12 @@ Phases, each fatal on failure:
            (train/steps.py::build_spatial_train_step): (a) K3's split entries
            (K3-partial, the rank-order sum, K3-apply; csrc/epilogue.cu's
            sgt_epilogue_backward_partial / _apply) at the 9 shapes cut into
-           2 and 4 slabs, batch 2, float32 and bf16, against the split plain
-           version and the unsplit K3 (phase 5(a)'s bars), bitwise on
-           repeat, each entry timed over one rank's 16 calls of a batch-2
-           1024^2 G backward over 2 ranks against its bytes bound; (b) one
+           2 and 4 slabs, batch 2 and 1, float32 and bf16, against the
+           split plain version and the unsplit K3 (phase 5(a)'s bars),
+           bitwise on repeat, each entry timed stage by stage (K3-partial
+           also cold in L2) against its bytes bound and the launch floor,
+           with the sums over one rank's calls of a 1024^2 G backward, one
+           line per case; (b) one
            depth-5 step on (1 x 2) and (2 x 2) grids of gloo ranks sharing
            the card, global batch 4, draws pinned: every rank's state
            bitwise rank 0's, rank 0's within phase 5(c)'s bars of the
@@ -3303,29 +3307,40 @@ def split_epilogue(kern, fused, x, nw, noise, style, n, plain=False):
                       for a, b in zip(xs, ns)], dim=1), stats
 
 
+def launch_floor_ms():
+    """Device time of one launch of an empty kernel (torch.cuda._sleep(0):
+    a kernel that returns at once) by graph replay, as graph_time_ms times
+    the kernels: no launch of a kernel can take less."""
+    return graph_time_ms(lambda i: torch.cuda._sleep(0))
+
+
 def spatial_kernels(dev):
     """11(a): K1-partial, the merge and K2-apply at the 9 epilogue shapes
     cut into 2 and 4 slabs, batch 1 and 8, float32 and bf16: against the
     split plain version (phase 2's bars), against the unsplit kernel
     (float32 1e-4 * max(1, |ref|); bf16 phase 2's ulp bar), two runs
-    bitwise; each entry timed (CUDA graph replay, as phase 2) on one slab
-    of each stage that the forward splits (res >= 4n), beside its bytes
-    bound on the R/n rows and the plain version.  The partial's error is
-    that of the merged statistics K2-apply reads.  Returns the sums over a
-    rank's split calls of one forward (two per split stage), by case."""
+    bitwise; each entry timed (CUDA graph replay, as phase 2; K1-partial
+    also with its slab cold in L2) on one slab of each stage that the
+    forward splits (res >= 4n), beside its bytes bound on the R/n rows, the
+    launch floor and the plain version, printed stage by stage.  The
+    partial's error is that of the merged statistics K2-apply reads.
+    Returns the sums over a rank's split calls of one forward (two per
+    split stage), by case, each with its stages."""
     from stylegan_torch.ops import fused
     from stylegan_torch.ops.kernels import epilogue as kern
     g = torch.Generator(device=dev).manual_seed(11)
+    floor = launch_floor_ms()
     sums, vs_unsplit = {}, 0.0
     for dtype in (torch.float32, torch.bfloat16):
         name = "f32" if dtype == torch.float32 else "bf16"
         for batch in SPATIAL_BATCHES:
             for n in SPATIAL_RANKS:
                 s = sums[f"{name}_b{batch}_n{n}"] = dict.fromkeys(
-                    ("partial_ms", "apply_ms", "plain_partial_ms",
-                     "plain_apply_ms", "partial_bound_ms", "apply_bound_ms",
-                     "stats_max_abs_err", "max_abs_err", "calls_per_forward"),
-                    0.0)
+                    ("partial_ms", "partial_cold_ms", "apply_ms",
+                     "plain_partial_ms", "plain_apply_ms", "partial_bound_ms",
+                     "apply_bound_ms", "floor_ms", "stats_max_abs_err",
+                     "max_abs_err", "calls_per_forward"), 0.0)
+                s["stages"] = []
                 for res, c in EPILOGUE_SHAPES:
                     args = epilogue_inputs(g, dev, dtype, res, c, batch)
                     x, nw, noise, style = args
@@ -3359,11 +3374,17 @@ def spatial_kernels(dev):
                         float((stats - ref_stats).abs().max()))
                     vs_unsplit = max(vs_unsplit, err_u)
                     if res >= 4 * n:          # a stage the forward splits
-                        s.update(spatial_times(kern, fused, s, args, n))
+                        t = spatial_times(kern, fused, args, n)
+                        t["floor_ms"] = floor
+                        for k, v in t.items():
+                            s[k] += 2 * v
+                        s["stages"].append({"stage": f"{res}x{res}x{c}",
+                                            "rows": res * res // n, **t})
                         s["calls_per_forward"] += 2
                     del x, noise, got, again, ref, unsplit, args
-        log(json.dumps({"phase11_split_epilogue": {
-            k: v for k, v in sums.items() if k.startswith(name)}}))
+        for k, v in sums.items():
+            if k.startswith(name):
+                log(json.dumps({"phase11_split_epilogue": {k: v}}))
     f32 = [v for k, v in sums.items() if k.startswith("f32")]
     return {"by_case": sums, "main": sums[f"f32_b{BATCH}_n2"],
             "max_abs_err": max(v["max_abs_err"] for v in f32),
@@ -3371,10 +3392,10 @@ def spatial_kernels(dev):
             "max_abs_err_vs_unsplit": vs_unsplit}
 
 
-def spatial_times(kern, fused, s, args, n):
-    """s's sums plus this stage's two calls of each entry on slab 0 (the
-    others are the same size): device ms by graph replay, the plain
-    versions', and the bytes bounds on the slab's rows."""
+def spatial_times(kern, fused, args, n):
+    """One call of each entry on slab 0 of this stage (the others are the
+    same size): device ms by graph replay (K1-partial also cold in L2),
+    the plain versions', and the bytes bounds on the slab's rows."""
     x, nw, noise, style = args
     xs, ns = x.chunk(n, dim=1)[0].contiguous(), \
         noise.chunk(n, dim=1)[0].contiguous()
@@ -3384,6 +3405,8 @@ def spatial_times(kern, fused, s, args, n):
         times = {
             "partial_ms": graph_time_ms(
                 lambda i: kern.epilogue_partial(xs, nw, ns)),
+            "partial_cold_ms": cold_time_ms(
+                lambda x1: kern.epilogue_partial(x1, nw, ns), xs),
             "apply_ms": graph_time_ms(
                 lambda i: kern.epilogue_apply(xs, nw, ns, style, stats)),
             "plain_partial_ms": graph_time_ms(
@@ -3395,7 +3418,7 @@ def spatial_times(kern, fused, s, args, n):
         / HBM_BYTES_PER_S * 1e3
     times["apply_bound_ms"] = kern.bytes_moved_apply(xs) \
         / HBM_BYTES_PER_S * 1e3
-    return {k: s[k] + 2 * v for k, v in times.items()}
+    return times
 
 
 def spatial_generator(dev):
@@ -3670,6 +3693,7 @@ SP_TRAIN_GRIDS = ((1, 2), (2, 2))   # (data, spatial) grids of 12(b)
 SP_TRAIN_WORLD = 4
 SP_TRAIN_STEPS = 2                  # timed depth-8 steps of 12(c)
 SP_TRAIN_SPLITS = (2, 4)            # slabs of one plane in 12(a)
+SP_TRAIN_BATCHES = (TRAIN_BATCH, 1)  # 12(a): the step's batch; batch 1
 SP_TRAIN_OUT = os.path.join(REPO, "build", "chip_smoke", "spatial_train")
 SP_CLI_IMAGES = 24                  # seeded 1024^2 PNGs, as phase 6 writes
 # kernel calls of one depth-8 step on a (1, 2) grid, per rank: two G
@@ -3787,76 +3811,93 @@ def check_split_grads(got, ref, where, bf16_ref=None):
 def spatial_train_kernels(dev):
     """12(a): K3-partial, the rank-order sum and K3-apply at the 9 epilogue
     shapes cut into 2 and 4 slabs (the stages the step splits, res >= 4n),
-    batch 2, float32 and bf16: against the split plain version on the same
-    merged statistics and against the unsplit K3 (phase 5(a)'s bars), two
-    runs bitwise; each entry timed on slab 0 of each split stage of one
-    rank of 2 (CUDA graph replay) beside the plain version and its bytes
-    bound.  Returns the sums over a rank's 16 split backward calls of one
-    batch-2 1024^2 G backward over 2 ranks."""
+    batch 2 and 1, float32 and bf16: against the split plain version on
+    the same merged statistics and against the unsplit K3 (phase 5(a)'s
+    bars), two runs bitwise; each entry timed on slab 0 of each split
+    stage (CUDA graph replay; K3-partial also with g and x cold in L2)
+    beside its bytes bound and the launch floor, printed stage by stage,
+    and the plain versions at batch 2 over 2 slabs in float32.  Returns
+    the sums over a rank's split backward calls of one 1024^2 G backward
+    (16 over 2 ranks, 14 over 4), by case; "main" and "bf16" are batch 2
+    over 2 ranks."""
     from stylegan_torch.ops import fused
     from stylegan_torch.ops.kernels import epilogue as kern
     g = torch.Generator(device=dev).manual_seed(13)
-    keys = ("partial_ms", "apply_ms", "plain_partial_ms", "plain_apply_ms",
-            "partial_bound_ms", "apply_bound_ms")
-    sums = {"f32": dict.fromkeys(keys, 0.0), "bf16": dict.fromkeys(keys,
-                                                                   0.0)}
+    floor = launch_floor_ms()
+    keys = ("partial_ms", "partial_cold_ms", "apply_ms", "plain_partial_ms",
+            "plain_apply_ms", "partial_bound_ms", "apply_bound_ms",
+            "floor_ms")
+    sums = {}
     worst = {"max_abs_err": 0.0, "bar_ratio_vs_plain": 0.0,
              "bar_ratio_vs_unsplit": 0.0}
     for dtype in (torch.float32, torch.bfloat16):
         name = "f32" if dtype == torch.float32 else "bf16"
-        for n in SP_TRAIN_SPLITS:
-            for res, c in EPILOGUE_SHAPES:
-                if res < 4 * n:
-                    continue
-                args = epilogue_inputs(g, dev, dtype, res, c, TRAIN_BATCH)
-                cot = torch.randn(args[0].shape, generator=g,
-                                  device=dev).to(dtype)
-                where = f"split backward {TRAIN_BATCH}x{res}x{res}x{c}/{n} " \
-                        f"{name}"
-                with torch.no_grad():
-                    got, merged = split_backward(kern, fused, args, cot, n)
-                    again, _ = split_backward(kern, fused, args, cot, n)
-                    f32 = [t.float() if t.dtype == torch.bfloat16 else t
-                           for t in args]
-                    ref, ref_sums = split_backward(kern, fused, f32,
-                                                   cot.float(), n, plain=True)
-                    unsplit = kernel_grads(kern, args, cot, TRAIN_NEEDS)
-                torch.cuda.synchronize()
-                for a, b in zip(got, again):
-                    if not torch.equal(a, b):
-                        fail(f"{where}: two runs differ")
-                if got[0].dtype != dtype or got[0].shape != args[0].shape:
-                    fail(f"{where}: dx {got[0].dtype} {tuple(got[0].shape)}")
-                worst["bar_ratio_vs_plain"] = max(
-                    worst["bar_ratio_vs_plain"],
-                    check_split_grads(got, ref, where + " vs plain"))
-                worst["bar_ratio_vs_unsplit"] = max(
-                    worst["bar_ratio_vs_unsplit"],
-                    check_split_grads(got, (unsplit[0], unsplit[1],
-                                            unsplit[3]),
-                                      where + " vs unsplit K3",
-                                      bf16_ref=unsplit[0]))
-                if dtype == torch.float32:
-                    worst["max_abs_err"] = max(
-                        worst["max_abs_err"],
-                        max(float((a - r).abs().max())
-                            for a, r in zip(got, ref)),
-                        float((merged - ref_sums).abs().max()))
-                if n == 2:
-                    s = sums[name]
-                    for k, v in split_backward_times(kern, fused, args, cot,
-                                                     n).items():
+        for batch in SP_TRAIN_BATCHES:
+            for n in SP_TRAIN_SPLITS:
+                s = sums[f"{name}_b{batch}_n{n}"] = dict.fromkeys(keys, 0.0)
+                s["stages"] = []
+                for res, c in EPILOGUE_SHAPES:
+                    if res < 4 * n:
+                        continue
+                    args = epilogue_inputs(g, dev, dtype, res, c, batch)
+                    cot = torch.randn(args[0].shape, generator=g,
+                                      device=dev).to(dtype)
+                    where = f"split backward {batch}x{res}x{res}x{c}/{n} " \
+                            f"{name}"
+                    with torch.no_grad():
+                        got, merged = split_backward(kern, fused, args, cot,
+                                                     n)
+                        again, _ = split_backward(kern, fused, args, cot, n)
+                        f32 = [t.float() if t.dtype == torch.bfloat16 else t
+                               for t in args]
+                        ref, ref_sums = split_backward(
+                            kern, fused, f32, cot.float(), n, plain=True)
+                        unsplit = kernel_grads(kern, args, cot, TRAIN_NEEDS)
+                    torch.cuda.synchronize()
+                    for a, b in zip(got, again):
+                        if not torch.equal(a, b):
+                            fail(f"{where}: two runs differ")
+                    if got[0].dtype != dtype or \
+                            got[0].shape != args[0].shape:
+                        fail(f"{where}: dx {got[0].dtype} "
+                             f"{tuple(got[0].shape)}")
+                    worst["bar_ratio_vs_plain"] = max(
+                        worst["bar_ratio_vs_plain"],
+                        check_split_grads(got, ref, where + " vs plain"))
+                    worst["bar_ratio_vs_unsplit"] = max(
+                        worst["bar_ratio_vs_unsplit"],
+                        check_split_grads(got, (unsplit[0], unsplit[1],
+                                                unsplit[3]),
+                                          where + " vs unsplit K3",
+                                          bf16_ref=unsplit[0]))
+                    if dtype == torch.float32:
+                        worst["max_abs_err"] = max(
+                            worst["max_abs_err"],
+                            max(float((a - r).abs().max())
+                                for a, r in zip(got, ref)),
+                            float((merged - ref_sums).abs().max()))
+                    t = split_backward_times(
+                        kern, fused, args, cot, n,
+                        plain=(name, batch, n) == ("f32", TRAIN_BATCH, 2))
+                    t["floor_ms"] = floor
+                    for k, v in t.items():
                         s[k] += 2 * v
-                del args, cot, got, again, ref, unsplit
-    log(json.dumps({"phase12_split_backward": {"sums_over_16_calls": sums,
-                                               **worst}}))
-    return {"main": sums["f32"], "bf16": sums["bf16"], **worst}
+                    s["stages"].append({"stage": f"{res}x{res}x{c}",
+                                        "rows": res * res // n, **t})
+                    del args, cot, got, again, ref, unsplit
+        for k, v in sums.items():
+            if k.startswith(name):
+                log(json.dumps({"phase12_split_backward": {k: v}}))
+    log(json.dumps({"phase12_split_backward": worst}))
+    return {"by_case": sums, "main": sums[f"f32_b{TRAIN_BATCH}_n2"],
+            "bf16": sums[f"bf16_b{TRAIN_BATCH}_n2"], **worst}
 
 
-def split_backward_times(kern, fused, args, cot, n):
+def split_backward_times(kern, fused, args, cot, n, plain=False):
     """Device ms of each split backward entry on slab 0 (the others are the
-    same size), by graph replay, the plain versions', and the bytes bounds
-    on the slab's rows (train-step calls: dx, dnoise_weight, dstyle)."""
+    same size), by graph replay (K3-partial also with g and x cold in L2),
+    the plain versions' where `plain`, and the bytes bounds on the slab's
+    rows (train-step calls: dx, dnoise_weight, dstyle)."""
     x, nw, noise, style = args
     xs, ns, gs = (a.chunk(n, dim=1)[0].contiguous() for a in (x, noise, cot))
     rows = xs.shape[1] * xs.shape[2]
@@ -3868,11 +3909,14 @@ def split_backward_times(kern, fused, args, cot, n):
         times = {
             "partial_ms": graph_time_ms(lambda i: kern.epilogue_backward_partial(
                 gs, xs, nw, ns, saved)),
+            "partial_cold_ms": cold_pairs_time_ms(
+                lambda x1, g1: kern.epilogue_backward_partial(
+                    g1, x1, nw, ns, saved), xs, gs),
             "apply_ms": graph_time_ms(lambda i: kern.epilogue_backward_apply(
                 gs, xs, nw, ns, style, saved, sums, n * rows,
                 (True, True, False))),
         }
-        if x.dtype == torch.float32:
+        if plain:
             times["plain_partial_ms"] = graph_time_ms(
                 lambda i: fused._reference_backward_partial(gs, xs, nw, ns,
                                                             saved))
@@ -4359,14 +4403,21 @@ def main(argv=None):
         "plain_ms": split["main"][f"plain_{entry}_ms"],
         "bound_ms": split["main"][f"{entry}_bound_ms"], "bound_by": "bytes",
         "library_ms": None,
+        "floor_ms": split["main"]["floor_ms"],
+        **({"cold_ms": split["main"]["partial_cold_ms"]}
+           if entry == "partial" else {}),
         "bf16_ms": split["by_case"][f"bf16_b{BATCH}_n2"][f"{entry}_ms"],
+        "bf16_bound_ms": split["by_case"][f"bf16_b{BATCH}_n2"][
+            f"{entry}_bound_ms"],
         "batch1_ms": split["by_case"]["f32_b1_n2"][f"{entry}_ms"],
+        "batch1_bound_ms": split["by_case"]["f32_b1_n2"][f"{entry}_bound_ms"],
         "n4_ms": split["by_case"][f"f32_b{BATCH}_n4"][f"{entry}_ms"],
         "shapes": "one rank's 16 split calls of a batch-8 1024^2 forward "
                   "over 2 ranks (the stages 8^2 to 1024^2, R/2 rows each), "
                   "float32, device time by CUDA graph replay (phase 11(a)); "
-                  "bf16_ms, batch1_ms and n4_ms (14 calls over 4 ranks) the "
-                  "same sums; max_abs_err "
+                  "floor_ms 16 launches of an empty kernel, cold_ms with x "
+                  "cold in L2; bf16_ms, batch1_ms and n4_ms (14 calls over 4 "
+                  "ranks) the same sums; max_abs_err "
                   + ("of the merged (mean, rstd*(s0+1)) that K2-apply reads"
                      if entry == "partial" else "of the split output")
                   + " against the split plain version; launches rank 0's "
@@ -4386,13 +4437,22 @@ def main(argv=None):
         "plain_ms": k3s["main"][f"plain_{entry}_ms"],
         "bound_ms": k3s["main"][f"{entry}_bound_ms"], "bound_by": "bytes",
         "library_ms": None,
+        "floor_ms": k3s["main"]["floor_ms"],
+        **({"cold_ms": k3s["main"]["partial_cold_ms"]}
+           if entry == "partial" else {}),
         "bf16_ms": k3s["bf16"][f"{entry}_ms"],
         "bf16_bound_ms": k3s["bf16"][f"{entry}_bound_ms"],
+        "batch1_ms": k3s["by_case"]["f32_b1_n2"][f"{entry}_ms"],
+        "batch1_bound_ms": k3s["by_case"]["f32_b1_n2"][f"{entry}_bound_ms"],
+        "n4_ms": k3s["by_case"][f"f32_b{TRAIN_BATCH}_n4"][f"{entry}_ms"],
         "shapes": "one rank's 16 split backward calls of a batch-2 1024^2 "
                   "G backward over 2 ranks (the stages 8^2 to 1024^2, R/2 "
                   "rows each; dx, dnoise_weight, dstyle), float32, device "
-                  "time by CUDA graph replay (phase 12(a)); bf16_ms the "
-                  "same in bfloat16; max_abs_err the float32 split "
+                  "time by CUDA graph replay (phase 12(a)); floor_ms 16 "
+                  "launches of an empty kernel, cold_ms with g and x cold in "
+                  "L2; bf16_ms the same in bfloat16, batch1_ms at batch 1, "
+                  "n4_ms the 14 calls over 4 ranks; max_abs_err the float32 "
+                  "split "
                   "gradients' (and merged sums') against the split plain "
                   "version; launches rank 0's over phase 12(c)'s "
                   f"{SP_TRAIN_STEPS} depth-8 steps on a (1 x 2) grid "

@@ -51,13 +51,20 @@
 //
 // The split-plane form serves a plane whose rows lie on several ranks (the
 // spatial serving path, parallel/spatial.py), where no launch sees the whole
-// plane: K1-partial (stats_kernel with PARTIAL) leaves this rank's merged
+// plane: K1-partial (partial_stats_kernel) leaves this rank's merged
 // (mean, M2) per (b, c); the ranks gather those, each merges them in rank
 // order (Chan's formula, on the host's side of the launch: a few (B, C)
 // tensor ops) into (mean, rstd * (s0 + 1)), and K2-apply (apply_kernel)
-// normalises this rank's rows from them.  Both take path 2's geometry at
-// every slab size (sgt_epilogue_split_plan), one launch each; they are bound
-// by bytes as the unsplit passes are, and read x twice, as path 2 does.
+// normalises this rank's rows from them.  One launch each; both are bound
+// by bytes, and together read x twice, as path 2 does.  K2-apply takes
+// path 2's geometry (sgt_epilogue_split_plan).  K1-partial, a reduction
+// whose result leaves the launch, has a plan of its own
+// (sgt_epilogue_partial_plan; below, "split-plane partial reductions"): a
+// slab of a few KB spreads over the card with a row or a few a thread and
+// 32-byte chunks, a large one streams with several loads in flight a
+// thread; the blocks that split a (b, chunk)'s rows form a thread-block
+// cluster and merge over distributed shared memory, with a ticket only
+// where one cluster cannot cover the rows.
 //
 // Common to all: noise is read as one scalar per row, never broadcast to
 // (B, R, C) in memory; every thread moves 16 bytes per load and store along
@@ -96,15 +103,16 @@
 // atomics.
 //
 // The split-plane backward serves a plane whose rows lie on several ranks
-// (the spatial train step): K3-partial (bwd_sums_kernel with PARTIAL) leaves
-// this rank's per-(b, c) (sum g, sum g * (y - mean)) over its rows, with
+// (the spatial train step): K3-partial (bwd_partial_kernel) leaves this
+// rank's per-(b, c) (sum g, sum g * (y - mean)) over its rows, with
 // (mean, rstd) the merged statistics its forward saved, and its share of
 // dstyle; the ranks gather those and each adds them in rank order (on the
 // host's side of the launch), and K3-apply (bwd_dx_kernel with SPLIT) forms
 // the coefficients from the merged sums over the plane's row count and
 // writes this rank's dx, its share of dnoise_weight and its rows of dnoise.
-// Both take path 2's geometry at every slab size (sgt_epilogue_bwd_split_plan),
-// one launch each, and are bound by bytes as the unsplit passes are.
+// One launch each, bound by bytes.  K3-apply takes the backward's path 2
+// geometry (sgt_epilogue_bwd_split_plan); K3-partial is K1-partial's kind
+// of kernel on a plan of its own (sgt_epilogue_bwd_partial_plan).
 //
 // Times on an NVIDIA H100 80GB HBM3 at 700 W are in PERF.md, measured by
 // chip_smoke.py; none is stated here.
@@ -347,14 +355,11 @@ onepass_kernel(const T* __restrict__ x, const T* __restrict__ noise,
 // grid (splits, chunks, B), block (TX, TY) with TX * TY == kThreads
 // and TY a power of two.  Thread (tx, ty) owns channels c0 .. c0 + VEC - 1
 // and rows r0 + ty, r0 + ty + TY, ...  The last block of a (b, chunk) merges
-// its splits and writes stats (mean, rstd * (s0 + 1)); with PARTIAL (K1 of
-// a plane whose rows lie on several ranks) it writes the merged (mean, M2)
-// of its R rows instead, and reads neither style nor saved.
+// its splits and writes stats (mean, rstd * (s0 + 1)).
 // Each thread issues UNROLL loads before their Welford updates.  bf16's
 // 8-wide vectors already hold 8 Welford states a thread: more loads in
 // flight cost occupancy and lost on the H100 (PERF.md).
-template <typename T, int VEC, bool PARTIAL = false,
-          int UNROLL = VEC == 8 ? 1 : 4>
+template <typename T, int VEC, int UNROLL = VEC == 8 ? 1 : 4>
 __global__ void __launch_bounds__(kThreads)
 stats_kernel(const T* __restrict__ x, const T* __restrict__ noise,
              const float* __restrict__ nw, const float* __restrict__ style,
@@ -505,15 +510,11 @@ stats_kernel(const T* __restrict__ x, const T* __restrict__ noise,
     __syncthreads();
   }
   if (g == 0 && c < C) {
-    if constexpr (PARTIAL) {
-      stats[(size_t)b * C + c] = make_float2(s_mean[tid], s_m2[tid]);
-    } else {
-      const float rstd = rsqrtf(s_m2[tid] / (float)R + kEps);
-      stats[(size_t)b * C + c] = make_float2(
-          s_mean[tid], rstd * (style[(size_t)b * 2 * C + c] + 1.f));
-      if (saved != nullptr)
-        saved[(size_t)b * C + c] = make_float2(s_mean[tid], rstd);
-    }
+    const float rstd = rsqrtf(s_m2[tid] / (float)R + kEps);
+    stats[(size_t)b * C + c] = make_float2(
+        s_mean[tid], rstd * (style[(size_t)b * 2 * C + c] + 1.f));
+    if (saved != nullptr)
+      saved[(size_t)b * C + c] = make_float2(s_mean[tid], rstd);
   }
   if (tid == 0) *ticket = 0;  // ready for the next call
 }
@@ -929,19 +930,17 @@ __device__ __forceinline__ float4 bwd_coef(float2 st, float sum_g,
 
 // Pass 1: partials (sum g, sum g * (y - mean)) per (b, split, c); the last
 // block of a (b, chunk) adds the splits in a fixed order and writes dstyle
-// (when asked) and coef (bwd_coef).  With PARTIAL (K3-partial: this rank's
-// rows of a split plane) it writes the added sums into `sums` instead of
-// coef, and dstyle (when asked) as this rank's share; it reads no style.
-template <typename T, int VEC, bool PARTIAL = false,
+// (when asked) and coef (bwd_coef).
+template <typename T, int VEC,
           int UNROLL = VEC == 8 ? kBwdSumsUnrollBf16 : kBwdSumsUnroll>
 __global__ void __launch_bounds__(kThreads)
 bwd_sums_kernel(const T* __restrict__ g, const T* __restrict__ x,
                 const T* __restrict__ noise, const float* __restrict__ nw,
                 const float* __restrict__ style,
                 const float2* __restrict__ saved, float2* __restrict__ parts,
-                float4* __restrict__ coef, float2* __restrict__ sums,
-                float* __restrict__ dstyle, int* __restrict__ tickets,
-                int64_t R, int C, int64_t rows_per_split) {
+                float4* __restrict__ coef, float* __restrict__ dstyle,
+                int* __restrict__ tickets, int64_t R, int C,
+                int64_t rows_per_split) {
   __shared__ float s_g[kThreads * VEC];
   __shared__ float s_gy[kThreads * VEC];
   __shared__ int s_flag;
@@ -1013,13 +1012,9 @@ bwd_sums_kernel(const T* __restrict__ g, const T* __restrict__ x,
       dstyle[(size_t)b * 2 * C + c] = sum_gym * st.y;  // * r: sum g * yh
       dstyle[(size_t)b * 2 * C + C + c] = sum_g;
     }
-    if constexpr (PARTIAL) {
-      sums[(size_t)b * C + c] = make_float2(sum_g, sum_gym);
-    } else {
-      coef[(size_t)b * C + c] = bwd_coef(st, sum_g, sum_gym,
-                                         style[(size_t)b * 2 * C + c],
-                                         1.f / (float)R);
-    }
+    coef[(size_t)b * C + c] = bwd_coef(st, sum_g, sum_gym,
+                                       style[(size_t)b * 2 * C + c],
+                                       1.f / (float)R);
   }
   if (tid == 0) *ticket = 0;  // ready for the next call
 }
@@ -1128,6 +1123,373 @@ bwd_dx_kernel(const T* __restrict__ g, const T* __restrict__ x,
                      dn_parts, tickets_w, tickets_n);
 }
 
+// -------------------------------------------- split-plane partial reductions --
+// K1-partial (partial_stats_kernel) and K3-partial (bwd_partial_kernel): the
+// per-(b, c) sums over this rank's R rows of a split plane, on a plan of
+// sgt::make_partial_plan.  Grid (splits, chunks, B) of (TX, TY) blocks, in
+// clusters of `cluster` blocks along x; block `rank` of cluster `group`
+// holds split group * cluster + rank, rows [r0, r1) of its (b, chunk), and
+// thread (tx, ty) owns channels c0 .. c0 + VEC - 1 of rows r0 + ty,
+// r0 + ty + TY, ...  A block reduces its threads in a fixed order: warp
+// shuffles over the row groups of each warp, then its warps in order
+// through shared memory; the cluster's rank 0 then merges its blocks in
+// rank order over distributed shared memory.  The plan takes one of two
+// forms: one cluster covers a (b, chunk)'s rows (groups == 1), and rank 0
+// writes the result, with no workspace, fence or ticket; or single blocks
+// (cluster == 1) each write a partial, and the last to finish, found by a
+// ticket, merges them in split order.  The kernel serves both (and would
+// serve their mix: each cluster's rank 0 writing one partial).  No float
+// atomics: two calls are bitwise equal.
+
+// The widest chunk a plan gives: 128-byte rows of bf16.
+constexpr int kMaxChunk = 64;
+constexpr int kMaxWarps = kThreads / 32;
+
+// Rows of split `s` of `rps` rows each over R rows.
+__device__ __forceinline__ float rows_of(int64_t s, int64_t rps, int64_t R) {
+  const int64_t r0 = s * rps;
+  return r0 < R ? (float)min64(rps, R - r0) : 0.f;
+}
+
+// Chan's merge of K partials parts[k * stride + c] (k < K; partial k over
+// rows_of(k, rows_per_part, R) rows) for the block's nch channels
+// c = c_base + lane (< C), in a fixed order: the block's threads form
+// nthreads / nch groups, each merging a contiguous run of k, then a tree
+// merges neighbouring runs in order.  The (mean, M2) of channel lane lands
+// in (sm[lane], sq[lane]) for the threads of group 0 (tid < nch); sn, sm
+// and sq hold the block's threads.  Needs nthreads a multiple of nch.
+__device__ __forceinline__ void chan_merge_parts(
+    const float2* parts, int K, int64_t stride, int64_t rows_per_part,
+    int64_t R, int c_base, int nch, int C, float* sn, float* sm, float* sq) {
+  constexpr int kBatch = 8;  // partials loaded before they are merged
+  const int tid = threadIdx.y * blockDim.x + threadIdx.x;
+  const int G = blockDim.x * blockDim.y / nch, lane = tid % nch, grp = tid / nch;
+  const int c = c_base + lane;
+  const int per = (K + G - 1) / G;
+  const int kb = grp * per, ke = min(kb + per, K);
+  float n = 0.f, m = 0.f, q = 0.f;
+  if (c < C)
+    for (int k = kb; k < ke; k += kBatch) {
+      float2 ps[kBatch];
+#pragma unroll
+      for (int u = 0; u < kBatch; ++u)
+        if (k + u < ke) ps[u] = __ldcg(parts + (int64_t)(k + u) * stride + c);
+#pragma unroll
+      for (int u = 0; u < kBatch; ++u)
+        if (k + u < ke)
+          chan(n, m, q, rows_of(k + u, rows_per_part, R), ps[u].x, ps[u].y);
+    }
+  sn[tid] = n;
+  sm[tid] = m;
+  sq[tid] = q;
+  __syncthreads();
+  for (int stride2 = 1; stride2 < G; stride2 *= 2) {
+    if (grp % (2 * stride2) == 0 && grp + stride2 < G) {
+      const int other = tid + stride2 * nch;
+      const float nb = sn[other];
+      if (nb > 0.f) {
+        float na = sn[tid];
+        chan(na, sm[tid], sq[tid], nb, sm[other], sq[other]);
+        sn[tid] = na;
+      }
+    }
+    __syncthreads();
+  }
+}
+
+// Rows r, r + TY, ..., r + (k - 1) * TY (k <= UNROLL) of x and noise,
+// loaded all at once, merged into the thread's (n, mean, M2): the batch's
+// mean, then its centred sum of squares, then Chan's formula.
+template <typename T, int VEC, int UNROLL>
+__device__ __forceinline__ void welford_rows(
+    const T* xb, const T* nb, int64_t r, int TY, int C, int k,
+    const float (&w)[VEC], float& n, float (&mean)[VEC], float (&m2)[VEC]) {
+  Pack<T, VEC> p[UNROLL];
+  float z[UNROLL];
+#pragma unroll
+  for (int u = 0; u < UNROLL; ++u)
+    if (u < k) {
+      const int64_t ru = r + (int64_t)u * TY;
+      p[u] = *reinterpret_cast<const Pack<T, VEC>*>(xb + ru * C);
+      z[u] = to_float(nb[ru]);
+    }
+  const float fk = (float)k, inv_k = 1.f / fk, f = fk / (n + fk);
+#pragma unroll
+  for (int i = 0; i < VEC; ++i) {
+    float y[UNROLL], sum = 0.f, q = 0.f;
+#pragma unroll
+    for (int u = 0; u < UNROLL; ++u)
+      if (u < k) {
+        y[u] = noisy_lrelu(to_float(p[u].v[i]), w[i], z[u]);
+        sum += y[u];
+      }
+    const float bm = sum * inv_k;
+#pragma unroll
+    for (int u = 0; u < UNROLL; ++u)
+      if (u < k) {
+        const float d = y[u] - bm;
+        q = fmaf(d, d, q);
+      }
+    const float d = bm - mean[i];
+    mean[i] = fmaf(d, f, mean[i]);
+    m2[i] = m2[i] + q + d * d * n * f;
+  }
+  n += fk;
+}
+
+template <typename T, int VEC, int UNROLL>
+__global__ void __launch_bounds__(kThreads)
+partial_stats_kernel(const T* __restrict__ x, const T* __restrict__ noise,
+                     const float* __restrict__ nw, float2* __restrict__ out,
+                     float2* __restrict__ group_parts,
+                     int* __restrict__ tickets, int64_t R, int C, int cluster,
+                     int64_t rps) {
+  __shared__ float s_n[kThreads];
+  __shared__ float s_m[kMaxWarps * kMaxChunk];
+  __shared__ float s_q[kMaxWarps * kMaxChunk];
+  __shared__ float2 s_part[kMaxChunk];
+  __shared__ int s_last;
+  const int tx = threadIdx.x, ty = threadIdx.y;
+  const int TX = blockDim.x, TY = blockDim.y;
+  const int tid = ty * TX + tx, nthreads = TX * TY, cc = TX * VEC;
+  const int rank = blockIdx.x % cluster, group = blockIdx.x / cluster;
+  const int groups = gridDim.x / cluster, chunk = blockIdx.y, b = blockIdx.z;
+  const int c0 = chunk * cc + tx * VEC;
+  const bool active = c0 < C;
+  const int64_t r0 = (int64_t)blockIdx.x * rps;
+  const int64_t r1 = min64(r0 + rps, R);
+
+  // this thread's rows, UNROLL at a time, then the last few
+  float w[VEC], mean[VEC], m2[VEC];
+#pragma unroll
+  for (int i = 0; i < VEC; ++i) {
+    w[i] = active ? nw[c0 + i] : 0.f;
+    mean[i] = m2[i] = 0.f;
+  }
+  float n = 0.f;
+  if (active) {
+    const T* xb = x + (size_t)b * R * C + c0;
+    const T* nb = noise + (size_t)b * R;
+    const int64_t step = (int64_t)TY * UNROLL;
+    int64_t r = r0 + ty;
+    for (; r + step - TY < r1; r += step)
+      welford_rows<T, VEC, UNROLL>(xb, nb, r, TY, C, UNROLL, w, n, mean, m2);
+    if (r < r1)
+      welford_rows<T, VEC, UNROLL>(xb, nb, r, TY, C,
+                                   (int)((r1 - r + TY - 1) / TY), w, n, mean,
+                                   m2);
+  }
+
+  // the row groups of each warp into its lanes 0 .. TX - 1, in lane order
+  for (int off = 16; off >= TX; off >>= 1) {
+    const float nb = __shfl_down_sync(0xffffffffu, n, off);
+#pragma unroll
+    for (int i = 0; i < VEC; ++i) {
+      const float mb = __shfl_down_sync(0xffffffffu, mean[i], off);
+      const float qb = __shfl_down_sync(0xffffffffu, m2[i], off);
+      if (nb > 0.f) {
+        float nn = n;
+        chan(nn, mean[i], m2[i], nb, mb, qb);
+      }
+    }
+    n += nb;
+  }
+  const int warp = tid >> 5, lane = tid & 31;
+  if (lane < TX) {
+    s_n[warp * TX + lane] = n;
+#pragma unroll
+    for (int i = 0; i < VEC; ++i) {
+      s_m[warp * cc + lane * VEC + i] = mean[i];
+      s_q[warp * cc + lane * VEC + i] = m2[i];
+    }
+  }
+  __syncthreads();
+  // the block's warps in order
+  if (tid < cc) {
+    float bn = 0.f, bm = 0.f, bq = 0.f;
+    for (int wi = 0; wi < nthreads >> 5; ++wi) {
+      const float nk = s_n[wi * TX + tid / VEC];
+      if (nk > 0.f) chan(bn, bm, bq, nk, s_m[wi * cc + tid], s_q[wi * cc + tid]);
+    }
+    s_part[tid] = make_float2(bm, bq);
+  }
+
+  // the cluster's blocks in rank order, by rank 0 over DSMEM
+  float2 res = make_float2(0.f, 0.f);
+  if (cluster > 1) {
+    cg::cluster_group cl = cg::this_cluster();
+    cl.sync();
+    if (rank == 0 && tid < cc) {
+      float an = 0.f;
+      for (int k = 0; k < cluster; ++k) {
+        const float nk = rows_of((int64_t)group * cluster + k, rps, R);
+        if (nk > 0.f) {
+          const float2 e = cl.map_shared_rank(s_part, k)[tid];
+          chan(an, res.x, res.y, nk, e.x, e.y);
+        }
+      }
+    }
+    cl.sync();  // no block leaves while rank 0 reads its partials
+  } else if (tid < cc) {
+    res = s_part[tid];
+  }
+  if (rank != 0) return;
+
+  const int c = chunk * cc + tid;
+  float2* ob = out + (size_t)b * C;
+  if (groups == 1) {
+    if (tid < cc && c < C) ob[c] = res;
+    return;
+  }
+  if (tid < cc && c < C)
+    group_parts[((size_t)b * groups + group) * C + c] = res;
+  int* ticket = tickets + (size_t)b * gridDim.y + chunk;
+  if (!last_block(ticket, groups, &s_last)) return;
+  chan_merge_parts(group_parts + (size_t)b * groups * C, groups, C,
+                   (int64_t)cluster * rps, R, chunk * cc, cc, C, s_n, s_m,
+                   s_q);
+  if (tid < cc && c < C) ob[c] = make_float2(s_m[tid], s_q[tid]);
+  if (tid == 0) *ticket = 0;  // ready for the next call
+}
+
+// Rows r, r + TY, ..., r + (k - 1) * TY (k <= UNROLL) of g, x and noise,
+// loaded all at once, added into the thread's sums of g and g * (y - mean).
+template <typename T, int VEC, int UNROLL>
+__device__ __forceinline__ void bwd_rows(
+    const T* gb, const T* xb, const T* nb, int64_t r, int TY, int C, int k,
+    const float (&w)[VEC], const float (&mean)[VEC], float (&sg)[VEC],
+    float (&sgy)[VEC]) {
+  Pack<T, VEC> pg[UNROLL], px[UNROLL];
+  float z[UNROLL];
+#pragma unroll
+  for (int u = 0; u < UNROLL; ++u)
+    if (u < k) {
+      const int64_t ru = r + (int64_t)u * TY;
+      pg[u] = *reinterpret_cast<const Pack<T, VEC>*>(gb + ru * C);
+      px[u] = *reinterpret_cast<const Pack<T, VEC>*>(xb + ru * C);
+      z[u] = to_float(nb[ru]);
+    }
+#pragma unroll
+  for (int u = 0; u < UNROLL; ++u)
+    if (u < k) {
+#pragma unroll
+      for (int i = 0; i < VEC; ++i) {
+        const float gv = to_float(pg[u].v[i]);
+        const float y = noisy_lrelu(to_float(px[u].v[i]), w[i], z[u]);
+        sg[i] += gv;
+        sgy[i] = fmaf(gv, y - mean[i], sgy[i]);
+      }
+    }
+}
+
+template <typename T, int VEC, int UNROLL>
+__global__ void __launch_bounds__(kThreads)
+bwd_partial_kernel(const T* __restrict__ g, const T* __restrict__ x,
+                   const T* __restrict__ noise, const float* __restrict__ nw,
+                   const float2* __restrict__ saved, float2* __restrict__ sums,
+                   float* __restrict__ dstyle,
+                   float2* __restrict__ group_parts,
+                   int* __restrict__ tickets, int64_t R, int C, int cluster,
+                   int64_t rps) {
+  __shared__ float s_g[kMaxWarps * kMaxChunk];
+  __shared__ float s_y[kMaxWarps * kMaxChunk];
+  __shared__ float2 s_part[kMaxChunk];
+  __shared__ int s_last;
+  const int tx = threadIdx.x, ty = threadIdx.y;
+  const int TX = blockDim.x, TY = blockDim.y;
+  const int tid = ty * TX + tx, nthreads = TX * TY, cc = TX * VEC;
+  const int rank = blockIdx.x % cluster, group = blockIdx.x / cluster;
+  const int groups = gridDim.x / cluster, chunk = blockIdx.y, b = blockIdx.z;
+  const int c0 = chunk * cc + tx * VEC;
+  const bool active = c0 < C;
+  const int64_t r0 = (int64_t)blockIdx.x * rps;
+  const int64_t r1 = min64(r0 + rps, R);
+
+  float w[VEC], mean[VEC], sg[VEC], sgy[VEC];
+#pragma unroll
+  for (int i = 0; i < VEC; ++i) {
+    w[i] = active ? nw[c0 + i] : 0.f;
+    mean[i] = active ? saved[(size_t)b * C + c0 + i].x : 0.f;
+    sg[i] = sgy[i] = 0.f;
+  }
+  if (active) {
+    const T* gb = g + (size_t)b * R * C + c0;
+    const T* xb = x + (size_t)b * R * C + c0;
+    const T* nb = noise + (size_t)b * R;
+    const int64_t step = (int64_t)TY * UNROLL;
+    int64_t r = r0 + ty;
+    for (; r + step - TY < r1; r += step)
+      bwd_rows<T, VEC, UNROLL>(gb, xb, nb, r, TY, C, UNROLL, w, mean, sg, sgy);
+    if (r < r1)
+      bwd_rows<T, VEC, UNROLL>(gb, xb, nb, r, TY, C,
+                               (int)((r1 - r + TY - 1) / TY), w, mean, sg,
+                               sgy);
+  }
+
+  // the row groups of each warp into its lanes 0 .. TX - 1, in lane order
+  for (int off = 16; off >= TX; off >>= 1) {
+#pragma unroll
+    for (int i = 0; i < VEC; ++i) {
+      sg[i] += __shfl_down_sync(0xffffffffu, sg[i], off);
+      sgy[i] += __shfl_down_sync(0xffffffffu, sgy[i], off);
+    }
+  }
+  const int warp = tid >> 5, lane = tid & 31;
+  if (lane < TX) {
+#pragma unroll
+    for (int i = 0; i < VEC; ++i) {
+      s_g[warp * cc + lane * VEC + i] = sg[i];
+      s_y[warp * cc + lane * VEC + i] = sgy[i];
+    }
+  }
+  __syncthreads();
+  if (tid < cc) {  // the block's warps in order
+    float2 acc = make_float2(0.f, 0.f);
+    for (int wi = 0; wi < nthreads >> 5; ++wi) {
+      acc.x += s_g[wi * cc + tid];
+      acc.y += s_y[wi * cc + tid];
+    }
+    s_part[tid] = acc;
+  }
+
+  // the cluster's blocks in rank order, by rank 0 over DSMEM
+  float2 res = make_float2(0.f, 0.f);
+  if (cluster > 1) {
+    cg::cluster_group cl = cg::this_cluster();
+    cl.sync();
+    if (rank == 0 && tid < cc)
+      for (int k = 0; k < cluster; ++k) {
+        const float2 e = cl.map_shared_rank(s_part, k)[tid];
+        res.x += e.x;
+        res.y += e.y;
+      }
+    cl.sync();  // no block leaves while rank 0 reads its partials
+  } else if (tid < cc) {
+    res = s_part[tid];
+  }
+  if (rank != 0) return;
+
+  const int c = chunk * cc + tid;
+  if (groups > 1) {
+    if (tid < cc && c < C)
+      group_parts[((size_t)b * groups + group) * C + c] = res;
+    int* ticket = tickets + (size_t)b * gridDim.y + chunk;
+    if (!last_block(ticket, groups, &s_last)) return;
+    fixed_order_sum(group_parts + (size_t)b * groups * C, groups, C,
+                    chunk * cc, cc, C, s_g, s_y);
+    if (tid < cc) res = make_float2(s_g[tid], s_y[tid]);
+    if (tid == 0) *ticket = 0;  // ready for the next call
+  }
+  if (tid < cc && c < C) {
+    sums[(size_t)b * C + c] = res;
+    if (dstyle != nullptr) {
+      dstyle[(size_t)b * 2 * C + c] =
+          res.y * saved[(size_t)b * C + c].y;  // * r: sum g * yh
+      dstyle[(size_t)b * 2 * C + C + c] = res.x;
+    }
+  }
+}
+
 // ------------------------------------------------------------- launching --
 // Launches a one-pass kernel on the grid (chunks * cluster, B) in clusters
 // of `cluster` blocks along x.  It may take up to 227 KB of dynamic shared
@@ -1197,24 +1559,48 @@ cudaError_t launch(const SgtPlan& p, const void* xv, const void* noisev,
   return cudaGetLastError();
 }
 
-// The split-plane forward (a plane whose rows lie on several ranks), on a
-// plan of sgt_epilogue_split_plan: K1-partial writes this rank's (mean, M2)
-// per (b, c) over its R rows into `partial`; after the caller's rank-order
-// merge, K2-apply reads (mean, rstd * (s0 + 1)) per (b, c) from `stats`.
+// Launches a split-plane partial reduction on the grid (splits, chunks, B)
+// of a plan of sgt::make_partial_plan, in clusters of plan.cluster along x.
+template <typename... Params, typename... Args>
+cudaError_t launch_partial_plan(void (*kernel)(Params...),
+                                const SgtPartialPlan& p, int B,
+                                cudaStream_t stream, Args... args) {
+  if (p.nonportable) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+    if (err != cudaSuccess) return err;
+  }
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)p.splits, (unsigned)p.chunks, (unsigned)B);
+  cfg.blockDim = dim3(p.tx, p.ty);
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = (unsigned)p.cluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = p.cluster > 1 ? 1 : 0;
+  return cudaLaunchKernelEx(&cfg, kernel, args...);
+}
+
+// K1-partial: this rank's (mean, M2) per (b, c) over its R rows into
+// `partial`; after the caller's rank-order merge, K2-apply reads
+// (mean, rstd * (s0 + 1)) per (b, c) from `stats`.
 template <typename T, int VEC>
-cudaError_t launch_partial(const SgtPlan& p, const void* xv,
+cudaError_t launch_partial(const SgtPartialPlan& p, const void* xv,
                            const void* noisev, const void* nwv,
                            void* partialv, void* workspace, int B, int64_t R,
                            int C, cudaStream_t stream) {
   unsigned char* ws = static_cast<unsigned char*>(workspace);
-  stats_kernel<T, VEC, true>
-      <<<dim3(p.splits, p.chunks, B), dim3(p.tx, p.ty), 0, stream>>>(
-          static_cast<const T*>(xv), static_cast<const T*>(noisev),
-          static_cast<const float*>(nwv), nullptr,
-          reinterpret_cast<float2*>(ws), static_cast<float2*>(partialv),
-          nullptr, reinterpret_cast<int*>(ws + p.tickets_offset), R, C,
-          p.rows_per_split);
-  return cudaGetLastError();
+  return launch_partial_plan(
+      p.unroll == 1 ? partial_stats_kernel<T, VEC, 1>
+                    : partial_stats_kernel<T, VEC, sgt::kPartialUnroll>,
+      p, B, stream, static_cast<const T*>(xv),
+      static_cast<const T*>(noisev), static_cast<const float*>(nwv),
+      static_cast<float2*>(partialv), reinterpret_cast<float2*>(ws),
+      reinterpret_cast<int*>(ws + p.tickets_offset), R, C, p.cluster,
+      (int64_t)p.rows_per_split);
 }
 
 template <typename T, int VEC>
@@ -1268,8 +1654,8 @@ cudaError_t launch_bwd(const SgtBwdPlan& p, const void* gv, const void* xv,
   }
   const dim3 grid(p.splits, p.chunks, B);
   bwd_sums_kernel<T, VEC><<<grid, block, 0, stream>>>(
-      g, x, noise, nw, style, saved, parts, coef, nullptr, dstyle, tickets, R,
-      C, p.rows_per_split);
+      g, x, noise, nw, style, saved, parts, coef, dstyle, tickets, R, C,
+      p.rows_per_split);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   bwd_dx_kernel<T, VEC><<<grid, block, 0, stream>>>(
@@ -1278,31 +1664,27 @@ cudaError_t launch_bwd(const SgtBwdPlan& p, const void* gv, const void* xv,
   return cudaGetLastError();
 }
 
-// The split-plane backward (a plane whose rows lie on several ranks), on a
-// plan of sgt_epilogue_bwd_split_plan: K3-partial writes this rank's
-// (sum g, sum g * (y - mean)) per (b, c) over its R rows into `sums` and,
-// where dstyle is not null, this rank's share of dstyle; after the caller's
-// rank-order sum, K3-apply writes dx, dnw (this rank's share) and dn from the
-// merged sums over the plane's rows.  Their workspace parts do not overlap:
-// K3-partial takes the pass-1 partials and tickets, K3-apply the dnw and dn
-// partials and their tickets.
+// K3-partial: this rank's (sum g, sum g * (y - mean)) per (b, c) over its
+// R rows into `sums` and, where dstyle is not null, this rank's share of
+// dstyle; after the caller's rank-order sum, K3-apply (a plan of
+// sgt_epilogue_bwd_split_plan) writes dx, dnw (this rank's share) and dn
+// from the merged sums over the plane's rows.
 template <typename T, int VEC>
-cudaError_t launch_bwd_partial(const SgtBwdPlan& p, const void* gv,
+cudaError_t launch_bwd_partial(const SgtPartialPlan& p, const void* gv,
                                const void* xv, const void* noisev,
                                const void* nwv, const void* savedv,
                                void* sumsv, void* dstylev, void* workspace,
                                int B, int64_t R, int C, cudaStream_t stream) {
   unsigned char* ws = static_cast<unsigned char*>(workspace);
-  bwd_sums_kernel<T, VEC, true>
-      <<<dim3(p.splits, p.chunks, B), dim3(p.tx, p.ty), 0, stream>>>(
-          static_cast<const T*>(gv), static_cast<const T*>(xv),
-          static_cast<const T*>(noisev), static_cast<const float*>(nwv),
-          nullptr, static_cast<const float2*>(savedv),
-          reinterpret_cast<float2*>(ws), nullptr,
-          static_cast<float2*>(sumsv), static_cast<float*>(dstylev),
-          reinterpret_cast<int*>(ws + p.tickets_offset), R, C,
-          p.rows_per_split);
-  return cudaGetLastError();
+  return launch_partial_plan(
+      bwd_partial_kernel<T, VEC, sgt::kPartialUnroll>, p, B, stream,
+      static_cast<const T*>(gv),
+      static_cast<const T*>(xv), static_cast<const T*>(noisev),
+      static_cast<const float*>(nwv), static_cast<const float2*>(savedv),
+      static_cast<float2*>(sumsv), static_cast<float*>(dstylev),
+      reinterpret_cast<float2*>(ws),
+      reinterpret_cast<int*>(ws + p.tickets_offset), R, C, p.cluster,
+      (int64_t)p.rows_per_split);
 }
 
 template <typename T, int VEC>
@@ -1399,18 +1781,19 @@ extern "C" int sgt_epilogue_backward(
 // K1-partial: the per-(b, c) (mean, M2) of y = lrelu(x + nw * noise) over
 // this rank's R rows of a split plane, into `partial`, (B, C) float2, on
 // `stream`; one launch.  x (B, R, C) and noise (B, R) in one dtype,
-// noise_weight (C,) float32; the plan is sgt_epilogue_split_plan's, and the
-// workspace its workspace_bytes with the tickets (from tickets_offset)
-// zero, which the kernel leaves at zero.  Returns 0 or a cudaError_t, as
-// sgt_epilogue_forward does.
+// noise_weight (C,) float32; the plan is sgt_epilogue_partial_plan's, and
+// the workspace its workspace_bytes (none where one cluster covers a
+// (b, chunk)) with the tickets (from tickets_offset) zero, which the kernel
+// leaves at zero.  Returns 0 or a cudaError_t, as sgt_epilogue_forward does.
 extern "C" int sgt_epilogue_partial(const void* x, const void* noise,
                                     const void* noise_weight, void* partial,
                                     void* workspace, long long workspace_bytes,
                                     int is_bf16, int B, long long R, int C,
-                                    const SgtPlan* plan, void* stream) {
-  const SgtPlan& p = *plan;
-  if (p.path != 2 || (p.vec > 1 && (uintptr_t)x % 16 != 0) ||
-      p.workspace_bytes > workspace_bytes)
+                                    const SgtPartialPlan* plan, void* stream) {
+  const SgtPartialPlan& p = *plan;
+  if ((p.vec > 1 && (uintptr_t)x % 16 != 0) ||
+      p.workspace_bytes > workspace_bytes || p.chunk_c > kMaxChunk ||
+      (p.unroll != 1 && p.unroll != sgt::kPartialUnroll))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define SGT_LAUNCH(T, V) \
@@ -1454,18 +1837,19 @@ extern "C" int sgt_epilogue_apply(const void* x, const void* noise,
 // null, its share of dstyle, (B, 2C) float32: [sum g * yh | sum g].  saved
 // is the (B, C) float2 (mean, rstd) merged over the plane that the split
 // forward saved.  g and x (B, R, C) and noise (B, R) in one dtype,
-// noise_weight (C,) float32; the plan is sgt_epilogue_bwd_split_plan's, the
-// workspace its workspace_bytes with the tickets zero, which the kernel
-// leaves at zero.  One launch on `stream`; returns 0 or a cudaError_t.
+// noise_weight (C,) float32; the plan is sgt_epilogue_bwd_partial_plan's,
+// the workspace its workspace_bytes (none where one cluster covers a
+// (b, chunk)) with the tickets zero, which the kernel leaves at zero.  One
+// launch on `stream`; returns 0 or a cudaError_t.
 extern "C" int sgt_epilogue_backward_partial(
     const void* g, const void* x, const void* noise, const void* noise_weight,
     const void* saved, void* sums, void* dstyle, void* workspace,
     long long workspace_bytes, int is_bf16, int B, long long R, int C,
-    const SgtBwdPlan* plan, void* stream) {
-  const SgtBwdPlan& p = *plan;
+    const SgtPartialPlan* plan, void* stream) {
+  const SgtPartialPlan& p = *plan;
   const bool aligned = (((uintptr_t)g | (uintptr_t)x) % 16) == 0;
-  if (p.path != 2 || (p.vec > 1 && !aligned) ||
-      p.workspace_bytes > workspace_bytes)
+  if ((p.vec > 1 && !aligned) || p.workspace_bytes > workspace_bytes ||
+      p.chunk_c > kMaxChunk || p.unroll != sgt::kPartialUnroll)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define SGT_LAUNCH(T, V)                                                    \

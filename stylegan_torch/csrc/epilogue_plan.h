@@ -11,9 +11,17 @@
 //   2  two-pass: a first pass whose last block per (b, chunk) merges the row
 //      splits, then a second pass; two launches.
 //
-// Exported: sgt_epilogue_plan, sgt_epilogue_split_plan, sgt_epilogue_bwd_plan
-// and sgt_epilogue_bwd_split_plan (defined once, in the translation unit that
-// includes this header: the kernel library or the test's shim).
+// The split-plane entries (a plane whose rows lie on several ranks): K2-apply
+// and K3-apply take path 2's geometry at every slab size, one launch each;
+// K1-partial and K3-partial, per-(b, c) reductions whose result leaves the
+// launch, take make_partial_plan's: one launch of clusters of blocks that
+// merge over distributed shared memory.
+//
+// Exported: sgt_epilogue_plan, sgt_epilogue_split_plan (K2-apply's),
+// sgt_epilogue_partial_plan (K1-partial's), sgt_epilogue_bwd_plan,
+// sgt_epilogue_bwd_split_plan (K3-apply's) and sgt_epilogue_bwd_partial_plan
+// (K3-partial's), defined once, in the translation unit that includes this
+// header: the kernel library or the test's shim.
 
 #ifndef SGT_EPILOGUE_PLAN_H_
 #define SGT_EPILOGUE_PLAN_H_
@@ -68,6 +76,28 @@ struct SgtBwdPlan {
   long long workspace_bytes;
 };
 
+// The split-plane partial reductions (K1-partial; K3-partial): per-(b, c)
+// sums over this rank's R rows that leave the launch for a cross-rank
+// merge.  One launch on the grid (splits, chunks, B) of (tx, ty) blocks in
+// thread-block clusters of `cluster` along x: the blocks of a cluster split
+// a (b, chunk)'s rows and merge their partials over distributed shared
+// memory in rank order; `groups` clusters cover the rows, and where there
+// are several, each writes one partial and the last to finish, found by a
+// ticket, merges them in group order.  Workspace (groups > 1 only), each
+// part 16-byte aligned: the clusters' partials (B, groups, C) float2, then
+// the tickets (B, chunks) int32.
+struct SgtPartialPlan {
+  int vec, tx, ty, chunk_c, chunks;
+  int cluster;         // blocks per cluster: row splits merged over DSMEM
+  int groups;          // clusters per (b, chunk)
+  int splits;          // cluster * groups row splits per (b, chunk)
+  int nonportable;     // cluster > 8: launched with the non-portable opt-in
+  int unroll;          // rows a thread loads at once: 1 (K1-partial) or 4
+  long long rows_per_split;
+  long long tickets_offset;   // workspace bytes before the tickets
+  long long workspace_bytes;  // 0 where one cluster covers a (b, chunk)
+};
+
 }  // extern "C"
 
 namespace sgt {
@@ -86,6 +116,29 @@ constexpr int kTargetStatsBlocks = 1024;
 // one wave in both passes (PERF.md).
 constexpr int kTargetBwdBlocks = 256;
 constexpr int kMinRowsPerThread = 8;
+// The split-plane partial reductions (make_partial_plan), K1-partial's and
+// K3-partial's: the rows each thread loads at once (16 bytes each, of x; of
+// g and x), and K1-partial's in bf16 in the cluster form (its 8-wide
+// vectors hold 8 Welford states a thread: more loads lost there); the
+// blocks a streaming grid aims at, K1-partial's f32 and bf16, K3-partial's;
+// the most blocks a grid of clusters aims at (about one wave of them on the
+// H100), the slab's bytes per block it aims at, and the most rounds a
+// thread takes in it; a row split's fewest rows; blocks per cluster (8:
+// the portable most); a streaming thread's fewest rows where the grid
+// keeps kMinBlocks; the most partials a merging block loads, over its
+// channels.
+constexpr int kPartialUnroll = 4;
+constexpr int kPartialClusterUnrollBf16 = 1;
+constexpr long long kStreamBlocks = 1024;
+constexpr long long kStreamBlocksBf16 = 256;
+constexpr long long kBwdStreamBlocks = 256;
+constexpr long long kMaxPartialBlocks = 256;
+constexpr long long kClusterBlockBytes = 128 << 10;
+constexpr long long kMaxClusterRounds = 8;
+constexpr long long kMinSplitRows = 32;
+constexpr int kMaxPartialCluster = 8;
+constexpr long long kStreamRowsPerThread = 32;
+constexpr long long kMaxMergeLoads = 4096;
 
 SGT_HD inline long long cdiv(long long a, long long b) { return (a + b - 1) / b; }
 SGT_HD inline long long align16(long long n) { return (n + 15) / 16 * 16; }
@@ -236,11 +289,9 @@ inline int make_plan(int is_bf16, int B, long long R, int C, int aligned,
   return 0;
 }
 
-// The plan of the split-plane forward (K1-partial, then K2-apply, on each
-// rank's rows of a plane split over ranks): the two-pass geometry at every
-// size, small slabs included, so that one code path serves every slab.
-// Each of the two entries launches one kernel; K1-partial takes the
-// workspace (its stats part unused: it writes the caller's buffer).
+// K2-apply's plan (on each rank's rows of a plane split over ranks, after
+// K1-partial and the ranks' merge): the two-pass geometry at every size,
+// small slabs included, one launch; it takes no workspace.
 inline int make_split_plan(int is_bf16, int B, long long R, int C,
                            int aligned, SgtPlan* out) {
   if (!valid_call(B, R, C)) return -1;
@@ -254,11 +305,124 @@ inline int make_split_plan(int is_bf16, int B, long long R, int C,
   return 0;
 }
 
+// The plan of a split-plane partial reduction, K1-partial's or
+// K3-partial's, reading `slabs` tensors of (B, R, C) (x; g and x):
+// `unroll` and `stream_unroll` rows a thread loads at once in the two
+// forms, `stream_blocks` the grid a streaming slab aims at:
+//   cluster  a slab that each thread loads in one round on at most
+//            kMaxPartialBlocks blocks (the chunk narrowed down to 32-byte
+//            rows as far as that takes), where the clusters then reach the
+//            aim or the stream form's grid; or in up to kMaxClusterRounds
+//            rounds on a grid that 128-byte chunks fill.  The aim is a
+//            block per kClusterBlockBytes of the slab, kMinBlocks to
+//            kMaxPartialBlocks; one cluster of up to kMaxPartialCluster
+//            blocks per (b, chunk) covers its rows, so no workspace, fence
+//            or ticket.
+//   stream   the rest: about stream_blocks blocks, splits of at least
+//            kStreamRowsPerThread rows a thread (fewer where the grid would
+//            fall short of kMinBlocks) and at most kMaxMergeLoads / chunk_c
+//            of them per (b, chunk) (the merge's loads, over the block's
+//            threads), in chunks of 128-byte rows narrowed while that grows
+//            a grid short of stream_blocks; no cluster: the last block of a
+//            (b, chunk), by ticket, merges its splits.
+// Clusters and tickets are never combined: clusters that cannot cover a
+// (b, chunk) lost to both on the H100 (PERF.md).
+inline int make_partial_plan(int is_bf16, int B, long long R, int C,
+                             int aligned, int slabs, int unroll,
+                             int stream_unroll, long long stream_blocks,
+                             SgtPartialPlan* out) {
+  if (!valid_call(B, R, C)) return -1;
+  SgtPartialPlan p = {};
+  const int elem = is_bf16 ? 2 : 4;
+  int max_tx = 1;
+  lanes(is_bf16, C, aligned, &p.vec, &max_tx);
+  auto chunks_at = [&](int t) { return cdiv(C, t * p.vec); };
+  // blocks that give each thread one round of 16-byte row vectors (lanes
+  // past C included)
+  const long long one_round =
+      cdiv((long long)B * R * chunks_at(max_tx) * max_tx,
+           (long long)kThreads * unroll);
+  // the cluster form's aim: a block per kClusterBlockBytes of the slab,
+  // kMinBlocks to kMaxPartialBlocks
+  long long target =
+      cdiv((long long)B * R * C * elem * slabs, kClusterBlockBytes);
+  if (target < kMinBlocks) target = kMinBlocks;
+  if (target > kMaxPartialBlocks) target = kMaxPartialBlocks;
+  const long long max_splits = cdiv(R, kMinSplitRows);
+  const long long one_cluster =
+      max_splits < kMaxPartialCluster ? max_splits : kMaxPartialCluster;
+  auto narrow = [&](int t) {
+    return t > 1 && (t / 2) * p.vec * elem >= kMinRowBytes;
+  };
+  // the stream form's most splits per (b, chunk) at a width
+  auto most = [&](int t) {
+    long long m = cdiv(R, (long long)(kThreads / t) * kStreamRowsPerThread);
+    const long long fill = cdiv(kMinBlocks, (long long)B * chunks_at(t));
+    if (m < fill) m = fill;
+    if (m > max_splits) m = max_splits;
+    const long long by_merge = kMaxMergeLoads / (t * p.vec);
+    return m < by_merge ? m : by_merge;
+  };
+  auto grid_at = [&](int t) { return (long long)B * chunks_at(t) * most(t); };
+  int stream_tx = max_tx;
+  while (narrow(stream_tx) && grid_at(stream_tx) < stream_blocks &&
+         grid_at(stream_tx / 2) > grid_at(stream_tx))
+    stream_tx /= 2;
+  long long stream_groups =
+      cdiv(stream_blocks, (long long)B * chunks_at(stream_tx));
+  if (stream_groups > most(stream_tx)) stream_groups = most(stream_tx);
+  const long long stream_grid =
+      (long long)B * chunks_at(stream_tx) * stream_groups;
+  // the cluster form
+  int tx = max_tx;
+  while (narrow(tx) && (long long)B * chunks_at(tx) * one_cluster < target)
+    tx /= 2;
+  const long long reach = (long long)B * chunks_at(tx) * one_cluster;
+  long long cl = 1, groups = 1;
+  if ((one_round <= kMaxPartialBlocks &&
+       reach >= (target < stream_grid ? target : stream_grid)) ||
+      (one_round <= kMaxClusterRounds * kMaxPartialBlocks &&
+       (long long)B * chunks_at(max_tx) * one_cluster >= target)) {
+    if (one_round > kMaxPartialBlocks) tx = max_tx;
+    long long s = cdiv(target, (long long)B * chunks_at(tx));
+    if (s > one_cluster) s = one_cluster;
+    while (cl < s) cl *= 2;
+    p.unroll = unroll;
+  } else {
+    tx = stream_tx;
+    groups = stream_groups;
+    p.unroll = stream_unroll;
+  }
+  long long rps = cdiv(R, cl * groups);
+  while ((cl * groups - 1) * rps >= R) {  // no split without rows
+    if (groups > 1) --groups; else cl /= 2;
+    rps = cdiv(R, cl * groups);
+  }
+  p.tx = tx;
+  p.chunk_c = tx * p.vec;
+  p.chunks = (int)chunks_at(tx);
+  p.cluster = (int)cl;
+  p.groups = (int)groups;
+  p.splits = (int)(cl * groups);
+  p.nonportable = cl > 8;
+  p.rows_per_split = rps;
+  int ty = pow2_at_least(rps, kThreads / tx);
+  if (ty * tx < 32) ty = 32 / tx;
+  if (ty < p.vec) ty = p.vec;
+  p.ty = ty;
+  if (groups > 1) {
+    p.tickets_offset = align16((long long)B * groups * C * 8);
+    p.workspace_bytes = p.tickets_offset + align16((long long)B * p.chunks * 4);
+  }
+  *out = p;
+  return 0;
+}
+
 // The backward's plan: one pass where the slabs of g and x fit on chip (as
 // the forward's path 1), else two passes over the forward's two-pass chunks
-// with the backward's own split target.  `split` (the split-plane backward,
-// K3-partial then K3-apply on each rank's rows of a plane split over ranks)
-// takes the two-pass geometry at every size, one launch per entry.
+// with the backward's own split target.  `split` (K3-apply, on each rank's
+// rows of a plane split over ranks) takes the two-pass geometry at every
+// size, one launch.
 // `aligned`: g, x and dx start on 16-byte boundaries.
 inline int make_bwd_plan(int is_bf16, int B, long long R, int C, int aligned,
                          int want_dn, SgtBwdPlan* out, bool split = false) {
@@ -316,6 +480,24 @@ extern "C" int sgt_epilogue_plan(int is_bf16, int B, long long R, int C,
 extern "C" int sgt_epilogue_split_plan(int is_bf16, int B, long long R,
                                        int C, int aligned, SgtPlan* plan) {
   return sgt::make_split_plan(is_bf16, B, R, C, aligned, plan);
+}
+
+extern "C" int sgt_epilogue_partial_plan(int is_bf16, int B, long long R,
+                                         int C, int aligned,
+                                         SgtPartialPlan* plan) {
+  return sgt::make_partial_plan(
+      is_bf16, B, R, C, aligned, 1,
+      is_bf16 ? sgt::kPartialClusterUnrollBf16 : sgt::kPartialUnroll,
+      sgt::kPartialUnroll,
+      is_bf16 ? sgt::kStreamBlocksBf16 : sgt::kStreamBlocks, plan);
+}
+
+extern "C" int sgt_epilogue_bwd_partial_plan(int is_bf16, int B, long long R,
+                                             int C, int aligned,
+                                             SgtPartialPlan* plan) {
+  return sgt::make_partial_plan(is_bf16, B, R, C, aligned, 2,
+                                sgt::kPartialUnroll, sgt::kPartialUnroll,
+                                sgt::kBwdStreamBlocks, plan);
 }
 
 extern "C" int sgt_epilogue_bwd_plan(int is_bf16, int B, long long R, int C,

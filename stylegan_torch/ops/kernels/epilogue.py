@@ -47,10 +47,13 @@ card:
   (K1-partial, K2-apply) of a plane whose rows lie on several ranks, between
   which ``ops/fused.py`` gathers the ranks' partials and merges them into
   the (B, C, 2) (mean, rstd * (s0 + 1)) that K2-apply reads.  Their CUDA
-  implementations are `epilogue_partial` and `epilogue_apply`, one launch
-  each on the plan of ``sgt_epilogue_split_plan`` (path 2's geometry at
-  every size); their CPU implementations, registered by ``ops/fused.py``,
-  are the plain versions.
+  implementations are `epilogue_partial`, one launch on the plan of
+  ``sgt_epilogue_partial_plan`` (clusters of blocks that merge over
+  distributed shared memory), and `epilogue_apply`, one launch on the plan
+  of ``sgt_epilogue_split_plan`` (path 2's geometry at every size); each
+  plan is cached per (dtype, B, H*W, C, alignment), K1-partial's workspace
+  (none where one cluster covers a (b, chunk)) as the forward's; their CPU
+  implementations, registered by ``ops/fused.py``, are the plain versions.
 * ``stylegan_torch::epilogue_backward_partial`` (g, x, noise_weight, noise,
   saved) -> (sums, dstyle) and ``stylegan_torch::epilogue_backward_apply``
   (g, x, noise_weight, noise, style, saved, sums, rows, needs) -> the
@@ -61,11 +64,12 @@ card:
   ``ops/fused.py`` gathers the ranks' sums and adds them in rank order, and
   K3-apply writes dx, this rank's share of dnoise_weight and its rows of
   dnoise from the merged sums over the plane's `rows` rows.  Their CUDA
-  implementations are `epilogue_backward_partial` and
-  `epilogue_backward_apply`, one launch each on the plan of
+  implementations are `epilogue_backward_partial`, one launch on the plan
+  of ``sgt_epilogue_bwd_partial_plan`` (K1-partial's kind), and
+  `epilogue_backward_apply`, one launch on the plan of
   ``sgt_epilogue_bwd_split_plan`` (the backward's path 2 geometry at every
-  size); their CPU implementations, registered by ``ops/fused.py``, are the
-  plain versions.
+  size), each with a plan and workspace cache of its own; their CPU
+  implementations, registered by ``ops/fused.py``, are the plain versions.
 
 The training path is the ``torch.autograd.Function`` `_KernelEpilogue`
 (the counterpart of the JAX ``pallas_epilogue`` custom VJP), whose forward
@@ -125,10 +129,13 @@ _plans: dict = {}        # (is_bf16, B, rows, C, aligned) -> Plan
 _workspaces: dict = {}   # (plan key, device, stream) -> eager workspace
 _bwd_plans: dict = {}    # (is_bf16, B, rows, C, aligned, want_dn) -> BwdPlan
 _bwd_workspaces: dict = {}
-_split_plans: dict = {}  # (is_bf16, B, rows, C, aligned) -> Plan
-_split_workspaces: dict = {}
-_bwd_split_plans: dict = {}  # (is_bf16, B, rows, C, aligned, want_dn)
+_split_plans: dict = {}  # K2-apply's: (is_bf16, B, rows, C, aligned) -> Plan
+_bwd_split_plans: dict = {}  # K3-apply's: (..., aligned, want_dn) -> BwdPlan
 _bwd_split_workspaces: dict = {}
+_partial_plans: dict = {}  # K1-partial's: (is_bf16, B, rows, C, aligned)
+_partial_workspaces: dict = {}
+_bwd_partial_plans: dict = {}  # K3-partial's, the same keys
+_bwd_partial_workspaces: dict = {}
 
 
 class Plan(ctypes.Structure):
@@ -152,6 +159,17 @@ class BwdPlan(ctypes.Structure):
         + [(n, ctypes.c_longlong) for n in (
             "rows_per_split", "smem_bytes", "coef_offset", "dnw_offset",
             "dn_offset", "tickets_offset", "workspace_bytes")])
+
+    as_dict = Plan.as_dict
+
+
+class PartialPlan(ctypes.Structure):
+    """``SgtPartialPlan`` of epilogue_plan.h."""
+    _fields_ = ([(n, ctypes.c_int) for n in (
+        "vec", "tx", "ty", "chunk_c", "chunks", "cluster", "groups",
+        "splits", "nonportable", "unroll")]
+        + [(n, ctypes.c_longlong) for n in (
+            "rows_per_split", "tickets_offset", "workspace_bytes")])
 
     as_dict = Plan.as_dict
 
@@ -202,12 +220,16 @@ def bind(lib):
     lib.sgt_epilogue_bwd_split_plan.argtypes = [i, i, ll, i, i, i,
                                                 ctypes.POINTER(BwdPlan)]
     lib.sgt_epilogue_bwd_split_plan.restype = ctypes.c_int
+    for name in ("sgt_epilogue_partial_plan", "sgt_epilogue_bwd_partial_plan"):
+        getattr(lib, name).argtypes = [i, i, ll, i, i,
+                                       ctypes.POINTER(PartialPlan)]
+        getattr(lib, name).restype = ctypes.c_int
     if hasattr(lib, "sgt_epilogue_forward"):
         lib.sgt_epilogue_partial.argtypes = [
             p, p, p, p,           # x noise noise_weight partial
             p, ll,                # workspace, its bytes
             i, i, ll, i,          # is_bf16 B R C
-            ctypes.POINTER(Plan), p]  # plan, stream
+            ctypes.POINTER(PartialPlan), p]  # plan, stream
         lib.sgt_epilogue_partial.restype = ctypes.c_int
         lib.sgt_epilogue_apply.argtypes = [
             p, p, p, p, p, p,     # x noise noise_weight style stats out
@@ -232,7 +254,7 @@ def bind(lib):
             p, p,                 # sums dstyle
             p, ll,                # workspace, its bytes
             i, i, ll, i,          # is_bf16 B R C
-            ctypes.POINTER(BwdPlan), p]  # plan, stream
+            ctypes.POINTER(PartialPlan), p]  # plan, stream
         lib.sgt_epilogue_backward_partial.restype = ctypes.c_int
         lib.sgt_epilogue_backward_apply.argtypes = [
             p, p, p, p, p, p, p,  # g x noise noise_weight style saved sums
@@ -468,7 +490,7 @@ def _launch_backward(g, x, noise_weight, noise, style, saved, dx, dnw, dn,
 
 def make_split_plan(lib, is_bf16: int, b: int, rows: int, c: int,
                     aligned: int) -> Plan:
-    """The split entries' plan of one call, from sgt_epilogue_split_plan."""
+    """K2-apply's plan of one call, from sgt_epilogue_split_plan."""
     plan = Plan()
     if lib.sgt_epilogue_split_plan(is_bf16, b, rows, c, aligned, plan) != 0:
         raise ValueError(f"no split epilogue plan for B={b} R={rows} C={c} "
@@ -476,12 +498,22 @@ def make_split_plan(lib, is_bf16: int, b: int, rows: int, c: int,
     return plan
 
 
-def _split_plan(x, aligned):
+def make_partial_plan(lib, is_bf16: int, b: int, rows: int, c: int,
+                      aligned: int) -> PartialPlan:
+    """K1-partial's plan of one call, from sgt_epilogue_partial_plan."""
+    plan = PartialPlan()
+    if lib.sgt_epilogue_partial_plan(is_bf16, b, rows, c, aligned, plan) != 0:
+        raise ValueError(f"no K1-partial plan for B={b} R={rows} C={c} "
+                         f"bf16={is_bf16} aligned={aligned}")
+    return plan
+
+
+def _cached_plan(cache, make, x, aligned, *extra):
     b, h, w, c = x.shape
-    key = (int(x.dtype == torch.bfloat16), b, h * w, c, aligned)
-    plan = _split_plans.get(key)
+    key = (int(x.dtype == torch.bfloat16), b, h * w, c, aligned, *extra)
+    plan = cache.get(key)
     if plan is None:
-        plan = _split_plans[key] = make_split_plan(_library(), *key)
+        plan = cache[key] = make(_library(), *key)
     return key, plan
 
 
@@ -501,16 +533,17 @@ def epilogue_partial(x: torch.Tensor, noise_weight: torch.Tensor,
 def _launch_partial(x, noise_weight, noise, partial):
     global partial_launches
     b, h, w, c = x.shape
-    key, plan = _split_plan(x, int(x.data_ptr() % 16 == 0))
+    key, plan = _cached_plan(_partial_plans, make_partial_plan, x,
+                             int(x.data_ptr() % 16 == 0))
     stream = _stream(x.device)
-    ws_key, ws = _workspace_for(_split_workspaces, key, plan, x.device,
+    ws_key, ws = _workspace_for(_partial_workspaces, key, plan, x.device,
                                 stream)
     err = _library().sgt_epilogue_partial(
         x.data_ptr(), noise.data_ptr(), noise_weight.data_ptr(),
         partial.data_ptr(), _ptr(ws), plan.workspace_bytes, key[0], b,
         h * w, c, plan, stream)
     if err != 0:
-        _split_workspaces.pop(ws_key, None)
+        _partial_workspaces.pop(ws_key, None)
         raise RuntimeError(f"epilogue K1-partial launch failed: cudaError "
                            f"{err}")
     partial_launches += 1
@@ -533,7 +566,8 @@ def epilogue_apply(x: torch.Tensor, noise_weight: torch.Tensor,
 def _launch_apply(x, noise_weight, noise, style, stats, out):
     global apply_launches
     b, h, w, c = x.shape
-    key, plan = _split_plan(x, int((x.data_ptr() | out.data_ptr()) % 16 == 0))
+    key, plan = _cached_plan(_split_plans, make_split_plan, x,
+                             int((x.data_ptr() | out.data_ptr()) % 16 == 0))
     err = _library().sgt_epilogue_apply(
         x.data_ptr(), noise.data_ptr(), noise_weight.data_ptr(),
         style.data_ptr(), stats.data_ptr(), out.data_ptr(), key[0], b, h * w,
@@ -548,8 +582,7 @@ def _launch_apply(x, noise_weight, noise, style, stats, out):
 
 def make_bwd_split_plan(lib, is_bf16: int, b: int, rows: int, c: int,
                         aligned: int, want_dn: int) -> BwdPlan:
-    """The split backward entries' plan of one call, from
-    sgt_epilogue_bwd_split_plan."""
+    """K3-apply's plan of one call, from sgt_epilogue_bwd_split_plan."""
     plan = BwdPlan()
     if lib.sgt_epilogue_bwd_split_plan(is_bf16, b, rows, c, aligned, want_dn,
                                        plan) != 0:
@@ -558,13 +591,15 @@ def make_bwd_split_plan(lib, is_bf16: int, b: int, rows: int, c: int,
     return plan
 
 
-def _bwd_split_plan(x, aligned, want_dn):
-    b, h, w, c = x.shape
-    key = (int(x.dtype == torch.bfloat16), b, h * w, c, aligned, want_dn)
-    plan = _bwd_split_plans.get(key)
-    if plan is None:
-        plan = _bwd_split_plans[key] = make_bwd_split_plan(_library(), *key)
-    return key, plan
+def make_bwd_partial_plan(lib, is_bf16: int, b: int, rows: int, c: int,
+                          aligned: int) -> PartialPlan:
+    """K3-partial's plan of one call, from sgt_epilogue_bwd_partial_plan."""
+    plan = PartialPlan()
+    if lib.sgt_epilogue_bwd_partial_plan(is_bf16, b, rows, c, aligned,
+                                         plan) != 0:
+        raise ValueError(f"no K3-partial plan for B={b} R={rows} C={c} "
+                         f"bf16={is_bf16} aligned={aligned}")
+    return plan
 
 
 def epilogue_backward_partial(g: torch.Tensor, x: torch.Tensor,
@@ -588,17 +623,17 @@ def epilogue_backward_partial(g: torch.Tensor, x: torch.Tensor,
 def _launch_backward_partial(g, x, noise_weight, noise, saved, sums, dstyle):
     global backward_partial_launches
     b, h, w, c = x.shape
-    key, plan = _bwd_split_plan(
-        x, int((g.data_ptr() | x.data_ptr()) % 16 == 0), 0)
+    key, plan = _cached_plan(_bwd_partial_plans, make_bwd_partial_plan, x,
+                             int((g.data_ptr() | x.data_ptr()) % 16 == 0))
     stream = _stream(x.device)
-    ws_key, ws = _workspace_for(_bwd_split_workspaces, key, plan, x.device,
+    ws_key, ws = _workspace_for(_bwd_partial_workspaces, key, plan, x.device,
                                 stream)
     err = _library().sgt_epilogue_backward_partial(
         g.data_ptr(), x.data_ptr(), noise.data_ptr(), noise_weight.data_ptr(),
         saved.data_ptr(), sums.data_ptr(), dstyle.data_ptr(), _ptr(ws),
         plan.workspace_bytes, key[0], b, h * w, c, plan, stream)
     if err != 0:
-        _bwd_split_workspaces.pop(ws_key, None)
+        _bwd_partial_workspaces.pop(ws_key, None)
         raise RuntimeError(f"epilogue K3-partial launch failed: cudaError "
                            f"{err}")
     backward_partial_launches += 1
@@ -630,8 +665,9 @@ def _launch_backward_apply(g, x, noise_weight, noise, style, saved, sums,
                            rows, dx, dnw, dn):
     global backward_apply_launches
     b, h, w, c = x.shape
-    key, plan = _bwd_split_plan(
-        x, int((g.data_ptr() | x.data_ptr() | _ptr(dx)) % 16 == 0),
+    key, plan = _cached_plan(
+        _bwd_split_plans, make_bwd_split_plan, x,
+        int((g.data_ptr() | x.data_ptr() | _ptr(dx)) % 16 == 0),
         int(dn is not None))
     stream = _stream(x.device)
     ws_key, ws = _workspace_for(_bwd_split_workspaces, key, plan, x.device,

@@ -140,9 +140,9 @@ SPLIT_SLABS = [(n, res, c) for n in (2, 4) for res, c in MAIN_SHAPES
                          ids=[f"{r}x{r}x{c}_over{n}"
                               for n, r, c in SPLIT_SLABS])
 def test_split_plans(plan_lib, n, res, c, batch, bf16):
-    """K1-partial and K2-apply (a plane whose rows lie on n ranks) take the
-    two-pass geometry on every slab, the small ones too: one code path, one
-    launch per entry, splits covering the slab's rows once."""
+    """K2-apply (on a plane whose rows lie on n ranks) takes the two-pass
+    geometry on every slab, the small ones too: one code path, one launch,
+    splits covering the slab's rows once."""
     rows = res // n * res
     p = kern.make_split_plan(plan_lib, bf16, batch, rows, c, 1)
     assert p.path == 2 and p.launches == 1
@@ -340,10 +340,10 @@ def test_backward_empty_calls_refused(plan_lib, dims):
                          ids=[f"{r}x{r}x{c}_over{n}"
                               for n, r, c in SPLIT_SLABS])
 def test_backward_split_plans(plan_lib, n, res, c, bf16, want_dn):
-    """The split backward's entries (K3-partial, K3-apply) on each rank's
-    R/n rows of a split stage: path 2's geometry and workspace at every
-    slab size, small ones included, one launch per entry, the splits
-    covering the slab's rows once; the unaligned and ragged forms too."""
+    """K3-apply on each rank's R/n rows of a split stage: path 2's geometry
+    and workspace at every slab size, small ones included, one launch, the
+    splits covering the slab's rows once; the unaligned and ragged forms
+    too."""
     rows, batch = res * res // n, 2      # the 1024^2 step's batch
     p = kern.make_bwd_split_plan(plan_lib, bf16, batch, rows, c, 1, want_dn)
     check_bwd_plan(p, batch, rows, c, bf16, 1, want_dn, launches=1)
@@ -353,3 +353,187 @@ def test_backward_split_plans(plan_lib, n, res, c, bf16, want_dn):
     check_bwd_plan(q, batch, rows, c + 3, bf16, 0, want_dn, launches=1)
     with pytest.raises(ValueError, match="no split epilogue backward plan"):
         kern.make_bwd_split_plan(plan_lib, bf16, 0, rows, c, 1, want_dn)
+
+
+# ----------------------------------------------- split-plane partial plans --
+# K1-partial and K3-partial: a plan of their own (make_partial_plan) for a
+# per-(b, c) reduction over a slab's rows in clusters of blocks
+
+MIN_SPLIT_ROWS = 32        # kMinSplitRows: where the rows may be cut
+MAX_CHUNK = 64             # kMaxChunk: the channels the kernels' buffers hold
+# the kernels' static shared memory: per warp and channel (mean, M2) or
+# (sum g, sum g * (y - mean)), a float per thread, the block's partials
+PARTIAL_SMEM = 8 * MAX_CHUNK * 4 * 2 + 256 * 4 + MAX_CHUNK * 8 + 4
+PARTIAL_ENTRIES = {"K1": kern.make_partial_plan,
+                   "K3": kern.make_bwd_partial_plan}
+
+
+def check_partial_plan(p, b, rows, c, bf16, aligned):
+    """Rows covered once by the clusters' splits, channels once by the
+    chunks; a block of a power-of-two shape, at least a warp and vec row
+    groups; clusters of at most 8 blocks (16 only as non-portable), never
+    beside a ticket; the
+    kernels' buffers within the chunk and the block's shared memory; the
+    grid at kMinBlocks wherever B x R x C allows; the workspace (clusters'
+    partials, then tickets) only where several clusters share a (b,
+    chunk)."""
+    elem = 2 if bf16 else 4
+    vec = (8 if bf16 else 4) if c % (8 if bf16 else 4) == 0 and aligned else 1
+    assert p.vec == vec
+    assert _pow2(p.tx) and _pow2(p.ty) and p.tx <= 32
+    assert 32 <= p.tx * p.ty <= 256 and p.ty >= p.vec
+    assert p.chunk_c == p.tx * p.vec and p.chunk_c * elem <= 128
+    assert p.chunk_c <= MAX_CHUNK and PARTIAL_SMEM <= MAX_SMEM
+    assert (p.chunks - 1) * p.chunk_c < c <= p.chunks * p.chunk_c
+    assert p.chunks <= 65535 and b <= 65535
+    assert _pow2(p.cluster) and p.splits == p.cluster * p.groups
+    assert p.cluster == 1 or p.groups == 1   # clusters or a ticket
+    assert p.unroll in (1, 4)                 # the kernels' instantiations
+    assert p.unroll == 4 or (bf16 and p.groups == 1)
+    assert p.cluster <= (16 if p.nonportable else MAX_CLUSTER)
+    assert p.nonportable == int(p.cluster > MAX_CLUSTER)
+    # every split holds rows: the clusters x splits cover [0, R) once
+    assert (p.splits - 1) * p.rows_per_split < rows
+    assert rows <= p.splits * p.rows_per_split
+    # a block holds its split's rows in row groups, none past a power of two
+    assert p.ty >= min(p.rows_per_split, 256 // p.tx) or p.ty * p.tx == 256
+    assert p.ty < 2 * max(p.rows_per_split, 32 // p.tx, p.vec)
+    blocks = b * p.chunks * p.splits
+    sector = 32 // elem          # channels of a 32-byte row
+    if b * -(-c // sector) * -(-rows // MIN_SPLIT_ROWS) >= MIN_BLOCKS:
+        assert blocks >= MIN_BLOCKS
+    if p.groups == 1:
+        assert p.workspace_bytes == 0 and p.tickets_offset == 0
+    else:
+        assert p.tickets_offset == _align16(b * p.groups * c * 8)
+        assert p.workspace_bytes == p.tickets_offset + _align16(
+            b * p.chunks * 4)
+    return blocks
+
+
+@pytest.mark.parametrize("aligned", [1, 0], ids=["aligned", "unaligned"])
+@pytest.mark.parametrize("bf16", [0, 1], ids=["f32", "bf16"])
+@pytest.mark.parametrize("batch", [1, 2, BATCH], ids=["b1", "b2", f"b{BATCH}"])
+@pytest.mark.parametrize("n,res,c", SPLIT_SLABS,
+                         ids=[f"{r}x{r}x{c}_over{n}"
+                              for n, r, c in SPLIT_SLABS])
+@pytest.mark.parametrize("entry", sorted(PARTIAL_ENTRIES))
+def test_partial_plans(plan_lib, entry, n, res, c, batch, bf16, aligned):
+    """K1-partial's and K3-partial's plans on each rank's R/n rows of a
+    split stage: covering, in clusters, filling the card where the slab
+    allows; at batch 1 the aligned slabs up to 32^2 x 512 take one
+    cluster per (b, chunk), so no workspace, fence or ticket."""
+    rows = res * res // n
+    p = PARTIAL_ENTRIES[entry](plan_lib, bf16, batch, rows, c, aligned)
+    check_partial_plan(p, batch, rows, c, bf16, aligned)
+    if entry == "K3":
+        assert p.unroll == 4     # its only instantiation
+    if res <= 32 and batch == 1 and aligned:
+        assert p.groups == 1
+
+
+@pytest.mark.parametrize("entry", sorted(PARTIAL_ENTRIES))
+@pytest.mark.parametrize("aligned", [1, 0], ids=["aligned", "unaligned"])
+@pytest.mark.parametrize("bf16", [0, 1], ids=["f32", "bf16"])
+def test_partial_plan_sweep(plan_lib, bf16, aligned, entry):
+    """Every (B <= 8, H*W <= 2^20, C <= 512) of the sweep has a partial
+    plan that covers it, and the sweep reaches one block per (b, chunk),
+    one cluster, and splits merged by ticket."""
+    seen = set()
+    for b, rows, c in itertools.product(SWEEP_B, SWEEP_R, SWEEP_C):
+        p = PARTIAL_ENTRIES[entry](plan_lib, bf16, b, rows, c, aligned)
+        check_partial_plan(p, b, rows, c, bf16, aligned)
+        seen.add((p.cluster > 1, p.groups > 1))
+    assert seen == {(False, False), (True, False), (False, True)}
+
+
+@pytest.mark.parametrize("entry,words", [("K1", "no K1-partial plan"),
+                                         ("K3", "no K3-partial plan")])
+@pytest.mark.parametrize("dims", [(0, 16, 16), (1, 0, 16), (1, 16, 0)])
+def test_partial_empty_calls_refused(plan_lib, dims, entry, words):
+    b, rows, c = dims
+    with pytest.raises(ValueError, match=words):
+        PARTIAL_ENTRIES[entry](plan_lib, 0, b, rows, c, 1)
+
+
+class _SplitRecorder:
+    """The kernel library with the plans from the host-compiled header and
+    the four split entries recorded instead of launched."""
+
+    def __init__(self, lib):
+        self.lib = lib
+        self.calls = {}
+        for name in ("sgt_epilogue_partial_plan",
+                     "sgt_epilogue_bwd_partial_plan",
+                     "sgt_epilogue_split_plan",
+                     "sgt_epilogue_bwd_split_plan"):
+            setattr(self, name, getattr(lib, name))
+        for name in ("sgt_epilogue_partial", "sgt_epilogue_apply",
+                     "sgt_epilogue_backward_partial",
+                     "sgt_epilogue_backward_apply"):
+            setattr(self, name, self._record(name))
+
+    def _record(self, name):
+        def call(*args):
+            self.calls.setdefault(name, []).append(args)
+            return 0
+        return call
+
+
+@pytest.mark.parametrize("res,c", [(8, 512), (64, 256), (1024, 16)],
+                         ids=["8x8x512", "64x64x256", "1024x1024x16"])
+def test_split_wrappers_take_their_own_plans(plan_lib, monkeypatch, res, c):
+    """K1-partial and K3-partial hand the kernel their own cached plans and
+    workspaces (make_partial_plan's), while K2-apply and K3-apply keep the
+    split plans and K3-apply its workspace; each workspace is the plan's
+    size with its tickets zero, and none where the plan needs none."""
+    rec = _SplitRecorder(plan_lib)
+    monkeypatch.setattr(kern, "_library", lambda: rec)
+    monkeypatch.setattr(kern, "_stream", lambda device: 7)
+    monkeypatch.setattr(kern, "_capturing", lambda: False)
+    for cache in ("_split_plans", "_bwd_split_plans", "_bwd_split_workspaces",
+                  "_partial_plans", "_partial_workspaces",
+                  "_bwd_partial_plans", "_bwd_partial_workspaces"):
+        monkeypatch.setattr(kern, cache, {})
+    b, rows = 1, res * res // 2
+    x = torch.zeros((b, res // 2, res, c))
+    g, out = torch.zeros_like(x), torch.empty_like(x)
+    nw, noise, style = torch.zeros(c), torch.zeros((b, res // 2, res, 1)), \
+        torch.zeros((b, 2 * c))
+    pair = torch.zeros((b, c, 2))
+    kern._launch_partial(x, nw, noise, pair)
+    kern._launch_apply(x, nw, noise, style, pair, out)
+    kern._launch_backward_partial(g, x, nw, noise, pair, pair.clone(),
+                                  style.clone())
+    kern._launch_backward_apply(g, x, nw, noise, style, pair, pair, 2 * rows,
+                                out, nw.clone(), None)
+
+    def check(cache, ws_cache, args, plan_at, ws_at, fresh):
+        (cached,) = cache.values()
+        assert args[plan_at] is cached
+        assert cached.as_dict() == fresh.as_dict()
+        if not fresh.workspace_bytes:
+            assert ws_cache == {} and args[ws_at:ws_at + 2] == (0, 0)
+            return
+        (ws,) = ws_cache.values()
+        assert args[ws_at] == ws.data_ptr() and args[ws_at + 1] == ws.numel()
+        assert ws.numel() == fresh.workspace_bytes
+        assert bool((ws[fresh.tickets_offset:] == 0).all())
+
+    (k1,), (k2,) = rec.calls["sgt_epilogue_partial"], \
+        rec.calls["sgt_epilogue_apply"]
+    (k3p,), (k3a,) = rec.calls["sgt_epilogue_backward_partial"], \
+        rec.calls["sgt_epilogue_backward_apply"]
+    check(kern._partial_plans, kern._partial_workspaces, k1, 10, 4,
+          kern.make_partial_plan(plan_lib, 0, b, rows, c, 1))
+    check(kern._bwd_partial_plans, kern._bwd_partial_workspaces, k3p, 13, 7,
+          kern.make_bwd_partial_plan(plan_lib, 0, b, rows, c, 1))
+    check(kern._bwd_split_plans, kern._bwd_split_workspaces, k3a, 17, 11,
+          kern.make_bwd_split_plan(plan_lib, 0, b, rows, c, 1, 0))
+    (k2_plan,) = kern._split_plans.values()
+    assert k2[10] is k2_plan and isinstance(k2_plan, kern.Plan)
+    assert k2_plan.as_dict() == kern.make_split_plan(
+        plan_lib, 0, b, rows, c, 1).as_dict()
+    assert isinstance(k1[10], kern.PartialPlan)
+    assert isinstance(k3p[13], kern.PartialPlan)
+    assert isinstance(k3a[17], kern.BwdPlan)

@@ -210,6 +210,7 @@ Exits non-zero without a result when CUDA is missing or the port is absent.
 """
 
 import contextlib
+import ctypes
 import json
 import math
 import os
@@ -3813,28 +3814,31 @@ def spatial_train_kernels(dev):
     shapes cut into 2 and 4 slabs (the stages the step splits, res >= 4n),
     batch 2 and 1, float32 and bf16: against the split plain version on
     the same merged statistics and against the unsplit K3 (phase 5(a)'s
-    bars), two runs bitwise; each entry timed on slab 0 of each split
-    stage (CUDA graph replay; K3-partial also with g and x cold in L2)
-    beside its bytes bound and the launch floor, printed stage by stage,
-    and the plain versions at batch 2 over 2 slabs in float32.  Returns
-    the sums over a rank's split backward calls of one 1024^2 G backward
-    (16 over 2 ranks, 14 over 4), by case; "main" and "bf16" are batch 2
-    over 2 ranks."""
+    bars), two runs bitwise; K3-apply with dnoise too on every slab
+    (check_apply_dnoise); each entry timed on slab 0 of each split stage
+    (CUDA graph replay; also with g and x cold in L2) beside its bytes
+    bound and the launch floor, printed stage by stage with K3-apply's
+    plan and the graph nodes of one captured call (the cluster form must
+    take no workspace and one node), and the plain versions at batch 2
+    over 2 slabs in float32 (null in the other cases).  Returns the sums over a rank's split backward
+    calls of one 1024^2 G backward (16 over 2 ranks, 14 over 4), by case;
+    "main" and "bf16" are batch 2 over 2 ranks."""
     from stylegan_torch.ops import fused
     from stylegan_torch.ops.kernels import epilogue as kern
     g = torch.Generator(device=dev).manual_seed(13)
     floor = launch_floor_ms()
-    keys = ("partial_ms", "partial_cold_ms", "apply_ms", "plain_partial_ms",
-            "plain_apply_ms", "partial_bound_ms", "apply_bound_ms",
-            "floor_ms")
+    keys = ("partial_ms", "partial_cold_ms", "apply_ms", "apply_cold_ms",
+            "plain_partial_ms", "plain_apply_ms", "partial_bound_ms",
+            "apply_bound_ms", "floor_ms")
     sums = {}
     worst = {"max_abs_err": 0.0, "bar_ratio_vs_plain": 0.0,
-             "bar_ratio_vs_unsplit": 0.0}
+             "bar_ratio_vs_unsplit": 0.0, "dnoise_bar_ratio": 0.0}
     for dtype in (torch.float32, torch.bfloat16):
         name = "f32" if dtype == torch.float32 else "bf16"
         for batch in SP_TRAIN_BATCHES:
             for n in SP_TRAIN_SPLITS:
-                s = sums[f"{name}_b{batch}_n{n}"] = dict.fromkeys(keys, 0.0)
+                s = sums[f"{name}_b{batch}_n{n}"] = {
+                    k: None if k.startswith("plain") else 0.0 for k in keys}
                 s["stages"] = []
                 for res, c in EPILOGUE_SHAPES:
                     if res < 4 * n:
@@ -3870,6 +3874,9 @@ def spatial_train_kernels(dev):
                                                 unsplit[3]),
                                           where + " vs unsplit K3",
                                           bf16_ref=unsplit[0]))
+                    worst["dnoise_bar_ratio"] = max(
+                        worst["dnoise_bar_ratio"],
+                        check_apply_dnoise(kern, fused, args, cot, n, where))
                     if dtype == torch.float32:
                         worst["max_abs_err"] = max(
                             worst["max_abs_err"],
@@ -3881,9 +3888,11 @@ def spatial_train_kernels(dev):
                         plain=(name, batch, n) == ("f32", TRAIN_BATCH, 2))
                     t["floor_ms"] = floor
                     for k, v in t.items():
-                        s[k] += 2 * v
+                        s[k] = (s[k] or 0.0) + 2 * v
                     s["stages"].append({"stage": f"{res}x{res}x{c}",
-                                        "rows": res * res // n, **t})
+                                        "rows": res * res // n, **t,
+                                        "apply_plan": apply_plan(
+                                            kern, args, cot, n, where)})
                     del args, cot, got, again, ref, unsplit
         for k, v in sums.items():
             if k.startswith(name):
@@ -3893,9 +3902,106 @@ def spatial_train_kernels(dev):
             "bf16": sums[f"bf16_b{TRAIN_BATCH}_n2"], **worst}
 
 
+def check_apply_dnoise(kern, fused, args, cot, n, where):
+    """K3-apply with every output asked for (dx, its share of
+    dnoise_weight, its rows of dnoise) on each of the n slabs, from the
+    slabs' merged statistics and sums, twice (bitwise equal), against its
+    plain version run in float32 on the same tensors: float32 within
+    F32_TOL * max(1, max |ref|); bf16 dx and dnoise within 1 bf16 ulp of
+    it (the kernel computes in float32 and rounds once), dnoise_weight
+    within the float32 bar.  Returns the worst float32-bar ratio."""
+    x, nw, noise, style = args
+    xs, ns, gs = ([t.contiguous() for t in a.chunk(n, dim=1)]
+                  for a in (x, noise, cot))
+    rows = xs[0].shape[1] * xs[0].shape[2]
+    worst = 0.0
+    with torch.no_grad():
+        saved = torch.stack(fused.split_moments(torch.stack([
+            kern.epilogue_partial(a, nw, b) for a, b in zip(xs, ns)]),
+            rows), -1).contiguous()
+        parts = [kern.epilogue_backward_partial(g1, x1, nw, n1, saved)[0]
+                 for g1, x1, n1 in zip(gs, xs, ns)]
+        sums = parts[0]
+        for p in parts[1:]:
+            sums = sums + p
+        for k, (g1, x1, n1) in enumerate(zip(gs, xs, ns)):
+            call = lambda: kern.epilogue_backward_apply(
+                g1, x1, nw, n1, style, saved, sums, n * rows,
+                (True, True, True))
+            got, again = call(), call()
+            ref = fused._reference_backward_apply(
+                g1.float(), x1.float(), nw, n1.float(), style, saved, sums,
+                n * rows, [True, True, True])
+            torch.cuda.synchronize()
+            at = f"{where} slab {k} K3-apply with dnoise"
+            for name, a, b, r in zip(("x", "noise_weight", "noise"), got,
+                                     again, ref):
+                if not torch.equal(a, b):
+                    fail(f"{at}: two calls differ in d{name}")
+                a = a.float()
+                if x.dtype == torch.bfloat16 and name != "noise_weight":
+                    u = ulps_from(a, r)
+                    if not u <= 1.0:
+                        fail(f"{at} d{name}: {u} ulps from the f32 plain "
+                             "version")
+                    continue
+                err, bar = float((a - r).abs().max()), F32_TOL * max(
+                    1.0, float(r.abs().max()))
+                worst = max(worst, err / bar)
+                if not err <= bar:
+                    fail(f"{at} d{name}: max |diff| {err} > {bar}")
+    return worst
+
+
+def graph_nodes(fn):
+    """Nodes of a CUDA graph that captures one fn() call (each kernel
+    launch and memset is one), by the driver's cuGraphGetNodes."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph(keep_graph=True)
+    with torch.cuda.graph(graph, stream=side):
+        fn()
+    count = ctypes.c_size_t()
+    err = ctypes.CDLL("libcuda.so.1").cuGraphGetNodes(
+        ctypes.c_void_p(graph.raw_cuda_graph()), None, ctypes.byref(count))
+    del graph
+    if err != 0:
+        fail(f"cuGraphGetNodes: CUresult {err}")
+    return count.value
+
+
+def apply_plan(kern, args, cot, n, where):
+    """K3-apply's plan for slab 0 of the plane cut into n (a train-step
+    call: no dnoise), as its wrapper takes it, and the nodes of a graph
+    capturing one call; fails where the cluster form would take a
+    workspace or more than its one kernel (a captured call's ticket
+    memset is a second node)."""
+    x, nw, noise, style = args
+    b, h, w, c = x.shape
+    plan = kern.make_bwd_apply_plan(
+        kern._library(), int(x.dtype == torch.bfloat16), b, h // n * w, c,
+        1, 0).as_dict()
+    xs, ns, gs = (a.chunk(n, dim=1)[0].contiguous() for a in (x, noise, cot))
+    pair = torch.zeros((b, c, 2), device=x.device)
+    pair[..., 1] = 1.0
+    nodes = graph_nodes(lambda: kern.epilogue_backward_apply(
+        gs, xs, nw, ns, style, pair, pair, n * xs.shape[1] * w,
+        (True, True, False)))
+    if plan["form"] == 1 and (plan["workspace_bytes"] or nodes != 1):
+        fail(f"{where}: K3-apply's cluster form takes a workspace "
+             f"({plan['workspace_bytes']} bytes) or {nodes} graph nodes")
+    return {"graph_nodes": nodes,
+            **{k: plan[k] for k in ("form", "tx", "ty", "chunks", "splits",
+                                    "cluster", "unroll", "ring",
+                                    "workspace_bytes")}}
+
+
 def split_backward_times(kern, fused, args, cot, n, plain=False):
     """Device ms of each split backward entry on slab 0 (the others are the
-    same size), by graph replay (K3-partial also with g and x cold in L2),
+    same size), by graph replay (also with g and x cold in L2),
     the plain versions' where `plain`, and the bytes bounds on the slab's
     rows (train-step calls: dx, dnoise_weight, dstyle)."""
     x, nw, noise, style = args
@@ -3915,6 +4021,10 @@ def split_backward_times(kern, fused, args, cot, n, plain=False):
             "apply_ms": graph_time_ms(lambda i: kern.epilogue_backward_apply(
                 gs, xs, nw, ns, style, saved, sums, n * rows,
                 (True, True, False))),
+            "apply_cold_ms": cold_pairs_time_ms(
+                lambda x1, g1: kern.epilogue_backward_apply(
+                    g1, x1, nw, ns, style, saved, sums, n * rows,
+                    (True, True, False)), xs, gs),
         }
         if plain:
             times["plain_partial_ms"] = graph_time_ms(
@@ -4433,13 +4543,13 @@ def main(argv=None):
                              for c in d8["calls_by_rank"]],
         "max_abs_err": k3s["max_abs_err"],
         "bar_ratio_vs_unsplit": k3s["bar_ratio_vs_unsplit"],
+        "dnoise_bar_ratio": k3s["dnoise_bar_ratio"],
         "ms": k3s["main"][f"{entry}_ms"],
         "plain_ms": k3s["main"][f"plain_{entry}_ms"],
         "bound_ms": k3s["main"][f"{entry}_bound_ms"], "bound_by": "bytes",
         "library_ms": None,
         "floor_ms": k3s["main"]["floor_ms"],
-        **({"cold_ms": k3s["main"]["partial_cold_ms"]}
-           if entry == "partial" else {}),
+        "cold_ms": k3s["main"][f"{entry}_cold_ms"],
         "bf16_ms": k3s["bf16"][f"{entry}_ms"],
         "bf16_bound_ms": k3s["bf16"][f"{entry}_bound_ms"],
         "batch1_ms": k3s["by_case"]["f32_b1_n2"][f"{entry}_ms"],
@@ -4452,9 +4562,9 @@ def main(argv=None):
                   "launches of an empty kernel, cold_ms with g and x cold in "
                   "L2; bf16_ms the same in bfloat16, batch1_ms at batch 1, "
                   "n4_ms the 14 calls over 4 ranks; max_abs_err the float32 "
-                  "split "
-                  "gradients' (and merged sums') against the split plain "
-                  "version; launches rank 0's over phase 12(c)'s "
+                  "split gradients' (and merged sums') against the split "
+                  "plain version (K3-apply's dnoise too, dnoise_bar_ratio); "
+                  "launches rank 0's over phase 12(c)'s "
                   f"{SP_TRAIN_STEPS} depth-8 steps on a (1 x 2) grid "
                   "(launches_by_rank: each rank's)",
     } for entry in ("partial", "apply")]

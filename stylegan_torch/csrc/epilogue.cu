@@ -103,16 +103,38 @@
 // atomics.
 //
 // The split-plane backward serves a plane whose rows lie on several ranks
-// (the spatial train step): K3-partial (bwd_partial_kernel) leaves this
-// rank's per-(b, c) (sum g, sum g * (y - mean)) over its rows, with
-// (mean, rstd) the merged statistics its forward saved, and its share of
-// dstyle; the ranks gather those and each adds them in rank order (on the
-// host's side of the launch), and K3-apply (bwd_dx_kernel with SPLIT) forms
-// the coefficients from the merged sums over the plane's row count and
-// writes this rank's dx, its share of dnoise_weight and its rows of dnoise.
-// One launch each, bound by bytes.  K3-apply takes the backward's path 2
-// geometry (sgt_epilogue_bwd_split_plan); K3-partial is K1-partial's kind
-// of kernel on a plan of its own (sgt_epilogue_bwd_partial_plan).
+// (the spatial train step), K3's split form of the custom VJP's _bwd
+// (epilogue.py:139-142): K3-partial (bwd_partial_kernel) leaves this rank's
+// per-(b, c) (sum g, sum g * (y - mean)) over its rows, with (mean, rstd)
+// the merged statistics its forward saved, and its share of dstyle; the
+// ranks gather those and each adds them in rank order (on the host's side
+// of the launch), and K3-apply forms the coefficients from the merged sums
+// over the plane's row count and writes this rank's dx, its share of
+// dnoise_weight and its rows of dnoise.  One launch each.  K3-partial is
+// K1-partial's kind of kernel on a plan of its own
+// (sgt_epilogue_bwd_partial_plan).
+//
+// K3-apply is bound by bytes: g, x and noise read once, dx written once
+// (dnoise too when asked), plus vectors of B x C.  Its plan
+// (sgt_epilogue_bwd_apply_plan) has two forms, against two kinds of wait:
+//   1. Small slabs (up to 32^2 x 512 at batch 2 over 2 ranks): latency, a
+//      chain of dependent waits where the bytes need a microsecond or two.
+//      One thread-block cluster of up to 8 blocks per channel chunk (chunks
+//      narrowed to 32-byte rows to fill the card) covers the chunk's rows
+//      of every b, where g, x and dx hold at most 7 MB; each thread issues its coefficient loads with all its
+//      row loads at once; dnoise_weight is reduced by warp shuffles, the
+//      block's warps in order and the cluster's blocks in rank order over
+//      DSMEM by rank 0, which writes it: no workspace, fence, ticket or
+//      memset.
+//   2. Large slabs: too few bytes in flight.  A wave of resident blocks
+//      (the occupancy query times the SMs), each on a contiguous run of
+//      rows, keeps the next rows loading while it computes: f32 in
+//      registers one step ahead (bwd_apply_kernel); bf16, whose 8-wide
+//      vectors leave no registers for rows in flight, in a ring of
+//      shared-memory stages of whole rows filled by bulk asynchronous
+//      copies on mbarriers (bwd_apply_ring_kernel).  Each design won its
+//      dtype on the H100 (PERF.md).  One dnoise_weight partial a block,
+//      added in block order by the last.
 //
 // Times on an NVIDIA H100 80GB HBM3 at 700 W are in PERF.md, measured by
 // chip_smoke.py; none is stated here.
@@ -1024,11 +1046,7 @@ bwd_sums_kernel(const T* __restrict__ g, const T* __restrict__ x,
 // in the reverse of pass 1's order, so that it first re-reads what pass 1
 // read last (PERF.md).  Every thread runs the same row iterations, so that
 // the TX lanes of a row can add their channels' dn terms with warp shuffles.
-// With SPLIT (K3-apply: this rank's rows of a split plane) each thread forms
-// its channels' coef itself (bwd_coef) from `saved`, the ranks' merged
-// `sums` and style, over the plane's rows (inv_rows), instead of reading
-// pass 1's; dnw is then this rank's share.
-template <typename T, int VEC, bool SPLIT = false,
+template <typename T, int VEC,
           int UNROLL = VEC == 8 ? kBwdDxUnrollBf16 : kBwdDxUnroll>
 __global__ void __launch_bounds__(kThreads)
 bwd_dx_kernel(const T* __restrict__ g, const T* __restrict__ x,
@@ -1037,10 +1055,7 @@ bwd_dx_kernel(const T* __restrict__ g, const T* __restrict__ x,
               float* __restrict__ dnw, T* __restrict__ dn,
               float* __restrict__ dnw_parts, float* __restrict__ dn_parts,
               int* __restrict__ tickets_w, int* __restrict__ tickets_n,
-              int64_t R, int C, int64_t rows_per_split,
-              const float2* __restrict__ saved,
-              const float2* __restrict__ sums,
-              const float* __restrict__ style, float inv_rows) {
+              int64_t R, int C, int64_t rows_per_split) {
   __shared__ float s_w[kThreads * VEC];
   __shared__ int s_flag;
   const int tx = threadIdx.x, ty = threadIdx.y;
@@ -1058,17 +1073,8 @@ bwd_dx_kernel(const T* __restrict__ g, const T* __restrict__ x,
   float w[VEC], mean[VEC], a[VEC], k0[VEC], k1[VEC], acc[VEC];
 #pragma unroll
   for (int i = 0; i < VEC; ++i) {
-    float4 k = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (active) {
-      const size_t bc = (size_t)b * C + c0 + i;
-      if constexpr (SPLIT) {
-        const float2 sm = sums[bc];
-        k = bwd_coef(saved[bc], sm.x, sm.y, style[(size_t)b * 2 * C + c0 + i],
-                     inv_rows);
-      } else {
-        k = coef[bc];
-      }
-    }
+    const float4 k =
+        active ? coef[(size_t)b * C + c0 + i] : make_float4(0.f, 0.f, 0.f, 0.f);
     w[i] = active ? nw[c0 + i] : 0.f;
     mean[i] = k.x;
     a[i] = k.y;
@@ -1490,30 +1496,512 @@ bwd_partial_kernel(const T* __restrict__ g, const T* __restrict__ x,
   }
 }
 
+// ------------------------------------------------------------- K3-apply --
+// bwd_apply_kernel, on a plan of sgt::make_bwd_apply_plan: the grid
+// (B * splits, chunks) of (TX, TY) blocks, in clusters of `cluster` along x
+// (form 1: one cluster covers a chunk's B x R rows); block x (walked from
+// the last where `reverse`) holds split x % splits of b = x / splits, and
+// thread (tx, ty) channels c0 .. c0 + VEC - 1 of rows r0 + ty, r0 + ty + TY,
+// ...  It issues its coefficient loads (saved, the merged sums, style,
+// noise_weight) with its first UNROLL rows of g, x and noise; with PREFETCH
+// (plan.ahead, the stream form) it loads the next UNROLL rows while it
+// computes these, so that each thread keeps up to 2 * UNROLL rows in
+// flight.  At least two
+// blocks of kThreads stay resident on an SM (the registers are capped for
+// it).  dnoise_weight: warp shuffles over the row
+// groups of each warp, then the block's warps in order, then the cluster's
+// blocks in rank order over DSMEM by rank 0, which writes the chunk's result
+// (form 1) or its partial for the last block by ticket to add in block
+// order (form 2).  dnoise as bwd_dx_kernel: the TX lanes of a row by
+// shuffles, over chunks by ticket.  No float atomics.
+
+// The widest chunk a K3-apply plan gives: 256-byte rows of bf16.
+constexpr int kMaxApplyChunk = 128;
+
+template <typename T, int VEC, int UNROLL>
+struct ApplyRows {
+  Pack<T, VEC> g[UNROLL], x[UNROLL];
+  float z[UNROLL];
+};
+
+// Rows r, r + TY, ..., r + (UNROLL - 1) * TY (those below r1) of g, x and
+// noise into q; nothing where the thread's channels lie past C.
+template <typename T, int VEC, int UNROLL>
+__device__ __forceinline__ void apply_load(ApplyRows<T, VEC, UNROLL>& q,
+                                           const T* gb, const T* xb,
+                                           const T* nb, int64_t r, int TY,
+                                           int64_t r1, int C, bool active) {
+#pragma unroll
+  for (int u = 0; u < UNROLL; ++u) {
+    const int64_t ru = r + (int64_t)u * TY;
+    if (active && ru < r1) {
+      q.g[u] = *reinterpret_cast<const Pack<T, VEC>*>(gb + ru * C);
+      q.x[u] = *reinterpret_cast<const Pack<T, VEC>*>(xb + ru * C);
+      q.z[u] = to_float(nb[ru]);
+    }
+  }
+}
+
+// The coefficients of dy = a * g - k0 - (y - mean) * k1 for VEC channels.
+template <int VEC>
+struct ApplyCoef {
+  float w[VEC], mean[VEC], a[VEC], k0[VEC], k1[VEC];
+};
+
+// dx of one row's VEC channels (written to out where not null), their
+// dnoise_weight terms added into acc; returns their share of the row's
+// dnoise.  The arithmetic of bwd_dx_kernel.
+template <typename T, int VEC>
+__device__ __forceinline__ float apply_row(const Pack<T, VEC>& pg,
+                                           const Pack<T, VEC>& px, float z,
+                                           const ApplyCoef<VEC>& k,
+                                           float (&acc)[VEC], T* out) {
+  float row = 0.f;
+  Pack<T, VEC> o;
+#pragma unroll
+  for (int i = 0; i < VEC; ++i) {
+    const float uu = noisy(to_float(px.v[i]), k.w[i], z);
+    const float y = uu >= 0.f ? uu : kSlope * uu;
+    const float dy =
+        fmaf(k.a[i], to_float(pg.v[i]), -k.k0[i]) - (y - k.mean[i]) * k.k1[i];
+    const float du = uu >= 0.f ? dy : kSlope * dy;
+    o.v[i] = from_float<T>(du);
+    acc[i] = fmaf(du, z, acc[i]);
+    row = fmaf(du, k.w[i], row);
+  }
+  if (out != nullptr) *reinterpret_cast<Pack<T, VEC>*>(out) = o;
+  return row;
+}
+
+// dx of the rows apply_load put in q, their dnoise_weight terms into acc and,
+// where dn is asked for, their dnoise (dn_row: every thread of the block
+// runs the same rows).
+template <typename T, int VEC, int UNROLL>
+__device__ __forceinline__ void apply_rows(
+    const ApplyRows<T, VEC, UNROLL>& q, const ApplyCoef<VEC>& k, int64_t r,
+    int TY, int64_t r1, bool active, T* dxb, int C, float (&acc)[VEC],
+    int b, int B, int chunk, int chunks, int64_t R, T* dn, float* dn_parts) {
+#pragma unroll
+  for (int u = 0; u < UNROLL; ++u) {
+    const int64_t ru = r + (int64_t)u * TY;
+    float row = 0.f;  // this thread's channels' share of dn[b, ru]
+    if (active && ru < r1)
+      row = apply_row(q.g[u], q.x[u], q.z[u], k, acc,
+                      dxb == nullptr ? nullptr : dxb + ru * C);
+    if (dn != nullptr)
+      dn_row<T>(row, ru < r1, b, B, chunk, chunks, ru, R, dn, dn_parts);
+  }
+}
+
+// Fixed-order sum of parts[k * C + c], k < K, for the nch channels
+// c_base .. c_base + nch - 1 (< C, C a multiple of 4): fixed_order_sum's
+// order with 16-byte loads, four channels a thread; the sum of channel
+// lane lands in rx[lane] (group 0's float4s, tid < nch / 4).  rx holds the
+// block's threads x 4 floats.  Needs nthreads >= nch / 4.
+__device__ __forceinline__ void fixed_order_sum4(const float* parts,
+                                                 int64_t K, int C,
+                                                 int c_base, int nch,
+                                                 float* rx) {
+  constexpr int kBatch = 8;
+  const int nthreads = blockDim.x * blockDim.y;
+  const int tid = threadIdx.y * blockDim.x + threadIdx.x;
+  const int lanes = nch / 4, G = nthreads / lanes;
+  const int lane = tid % lanes, grp = tid / lanes;
+  const int c = c_base + 4 * lane;
+  const int64_t per = (K + G - 1) / G;
+  const int64_t kb = grp * per, ke = min64(kb + per, K);
+  float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
+  if (c < C && grp < G)
+    for (int64_t k = kb; k < ke; k += kBatch) {
+      float4 ps[kBatch];
+#pragma unroll
+      for (int u = 0; u < kBatch; ++u)
+        if (k + u < ke)
+          ps[u] = __ldcg(reinterpret_cast<const float4*>(parts + (k + u) * C +
+                                                         c));
+#pragma unroll
+      for (int u = 0; u < kBatch; ++u)
+        if (k + u < ke) {
+          acc.x += ps[u].x;
+          acc.y += ps[u].y;
+          acc.z += ps[u].z;
+          acc.w += ps[u].w;
+        }
+    }
+  float4* r4 = reinterpret_cast<float4*>(rx);
+  if (grp < G) r4[tid] = acc;
+  __syncthreads();
+  for (int s = 1; s < G; s *= 2) {
+    if (grp < G && grp % (2 * s) == 0 && grp + s < G) {
+      const float4 o = r4[tid + s * lanes];
+      float4 m = r4[tid];
+      m.x += o.x;
+      m.y += o.y;
+      m.z += o.z;
+      m.w += o.w;
+      r4[tid] = m;
+    }
+    __syncthreads();
+  }
+}
+
+// Shared memory of a K3-apply block's end: the warps' dnoise_weight
+// partials, the block's, a merge buffer and the ticket flag.
+struct ApplyShared {
+  float w[kMaxWarps * kMaxApplyChunk];
+  __align__(16) float red[kThreads * 4];
+  float part[kMaxApplyChunk];
+  int flag;
+};
+
+// The end of a K3-apply block, after its rows: its dnoise_weight terms
+// `acc` summed by warp shuffles over the row groups of each warp, then the
+// block's warps in order, then the cluster's blocks in rank order over
+// DSMEM by rank 0, which writes the chunk's dnoise_weight (one cluster per
+// chunk) or its cluster's partial, which the last to finish of the chunk,
+// by ticket, adds in cluster order; where dnoise spans several chunks, the
+// last chunk of each (b, split), by ticket, adds the chunks' partials of
+// its rows [r0, r1) in chunk order.  Every thread of the block calls it.
+template <typename T, int VEC>
+__device__ __forceinline__ void apply_finish(
+    float (&acc)[VEC], ApplyShared& sh, int chunk, int chunks, int b, int B,
+    int bx, int64_t r0, int64_t r1, int64_t R, int C, int cluster,
+    float* dnw, T* dn, float* dnw_parts, const float* dn_parts,
+    int* tickets_w, int* tickets_n) {
+  const int tx = threadIdx.x, TX = blockDim.x;
+  const int tid = threadIdx.y * TX + tx, nthreads = TX * blockDim.y;
+  const int cc = TX * VEC;
+  const int rank = blockIdx.x % cluster, group = blockIdx.x / cluster;
+  const int groups = gridDim.x / cluster;
+  const bool want_dnw = dnw != nullptr;
+  const int c = chunk * cc + tid;
+  if (want_dnw) {
+    // the row groups of each warp into its lanes 0 .. TX - 1, in lane order
+    for (int off = 16; off >= TX; off >>= 1) {
+#pragma unroll
+      for (int i = 0; i < VEC; ++i)
+        acc[i] += __shfl_down_sync(0xffffffffu, acc[i], off);
+    }
+    const int warp = tid >> 5, lane = tid & 31;
+    if (lane < TX) {
+#pragma unroll
+      for (int i = 0; i < VEC; ++i) sh.w[warp * cc + lane * VEC + i] = acc[i];
+    }
+    __syncthreads();
+    if (tid < cc) {  // the block's warps in order
+      float v = 0.f;
+      for (int wi = 0; wi < nthreads >> 5; ++wi) v += sh.w[wi * cc + tid];
+      sh.part[tid] = v;
+    }
+    // the cluster's blocks in rank order, by rank 0 over DSMEM
+    float res = 0.f;
+    if (cluster > 1) {
+      cg::cluster_group cl = cg::this_cluster();
+      cl.sync();
+      if (rank == 0 && tid < cc)
+        for (int q = 0; q < cluster; ++q) res += cl.map_shared_rank(sh.part, q)[tid];
+      cl.sync();  // no block leaves while rank 0 reads its partials
+    } else if (tid < cc) {
+      res = sh.part[tid];
+    }
+    if (rank == 0 && tid < cc && c < C) {
+      if (groups == 1)
+        dnw[c] = res;
+      else
+        dnw_parts[(size_t)group * C + c] = res;
+    }
+  }
+  const bool ticket_w = want_dnw && groups > 1 && rank == 0;
+  const bool dn_merge = dn != nullptr && chunks > 1;
+  if (!ticket_w && !dn_merge) return;
+  __threadfence();
+  __syncthreads();
+  if (tid == 0) {
+    int flags = 0;
+    if (ticket_w && atomicAdd(tickets_w + chunk, 1) == groups - 1) flags |= 1;
+    if (dn_merge && atomicAdd(tickets_n + bx, 1) == chunks - 1) flags |= 2;
+    sh.flag = flags;
+  }
+  __syncthreads();
+  const int flags = sh.flag;
+  if (flags == 0) return;
+  __threadfence();
+  if (flags & 1) {  // dnw over the groups, in group order
+    if (C % 4 == 0 && cc % 4 == 0)
+      fixed_order_sum4(dnw_parts, groups, C, chunk * cc, cc, sh.red);
+    else
+      fixed_order_sum(dnw_parts, (int64_t)groups, C, chunk * cc, cc, C,
+                      sh.red, (float*)nullptr);
+    if (tid < cc && c < C) dnw[c] = sh.red[tid];
+    if (tid == 0) tickets_w[chunk] = 0;  // ready for the next call
+  }
+  if (flags & 2) {  // dn[b, r] over the chunks, in chunk order
+    for (int64_t r = r0 + tid; r < r1; r += nthreads) {
+      float v = 0.f;
+      for (int q = 0; q < chunks; ++q)
+        v += __ldcg(dn_parts + ((size_t)q * B + b) * R + r);
+      dn[(size_t)b * R + r] = from_float<T>(v);
+    }
+    if (tid == 0) tickets_n[bx] = 0;
+  }
+}
+
+template <typename T, int VEC, int UNROLL, bool PREFETCH>
+__global__ void __launch_bounds__(kThreads, 2)
+bwd_apply_kernel(const T* __restrict__ g, const T* __restrict__ x,
+                 const T* __restrict__ noise, const float* __restrict__ nw,
+                 const float* __restrict__ style,
+                 const float2* __restrict__ saved,
+                 const float2* __restrict__ sums, float inv_rows,
+                 T* __restrict__ dx, float* __restrict__ dnw,
+                 T* __restrict__ dn, float* __restrict__ dnw_parts,
+                 float* __restrict__ dn_parts, int* __restrict__ tickets_w,
+                 int* __restrict__ tickets_n, int64_t R, int C, int splits,
+                 int cluster, int64_t rps, int reverse) {
+  __shared__ ApplyShared sh;
+  const int tx = threadIdx.x, ty = threadIdx.y;
+  const int TX = blockDim.x, TY = blockDim.y, cc = TX * VEC;
+  const int nbx = gridDim.x, chunks = gridDim.y;
+  const int bx = reverse ? nbx - 1 - (int)blockIdx.x : (int)blockIdx.x;
+  const int chunk = reverse ? chunks - 1 - (int)blockIdx.y : (int)blockIdx.y;
+  const int b = bx / splits, split = bx % splits, B = nbx / splits;
+  const int c0 = chunk * cc + tx * VEC;
+  const bool active = c0 < C;
+  const int64_t r0 = (int64_t)split * rps;
+  const int64_t r1 = min64(r0 + rps, R);
+  const T* gb = g + (size_t)b * R * C + c0;
+  const T* xb = x + (size_t)b * R * C + c0;
+  const T* nb = noise + (size_t)b * R;
+  T* dxb = dx == nullptr ? nullptr : dx + (size_t)b * R * C + c0;
+  const int64_t step = (int64_t)TY * UNROLL;
+  const int64_t steps = r1 > r0 ? (r1 - r0 + step - 1) / step : 0;
+  auto row_of = [&](int64_t s) {
+    return r0 + (reverse ? steps - 1 - s : s) * step + ty;
+  };
+
+  // the coefficients' loads and the first rows' loads, all issued at once
+  float2 st[VEC], sm[VEC];
+  float s0[VEC];
+  ApplyCoef<VEC> k;
+#pragma unroll
+  for (int i = 0; i < VEC; ++i) {
+    const size_t bc = (size_t)b * C + c0 + i;
+    st[i] = active ? saved[bc] : make_float2(0.f, 0.f);
+    sm[i] = active ? sums[bc] : make_float2(0.f, 0.f);
+    s0[i] = active ? style[(size_t)b * 2 * C + c0 + i] : 0.f;
+    k.w[i] = active ? nw[c0 + i] : 0.f;
+  }
+  ApplyRows<T, VEC, UNROLL> qa;
+  if (steps > 0) apply_load(qa, gb, xb, nb, row_of(0), TY, r1, C, active);
+  float acc[VEC];
+#pragma unroll
+  for (int i = 0; i < VEC; ++i) {
+    const float4 kk = active ? bwd_coef(st[i], sm[i].x, sm[i].y, s0[i],
+                                        inv_rows)
+                             : make_float4(0.f, 0.f, 0.f, 0.f);
+    k.mean[i] = kk.x;
+    k.a[i] = kk.y;
+    k.k0[i] = kk.z;
+    k.k1[i] = kk.w;
+    acc[i] = 0.f;
+  }
+  if constexpr (PREFETCH) {
+    // two steps a turn, each loading the next step's rows before it computes
+    ApplyRows<T, VEC, UNROLL> qb;
+    for (int64_t s = 0; s < steps; s += 2) {
+      if (s + 1 < steps)
+        apply_load(qb, gb, xb, nb, row_of(s + 1), TY, r1, C, active);
+      apply_rows(qa, k, row_of(s), TY, r1, active, dxb, C, acc, b, B, chunk,
+                 chunks, R, dn, dn_parts);
+      if (s + 1 >= steps) break;
+      if (s + 2 < steps)
+        apply_load(qa, gb, xb, nb, row_of(s + 2), TY, r1, C, active);
+      apply_rows(qb, k, row_of(s + 1), TY, r1, active, dxb, C, acc, b, B,
+                 chunk, chunks, R, dn, dn_parts);
+    }
+  } else {  // the cluster form: a step or two a thread, one after the other
+    for (int64_t s = 0; s < steps; ++s) {
+      if (s > 0) apply_load(qa, gb, xb, nb, row_of(s), TY, r1, C, active);
+      apply_rows(qa, k, row_of(s), TY, r1, active, dxb, C, acc, b, B, chunk,
+                 chunks, R, dn, dn_parts);
+    }
+  }
+
+  apply_finish<T, VEC>(acc, sh, chunk, chunks, b, B, bx, r0, r1, R, C,
+                       cluster, dnw, dn, dnw_parts, dn_parts, tickets_w,
+                       tickets_n);
+}
+
+// The ring form of K3-apply's stream (plan.ring > 0: whole rows of 16-byte
+// vectors, one chunk, R and the row splits in whole steps): block x holds
+// rows [r0, r1) of b, a contiguous run of g, x and noise, and takes them a
+// step (TY * UNROLL rows) at a time through `ring` stages of shared memory.
+// Thread 0 fills a stage with three bulk asynchronous copies (cp.async.bulk:
+// the tensor memory accelerator computes the addresses), which complete on
+// the stage's mbarrier, keeping ring - 1 steps in flight while the block
+// computes one; the threads take their UNROLL rows of a step from shared
+// memory a row at a time, so that the rows in flight hold no registers,
+// write dx, and end as bwd_apply_kernel.
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+
+// Waits for phase `parity` of the mbarrier at `bar` to complete; traps
+// rather than hang if it never does.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  for (long long spins = 0;; ++spins) {
+    uint32_t done;
+    asm volatile(
+        "{\n .reg .pred p;\n"
+        " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        " selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+    if (done) return;
+    if (spins > (1LL << 22)) __trap();
+  }
+}
+
+// One bulk copy of `bytes` (a multiple of 16, both ends 16-byte aligned)
+// from global to shared memory, completing on the mbarrier at `bar`.
+__device__ __forceinline__ void bulk_load(void* dst, const void* src,
+                                          uint32_t bytes, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(smem_addr(dst)),
+      "l"(src), "r"(bytes), "r"(bar)
+      : "memory");
+}
+
+constexpr int kMaxRing = 4;
+
+template <typename T, int VEC, int UNROLL>
+__global__ void __launch_bounds__(kThreads, 2)
+bwd_apply_ring_kernel(const T* __restrict__ g, const T* __restrict__ x,
+                      const T* __restrict__ noise,
+                      const float* __restrict__ nw,
+                      const float* __restrict__ style,
+                      const float2* __restrict__ saved,
+                      const float2* __restrict__ sums, float inv_rows,
+                      T* __restrict__ dx, float* __restrict__ dnw,
+                      T* __restrict__ dn, float* __restrict__ dnw_parts,
+                      int* __restrict__ tickets_w, int64_t R, int C,
+                      int splits, int64_t rps, int reverse, int ring) {
+  extern __shared__ __align__(128) unsigned char stages[];
+  __shared__ ApplyShared sh;
+  __shared__ __align__(8) unsigned long long full[kMaxRing];
+  const int tx = threadIdx.x, ty = threadIdx.y;
+  const int TX = blockDim.x, TY = blockDim.y, tid = ty * TX + tx;
+  const int nbx = gridDim.x;
+  const int bx = reverse ? nbx - 1 - (int)blockIdx.x : (int)blockIdx.x;
+  const int b = bx / splits, split = bx % splits, B = nbx / splits;
+  const int c0 = tx * VEC;
+  const int64_t r0 = (int64_t)split * rps;
+  const int64_t r1 = min64(r0 + rps, R);
+  const int64_t step = (int64_t)TY * UNROLL;
+  const int64_t steps = r1 > r0 ? (r1 - r0 + step - 1) / step : 0;
+  // a stage: the step's rows of g, of x, then its noise
+  const size_t row_bytes = (size_t)C * sizeof(T);
+  const size_t rows_bytes = step * row_bytes;
+  const size_t stage_bytes =
+      2 * rows_bytes + sgt::align16(step * (int64_t)sizeof(T));
+  const T* gb = g + (size_t)b * R * C;
+  const T* xb = x + (size_t)b * R * C;
+  const T* nb = noise + (size_t)b * R;
+  T* dxb = dx == nullptr ? nullptr : dx + (size_t)b * R * C + c0;
+  // the first row of step s (walked last to first where `reverse`)
+  auto first_of = [&](int64_t s) {
+    return r0 + (reverse ? steps - 1 - s : s) * step;
+  };
+  auto issue = [&](int64_t s) {  // thread 0: fill step s's stage
+    unsigned char* st = stages + (s % ring) * stage_bytes;
+    const int64_t f = first_of(s), rows = min64(step, r1 - f);
+    const uint32_t bytes = (uint32_t)(rows * row_bytes);
+    const uint32_t zbytes = (uint32_t)(rows * sizeof(T));
+    const uint32_t bar = smem_addr(&full[s % ring]);
+    asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+                 ::"r"(bar), "r"(2 * bytes + zbytes) : "memory");
+    bulk_load(st, gb + f * C, bytes, bar);
+    bulk_load(st + rows_bytes, xb + f * C, bytes, bar);
+    bulk_load(st + 2 * rows_bytes, nb + f, zbytes, bar);
+  };
+  if (tid == 0) {
+    for (int k = 0; k < ring; ++k)
+      asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n"
+                   ::"r"(smem_addr(&full[k])) : "memory");
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  if (tid == 0)
+    for (int64_t s = 0; s < ring && s < steps; ++s) issue(s);
+
+  ApplyCoef<VEC> k;
+  float acc[VEC];
+#pragma unroll
+  for (int i = 0; i < VEC; ++i) {
+    const size_t bc = (size_t)b * C + c0 + i;
+    const float2 sm = sums[bc];
+    const float4 kk = bwd_coef(saved[bc], sm.x, sm.y,
+                               style[(size_t)b * 2 * C + c0 + i], inv_rows);
+    k.w[i] = nw[c0 + i];
+    k.mean[i] = kk.x;
+    k.a[i] = kk.y;
+    k.k0[i] = kk.z;
+    k.k1[i] = kk.w;
+    acc[i] = 0.f;
+  }
+  for (int64_t s = 0; s < steps; ++s) {
+    // wait for the stage, take its rows, free it, refill it
+    const unsigned char* st = stages + (s % ring) * stage_bytes;
+    mbar_wait(smem_addr(&full[s % ring]), (uint32_t)((s / ring) & 1));
+    const T* sg = reinterpret_cast<const T*>(st) + c0;
+    const T* sx = reinterpret_cast<const T*>(st + rows_bytes) + c0;
+    const T* sz = reinterpret_cast<const T*>(st + 2 * rows_bytes);
+    const int64_t f = first_of(s);
+#pragma unroll 2
+    for (int u = 0; u < UNROLL; ++u) {
+      const int lr = ty + u * TY;
+      const int64_t ru = f + lr;
+      float row = 0.f;  // this thread's channels' share of dn[b, ru]
+      if (ru < r1)
+        row = apply_row(*reinterpret_cast<const Pack<T, VEC>*>(sg + lr * C),
+                        *reinterpret_cast<const Pack<T, VEC>*>(sx + lr * C),
+                        to_float(sz[lr]), k, acc,
+                        dxb == nullptr ? nullptr : dxb + ru * C);
+      if (dn != nullptr)
+        dn_row<T>(row, ru < r1, b, B, 0, 1, ru, R, dn, (float*)nullptr);
+    }
+    __syncthreads();  // every thread is done with the stage
+    if (tid == 0 && s + ring < steps) {
+      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+      issue(s + ring);
+    }
+  }
+  apply_finish<T, VEC>(acc, sh, 0, 1, b, B, bx, r0, r1, R, C, 1, dnw, dn,
+                       dnw_parts, (const float*)nullptr, tickets_w,
+                       (int*)nullptr);
+}
+
 // ------------------------------------------------------------- launching --
-// Launches a one-pass kernel on the grid (chunks * cluster, B) in clusters
-// of `cluster` blocks along x.  It may take up to 227 KB of dynamic shared
-// memory: opted in once per kernel and device (`done`, a bit per device),
-// not per call.
+// Launches `kernel` on `grid` with `smem` bytes of dynamic shared memory in
+// clusters of `cluster` blocks along x (none where cluster is 1), with the
+// non-portable opt-in where asked.
 template <typename... Params, typename... Args>
-cudaError_t launch_onepass(void (*kernel)(Params...), unsigned* done,
-                           int chunks, int cluster, int B, dim3 block,
-                           long long smem_bytes, cudaStream_t stream,
-                           Args... args) {
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return err;
-  if (!(dev < 32 && (*done >> dev & 1u))) {
-    err = cudaFuncSetAttribute(kernel,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               (int)sgt::kMaxSmem);
+cudaError_t launch_in_clusters(void (*kernel)(Params...), dim3 grid,
+                               dim3 block, int cluster, int nonportable,
+                               long long smem, cudaStream_t stream,
+                               Args... args) {
+  if (nonportable) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
     if (err != cudaSuccess) return err;
-    if (dev < 32) *done |= 1u << dev;
   }
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3((unsigned)(chunks * cluster), (unsigned)B);
+  cfg.gridDim = grid;
   cfg.blockDim = block;
-  cfg.dynamicSmemBytes = (size_t)smem_bytes;
+  cfg.dynamicSmemBytes = (size_t)smem;
   cfg.stream = stream;
   cudaLaunchAttribute attr[1];
   attr[0].id = cudaLaunchAttributeClusterDimension;
@@ -1523,6 +2011,39 @@ cudaError_t launch_onepass(void (*kernel)(Params...), unsigned* done,
   cfg.attrs = attr;
   cfg.numAttrs = cluster > 1 ? 1 : 0;
   return cudaLaunchKernelEx(&cfg, kernel, args...);
+}
+
+// Opts `kernel` in to the most dynamic shared memory a block may take
+// beside its static shared memory, once per kernel and device (`done`, a
+// bit per device), not per call.
+template <typename Kernel>
+cudaError_t allow_dynamic_smem(Kernel kernel, unsigned* done) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess || (dev < 32 && (*done >> dev & 1u))) return err;
+  cudaFuncAttributes attr;
+  err = cudaFuncGetAttributes(&attr, kernel);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)(sgt::kMaxSmem - (long long)attr.sharedSizeBytes));
+  if (err == cudaSuccess && dev < 32) *done |= 1u << dev;
+  return err;
+}
+
+// Launches a one-pass kernel on the grid (chunks * cluster, B) in clusters
+// of `cluster` blocks along x.  It may take up to 227 KB of dynamic shared
+// memory (its shared memory is all dynamic).
+template <typename... Params, typename... Args>
+cudaError_t launch_onepass(void (*kernel)(Params...), unsigned* done,
+                           int chunks, int cluster, int B, dim3 block,
+                           long long smem_bytes, cudaStream_t stream,
+                           Args... args) {
+  const cudaError_t err = allow_dynamic_smem(kernel, done);
+  if (err != cudaSuccess) return err;
+  return launch_in_clusters(kernel,
+                            dim3((unsigned)(chunks * cluster), (unsigned)B),
+                            block, cluster, 0, smem_bytes, stream, args...);
 }
 
 template <typename T, int VEC>
@@ -1565,23 +2086,9 @@ template <typename... Params, typename... Args>
 cudaError_t launch_partial_plan(void (*kernel)(Params...),
                                 const SgtPartialPlan& p, int B,
                                 cudaStream_t stream, Args... args) {
-  if (p.nonportable) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
-    if (err != cudaSuccess) return err;
-  }
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3((unsigned)p.splits, (unsigned)p.chunks, (unsigned)B);
-  cfg.blockDim = dim3(p.tx, p.ty);
-  cfg.stream = stream;
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = (unsigned)p.cluster;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
-  cfg.attrs = attr;
-  cfg.numAttrs = p.cluster > 1 ? 1 : 0;
-  return cudaLaunchKernelEx(&cfg, kernel, args...);
+  return launch_in_clusters(
+      kernel, dim3((unsigned)p.splits, (unsigned)p.chunks, (unsigned)B),
+      dim3(p.tx, p.ty), p.cluster, p.nonportable, 0, stream, args...);
 }
 
 // K1-partial: this rank's (mean, M2) per (b, c) over its R rows into
@@ -1660,14 +2167,14 @@ cudaError_t launch_bwd(const SgtBwdPlan& p, const void* gv, const void* xv,
   if (err != cudaSuccess) return err;
   bwd_dx_kernel<T, VEC><<<grid, block, 0, stream>>>(
       g, x, noise, nw, coef, dx, dnw, dn, dnw_parts, dn_parts, tickets_w,
-      tickets_n, R, C, p.rows_per_split, nullptr, nullptr, nullptr, 0.f);
+      tickets_n, R, C, p.rows_per_split);
   return cudaGetLastError();
 }
 
 // K3-partial: this rank's (sum g, sum g * (y - mean)) per (b, c) over its
 // R rows into `sums` and, where dstyle is not null, this rank's share of
 // dstyle; after the caller's rank-order sum, K3-apply (a plan of
-// sgt_epilogue_bwd_split_plan) writes dx, dnw (this rank's share) and dn
+// sgt_epilogue_bwd_apply_plan) writes dx, dnw (this rank's share) and dn
 // from the merged sums over the plane's rows.
 template <typename T, int VEC>
 cudaError_t launch_bwd_partial(const SgtPartialPlan& p, const void* gv,
@@ -1688,28 +2195,108 @@ cudaError_t launch_bwd_partial(const SgtPartialPlan& p, const void* gv,
 }
 
 template <typename T, int VEC>
-cudaError_t launch_bwd_apply(const SgtBwdPlan& p, const void* gv,
+using ApplyKernel = decltype(&bwd_apply_kernel<T, VEC, 2, true>);
+
+// K3-apply's kernel for a plan's loads one step ahead or not and rows at
+// once, or null.
+template <typename T, int VEC>
+ApplyKernel<T, VEC> apply_kernel_for(int ahead, int unroll) {
+  switch (unroll) {
+    case 2: return ahead ? bwd_apply_kernel<T, VEC, 2, true>
+                         : bwd_apply_kernel<T, VEC, 2, false>;
+    case 4: return ahead ? bwd_apply_kernel<T, VEC, 4, true>
+                         : bwd_apply_kernel<T, VEC, 4, false>;
+    case 8: return ahead ? bwd_apply_kernel<T, VEC, 8, true>
+                         : bwd_apply_kernel<T, VEC, 8, false>;
+    default: return nullptr;
+  }
+}
+
+template <typename T, int VEC>
+using RingKernel = decltype(&bwd_apply_ring_kernel<T, VEC, 2>);
+
+// The ring form's kernel for a plan's rows at once, or null.
+template <typename T, int VEC>
+RingKernel<T, VEC> ring_kernel_for(int unroll) {
+  switch (unroll) {
+    case 2: return bwd_apply_ring_kernel<T, VEC, 2>;
+    case 4: return bwd_apply_ring_kernel<T, VEC, 4>;
+    case 8: return bwd_apply_ring_kernel<T, VEC, 8>;
+    default: return nullptr;
+  }
+}
+
+// The opt-in of the ring form's kernel for `unroll` rows at once.
+template <typename T, int VEC>
+cudaError_t allow_ring_smem(int unroll) {
+  static unsigned done[3] = {0, 0, 0};  // unroll 2, 4, 8
+  const int slot = unroll == 2 ? 0 : unroll == 4 ? 1 : 2;
+  return allow_dynamic_smem(ring_kernel_for<T, VEC>(unroll), &done[slot]);
+}
+
+// The ring form (plan.ring > 0): one launch of `smem_bytes` of dynamic
+// shared memory.
+template <typename T, int VEC>
+cudaError_t launch_bwd_apply_ring(const SgtApplyPlan& p, const void* gv,
+                                  const void* xv, const void* noisev,
+                                  const void* nwv, const void* stylev,
+                                  const void* savedv, const void* sumsv,
+                                  long long plane_rows, void* dxv,
+                                  void* dnwv, void* dnv, void* workspace,
+                                  int B, int64_t R, int C,
+                                  cudaStream_t stream) {
+  const RingKernel<T, VEC> kernel = ring_kernel_for<T, VEC>(p.unroll);
+  if (kernel == nullptr || p.chunks != 1 || p.cluster != 1 ||
+      p.ring > kMaxRing || R % 8 != 0 ||
+      p.rows_per_split % ((long long)p.ty * p.unroll) != 0 ||
+      (uintptr_t)noisev % 16 != 0)
+    return cudaErrorInvalidValue;
+  const cudaError_t err = allow_ring_smem<T, VEC>(p.unroll);
+  if (err != cudaSuccess) return err;
+  unsigned char* ws = static_cast<unsigned char*>(workspace);
+  return launch_in_clusters(
+      kernel, dim3((unsigned)(B * p.splits)), dim3(p.tx, p.ty), 1, 0,
+      p.smem_bytes, stream,
+      static_cast<const T*>(gv), static_cast<const T*>(xv),
+      static_cast<const T*>(noisev), static_cast<const float*>(nwv),
+      static_cast<const float*>(stylev), static_cast<const float2*>(savedv),
+      static_cast<const float2*>(sumsv), 1.f / (float)plane_rows,
+      static_cast<T*>(dxv), static_cast<float*>(dnwv), static_cast<T*>(dnv),
+      reinterpret_cast<float*>(ws),
+      reinterpret_cast<int*>(ws + p.tickets_offset), R, C, p.splits,
+      (int64_t)p.rows_per_split, p.reverse, p.ring);
+}
+
+template <typename T, int VEC>
+cudaError_t launch_bwd_apply(const SgtApplyPlan& p, const void* gv,
                              const void* xv, const void* noisev,
                              const void* nwv, const void* stylev,
                              const void* savedv, const void* sumsv,
                              long long plane_rows, void* dxv, void* dnwv,
                              void* dnv, void* workspace, int B, int64_t R,
                              int C, cudaStream_t stream) {
+  if (p.ring > 0)
+    return launch_bwd_apply_ring<T, VEC>(p, gv, xv, noisev, nwv, stylev,
+                                         savedv, sumsv, plane_rows, dxv,
+                                         dnwv, dnv, workspace, B, R, C,
+                                         stream);
+  const ApplyKernel<T, VEC> kernel =
+      apply_kernel_for<T, VEC>(p.ahead, p.unroll);
+  if (kernel == nullptr) return cudaErrorInvalidValue;
   unsigned char* ws = static_cast<unsigned char*>(workspace);
-  int* tickets_w =
-      reinterpret_cast<int*>(ws + p.tickets_offset) + (size_t)B * p.chunks;
-  bwd_dx_kernel<T, VEC, true>
-      <<<dim3(p.splits, p.chunks, B), dim3(p.tx, p.ty), 0, stream>>>(
-          static_cast<const T*>(gv), static_cast<const T*>(xv),
-          static_cast<const T*>(noisev), static_cast<const float*>(nwv),
-          nullptr, static_cast<T*>(dxv), static_cast<float*>(dnwv),
-          static_cast<T*>(dnv), reinterpret_cast<float*>(ws + p.dnw_offset),
-          reinterpret_cast<float*>(ws + p.dn_offset), tickets_w,
-          tickets_w + p.chunks, R, C, p.rows_per_split,
-          static_cast<const float2*>(savedv),
-          static_cast<const float2*>(sumsv), static_cast<const float*>(stylev),
-          1.f / (float)plane_rows);
-  return cudaGetLastError();
+  int* tickets_w = reinterpret_cast<int*>(ws + p.tickets_offset);
+  int* tickets_n = tickets_w + (p.form == 2 ? p.chunks : 0);
+  return launch_in_clusters(
+      kernel, dim3((unsigned)(B * p.splits), (unsigned)p.chunks),
+      dim3(p.tx, p.ty), p.cluster, p.nonportable, 0, stream,
+      static_cast<const T*>(gv), static_cast<const T*>(xv),
+      static_cast<const T*>(noisev), static_cast<const float*>(nwv),
+      static_cast<const float*>(stylev), static_cast<const float2*>(savedv),
+      static_cast<const float2*>(sumsv), 1.f / (float)plane_rows,
+      static_cast<T*>(dxv), static_cast<float*>(dnwv), static_cast<T*>(dnv),
+      reinterpret_cast<float*>(ws), reinterpret_cast<float*>(ws + p.dn_offset),
+      tickets_w, tickets_n, R, C, p.splits, p.cluster,
+      (int64_t)p.rows_per_split, p.reverse);
 }
 
 }  // namespace
@@ -1867,20 +2454,23 @@ extern "C" int sgt_epilogue_backward_partial(
 // and its rows of dnoise (B, R), each where not null, from `sums`, the
 // (B, C) float2 that every rank's K3-partial gave, added in rank order, over
 // the plane's `plane_rows` rows; style (B, 2C) float32 and saved as for
-// K3-partial.  The plan is sgt_epilogue_bwd_split_plan's (want_dn as dn is
-// given), the workspace its workspace_bytes with the tickets zero.  One
+// K3-partial.  The plan is sgt_epilogue_bwd_apply_plan's (want_dn as dn is
+// given; aligned where g, x, dx and noise start on 16-byte boundaries), the
+// workspace its workspace_bytes (none in the cluster form without dnoise
+// partials) with the tickets zero, which the kernel leaves at zero.  One
 // launch on `stream`; returns 0 or a cudaError_t.
 extern "C" int sgt_epilogue_backward_apply(
     const void* g, const void* x, const void* noise, const void* noise_weight,
     const void* style, const void* saved, const void* sums,
     long long plane_rows, void* dx, void* dnw, void* dn, void* workspace,
     long long workspace_bytes, int is_bf16, int B, long long R, int C,
-    const SgtBwdPlan* plan, void* stream) {
-  const SgtBwdPlan& p = *plan;
+    const SgtApplyPlan* plan, void* stream) {
+  const SgtApplyPlan& p = *plan;
   const bool aligned =
       (((uintptr_t)g | (uintptr_t)x | (uintptr_t)dx) % 16) == 0;
-  if (p.path != 2 || (p.vec > 1 && !aligned) ||
-      p.workspace_bytes > workspace_bytes || plane_rows < R ||
+  if ((p.vec > 1 && !aligned) || p.workspace_bytes > workspace_bytes ||
+      plane_rows < R || p.chunk_c > kMaxApplyChunk ||
+      (B * p.splits) % p.cluster != 0 ||
       (dn != nullptr && p.chunks > 1 && !p.dn_partials))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -1892,5 +2482,59 @@ extern "C" int sgt_epilogue_backward_apply(
   if (is_bf16 && p.vec == 8) return (int)SGT_LAUNCH(__nv_bfloat16, 8);
   if (is_bf16 && p.vec == 1) return (int)SGT_LAUNCH(__nv_bfloat16, 1);
 #undef SGT_LAUNCH
+  return (int)cudaErrorInvalidValue;
+}
+
+namespace {
+
+// Blocks of `kernel` resident at once on the current device: its
+// occupancy at kThreads threads and `smem` bytes of dynamic shared memory
+// (opted in already), times the SMs.
+template <typename Kernel>
+cudaError_t resident_blocks(Kernel kernel, long long smem, long long* wave) {
+  if (kernel == nullptr) return cudaErrorInvalidValue;
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                        kThreads,
+                                                        (size_t)smem);
+  if (err == cudaSuccess) *wave = (long long)per_sm * sms;
+  return err;
+}
+
+template <typename T, int VEC>
+cudaError_t apply_wave(int C, long long* wave) {
+  const int elem = (int)sizeof(T), is_bf16 = elem == 2;
+  const int ring = sgt::apply_ring(elem, 8, C, VEC);
+  const int unroll = sgt::apply_unroll(ring ? 3 : 2, is_bf16);
+  if (ring == 0)
+    return resident_blocks(
+        apply_kernel_for<T, VEC>(sgt::kApplyStreamAhead, unroll), 0, wave);
+  const int ty = kThreads / sgt::apply_whole_lanes(elem, C, VEC);
+  const cudaError_t err = allow_ring_smem<T, VEC>(unroll);
+  if (err != cudaSuccess) return err;
+  return resident_blocks(ring_kernel_for<T, VEC>(unroll),
+                         sgt::apply_ring_smem(ring, ty, unroll, C, elem),
+                         wave);
+}
+
+}  // namespace
+
+// K3-apply's stream form on the current device: the blocks of kThreads
+// threads resident at once (its occupancy times the SMs) for this dtype,
+// C and alignment (of its ring kernel where C allows one), into *wave: the
+// `wave` of sgt_epilogue_bwd_apply_plan.
+// Returns 0 or a cudaError_t.
+extern "C" int sgt_epilogue_bwd_apply_wave(int is_bf16, int C, int aligned,
+                                           long long* wave) {
+  int vec = 1, max_tx = 1;
+  sgt::lanes(is_bf16, C, aligned, &vec, &max_tx);
+  if (!is_bf16 && vec == 4) return (int)apply_wave<float, 4>(C, wave);
+  if (!is_bf16 && vec == 1) return (int)apply_wave<float, 1>(C, wave);
+  if (is_bf16 && vec == 8) return (int)apply_wave<__nv_bfloat16, 8>(C, wave);
+  if (is_bf16 && vec == 1) return (int)apply_wave<__nv_bfloat16, 1>(C, wave);
   return (int)cudaErrorInvalidValue;
 }

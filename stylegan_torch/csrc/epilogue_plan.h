@@ -12,16 +12,19 @@
 //      splits, then a second pass; two launches.
 //
 // The split-plane entries (a plane whose rows lie on several ranks): K2-apply
-// and K3-apply take path 2's geometry at every slab size, one launch each;
-// K1-partial and K3-partial, per-(b, c) reductions whose result leaves the
-// launch, take make_partial_plan's: one launch of clusters of blocks that
-// merge over distributed shared memory.
+// takes path 2's geometry at every slab size, one launch; K1-partial and
+// K3-partial, per-(b, c) reductions whose result leaves the launch, take
+// make_partial_plan's: one launch of clusters of blocks that merge over
+// distributed shared memory; K3-apply takes make_bwd_apply_plan's: one
+// launch, a cluster per channel chunk for a small slab, a streaming grid of
+// whole waves for a large one.
 //
 // Exported: sgt_epilogue_plan, sgt_epilogue_split_plan (K2-apply's),
 // sgt_epilogue_partial_plan (K1-partial's), sgt_epilogue_bwd_plan,
-// sgt_epilogue_bwd_split_plan (K3-apply's) and sgt_epilogue_bwd_partial_plan
-// (K3-partial's), defined once, in the translation unit that includes this
-// header: the kernel library or the test's shim.
+// sgt_epilogue_bwd_partial_plan (K3-partial's) and
+// sgt_epilogue_bwd_apply_plan (K3-apply's), defined once, in the
+// translation unit that includes this header: the kernel library or the
+// test's shim.
 
 #ifndef SGT_EPILOGUE_PLAN_H_
 #define SGT_EPILOGUE_PLAN_H_
@@ -98,6 +101,55 @@ struct SgtPartialPlan {
   long long workspace_bytes;  // 0 where one cluster covers a (b, chunk)
 };
 
+// K3-apply's plan (dx, this rank's share of dnoise_weight and its rows of
+// dnoise, from the ranks' merged sums).  One launch on the grid
+// (B * splits, chunks) of (tx, ty) blocks: block x holds split x % splits
+// of b = x / splits, rows [split * rows_per_split, ...) of its (b, chunk),
+// and thread (tx, ty) channels c0 .. c0 + vec - 1 of rows r0 + ty,
+// r0 + ty + ty_count, ..., `unroll` rows at once and the next `unroll`
+// loaded while these compute.  Two forms:
+//   1 (cluster)  B * splits <= kMaxApplyCluster blocks, a power of two, form
+//                one thread-block cluster per chunk that covers its B x R
+//                rows; the cluster's rank 0 adds the blocks' dnoise_weight
+//                partials over distributed shared memory in rank order and
+//                writes the result: no workspace, fence or ticket.
+//   2 (stream)   whole rows where C * elem <= kApplyWholeRowBytes, else
+//                128-byte chunks; kApplyWaves waves of the kernel's resident
+//                blocks (`wave`, the caller's occupancy times the SMs),
+//                fewer where a thread would get under kApplyStreamRows rows;
+//                each block writes a dnoise_weight partial and the last of
+//                a chunk, by ticket, adds them in block order.  With whole
+//                16-byte-vector rows and R a multiple of 8, `ring` > 0
+//                stages of g, x and noise in shared memory (smem_bytes),
+//                each a step of rows (ty * unroll; the splits whole steps)
+//                filled by bulk asynchronous copies (the tensor memory
+//                accelerator) and waited on by an mbarrier, take the place
+//                of the register loads.
+// Where dnoise is asked for and C spans several chunks (dn_partials), each
+// block writes its rows' partial dnoise and the last chunk of a (b, split),
+// by ticket, adds them in chunk order.  Workspace, each part 16-byte
+// aligned: dnoise_weight partials (B * splits, C) float (form 2), dnoise
+// partials (chunks, B, R) float (dn_partials), then the tickets: chunks
+// (form 2), then B * splits (dn_partials); none in form 1 without dnoise
+// partials.
+struct SgtApplyPlan {
+  int form;            // 1 cluster, 2 stream
+  int vec, tx, ty, chunk_c, chunks;
+  int cluster;         // blocks per cluster: B * splits in form 1, else 1
+  int splits;          // row splits per (b, chunk)
+  int nonportable;     // cluster > 8: launched with the non-portable opt-in
+  int unroll;          // rows a thread loads at once
+  int reverse;         // blocks and their rows walked last to first
+  int dn_partials;     // dnoise summed over chunks through the workspace
+  int ring;            // form 2: shared-memory stages of bulk copies, or 0
+  int ahead;           // form 2 in registers: loads one step ahead
+  long long rows_per_split;
+  long long smem_bytes;      // the ring's dynamic shared memory per block
+  long long dn_offset;       // workspace bytes before the dnoise partials
+  long long tickets_offset;  // workspace bytes before the tickets
+  long long workspace_bytes;
+};
+
 }  // extern "C"
 
 namespace sgt {
@@ -139,6 +191,38 @@ constexpr long long kMinSplitRows = 32;
 constexpr int kMaxPartialCluster = 8;
 constexpr long long kStreamRowsPerThread = 32;
 constexpr long long kMaxMergeLoads = 4096;
+// K3-apply (make_bwd_apply_plan): the most blocks of a form-1 cluster (8:
+// the portable most), the most bytes of g, x and dx a slab may have in
+// form 1 and a form-1 block aims at, a form-1 row split's fewest rows, the
+// most load steps a form-1 thread takes, the rows a thread loads at once
+// in each form (f32, bf16; 2, 4 or 8) and whether form 2 loads them a step
+// ahead, the widest rows a form-2 block takes whole (bf16, the ring's;
+// f32), form 2's waves, its
+// fewest rows a thread, and whether both forms walk their blocks and rows
+// last to first.
+constexpr int kMaxApplyCluster = 8;
+constexpr long long kApplyClusterBytes = 7 << 20;
+constexpr long long kApplyBlockBytes = 64 << 10;
+constexpr long long kApplyMinSplitRows = 16;
+constexpr long long kApplyClusterSteps = 2;
+constexpr int kApplyClusterUnroll = 4;
+constexpr int kApplyClusterUnrollBf16 = 2;
+constexpr int kApplyStreamUnroll = 2;
+constexpr int kApplyStreamUnrollBf16 = 2;
+constexpr int kApplyStreamAhead = 1;
+constexpr int kApplyWholeRowBytes = 256;
+constexpr int kApplyWholeRowBytesF32 = 128;
+constexpr long long kApplyWaves = 1;
+constexpr long long kApplyStreamRows = 4;
+constexpr int kApplyReverse = 1;
+// Form 2's stages of bulk copies in shared memory where it takes whole
+// 16-byte-vector rows (f32, bf16; 0: register loads, one step ahead), the
+// rows a thread takes from a stage, and the shared memory a block keeps
+// beside them (its static buffers, under 16 KB).
+constexpr int kApplyRingStages = 0;
+constexpr int kApplyRingStagesBf16 = 3;
+constexpr int kApplyRingUnroll = 8;
+constexpr long long kApplyStaticSmem = 16 << 10;
 
 SGT_HD inline long long cdiv(long long a, long long b) { return (a + b - 1) / b; }
 SGT_HD inline long long align16(long long n) { return (n + 15) / 16 * 16; }
@@ -420,19 +504,17 @@ inline int make_partial_plan(int is_bf16, int B, long long R, int C,
 
 // The backward's plan: one pass where the slabs of g and x fit on chip (as
 // the forward's path 1), else two passes over the forward's two-pass chunks
-// with the backward's own split target.  `split` (K3-apply, on each rank's
-// rows of a plane split over ranks) takes the two-pass geometry at every
-// size, one launch.
+// with the backward's own split target.
 // `aligned`: g, x and dx start on 16-byte boundaries.
 inline int make_bwd_plan(int is_bf16, int B, long long R, int C, int aligned,
-                         int want_dn, SgtBwdPlan* out, bool split = false) {
+                         int want_dn, SgtBwdPlan* out) {
   if (!valid_call(B, R, C)) return -1;
   SgtBwdPlan p = {};
   const int elem = is_bf16 ? 2 : 4;
   int max_tx = 1;
   lanes(is_bf16, C, aligned, &p.vec, &max_tx);
   OnePass f;
-  if (!split && fit_one_pass(p.vec, elem, 2, B, R, C, max_tx, &f)) {
+  if (fit_one_pass(p.vec, elem, 2, B, R, C, max_tx, &f)) {
     p.path = 1;
     p.tx = f.tx;
     // the last block's merges give each channel ty / vec >= 1 threads
@@ -449,7 +531,7 @@ inline int make_bwd_plan(int is_bf16, int B, long long R, int C, int aligned,
     p.rows_per_split =
         split_rows(kTargetBwdBlocks, B, R, cdiv(C, p.tx * p.vec), p.ty);
     p.splits = (int)cdiv(R, p.rows_per_split);
-    p.launches = split ? 1 : 2;
+    p.launches = 2;
   }
   p.chunk_c = p.tx * p.vec;
   p.chunks = (int)cdiv(C, p.chunk_c);
@@ -465,6 +547,153 @@ inline int make_bwd_plan(int is_bf16, int B, long long R, int C, int aligned,
   p.tickets_offset = off;
   off += align16(((long long)B * p.chunks + p.chunks +
                   (long long)B * p.splits) * 4);
+  p.workspace_bytes = off;
+  *out = p;
+  return 0;
+}
+
+// The rows a thread takes at once in K3-apply's form (1 cluster, 2 stream
+// in registers, 3 stream through the ring).
+inline int apply_unroll(int form, int is_bf16) {
+  if (form == 1) return is_bf16 ? kApplyClusterUnrollBf16 : kApplyClusterUnroll;
+  if (form == 3) return kApplyRingUnroll;
+  return is_bf16 ? kApplyStreamUnrollBf16 : kApplyStreamUnroll;
+}
+
+// The lanes of a form-2 K3-apply block that takes whole rows of C channels
+// in vectors of vec (a power of two, at most a warp, rows of at most
+// kApplyWholeRowBytes in bf16, kApplyWholeRowBytesF32 in f32), or 0 where
+// it takes 128-byte chunks.
+inline int apply_whole_lanes(int elem, int C, int vec) {
+  const int most = elem == 2 ? kApplyWholeRowBytes : kApplyWholeRowBytesF32;
+  if (C % vec != 0 || (long long)C * elem > most) return 0;
+  const int lanes = C / vec;
+  return (lanes & (lanes - 1)) == 0 && lanes <= 32 ? lanes : 0;
+}
+
+// The dynamic shared memory of `ring` stages of a step's rows (ty *
+// unroll) of g, of x and of noise; and the ring a form-2 block takes:
+// kApplyRingStages(Bf16) stages of kApplyRingUnroll rows a thread, as many
+// as fit beside kApplyStaticSmem, where it takes whole rows of 16-byte
+// vectors and R is a multiple of 8 (each stage's noise then whole 16-byte
+// vectors), else 0.
+inline long long apply_ring_smem(int ring, int ty, int unroll, int C,
+                                 int elem) {
+  const long long rows = (long long)ty * unroll;
+  return ring * (2 * rows * C * elem + align16(rows * elem));
+}
+inline int apply_ring(int elem, long long R, int C, int vec) {
+  const int whole = apply_whole_lanes(elem, C, vec);
+  if (vec == 1 || !whole || R % 8 != 0) return 0;
+  const int unroll = apply_unroll(3, elem == 2);
+  int ring = elem == 2 ? kApplyRingStagesBf16 : kApplyRingStages;
+  while (ring > 0 && apply_ring_smem(ring, kThreads / whole, unroll, C,
+                                     elem) > kMaxSmem - kApplyStaticSmem)
+    --ring;
+  return ring;
+}
+
+// The threads along rows of a block of tx lanes whose split has rps rows,
+// `unroll` a thread at once: enough for one step where that is under a
+// block of kThreads, at least a warp and vec row groups (the last block's
+// merges give each channel ty / vec threads).
+inline int apply_ty(int tx, int vec, long long rps, int unroll) {
+  int ty = pow2_at_least(cdiv(rps, unroll), kThreads / tx);
+  if (ty * tx < 32) ty = 32 / tx;
+  if (ty < vec) ty = vec;
+  return ty;
+}
+
+// K3-apply's plan (SgtApplyPlan above) for this rank's R rows of a split
+// plane; `wave` is the stream form's resident blocks on the card (its
+// occupancy times the SMs: sgt_epilogue_bwd_apply_wave).  Form 1 where g,
+// x and dx hold at most kApplyClusterBytes and a cluster of at most
+// kMaxApplyCluster blocks (a power of two) covers a chunk's B x R rows in
+// at most kApplyClusterSteps load steps a thread:
+// the chunk is narrowed from 128-byte rows down to 32-byte ones while the
+// grid is short of the aim (a block per kApplyBlockBytes of g, x and dx,
+// kMinBlocks to kMaxPartialBlocks), then each b's rows split into the
+// fewest runs of at least kApplyMinSplitRows rows that reach it.  Else
+// form 2.
+inline int make_bwd_apply_plan(int is_bf16, int B, long long R, int C,
+                               int aligned, int want_dn, long long wave,
+                               SgtApplyPlan* out) {
+  if (!valid_call(B, R, C) || wave < 1) return -1;
+  SgtApplyPlan p = {};
+  const int elem = is_bf16 ? 2 : 4;
+  int max_tx = 1;
+  lanes(is_bf16, C, aligned, &p.vec, &max_tx);
+  auto chunks_at = [&](int t) { return cdiv(C, (long long)t * p.vec); };
+  auto narrow = [&](int t) {
+    return t > 1 && (t / 2) * p.vec * elem >= kMinRowBytes;
+  };
+  long long target = cdiv((long long)B * R * C * elem * 3, kApplyBlockBytes);
+  if (target < kMinBlocks) target = kMinBlocks;
+  if (target > kMaxPartialBlocks) target = kMaxPartialBlocks;
+  // form 1
+  int tx = max_tx;
+  while (narrow(tx) && (long long)B * chunks_at(tx) < target) tx /= 2;
+  long long s = 1;
+  while (s < cdiv(target, (long long)B * chunks_at(tx)) &&
+         (long long)B * s * 2 <= kMaxApplyCluster &&
+         cdiv(R, s * 2) >= kApplyMinSplitRows)
+    s *= 2;
+  const long long cl = (long long)B * s;
+  int unroll = apply_unroll(1, is_bf16);
+  long long rps = cdiv(R, s);
+  int ty = apply_ty(tx, p.vec, rps, unroll);
+  if ((cl & (cl - 1)) == 0 && cl <= kMaxApplyCluster &&
+      (long long)B * R * C * elem * 3 <= kApplyClusterBytes &&
+      cdiv(rps, (long long)ty * unroll) <= kApplyClusterSteps) {
+    p.form = 1;
+    p.cluster = (int)cl;
+  } else {
+    p.form = 2;
+    p.cluster = 1;
+    const int whole = apply_whole_lanes(elem, C, p.vec);
+    tx = whole ? whole : max_tx;
+    ty = kThreads / tx;
+    p.ring = apply_ring(elem, R, C, p.vec);
+    p.ahead = !p.ring && kApplyStreamAhead;
+    unroll = apply_unroll(p.ring ? 3 : 2, is_bf16);
+    p.smem_bytes = apply_ring_smem(p.ring, ty, unroll, C, elem);
+    s = cdiv(kApplyWaves * wave, (long long)B * chunks_at(tx));
+    const long long most = cdiv(R, (long long)ty * kApplyStreamRows);
+    if (s > most) s = most;
+    if (s < 1) s = 1;
+    rps = cdiv(R, s);
+    if (p.ring) {  // whole steps a split
+      const long long step = (long long)ty * unroll;
+      rps = cdiv(rps, step) * step;
+      s = cdiv(R, rps);
+    }
+  }
+  while ((s - 1) * rps >= R) {  // no split without rows
+    --s;
+    rps = cdiv(R, s);
+  }
+  if (p.form == 1) {
+    p.cluster = (int)(B * s);
+    ty = apply_ty(tx, p.vec, rps, unroll);
+  }
+  p.tx = tx;
+  p.ty = ty;
+  p.chunk_c = tx * p.vec;
+  p.chunks = (int)chunks_at(tx);
+  p.splits = (int)s;
+  p.nonportable = p.cluster > 8;
+  p.unroll = unroll;
+  p.reverse = kApplyReverse;
+  p.rows_per_split = rps;
+  p.dn_partials = want_dn && p.chunks > 1;
+  long long off = 0;
+  if (p.form == 2) off = align16((long long)B * s * C * 4);
+  p.dn_offset = off;
+  if (p.dn_partials) off += align16((long long)p.chunks * B * R * 4);
+  p.tickets_offset = off;
+  const long long tickets =
+      (p.form == 2 ? p.chunks : 0) + (p.dn_partials ? (long long)B * s : 0);
+  if (tickets) off += align16(tickets * 4);
   p.workspace_bytes = off;
   *out = p;
   return 0;
@@ -506,10 +735,12 @@ extern "C" int sgt_epilogue_bwd_plan(int is_bf16, int B, long long R, int C,
   return sgt::make_bwd_plan(is_bf16, B, R, C, aligned, want_dn, plan);
 }
 
-extern "C" int sgt_epilogue_bwd_split_plan(int is_bf16, int B, long long R,
+extern "C" int sgt_epilogue_bwd_apply_plan(int is_bf16, int B, long long R,
                                            int C, int aligned, int want_dn,
-                                           SgtBwdPlan* plan) {
-  return sgt::make_bwd_plan(is_bf16, B, R, C, aligned, want_dn, plan, true);
+                                           long long wave,
+                                           SgtApplyPlan* plan) {
+  return sgt::make_bwd_apply_plan(is_bf16, B, R, C, aligned, want_dn, wave,
+                                  plan);
 }
 
 #endif  // SGT_EPILOGUE_PLAN_H_

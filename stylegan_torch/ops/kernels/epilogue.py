@@ -67,8 +67,11 @@ card:
   implementations are `epilogue_backward_partial`, one launch on the plan
   of ``sgt_epilogue_bwd_partial_plan`` (K1-partial's kind), and
   `epilogue_backward_apply`, one launch on the plan of
-  ``sgt_epilogue_bwd_split_plan`` (the backward's path 2 geometry at every
-  size), each with a plan and workspace cache of its own; their CPU
+  ``sgt_epilogue_bwd_apply_plan`` (a cluster per channel chunk for a small
+  slab, with no workspace unless dnoise spans several chunks; a streaming
+  grid of whole waves, its blocks' per-wave count asked of the card once
+  per (dtype, C, alignment) through ``sgt_epilogue_bwd_apply_wave``, for a
+  large one), each with a plan and workspace cache of its own; their CPU
   implementations, registered by ``ops/fused.py``, are the plain versions.
 
 The training path is the ``torch.autograd.Function`` `_KernelEpilogue`
@@ -130,8 +133,9 @@ _workspaces: dict = {}   # (plan key, device, stream) -> eager workspace
 _bwd_plans: dict = {}    # (is_bf16, B, rows, C, aligned, want_dn) -> BwdPlan
 _bwd_workspaces: dict = {}
 _split_plans: dict = {}  # K2-apply's: (is_bf16, B, rows, C, aligned) -> Plan
-_bwd_split_plans: dict = {}  # K3-apply's: (..., aligned, want_dn) -> BwdPlan
-_bwd_split_workspaces: dict = {}
+_bwd_apply_plans: dict = {}  # K3-apply's: (..., aligned, want_dn) -> ApplyPlan
+_bwd_apply_workspaces: dict = {}
+_apply_waves: dict = {}  # K3-apply's blocks per wave: (is_bf16, C, aligned)
 _partial_plans: dict = {}  # K1-partial's: (is_bf16, B, rows, C, aligned)
 _partial_workspaces: dict = {}
 _bwd_partial_plans: dict = {}  # K3-partial's, the same keys
@@ -170,6 +174,18 @@ class PartialPlan(ctypes.Structure):
         "splits", "nonportable", "unroll")]
         + [(n, ctypes.c_longlong) for n in (
             "rows_per_split", "tickets_offset", "workspace_bytes")])
+
+    as_dict = Plan.as_dict
+
+
+class ApplyPlan(ctypes.Structure):
+    """``SgtApplyPlan`` of epilogue_plan.h."""
+    _fields_ = ([(n, ctypes.c_int) for n in (
+        "form", "vec", "tx", "ty", "chunk_c", "chunks", "cluster", "splits",
+        "nonportable", "unroll", "reverse", "dn_partials", "ring", "ahead")]
+        + [(n, ctypes.c_longlong) for n in (
+            "rows_per_split", "smem_bytes", "dn_offset", "tickets_offset",
+            "workspace_bytes")])
 
     as_dict = Plan.as_dict
 
@@ -217,14 +233,19 @@ def bind(lib):
     lib.sgt_epilogue_split_plan.argtypes = [i, i, ll, i, i,
                                             ctypes.POINTER(Plan)]
     lib.sgt_epilogue_split_plan.restype = ctypes.c_int
-    lib.sgt_epilogue_bwd_split_plan.argtypes = [i, i, ll, i, i, i,
-                                                ctypes.POINTER(BwdPlan)]
-    lib.sgt_epilogue_bwd_split_plan.restype = ctypes.c_int
+    # is_bf16 B R C aligned want_dn wave plan
+    lib.sgt_epilogue_bwd_apply_plan.argtypes = [i, i, ll, i, i, i, ll,
+                                                ctypes.POINTER(ApplyPlan)]
+    lib.sgt_epilogue_bwd_apply_plan.restype = ctypes.c_int
     for name in ("sgt_epilogue_partial_plan", "sgt_epilogue_bwd_partial_plan"):
         getattr(lib, name).argtypes = [i, i, ll, i, i,
                                        ctypes.POINTER(PartialPlan)]
         getattr(lib, name).restype = ctypes.c_int
     if hasattr(lib, "sgt_epilogue_forward"):
+        # is_bf16 C aligned, the blocks per wave
+        lib.sgt_epilogue_bwd_apply_wave.argtypes = [
+            i, i, i, ctypes.POINTER(ll)]
+        lib.sgt_epilogue_bwd_apply_wave.restype = ctypes.c_int
         lib.sgt_epilogue_partial.argtypes = [
             p, p, p, p,           # x noise noise_weight partial
             p, ll,                # workspace, its bytes
@@ -262,7 +283,7 @@ def bind(lib):
             p, p, p,              # dx dnoise_weight dnoise
             p, ll,                # workspace, its bytes
             i, i, ll, i,          # is_bf16 B R C
-            ctypes.POINTER(BwdPlan), p]  # plan, stream
+            ctypes.POINTER(ApplyPlan), p]  # plan, stream
         lib.sgt_epilogue_backward_apply.restype = ctypes.c_int
     return lib
 
@@ -580,14 +601,34 @@ def _launch_apply(x, noise_weight, noise, style, stats, out):
 # --------------------------------------------------------------------------
 # The split-plane backward: K3-partial and K3-apply on one rank's rows.
 
-def make_bwd_split_plan(lib, is_bf16: int, b: int, rows: int, c: int,
-                        aligned: int, want_dn: int) -> BwdPlan:
-    """K3-apply's plan of one call, from sgt_epilogue_bwd_split_plan."""
-    plan = BwdPlan()
-    if lib.sgt_epilogue_bwd_split_plan(is_bf16, b, rows, c, aligned, want_dn,
-                                       plan) != 0:
-        raise ValueError(f"no split epilogue backward plan for B={b} "
-                         f"R={rows} C={c} bf16={is_bf16} aligned={aligned}")
+def apply_wave(lib, is_bf16: int, c: int, aligned: int) -> int:
+    """K3-apply's stream-form blocks per wave on the current card, from
+    sgt_epilogue_bwd_apply_wave (asked once per (dtype, C, alignment))."""
+    key = (is_bf16, c, aligned)
+    wave = _apply_waves.get(key)
+    if wave is None:
+        out = ctypes.c_longlong()
+        err = lib.sgt_epilogue_bwd_apply_wave(is_bf16, c, aligned,
+                                              ctypes.byref(out))
+        if err != 0 or out.value < 1:
+            raise RuntimeError(f"K3-apply's occupancy query failed: "
+                               f"cudaError {err}")
+        wave = _apply_waves[key] = out.value
+    return wave
+
+
+def make_bwd_apply_plan(lib, is_bf16: int, b: int, rows: int, c: int,
+                        aligned: int, want_dn: int,
+                        wave: int | None = None) -> ApplyPlan:
+    """K3-apply's plan of one call, from sgt_epilogue_bwd_apply_plan, for
+    `wave` blocks per wave (by default the current card's)."""
+    if wave is None:
+        wave = apply_wave(lib, is_bf16, c, aligned)
+    plan = ApplyPlan()
+    if lib.sgt_epilogue_bwd_apply_plan(is_bf16, b, rows, c, aligned, want_dn,
+                                       wave, plan) != 0:
+        raise ValueError(f"no K3-apply plan for B={b} R={rows} C={c} "
+                         f"bf16={is_bf16} aligned={aligned} wave={wave}")
     return plan
 
 
@@ -666,11 +707,11 @@ def _launch_backward_apply(g, x, noise_weight, noise, style, saved, sums,
     global backward_apply_launches
     b, h, w, c = x.shape
     key, plan = _cached_plan(
-        _bwd_split_plans, make_bwd_split_plan, x,
-        int((g.data_ptr() | x.data_ptr() | _ptr(dx)) % 16 == 0),
-        int(dn is not None))
+        _bwd_apply_plans, make_bwd_apply_plan, x,
+        int((g.data_ptr() | x.data_ptr() | noise.data_ptr() | _ptr(dx)) % 16
+            == 0), int(dn is not None))
     stream = _stream(x.device)
-    ws_key, ws = _workspace_for(_bwd_split_workspaces, key, plan, x.device,
+    ws_key, ws = _workspace_for(_bwd_apply_workspaces, key, plan, x.device,
                                 stream)
     err = _library().sgt_epilogue_backward_apply(
         g.data_ptr(), x.data_ptr(), noise.data_ptr(), noise_weight.data_ptr(),
@@ -678,7 +719,7 @@ def _launch_backward_apply(g, x, noise_weight, noise, style, saved, sums,
         _ptr(dnw), _ptr(dn), _ptr(ws), plan.workspace_bytes, key[0], b,
         h * w, c, plan, stream)
     if err != 0:
-        _bwd_split_workspaces.pop(ws_key, None)
+        _bwd_apply_workspaces.pop(ws_key, None)
         raise RuntimeError(f"epilogue K3-apply launch failed: cudaError "
                            f"{err}")
     backward_apply_launches += 1

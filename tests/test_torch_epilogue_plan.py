@@ -9,6 +9,7 @@ allocates."""
 
 import ctypes
 import itertools
+import re
 import shutil
 import subprocess
 
@@ -334,25 +335,154 @@ def test_backward_empty_calls_refused(plan_lib, dims):
         bwd_plan(plan_lib, 0, b, rows, c)
 
 
+# ------------------------------------------------------- K3-apply's plans --
+# make_bwd_apply_plan: a cluster per chunk for a small slab (form 1), a
+# streaming grid of whole waves for a large one (form 2)
+
+MAX_APPLY_CHUNK = 128      # kMaxApplyChunk: 256-byte rows of bf16
+APPLY_CLUSTER_STEPS = 2    # kApplyClusterSteps
+WAVE = 132 * 4             # the stream form's blocks per wave on an H100 SXM
+# kApplyRingStages(Bf16): the stages of bulk copies of the stream form's
+# whole rows, f32 and bf16
+_PLAN_SRC = (kern.SOURCE.parent / "epilogue_plan.h").read_text()
+RING_STAGES = [int(re.search(rf"{name} = (\d+);", _PLAN_SRC).group(1))
+               for name in ("kApplyRingStages", "kApplyRingStagesBf16")]
+
+
+def check_apply_plan(p, b, rows, c, bf16, aligned, want_dn, wave=WAVE):
+    """K3-apply's plan: channels covered once by the chunks (128-byte rows,
+    narrowed down to 32-byte ones, or whole rows of at most 256 bytes in
+    form 2 only); every row split holds rows and the splits cover [0, R)
+    once; a block of a power-of-two shape, at least a warp and vec row
+    groups; form 1 one cluster of B * splits <= 8 blocks (16 only as
+    non-portable), a power of two, per chunk, at most two load steps a
+    thread, and no workspace unless dnoise spans several chunks; form 2
+    whole 256-thread blocks, about one wave, and its blocks' partials and
+    tickets; dnoise possible in every plan (one chunk, or its partials and
+    tickets)."""
+    elem = 2 if bf16 else 4
+    vec = (8 if bf16 else 4) if c % (8 if bf16 else 4) == 0 and aligned else 1
+    assert p.vec == vec
+    assert _pow2(p.tx) and _pow2(p.ty) and p.tx <= 32
+    assert 32 <= p.tx * p.ty <= 256 and p.ty >= p.vec
+    assert p.chunk_c == p.tx * p.vec and p.chunk_c <= MAX_APPLY_CHUNK
+    assert (p.chunks - 1) * p.chunk_c < c <= p.chunks * p.chunk_c
+    assert p.chunks <= 65535 and b * p.splits <= 2 ** 31 - 1
+    if p.chunk_c * elem > 128:      # whole rows
+        assert p.form == 2 and p.chunks == 1 and c * elem <= 256
+    assert p.chunk_c * elem >= 32 or p.chunks == 1 or p.vec == 1
+    assert (p.splits - 1) * p.rows_per_split < rows
+    assert rows <= p.splits * p.rows_per_split
+    assert p.unroll in (2, 4, 8) and p.reverse in (0, 1)
+    assert p.dn_partials == int(bool(want_dn) and p.chunks > 1)
+    # the ring: form 2's whole rows of 16-byte vectors, g and x a step's
+    # rows a stage, within a block's shared memory
+    assert 0 <= p.ring <= 4
+    step = p.ty * p.unroll
+    assert p.ahead in (0, 1) and not (p.ahead and (p.form == 1 or p.ring))
+    if p.ring:   # whole steps of rows, each stage's noise 16-byte vectors
+        assert p.form == 2 and p.chunks == 1 and p.vec > 1
+        assert rows % 8 == 0 and p.rows_per_split % step == 0
+    assert p.smem_bytes == p.ring * (2 * step * c * elem + _align16(
+        step * elem))
+    assert p.smem_bytes <= MAX_SMEM - 16 * 1024   # beside its static buffers
+    if p.form == 1:
+        assert p.cluster == b * p.splits and _pow2(p.cluster)
+        assert p.cluster <= (16 if p.nonportable else MAX_CLUSTER)
+        assert p.nonportable == int(p.cluster > MAX_CLUSTER)
+        assert -(-p.rows_per_split // (p.ty * p.unroll)) <= APPLY_CLUSTER_STEPS
+        parts = 0
+    else:
+        assert p.form == 2 and p.cluster == 1 and p.nonportable == 0
+        assert p.tx * p.ty == 256
+        assert b * p.chunks * p.splits < wave + b * p.chunks
+        parts = _align16(b * p.splits * c * 4)
+    assert p.dn_offset == parts
+    dn_bytes = _align16(p.chunks * b * rows * 4) if p.dn_partials else 0
+    assert p.tickets_offset == p.dn_offset + dn_bytes
+    tickets = (p.chunks if p.form == 2 else 0) + (
+        b * p.splits if p.dn_partials else 0)
+    assert p.workspace_bytes == p.tickets_offset + (
+        _align16(tickets * 4) if tickets else 0)
+    if p.form == 1 and not p.dn_partials:
+        assert p.workspace_bytes == 0
+
+
+def apply_plan(lib, bf16, b, rows, c, aligned=1, want_dn=0, wave=WAVE):
+    return kern.make_bwd_apply_plan(lib, bf16, b, rows, c, aligned, want_dn,
+                                    wave)
+
+
 @pytest.mark.parametrize("want_dn", [0, 1], ids=["no-dnoise", "dnoise"])
 @pytest.mark.parametrize("bf16", [0, 1], ids=["f32", "bf16"])
 @pytest.mark.parametrize("n,res,c", SPLIT_SLABS,
                          ids=[f"{r}x{r}x{c}_over{n}"
                               for n, r, c in SPLIT_SLABS])
 def test_backward_split_plans(plan_lib, n, res, c, bf16, want_dn):
-    """K3-apply on each rank's R/n rows of a split stage: path 2's geometry
-    and workspace at every slab size, small ones included, one launch, the
-    splits covering the slab's rows once; the unaligned and ragged forms
-    too."""
+    """K3-apply on each rank's R/n rows of a split stage at the 1024^2
+    step's batch: its own plan, one launch, the splits covering the slab's
+    rows once; slabs up to 32^2 x 512 in one cluster per chunk with no
+    workspace (no dnoise asked), the 256^2 to 1024^2 ones streaming in
+    about one wave, bf16 whole rows through the ring; the unaligned and
+    ragged forms too."""
     rows, batch = res * res // n, 2      # the 1024^2 step's batch
-    p = kern.make_bwd_split_plan(plan_lib, bf16, batch, rows, c, 1, want_dn)
-    check_bwd_plan(p, batch, rows, c, bf16, 1, want_dn, launches=1)
-    assert p.path == 2
-    q = kern.make_bwd_split_plan(plan_lib, bf16, batch, rows, c + 3, 0,
-                                 want_dn)
-    check_bwd_plan(q, batch, rows, c + 3, bf16, 0, want_dn, launches=1)
-    with pytest.raises(ValueError, match="no split epilogue backward plan"):
-        kern.make_bwd_split_plan(plan_lib, bf16, 0, rows, c, 1, want_dn)
+    p = apply_plan(plan_lib, bf16, batch, rows, c, 1, want_dn)
+    check_apply_plan(p, batch, rows, c, bf16, 1, want_dn)
+    if res <= 32:
+        assert p.form == 1
+        assert want_dn or p.workspace_bytes == 0
+    if res >= 256:   # whole rows up to 256 bytes in bf16, 128 in f32
+        assert p.form == 2 and p.ring == RING_STAGES[bf16]
+        assert (p.chunks == 1) == (c * (2 if bf16 else 4) <= (
+            256 if bf16 else 128))
+    q = apply_plan(plan_lib, bf16, batch, rows, c + 3, 0, want_dn)
+    check_apply_plan(q, batch, rows, c + 3, bf16, 0, want_dn)
+    with pytest.raises(ValueError, match="no K3-apply plan"):
+        apply_plan(plan_lib, bf16, 0, rows, c, 1, want_dn)
+
+
+@pytest.mark.parametrize("want_dn", [0, 1], ids=["no-dnoise", "dnoise"])
+@pytest.mark.parametrize("aligned", [1, 0], ids=["aligned", "unaligned"])
+@pytest.mark.parametrize("bf16", [0, 1], ids=["f32", "bf16"])
+@pytest.mark.parametrize("batch", [1, 2, BATCH], ids=["b1", "b2", f"b{BATCH}"])
+def test_apply_plans(plan_lib, batch, bf16, aligned, want_dn):
+    """K3-apply's plan at every split stage over 2 and 4 slabs, at batch 1,
+    2 and 8, in both dtypes, aligned or not, with and without dnoise, on
+    cards of 2 to 16 resident blocks per SM: every row and channel once,
+    no empty split, the cluster form without a workspace unless dnoise
+    spans chunks, whole rows only up to 256 bytes."""
+    forms = set()
+    for (n, res, c), per_sm in itertools.product(SPLIT_SLABS, (2, 4, 16)):
+        rows, wave = res * res // n, 132 * per_sm
+        p = apply_plan(plan_lib, bf16, batch, rows, c, aligned, want_dn, wave)
+        check_apply_plan(p, batch, rows, c, bf16, aligned, want_dn, wave)
+        forms.add(p.form)
+    assert forms == {1, 2}
+
+
+@pytest.mark.parametrize("want_dn", [0, 1], ids=["no-dnoise", "dnoise"])
+@pytest.mark.parametrize("aligned", [1, 0], ids=["aligned", "unaligned"])
+@pytest.mark.parametrize("bf16", [0, 1], ids=["f32", "bf16"])
+def test_apply_plan_sweep(plan_lib, bf16, aligned, want_dn):
+    """Every (B <= 8, H*W <= 2^20, C <= 512) of the sweep has a K3-apply
+    plan that covers it, and the sweep reaches both forms, clusters of one
+    block and of several, and dnoise over several chunks."""
+    seen = set()
+    for b, rows, c in itertools.product(SWEEP_B, SWEEP_R, SWEEP_C):
+        p = apply_plan(plan_lib, bf16, b, rows, c, aligned, want_dn)
+        check_apply_plan(p, b, rows, c, bf16, aligned, want_dn)
+        seen.add((p.form, p.cluster > 1, p.dn_partials))
+    assert {f for f, _, _ in seen} == {1, 2}
+    assert {(1, False), (1, True)} <= {(f, cl) for f, cl, _ in seen}
+    assert any(dn for _, _, dn in seen) == bool(want_dn)
+
+
+@pytest.mark.parametrize("dims", [(0, 16, 16), (1, 0, 16), (1, 16, 0),
+                                  (1, 16, 16, 0)])
+def test_apply_empty_calls_refused(plan_lib, dims):
+    b, rows, c, *wave = dims
+    with pytest.raises(ValueError, match="no K3-apply plan"):
+        apply_plan(plan_lib, 0, b, rows, c, wave=wave[0] if wave else WAVE)
 
 
 # ----------------------------------------------- split-plane partial plans --
@@ -466,12 +596,18 @@ class _SplitRecorder:
         for name in ("sgt_epilogue_partial_plan",
                      "sgt_epilogue_bwd_partial_plan",
                      "sgt_epilogue_split_plan",
-                     "sgt_epilogue_bwd_split_plan"):
+                     "sgt_epilogue_bwd_apply_plan"):
             setattr(self, name, getattr(lib, name))
+        self.waves = []
         for name in ("sgt_epilogue_partial", "sgt_epilogue_apply",
                      "sgt_epilogue_backward_partial",
                      "sgt_epilogue_backward_apply"):
             setattr(self, name, self._record(name))
+
+    def sgt_epilogue_bwd_apply_wave(self, is_bf16, c, aligned, out):
+        self.waves.append((is_bf16, c, aligned))
+        out._obj.value = WAVE
+        return 0
 
     def _record(self, name):
         def call(*args):
@@ -484,15 +620,16 @@ class _SplitRecorder:
                          ids=["8x8x512", "64x64x256", "1024x1024x16"])
 def test_split_wrappers_take_their_own_plans(plan_lib, monkeypatch, res, c):
     """K1-partial and K3-partial hand the kernel their own cached plans and
-    workspaces (make_partial_plan's), while K2-apply and K3-apply keep the
-    split plans and K3-apply its workspace; each workspace is the plan's
-    size with its tickets zero, and none where the plan needs none."""
+    workspaces (make_partial_plan's), K3-apply its own (make_bwd_apply_plan's
+    for the card's wave, asked once, then cached) and K2-apply the split
+    plan; each workspace is the plan's size with its tickets zero, and none
+    where the plan needs none (K3-apply's cluster form)."""
     rec = _SplitRecorder(plan_lib)
     monkeypatch.setattr(kern, "_library", lambda: rec)
     monkeypatch.setattr(kern, "_stream", lambda device: 7)
     monkeypatch.setattr(kern, "_capturing", lambda: False)
-    for cache in ("_split_plans", "_bwd_split_plans", "_bwd_split_workspaces",
-                  "_partial_plans", "_partial_workspaces",
+    for cache in ("_split_plans", "_bwd_apply_plans", "_bwd_apply_workspaces",
+                  "_apply_waves", "_partial_plans", "_partial_workspaces",
                   "_bwd_partial_plans", "_bwd_partial_workspaces"):
         monkeypatch.setattr(kern, cache, {})
     b, rows = 1, res * res // 2
@@ -505,8 +642,10 @@ def test_split_wrappers_take_their_own_plans(plan_lib, monkeypatch, res, c):
     kern._launch_apply(x, nw, noise, style, pair, out)
     kern._launch_backward_partial(g, x, nw, noise, pair, pair.clone(),
                                   style.clone())
-    kern._launch_backward_apply(g, x, nw, noise, style, pair, pair, 2 * rows,
-                                out, nw.clone(), None)
+    for _ in range(2):
+        kern._launch_backward_apply(g, x, nw, noise, style, pair, pair,
+                                    2 * rows, out, nw.clone(), None)
+    assert rec.waves == [(0, c, 1)]
 
     def check(cache, ws_cache, args, plan_at, ws_at, fresh):
         (cached,) = cache.values()
@@ -522,18 +661,22 @@ def test_split_wrappers_take_their_own_plans(plan_lib, monkeypatch, res, c):
 
     (k1,), (k2,) = rec.calls["sgt_epilogue_partial"], \
         rec.calls["sgt_epilogue_apply"]
-    (k3p,), (k3a,) = rec.calls["sgt_epilogue_backward_partial"], \
+    (k3p,), (k3a, k3a_again) = rec.calls["sgt_epilogue_backward_partial"], \
         rec.calls["sgt_epilogue_backward_apply"]
+    assert k3a_again[17] is k3a[17] and k3a_again[11:13] == k3a[11:13]
     check(kern._partial_plans, kern._partial_workspaces, k1, 10, 4,
           kern.make_partial_plan(plan_lib, 0, b, rows, c, 1))
     check(kern._bwd_partial_plans, kern._bwd_partial_workspaces, k3p, 13, 7,
           kern.make_bwd_partial_plan(plan_lib, 0, b, rows, c, 1))
-    check(kern._bwd_split_plans, kern._bwd_split_workspaces, k3a, 17, 11,
-          kern.make_bwd_split_plan(plan_lib, 0, b, rows, c, 1, 0))
+    fresh = apply_plan(plan_lib, 0, b, rows, c)
+    check(kern._bwd_apply_plans, kern._bwd_apply_workspaces, k3a, 17, 11,
+          fresh)
+    if res <= 8:    # the cluster form: no workspace, so no memset
+        assert fresh.form == 1 and fresh.workspace_bytes == 0
     (k2_plan,) = kern._split_plans.values()
     assert k2[10] is k2_plan and isinstance(k2_plan, kern.Plan)
     assert k2_plan.as_dict() == kern.make_split_plan(
         plan_lib, 0, b, rows, c, 1).as_dict()
     assert isinstance(k1[10], kern.PartialPlan)
     assert isinstance(k3p[13], kern.PartialPlan)
-    assert isinstance(k3a[17], kern.BwdPlan)
+    assert isinstance(k3a[17], kern.ApplyPlan)

@@ -23,7 +23,10 @@ rtol 1e-4, parameters rtol 5e-3 / atol 5e-5, SGD); the trainer on a fixed
 (2 x 2) grid against the one-process trainer at rtol 2e-3 / atol 2e-4."""
 
 import json
+import os
 import shutil
+import subprocess
+import sys
 
 import numpy as np
 import optax
@@ -59,6 +62,7 @@ JAX_BATCH, JAX_RES = 2, 16  # the JAX comparison's (tests/test_spatial.py)
 STEP_LOSSES = (("logistic", 2), ("relativistic-hinge", 1), ("wgan-gp", 1))
 TOL = dict(atol=1e-8, rtol=1e-8)
 EXACT = dict(atol=1e-12, rtol=1e-12)
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
 def _weights(res, dtype, seed=0):
@@ -172,7 +176,10 @@ def test_collective_gradients_match_unsplit(world, n, op):
 def test_functional_collective_warns_without_a_backward():
     """The rule this module turns into an error: the functional all-reduce
     under autograd has no backward of its own.  halo.psum records its
-    transpose instead (one rank here: its gradient is the identity's)."""
+    transpose instead (one rank here: its gradient is the identity's).
+    Autograd gives that warning once per process, so the all-reduce's
+    backward runs in a fresh one (worker.functional_collective_warnings),
+    whatever this process ran before."""
     from stylegan_torch.parallel import initialize_distributed
     from stylegan_torch.parallel.distributed import _free_port
     initialize_distributed(f"localhost:{_free_port()}", 1, 0, device="cpu",
@@ -184,12 +191,19 @@ def test_functional_collective_warns_without_a_backward():
                                    create_graph=True)
         (gg,) = torch.autograd.grad(g.sum(), x)
         assert torch.equal(gg, torch.full_like(x, 2.0))
-        ops = torch.ops._c10d_functional
-        with pytest.raises(UserWarning, match=worker.UNREGISTERED):
-            ops.wait_tensor(ops.all_reduce(x, "sum", ctx.group_name)) \
-                .sum().backward()
     finally:
         torch.distributed.destroy_process_group()
+    env = dict(os.environ, JAX_PLATFORMS="cpu", OMP_NUM_THREADS="1")
+    env.pop("PYTHONPATH", None)
+    code = ("import json, sys\n"
+            "sys.path.insert(0, 'tests')\n"
+            "import torch_spatial_train_worker as w\n"
+            "print(json.dumps(w.functional_collective_warnings()))\n")
+    r = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0, r.stderr
+    messages = json.loads(r.stdout.strip().splitlines()[-1])
+    assert any(worker.UNREGISTERED in m for m in messages), messages
 
 
 # ------------------------------------------------ the split epilogue's VJP --

@@ -295,6 +295,27 @@ def deep_tail(out_dir):
                         for p in trainer.state.generator.parameters())
 
 
+def functional_collective_warnings():
+    """The messages of the warnings that autograd gives when a gradient
+    passes through the functional all-reduce, which has no backward of its
+    own, on a world of one gloo rank.  Autograd warns once per process, so
+    the test runs this in a fresh one."""
+    from stylegan_torch.parallel import initialize_distributed
+    from stylegan_torch.parallel.distributed import _free_port
+    initialize_distributed(f"localhost:{_free_port()}", 1, 0, device="cpu",
+                           timeout=60)
+    try:
+        group = halo.SpatialContext(1, torch.tensor(0)).group_name
+        x = torch.randn(3, dtype=torch.float64, requires_grad=True)
+        ops = torch.ops._c10d_functional
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            ops.wait_tensor(ops.all_reduce(x, "sum", group)).sum().backward()
+        return [str(w.message) for w in caught]
+    finally:
+        torch.distributed.destroy_process_group()
+
+
 def world(rank, device, spec, out_dir):
     """Every check of the module in one world of WORLD ranks."""
     torch.set_num_threads(1)

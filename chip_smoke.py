@@ -198,11 +198,32 @@ Phases, each fatal on failure:
            per step and peak memory beside phase 5(b)'s one-process peak
            (a correctness and memory run, not a scaling figure); (d) the
            train CLI with parallel.spatial: 2, --num_devices 2 --device
-           cuda:0 on 24 seeded 1024^2 PNGs, depths 7-8 on (1 x 2) grids.
+           cuda:0 on 8 seeded 1024^2 PNGs, depths 7-8 on (1 x 2) grids.
            It prints its seconds.
+13. evidence the evidence tools (stylegan_torch/tools/): (a) K1+K2 and K3
+           at the planes of the tools' schedules (the 128^2 progressive
+           run's 128x{4,8,16}^2x512, 64x32^2x512, 32x64^2x256,
+           16x128^2x128, the conditional run's 32x{4..32}^2x512), float32
+           and bfloat16, against their plain versions with phases 2 and
+           5(a)'s bars, two calls bitwise equal, each case's plans printed,
+           the batch-128 planes timed against the bytes bound; (b) the
+           progressive tool at 32^2 (4 depths, batches 128, 128, 128, 64,
+           24-32 steps a depth, resume_k 8) in process: every eval's SWD
+           finite, the evals on the tool's schedule, each kernel's calls
+           and CUDA launches over its steps and evals as the plans make
+           them, no plain call, the boundary checkpoint written; then its
+           --verify_resume in a fresh process: bit_identical, exit 0;
+           (c) the conditional tool at 32^2, batch 32, 24 steps: finite
+           per-class SWD, the calls and launches, no plain call;
+           (d) measure_latency's flagship 1024^2 generator at batch 1, 2, 4
+           and 8 (18 calls a request); (e) the fidelity gate on a synthetic
+           official pickle of the seeded FFHQ-1024 generator with a
+           seeded-init Inception .npz, 8 seeded 1024^2 PNGs and
+           --skip_golden: pass, FID a finite float, PPL skipped.  It
+           prints its seconds.
 
-`python3 chip_smoke.py --only 8 9 10 11 12` runs the build and just those
-phases (to try a change; no result lines).
+`python3 chip_smoke.py --only 8 9 10 11 12 13` runs the build and just
+those phases (to try a change; no result lines).
 
 The last two lines are {"kernels": [...]} with the kernels' measurements and
 {"ok": true, "device": {...}}; the card's name and power limit precede them.
@@ -2876,9 +2897,18 @@ def phase_parallel(dev, train):
     log(f"parallel: two ranks on one card over gloo, "
         f"{time.perf_counter() - t0:.1f} s")
     report["two_ranks_gloo"] = parallel_two_ranks(train)
-    report["vs_one_process"] = parallel_vs_one_process(dev)
+    # the CLI's rank runs on the card while this process computes 10(c)
+    # (one step on the card, one in float64 on the CPU)
     with tempfile.TemporaryDirectory(dir=os.path.dirname(PAR_OUT)) as tmp:
-        report["cli_torchrun"] = parallel_cli(tmp)
+        cli = parallel_cli_start(tmp)
+        try:
+            report["vs_one_process"] = parallel_vs_one_process(dev)
+            report["cli_torchrun"] = parallel_cli_finish(cli)
+        finally:
+            if cli["proc"].poll() is None:
+                cli["proc"].kill()
+                cli["proc"].wait()
+            cli["log"].close()
     shutil.rmtree(PAR_OUT)
     report["phase_s"] = time.perf_counter() - t_phase
     log(f"phase 10: {report['phase_s']:.1f} s")
@@ -3189,12 +3219,11 @@ def parallel_vs_one_process(dev):
     return report
 
 
-def parallel_cli(tmp):
-    """10(d): `torchrun --standalone --nproc_per_node 1 -m
+def parallel_cli_start(tmp):
+    """10(d), started: `torchrun --standalone --nproc_per_node 1 -m
     stylegan_torch.cli.train` on the FFHQ yaml over PAR_CLI_IMAGES seeded
-    1024^2 PNGs, depths 7 and 8, one epoch each: the CLI joins torchrun's
-    world (NCCL), finite losses in metrics.jsonl, the five checkpoint files
-    of tags 7_1 and 8_1 written once."""
+    1024^2 PNGs, depths 7 and 8, one epoch each.  Returns what
+    parallel_cli_finish waits for; the caller ends the process."""
     import yaml
     data_dir, out = os.path.join(tmp, "ffhq"), os.path.join(tmp, "run")
     write_pngs(data_dir, PAR_CLI_IMAGES, 1024, seed=95)
@@ -3206,12 +3235,32 @@ def parallel_cli(tmp):
     path = os.path.join(tmp, "ffhq.yaml")
     with open(path, "w") as f:
         yaml.safe_dump(doc, f)
-    t0 = time.perf_counter()
-    run([sys.executable, "-m", "torch.distributed.run", "--standalone",
+    log_path = os.path.join(tmp, "cli.log")
+    log_file = open(log_path, "w")
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone",
          "--nproc_per_node", "1", "-m", "stylegan_torch.cli.train",
          "--config", path, "--start_depth", str(TRAINER_START_DEPTH)],
-        "train CLI under torchrun")
-    wall = time.perf_counter() - t0
+        cwd=REPO, stdout=log_file, stderr=subprocess.STDOUT, text=True)
+    return {"proc": proc, "log": log_file, "log_path": log_path, "out": out,
+            "t0": time.perf_counter()}
+
+
+def parallel_cli_finish(cli):
+    """10(d)'s verdict: the CLI joined torchrun's world (NCCL) and exited 0
+    within 600 s, finite losses in metrics.jsonl, the five checkpoint files
+    of tags 7_1 and 8_1 written once."""
+    try:
+        rc = cli["proc"].wait(timeout=600)
+    except subprocess.TimeoutExpired:
+        fail("10(d): the train CLI under torchrun did not finish in 600 s")
+    cli["log"].flush()
+    if rc != 0:
+        with open(cli["log_path"]) as f:
+            fail(f"10(d): the train CLI under torchrun exited {rc}:\n"
+                 f"{f.read()[-6000:]}")
+    out = cli["out"]
+    wall = time.perf_counter() - cli["t0"]
     with open(os.path.join(out, "metrics.jsonl")) as f:
         rows = [json.loads(line) for line in f]
     with open(os.path.join(out, "log.txt")) as f:
@@ -3696,7 +3745,8 @@ SP_TRAIN_STEPS = 2                  # timed depth-8 steps of 12(c)
 SP_TRAIN_SPLITS = (2, 4)            # slabs of one plane in 12(a)
 SP_TRAIN_BATCHES = (TRAIN_BATCH, 1)  # 12(a): the step's batch; batch 1
 SP_TRAIN_OUT = os.path.join(REPO, "build", "chip_smoke", "spatial_train")
-SP_CLI_IMAGES = 24                  # seeded 1024^2 PNGs, as phase 6 writes
+SP_CLI_IMAGES = 8                   # seeded 1024^2 PNGs: depth 7 takes 2
+                                    # steps at batch 4, depth 8 4 at 2
 # kernel calls of one depth-8 step on a (1, 2) grid, per rank: two G
 # forwards, 8 split stages (8^2 .. 1024^2) of two epilogues each, the 4^2
 # stage whole; one G backward
@@ -4319,12 +4369,401 @@ def spatial_train_cli_finish(cli):
     log(json.dumps({"phase12_cli": report}))
     return report
 
+# ------------------------------------------------------------------------
+# Phase 13: the evidence tools (stylegan_torch/tools/)
+
+# (batch, resolution, channels) of the epilogue planes the tools' schedules
+# give the kernels: the 128^2 progressive schedule's depths (batches 128,
+# 128, 128, 64, 32, 16) and the 64^2 conditional run's at batch 32
+EVIDENCE_PLANES = [(128, 4, 512), (128, 8, 512), (128, 16, 512),
+                   (64, 32, 512), (32, 64, 256), (16, 128, 128),
+                   (32, 4, 512), (32, 8, 512), (32, 16, 512), (32, 32, 512)]
+EVIDENCE_TIMED_BATCH = 128
+# 13(b): the progressive tool at 32^2, the reference batches of its first
+# four depths, a few dozen steps a depth, the resume proof over 8 steps
+EV_PROG = ["--res", "32", "--steps_per_depth", "24,24,24,32",
+           "--batches", "128,128,128,64", "--resume_k", "8", "--pool", "512"]
+# 13(c): the conditional tool at 32^2, batch 32
+EV_COND = ["--res", "32", "--steps", "24", "--eval_every", "12", "--batch",
+           "32", "--pool_per_class", "64"]
+EV_EVAL_FORWARDS = 8            # an eval's 256 samples, 32 a forward
+EV_COND_EVAL_FORWARDS = 4 * 4   # 4 classes x 128 samples, 32 a forward
+EV_GATE_IMAGES = 16             # seeded 1024^2 PNGs, 8 in the folder read
+EV_GATE_SAMPLES = 8
+EV_GATE_BATCH = 4
+
+
+def phase_evidence(dev):
+    """Phase 13: the evidence tools on the card, each part fatal: (a) the
+    epilogue kernels at the planes of the tools' schedules, (b) a
+    shortened progressive run and its fresh-process resume, (c) a
+    shortened conditional run, (d) measure_latency, (e) the fidelity gate
+    on a synthetic official pickle."""
+    from stylegan_torch.ops.precision import get_precision, set_precision
+    t_phase = time.perf_counter()
+    precision = get_precision()   # the tools' trainers allow TF32
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_p13_")
+    parts_s, report = {}, {}
+    try:
+        t0 = time.perf_counter()
+        report["kernels"] = evidence_kernels(dev)
+        parts_s["a"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        report["progressive"], verify = evidence_progressive(dev, tmp)
+        parts_s["b"] = time.perf_counter() - t0
+        # the replay runs in its process while (c) and (e) run here; (d)
+        # times requests, so it waits for the card to itself
+        t0 = time.perf_counter()
+        try:
+            report["conditional"] = evidence_conditional(dev, tmp)
+            parts_s["c"] = time.perf_counter() - t0
+            t1 = time.perf_counter()
+            report["gate"] = evidence_gate(dev, tmp)
+            parts_s["e"] = time.perf_counter() - t1
+            report["progressive"]["resume"] = evidence_resume_finish(verify)
+        finally:
+            if verify["proc"].poll() is None:
+                verify["proc"].kill()
+                verify["proc"].wait()
+        parts_s["b_resume_c_e"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        report["latency"] = evidence_latency(dev)
+        parts_s["d"] = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+        set_precision(precision)
+    report["parts_s"] = parts_s
+    report["phase_s"] = time.perf_counter() - t_phase
+    log(f"phase 13: {report['phase_s']:.1f} s")
+    return report
+
+
+def evidence_kernels(dev):
+    """13(a): K1+K2 and K3 at EVIDENCE_PLANES in float32 and bfloat16
+    against their plain versions with phases 2 and 5(a)'s bars, two calls
+    bitwise equal, each plan printed; the batch-128 planes timed (graph
+    replay) against the bytes bound, with the plain versions.  Returns the
+    batch-128 sums by dtype and the worst errors."""
+    from stylegan_torch.ops import fused
+    from stylegan_torch.ops.kernels import epilogue as kern
+    g = torch.Generator(device=dev).manual_seed(13)
+    out = {"max_abs_err": 0.0, "backward_max_abs_err": 0.0,
+           "backward_worst_bar_ratio": 0.0, "cases": 0}
+    for dtype in (torch.float32, torch.bfloat16):
+        name = "f32" if dtype == torch.float32 else "bf16"
+        sums = dict.fromkeys(("ms", "plain_ms", "bound_ms", "bwd_ms",
+                              "bwd_plain_ms", "bwd_bound_ms"), 0.0)
+        for batch, res, c in EVIDENCE_PLANES:
+            args = epilogue_inputs(g, dev, dtype, res, c, batch)
+            x, nw, noise, style = args
+            where = f"{batch}x{res}x{res}x{c} {name}"
+            with torch.no_grad():
+                got = fused.fused_epilogue(*args)
+                again = fused.fused_epilogue(*args)
+                ref = fused._reference_epilogue(*args)
+                torch.cuda.synchronize()
+                if not torch.equal(got, again):
+                    fail(f"epilogue {where}: two calls differ")
+                err = float((got.float() - ref.float()).abs().max())
+                tol = F32_TOL if dtype == torch.float32 else bf16_bound(ref)
+                if not err <= tol:
+                    fail(f"epilogue {where}: max |diff| {err} > {tol}")
+                if dtype == torch.bfloat16:
+                    ulps = ulps_from(got.float(), fused._reference_epilogue(
+                        *(t.float() for t in args)))
+                    if not ulps <= 1.0:
+                        fail(f"epilogue {where}: {ulps} ulps from the f32 "
+                             "plain version")
+                else:
+                    out["max_abs_err"] = max(out["max_abs_err"], err)
+            del got, again, ref
+            cot = torch.randn(x.shape, generator=g, device=dev).to(dtype)
+            grads = kernel_grads(kern, args, cot)
+            grads_again = kernel_grads(kern, args, cot)
+            torch.cuda.synchronize()
+            for gname, a, b in zip(GRAD_NAMES, grads, grads_again):
+                if not torch.equal(a, b):
+                    fail(f"epilogue backward {where} d{gname}: two calls "
+                         "differ")
+            worst = check_grads(fused, args, cot, grads, where)
+            out["backward_worst_bar_ratio"] = max(
+                out["backward_worst_bar_ratio"], worst)
+            if dtype == torch.float32:
+                out["backward_max_abs_err"] = max(
+                    out["backward_max_abs_err"], max(
+                        float((a - r).abs().max()) for a, r in zip(
+                            grads, plain_grads(fused, args, cot))))
+            line = {"evidence_epilogue": where, "max_abs_err": err,
+                    "tol": tol, "backward_worst_bar_ratio": worst,
+                    "deterministic": True, "plan": kern.plan_for(x),
+                    "backward_plan": kern.bwd_plan_for(x)}
+            if batch == EVIDENCE_TIMED_BATCH:
+                saved = torch.empty((batch, c, 2), device=dev)
+                kern.epilogue_forward(x, nw, noise, style, saved)
+                times = {
+                    "ms": graph_time_ms(
+                        lambda i: fused.fused_epilogue(*args)),
+                    "plain_ms": graph_time_ms(
+                        lambda i: fused._reference_epilogue(*args)),
+                    "bound_ms": kern.bytes_moved(x) / HBM_BYTES_PER_S * 1e3,
+                    "bwd_ms": graph_time_ms(lambda i: kern.epilogue_backward(
+                        cot, x, nw, noise, style, saved, TRAIN_NEEDS)),
+                    "bwd_plain_ms": graph_time_ms(
+                        lambda i: fused._reference_epilogue_vjp(
+                            x, nw, noise, style, cot)),
+                    "bwd_bound_ms": kern.bytes_moved_backward(x)
+                    / HBM_BYTES_PER_S * 1e3}
+                line.update(times)
+                for k, v in times.items():
+                    sums[k] += v
+                del saved
+            log(json.dumps(line))
+            out["cases"] += 1
+            del args, x, cot, grads, grads_again
+        out[f"batch{EVIDENCE_TIMED_BATCH}_{name}"] = sums
+    log(json.dumps({"evidence_kernels": out}))
+    return out
+
+
+def expected_evidence_calls(kern, dev, per_depth):
+    """Kernel calls and the CUDA launches their plans make, forward and
+    backward, for `per_depth`: {depth: [(batch, dtype, forward calls per
+    stage, backward calls per stage), ...]}; each call runs the stages 0 to
+    depth of a 128^2 model (EPILOGUE_SHAPES' channels), two epilogues a
+    stage."""
+    want = dict.fromkeys(("forward_calls", "forward_cuda", "backward_calls",
+                          "backward_cuda"), 0)
+    for depth, entries in per_depth.items():
+        for batch, dtype, fwd, bwd in entries:
+            for res, c in EPILOGUE_SHAPES[:depth + 1]:
+                x = torch.empty((batch, res, res, c), dtype=dtype, device=dev)
+                want["forward_calls"] += 2 * fwd
+                want["forward_cuda"] += 2 * fwd * kern.plan_for(x)["launches"]
+                want["backward_calls"] += 2 * bwd
+                want["backward_cuda"] += 2 * bwd * kern.bwd_plan_for(x)[
+                    "launches"]
+                del x
+    return want
+
+
+def evidence_counts():
+    from stylegan_torch.ops import fused
+    from stylegan_torch.ops.kernels import epilogue as kern
+    return {"forward_calls": kern.launches, "forward_cuda": kern.cuda_launches,
+            "backward_calls": kern.backward_launches,
+            "backward_cuda": kern.backward_cuda_launches,
+            "plain_calls": fused.plain_calls}
+
+
+def check_evidence_counts(kern, dev, per_depth, what):
+    counts = evidence_counts()
+    want = dict(expected_evidence_calls(kern, dev, per_depth), plain_calls=0)
+    if counts != want:
+        fail(f"{what}: epilogue calls {counts}, want {want} by the plans")
+    return counts
+
+
+def evidence_progressive(dev, tmp):
+    """13(b): the progressive tool at 32^2 in process: every eval's SWD
+    finite, the calls and CUDA launches of every step and eval as the plans
+    make them, no plain call, the boundary checkpoint written; then its
+    --verify_resume started in a fresh process (read by
+    evidence_resume_finish)."""
+    from stylegan_torch.ops import fused
+    from stylegan_torch.ops.kernels import epilogue as kern
+    from stylegan_torch.tools import train_progressive_run as prog
+    out = os.path.join(tmp, "progressive")
+    args = EV_PROG + ["--out", out, "--device", "cuda"]
+    a = prog.parse_arguments(args)
+    steps = [int(s) for s in a.steps_per_depth.split(",")]
+    batches = [int(b) for b in a.batches.split(",")]
+    reset_counts(kern, fused)
+    t0 = time.perf_counter()
+    summary = prog.main(args)
+    wall = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    history = summary_history(out)
+    if summary["aborted"] or summary["total_steps"] != sum(steps):
+        fail(f"progressive run: {summary}")
+    if [(h["step"], h["depth"], h["local_step"], h["alpha"])
+            for h in history] != prog.eval_schedule(steps, a.fade_pct,
+                                                    a.resume_k):
+        fail("progressive run: the evals are not the schedule's")
+    if not all(math.isfinite(v) for h in history
+               for v in h["swd_x1e3"].values()):
+        fail(f"progressive run: an SWD is not finite: {history}")
+    evals = {d: sum(h["depth"] == d for h in history)
+             for d in range(len(steps))}
+    counts = check_evidence_counts(kern, dev, {
+        d: [(batches[d], torch.bfloat16, steps[d], steps[d]),
+            (32, torch.float32, EV_EVAL_FORWARDS * evals[d], 0)]
+        for d in range(len(steps))}, "progressive run")
+    for name in ("boundary_ckpt.npz", "boundary_rng.npz",
+                 "resume_expected.json"):
+        if not os.path.exists(os.path.join(out, name)):
+            fail(f"progressive run: no {name}")
+    with open(os.path.join(out, "resume_expected.json")) as f:
+        expected = json.load(f)
+    if len(expected["losses"]) != a.resume_k:
+        fail(f"progressive run: {len(expected['losses'])} losses recorded")
+    rep = {"steps_per_depth": steps, "batches": batches,
+           "total_steps": summary["total_steps"], "evals": len(history),
+           "wall_s": wall, "ms_per_step_incl_evals": wall * 1e3
+           / summary["total_steps"], "calls": counts,
+           "swd_x1e3_avg": [h["swd_x1e3"]["avg"] for h in history],
+           "final_depth_swd_avg_first": summary["final_depth_swd_avg_first"],
+           "final_depth_swd_avg_last": summary["final_depth_swd_avg_last"]}
+    log(json.dumps({"evidence_progressive": rep}))
+    log_path = os.path.join(tmp, "verify.log")
+    logf = open(log_path, "w")
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "stylegan_torch.tools.train_progressive_run",
+         *EV_PROG, "--out", out, "--device", "cuda", "--verify_resume"],
+        cwd=REPO, stdout=subprocess.PIPE, stderr=logf, text=True)
+    return rep, {"proc": proc, "log": logf, "log_path": log_path, "out": out,
+                 "t0": time.perf_counter()}
+
+
+def summary_history(out):
+    with open(os.path.join(out, "summary.json")) as f:
+        return json.load(f)["history"]
+
+
+def evidence_resume_finish(verify):
+    """13(b): the fresh process's replay of the 8 steps after the boundary,
+    bit-identical, exit 0."""
+    try:
+        stdout, _ = verify["proc"].communicate(timeout=600)
+    finally:
+        verify["log"].close()
+    with open(verify["log_path"]) as f:
+        err = f.read()
+    if verify["proc"].returncode != 0:
+        fail(f"--verify_resume exited {verify['proc'].returncode}:\n"
+             f"{stdout[-3000:]}\n{err[-3000:]}")
+    with open(os.path.join(verify["out"], "resume_check.json")) as f:
+        check = json.load(f)
+    if check["bit_identical"] is not True or check["max_abs_diff"] != 0.0:
+        fail(f"--verify_resume: {check}")
+    rep = {k: check[k] for k in ("steps_replayed", "max_abs_diff",
+                                 "bit_identical", "deterministic")}
+    rep["wall_s"] = time.perf_counter() - verify["t0"]
+    log(json.dumps({"evidence_resume": rep}))
+    return rep
+
+
+def evidence_conditional(dev, tmp):
+    """13(c): the conditional tool at 32^2, batch 32, in process: finite
+    per-class SWD, the calls and CUDA launches as the plans make them (G's
+    forward for D and for G, its backward, each eval's 16 forwards), no
+    plain call."""
+    from stylegan_torch.ops import fused
+    from stylegan_torch.ops.kernels import epilogue as kern
+    from stylegan_torch.tools import train_conditional_run as cond
+    out = os.path.join(tmp, "conditional")
+    args = EV_COND + ["--out", out, "--device", "cuda"]
+    a = cond.parse_arguments(args)
+    depth = int(math.log2(a.res)) - 2
+    reset_counts(kern, fused)
+    t0 = time.perf_counter()
+    summary = cond.main(args)
+    wall = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    history = summary_history(out)
+    if summary["steps_completed"] != a.steps:
+        fail(f"conditional run: {summary}")
+    swds = [v for h in history for k, v in h.items() if k.startswith("swd")]
+    if len(swds) != 6 * len(history) or not all(map(math.isfinite, swds)):
+        fail(f"conditional run: per-class SWD {history}")
+    counts = check_evidence_counts(kern, dev, {depth: [
+        (a.batch, torch.bfloat16, 2 * a.steps, a.steps),
+        (32, torch.float32, EV_COND_EVAL_FORWARDS * len(history), 0)]},
+        "conditional run")
+    rep = {"steps": a.steps, "evals": len(history), "wall_s": wall,
+           "calls": counts, "last": history[-1],
+           "conditioning_separates": summary["conditioning_separates"]}
+    log(json.dumps({"evidence_conditional": rep}))
+    return rep
+
+
+def evidence_latency(dev):
+    """13(d): measure_latency's flagship 1024^2 generator at batch 1, 2, 4
+    and 8 (bf16 z, eval mode): per-request ms and img/s, 18 kernel calls a
+    request, no plain call."""
+    from stylegan_torch.ops import fused
+    from stylegan_torch.ops.kernels import epilogue as kern
+    from stylegan_torch.ops.precision import set_precision
+    from stylegan_torch.tools import measure_latency as ml
+    set_precision("default")
+    reset_counts(kern, fused)
+    res = ml.measure(ml.flagship_config(1024), dev, log=log)
+    requests = len(ml.BATCHES) * (1 + ml.TRIALS * ml.ITERS)
+    want = {"launches": requests * PER_FORWARD, "plain_calls": 0}
+    got = {"launches": kern.launches, "plain_calls": fused.plain_calls}
+    if got != want:
+        fail(f"measure_latency: epilogue calls {got}, want {want}")
+    for b, r in res.items():
+        if not (r["latency_ms_raw"] > 0 and math.isfinite(
+                r["imgs_per_sec_raw"])):
+            fail(f"measure_latency batch {b}: {r}")
+    rep = {"by_batch": res, "calls": got}
+    log(json.dumps({"evidence_latency": rep}))
+    return rep
+
+
+def evidence_gate(dev, tmp):
+    """13(e): the fidelity gate on a synthetic official pickle of the
+    seeded FFHQ-1024 generator (noise weights included), a seeded-init
+    Inception .npz and 8 seeded 1024^2 PNGs, --skip_golden: pass, FID a
+    finite float, PPL skipped, the samples' forwards through the kernel."""
+    from stylegan_torch.metrics import inception_v3_init
+    from stylegan_torch.models import Generator
+    from stylegan_torch.ops import fused
+    from stylegan_torch.ops.kernels import epilogue as kern
+    from stylegan_torch.tools import fidelity_gate as gate_tool
+    gen = Generator(gate_tool.gate_config(1024, 8))
+    pkl = os.path.join(tmp, "official.pkl")
+    official_pickle(pkl, random_state_dict(gen), DEPTH)
+    del gen
+    inception = os.path.join(tmp, "inception.npz")
+    np.savez(inception, **inception_v3_init(0))
+    images = os.path.join(tmp, "gate_reals")
+    write_pngs(images, EV_GATE_IMAGES, 1024, 13)
+    out = os.path.join(tmp, "gate")
+    reset_counts(kern, fused)
+    t0, code = time.perf_counter(), None
+    try:    # the gate exits with its verdict
+        gate_tool.main(["--pickle", pkl, "--images",
+                        os.path.join(images, "00000"), "--inception",
+                        inception, "--out", out, "--num_samples",
+                        str(EV_GATE_SAMPLES), "--batch", str(EV_GATE_BATCH),
+                        "--skip_golden", "--device", "cuda"])
+    except SystemExit as e:
+        code = e.code
+    wall = time.perf_counter() - t0
+    with open(os.path.join(out, "gate.json")) as f:
+        gate = json.load(f)
+    fid = gate["stages"]["fid"].get("fid")
+    if code != 0 or gate["pass"] is not True or not isinstance(fid, float) \
+            or not math.isfinite(fid) or gate["stages"]["ppl"]["ok"] is not None:
+        fail(f"fidelity gate exited {code}: {gate}")
+    want = {"launches": EV_GATE_SAMPLES // EV_GATE_BATCH * PER_FORWARD,
+            "plain_calls": 0}
+    got = {"launches": kern.launches, "plain_calls": fused.plain_calls}
+    if got != want:
+        fail(f"fidelity gate: epilogue calls {got}, want {want}")
+    rep = {"pass": gate["pass"], "fid": fid, "stages": {
+        k: v.get("ok") for k, v in gate["stages"].items()}, "calls": got,
+        "wall_s": wall}
+    log(json.dumps({"evidence_gate": rep}))
+    return rep
+
 
 def main(argv=None):
     import argparse
     parser = argparse.ArgumentParser()
     parser.add_argument("--only", type=int, nargs="+", default=None,
-                        help="run only these of the phases 8-12 after the "
+                        help="run only these of the phases 8-13 after the "
                         "build (to try a change; prints no result line)")
     only = parser.parse_args(argv).only
     if not torch.cuda.is_available():
@@ -4350,7 +4789,8 @@ def main(argv=None):
              9: lambda: phase_bf16(dev),
              10: lambda: phase_parallel(dev, {"ms_per_step": None}),
              11: lambda: phase_spatial(dev),
-             12: lambda: phase_spatial_train(dev, {})}[n]()
+             12: lambda: phase_spatial_train(dev, {}),
+             13: lambda: phase_evidence(dev)}[n]()
             log(f"phase {n} alone: {time.perf_counter() - t0:.1f} s")
         return 0
 
@@ -4380,6 +4820,11 @@ def main(argv=None):
                    for n in SPATIAL_RANKS}
     p12 = phase_spatial_train(dev, train)
     k3s, d8 = p12["kernels"], p12["depth8"]
+    p13 = phase_evidence(dev)
+    ev = p13["kernels"]
+    ev_calls = {k: p13[k]["calls"] for k in ("progressive", "conditional")}
+    ev_b128 = {d: ev[f"batch{EVIDENCE_TIMED_BATCH}_{d}"]
+               for d in ("f32", "bf16")}
 
     kernels = [{
         "name": "epilogue", "route": "cuda",
@@ -4412,6 +4857,14 @@ def main(argv=None):
             "two_ranks_gloo": [c["forward_calls"]
                                for c in par_b["calls_by_rank"]]},
         "tool_batches_max_abs_err": batches,
+        "evidence_launches": {
+            **{k: v["forward_calls"] for k, v in ev_calls.items()},
+            "latency": p13["latency"]["calls"]["launches"],
+            "gate": p13["gate"]["calls"]["launches"]},
+        "evidence_max_abs_err": ev["max_abs_err"],
+        "evidence_batch128_ms": {d: {k: v[k] for k in ("ms", "plain_ms",
+                                                        "bound_ms")}
+                                 for d, v in ev_b128.items()},
         "shapes": "the 18 float32 calls of one batch-8 1024^2 forward; ms "
                   "and plain_ms device time (CUDA graph replay, x warm in "
                   "L2), cold_ms the same with x and out cold in L2, call_ms "
@@ -4434,7 +4887,13 @@ def main(argv=None):
                   "steps at depth 8 (one rank over NCCL; each of two "
                   "ranks over gloo), "
                   "tool_batches_max_abs_err the float32 error at the 9 "
-                  "shapes by batch (projection's 1, the tool CLIs')",
+                  "shapes by batch (projection's 1, the tool CLIs'); "
+                  "evidence_launches over phase 13's shortened "
+                  "progressive and conditional runs (steps and evals), "
+                  "measure_latency's requests and the gate's samples, "
+                  "evidence_batch128_ms the sums over the 3 batch-128 "
+                  "planes of the progressive schedule (4^2 to 16^2 x 512; "
+                  "one call each, graph replay) by dtype",
     }, {
         "name": "epilogue_backward", "route": "cuda",
         "source": "stylegan_torch/csrc/epilogue.cu",
@@ -4459,6 +4918,12 @@ def main(argv=None):
             "one_rank_nccl": par_a["backward_calls"],
             "two_ranks_gloo": [c["backward_calls"]
                                for c in par_b["calls_by_rank"]]},
+        "evidence_launches": {k: v["backward_calls"]
+                              for k, v in ev_calls.items()},
+        "evidence_max_abs_err": ev["backward_max_abs_err"],
+        "evidence_batch128_ms": {d: {k[4:]: v[k] for k in (
+            "bwd_ms", "bwd_plain_ms", "bwd_bound_ms")}
+            for d, v in ev_b128.items()},
         "shapes": "the 18 float32 calls of one batch-2 1024^2 G backward "
                   "(dx, dnoise_weight, dstyle); ms and plain_ms (the plain "
                   "analytic VJP) device time by CUDA graph replay, cold_ms "
@@ -4470,7 +4935,10 @@ def main(argv=None):
                   "bf16_train_launches per bf16 perf-config step of "
                   "phase 9(b), whose in-step times are in the forward's "
                   "bf16_in_step_ms; parallel_launches over phase 10's 3 "
-                  "timed data-parallel steps",
+                  "timed data-parallel steps; evidence_launches over "
+                  "phase 13's shortened progressive and conditional runs, "
+                  "evidence_batch128_ms as the forward's (train-step "
+                  "gradients, no dnoise)",
     }, {
         "name": "epilogue_batch1", "route": "cuda",
         "source": "stylegan_torch/csrc/epilogue.cu",
@@ -4581,6 +5049,8 @@ def main(argv=None):
     log(json.dumps({"phase11": {k: v for k, v in p11.items()
                                 if k != "kernels"}}))
     log(json.dumps({"phase12": {k: v for k, v in p12.items()
+                                if k != "kernels"}}))
+    log(json.dumps({"phase13": {k: v for k, v in p13.items()
                                 if k != "kernels"}}))
     log(card)
     log(json.dumps({"kernels": kernels}))

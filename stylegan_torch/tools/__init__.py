@@ -1,1 +1,3 @@
-"""Measurement scripts for the port's kernels, run on the card."""
+"""Scripts of the port: measurements of its kernels on the card, and the
+evidence tools of the JAX system's root ``tools/`` (training-quality runs,
+the synthetic dataset, serving latency, the fidelity gate)."""

@@ -1,6 +1,8 @@
 """The port imports nothing of JAX or of the JAX package: an AST scan of its
 sources and of chip_smoke.py, and a subprocess that imports every port
-module and compares sys.modules before and after."""
+module and compares sys.modules before and after.  The JAX system's root
+tools/ (as a package, or by the bare module names its scripts import each
+other by) and bench.py count as the JAX package."""
 
 import ast
 import glob
@@ -9,7 +11,11 @@ import subprocess
 import sys
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-FORBIDDEN = ("jax", "jaxlib", "optax", "orbax", "stylegan_tpu")
+JAX_TOOLS = tuple(sorted(
+    os.path.basename(p)[:-3]
+    for p in glob.glob(os.path.join(REPO, "tools", "*.py"))))
+FORBIDDEN = ("jax", "jaxlib", "optax", "orbax", "stylegan_tpu", "tools",
+             "bench") + JAX_TOOLS
 SOURCES = sorted(glob.glob(os.path.join(REPO, "stylegan_torch", "**", "*.py"),
                            recursive=True)) + [os.path.join(REPO,
                                                             "chip_smoke.py")]
@@ -85,3 +91,30 @@ def test_spatial_modules_and_rank_bodies_import_no_jax():
         names = list(_imported_names(ast.parse(f.read(), worker)))
     assert "stylegan_torch.parallel" in names
     assert not [n for n in names if n.split(".")[0] in FORBIDDEN], names
+
+
+def test_port_tools_are_scanned_and_import_no_jax():
+    """stylegan_torch/tools/ (the evidence tools among them) is in the scan
+    above, FORBIDDEN names the JAX system's tools, and importing each port
+    tool in a fresh process loads neither them nor JAX."""
+    assert {"train_quality_run", "train_progressive_run",
+            "train_conditional_run", "make_synthetic_dataset",
+            "measure_latency", "fidelity_gate"} <= set(JAX_TOOLS)
+    tools = sorted(glob.glob(os.path.join(REPO, "stylegan_torch", "tools",
+                                          "*.py")))
+    assert len(tools) >= 10 and set(tools) <= set(SOURCES)
+    names = [f"stylegan_torch.tools.{os.path.basename(p)[:-3]}"
+             for p in tools if not p.endswith("__init__.py")]
+    code = (
+        "import sys, importlib\n"
+        f"forbidden = {FORBIDDEN!r}\n"
+        f"for m in {names!r}:\n"
+        "    importlib.import_module(m)\n"
+        "print(sorted(m for m in sys.modules "
+        "if m.split('.')[0] in forbidden))\n")
+    env = dict(os.environ)
+    env.pop("PYTHONPATH", None)
+    r = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0, r.stderr
+    assert r.stdout.strip() == "[]", r.stdout

@@ -282,6 +282,19 @@ def fail(msg):
     sys.exit(1)
 
 
+def counter(name):
+    """The epilogue's counter `name` (``utils.profiling.counters``)."""
+    from stylegan_torch.utils.profiling import counters
+    return counters["epilogue." + name]
+
+
+def zero(*names):
+    """Sets the epilogue's counters `names` to 0."""
+    from stylegan_torch.utils.profiling import counters
+    for name in names:
+        counters["epilogue." + name] = 0
+
+
 def card_line():
     r = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                         "--format=csv,noheader"], capture_output=True,
@@ -769,14 +782,14 @@ def phase_slice(dev, per_forward):
     serve(zs[-1], 1000)               # warm-up request, not counted
     torch.cuda.synchronize()
 
-    kern.launches = kern.cuda_launches = 0
+    zero("launches", "cuda_launches")
     t0 = time.perf_counter()
     outs = []
     for i in range(REQUESTS):
         outs.append(serve(zs[i], i))
         torch.cuda.synchronize()
     elapsed = time.perf_counter() - t0
-    launches, cuda_launches = kern.launches, kern.cuda_launches
+    launches, cuda_launches = counter("launches"), counter("cuda_launches")
     for out in outs:
         if tuple(out.shape) != (BATCH, 1024, 1024, 3):
             fail(f"served shape {tuple(out.shape)}")
@@ -818,12 +831,12 @@ def profile_forward(serve, z, path, kern, per_forward):
     device time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile as tprofile
-    kern.cuda_launches = 0
+    zero("cuda_launches")
     with tprofile(activities=[ProfilerActivity.CPU,
                               ProfilerActivity.CUDA]) as prof:
         serve(z, 0)
         torch.cuda.synchronize()
-    wrapper_launches = kern.cuda_launches
+    wrapper_launches = counter("cuda_launches")
     events = prof.key_averages()
     table = events.table(sort_by="cuda_time_total", row_limit=40)
     kernels = [e for e in events if e.device_type == DeviceType.CUDA]
@@ -963,8 +976,8 @@ def phase_train(dev):
     log(f"train: warm-up step {time.perf_counter() - t0:.2f} s")
 
     torch.cuda.reset_peak_memory_stats()
-    kern.launches = kern.cuda_launches = kern.backward_launches = 0
-    kern.backward_cuda_launches = kern.backward_g_copies = 0
+    zero("launches", "cuda_launches", "backward_launches",
+         "backward_cuda_launches", "backward_g_copies")
     fused.plain_calls = 0
     losses = []
     t0 = time.perf_counter()
@@ -973,8 +986,10 @@ def phase_train(dev):
         torch.cuda.synchronize()
         losses.append((m["d_loss"].item(), m["g_loss"].item()))
     elapsed = time.perf_counter() - t0
-    fwd, bwd, plain = kern.launches, kern.backward_launches, fused.plain_calls
-    bwd_cuda, g_copies = kern.backward_cuda_launches, kern.backward_g_copies
+    fwd, bwd = counter("launches"), counter("backward_launches")
+    plain = fused.plain_calls
+    bwd_cuda = counter("backward_cuda_launches")
+    g_copies = counter("backward_g_copies")
     peak = torch.cuda.max_memory_allocated()
     ms_step = elapsed / TRAIN_STEPS * 1e3
     log(json.dumps({"train_ms_per_step": ms_step,
@@ -1003,18 +1018,19 @@ def phase_train(dev):
     # one relativistic-hinge step on the same state
     rh = train_step_fn(cfg, gen_cfg, dis_cfg, TRAIN_DEPTH,
                        "relativistic-hinge")
-    kern.launches = kern.backward_launches = fused.plain_calls = 0
+    zero("launches", "backward_launches")
+    fused.plain_calls = 0
     _, m = rh(state, *batches[-1], 99, alpha)
     torch.cuda.synchronize()
     rh_losses = (m["d_loss"].item(), m["g_loss"].item())
     log(json.dumps({"relativistic_hinge_losses": rh_losses,
-                    "epilogue_forward_calls": kern.launches,
-                    "epilogue_backward_calls": kern.backward_launches,
+                    "epilogue_forward_calls": counter("launches"),
+                    "epilogue_backward_calls": counter("backward_launches"),
                     "plain_calls": fused.plain_calls}))
     if not all(math.isfinite(v) for v in rh_losses):
         fail(f"relativistic-hinge losses not finite: {rh_losses}")
-    if (kern.launches, kern.backward_launches, fused.plain_calls) != \
-            (36, 18, 0):
+    if (counter("launches"), counter("backward_launches"),
+            fused.plain_calls) != (36, 18, 0):
         fail("relativistic-hinge step: wrong epilogue calls")
     del state, step, rh, gen, dis, batches
     torch.cuda.empty_cache()
@@ -1358,7 +1374,6 @@ def trainer_run(dev, bare_img_s, tmp):
     from stylegan_torch.config import apply_runtime_knobs
     from stylegan_torch.data import DataLoader, make_dataset, native
     from stylegan_torch.ops import fused
-    from stylegan_torch.ops.kernels import epilogue as kern
     from stylegan_torch.utils import make_logger
 
     data_dir, out = os.path.join(tmp, "ffhq"), os.path.join(tmp, "run")
@@ -1387,17 +1402,17 @@ def trainer_run(dev, bare_img_s, tmp):
     real_step = trainer.train_on_batch
 
     def step(images, depth, alpha, labels=None, fetch=True):
-        f0, b0 = kern.launches, kern.backward_launches
+        f0, b0 = counter("launches"), counter("backward_launches")
         t0 = time.perf_counter()
         result = real_step(images, depth, alpha, labels, fetch=fetch)
         spans.append(("step", t0, time.perf_counter()))
-        steps.append((depth, images.clone(), kern.launches - f0,
-                      kern.backward_launches - b0))
+        steps.append((depth, images.clone(), counter("launches") - f0,
+                      counter("backward_launches") - b0))
         return result
     trainer.train_on_batch = step
 
-    kern.launches = kern.cuda_launches = kern.backward_launches = 0
-    kern.backward_cuda_launches = kern.backward_g_copies = 0
+    zero("launches", "cuda_launches", "backward_launches",
+          "backward_cuda_launches", "backward_g_copies")
     fused.plain_calls = 0
     t0 = time.perf_counter()
     with host_spans(trainer, spans) as feedback:
@@ -1411,10 +1426,11 @@ def trainer_run(dev, bare_img_s, tmp):
                       checkpoint_factor=cfg.checkpoint_factor)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    counts = {"forward": kern.launches, "forward_cuda": kern.cuda_launches,
-              "backward": kern.backward_launches,
-              "backward_cuda": kern.backward_cuda_launches,
-              "g_copies": kern.backward_g_copies,
+    counts = {"forward": counter("launches"),
+              "forward_cuda": counter("cuda_launches"),
+              "backward": counter("backward_launches"),
+              "backward_cuda": counter("backward_cuda_launches"),
+              "g_copies": counter("backward_g_copies"),
               "plain_calls": fused.plain_calls}
     trainer.train_on_batch = real_step
 
@@ -1789,7 +1805,6 @@ def tools_run(dev, tmp):
                                        generator_config_from_cfg)
     from stylegan_torch.models.synthesis import layer_resolution, make_noise
     from stylegan_torch.ops import fused
-    from stylegan_torch.ops.kernels import epilogue as kern
 
     t_phase = time.perf_counter()
     # FFHQ-1024 with truncation: seeded weights, noise weights included, and
@@ -1853,19 +1868,20 @@ def tools_run(dev, tmp):
     launches, times = {}, {}
     for name, module, argv, forwards in runs:
         torch.cuda.synchronize()
-        kern.launches = fused.plain_calls = 0
+        zero("launches")
+        fused.plain_calls = 0
         t0 = time.perf_counter()
         out = module.main(module.parse_arguments(argv + ["--device",
                                                          dev.type]))
         torch.cuda.synchronize()
         times[name] = time.perf_counter() - t0
-        launches[name] = kern.launches
+        launches[name] = counter("launches")
         check_tool_output(name, out, tmp, 2 ** (full + 2))
         want = forwards * PER_FORWARD
-        log(f"tools: {name} in {times[name]:.2f} s, {kern.launches} epilogue "
-            f"calls (want {want}), {fused.plain_calls} plain")
-        if kern.launches != want or fused.plain_calls:
-            fail(f"{name}: {kern.launches} kernel calls (want {want}), "
+        log(f"tools: {name} in {times[name]:.2f} s, {counter('launches')} "
+            f"epilogue calls (want {want}), {fused.plain_calls} plain")
+        if counter("launches") != want or fused.plain_calls:
+            fail(f"{name}: {counter('launches')} kernel calls (want {want}), "
                  f"{fused.plain_calls} plain calls")
         torch.cuda.empty_cache()
 
@@ -2053,9 +2069,9 @@ def phase_export_project(dev, per_forward, serve_img_s, train):
 
 
 def reset_counts(kern, fused):
-    kern.launches = kern.cuda_launches = kern.backward_launches = 0
-    kern.backward_cuda_launches = kern.backward_g_copies = 0
-    kern.partial_launches = kern.apply_launches = 0
+    zero("launches", "cuda_launches", "backward_launches",
+         "backward_cuda_launches", "backward_g_copies", "partial_launches",
+         "apply_launches")
     fused.plain_calls = 0
 
 
@@ -2095,11 +2111,11 @@ def export_project_run(dev, per_forward, serve_img_s, train, tmp):
     # (a) one served request under utils.profiling.trace
     trace_dir = os.path.join(REPO, "build", "chip_smoke", "serve_trace")
     shutil.rmtree(trace_dir, ignore_errors=True)
-    kern.cuda_launches = 0
+    zero("cuda_launches")
     with trace(trace_dir):
         serve(zs[0], 0)
         torch.cuda.synchronize()
-    wrapper = kern.cuda_launches
+    wrapper = counter("cuda_launches")
     (trace_file,) = [os.path.join(trace_dir, f)
                      for f in os.listdir(trace_dir)]
     with open(trace_file) as f:
@@ -2151,7 +2167,7 @@ def export_project_run(dev, per_forward, serve_img_s, train, tmp):
         outs.append(served(zs[i], i))
         torch.cuda.synchronize()
     elapsed = time.perf_counter() - t0
-    calls, plain = kern.launches, fused.plain_calls
+    calls, plain = counter("launches"), fused.plain_calls
     # requests replay bit for bit with cuDNN's default algorithms: the
     # exported program against make_serving_fn for each request, and one
     # request served twice; the differences are reported either way
@@ -2262,11 +2278,11 @@ def project_on_card(dev, gen_cfg, gen, kern, fused, tmp):
     t0 = time.perf_counter()
     dl, img, losses = project(seed, gen_cfg, gen, target, pcfg)
     wall = time.perf_counter() - t0
-    counts = {"forward_calls": kern.launches,
-              "forward_cuda_launches": kern.cuda_launches,
-              "backward_calls": kern.backward_launches,
-              "backward_cuda_launches": kern.backward_cuda_launches,
-              "backward_g_copies": kern.backward_g_copies,
+    counts = {"forward_calls": counter("launches"),
+              "forward_cuda_launches": counter("cuda_launches"),
+              "backward_calls": counter("backward_launches"),
+              "backward_cuda_launches": counter("backward_cuda_launches"),
+              "backward_g_copies": counter("backward_g_copies"),
               "plain_calls": fused.plain_calls}
     want = (PER_FORWARD * (PROJECT_STEPS + 1), PER_FORWARD * PROJECT_STEPS)
     if (counts["forward_calls"], counts["backward_calls"]) != want or \
@@ -2518,7 +2534,7 @@ def bf16_forward(dev):
 
     reset_counts(kern, fused)
     img_s = time_requests(lambda i: forward(torch.bfloat16, i))
-    calls, plain = kern.launches, fused.plain_calls
+    calls, plain = counter("launches"), fused.plain_calls
     # the dense layers' policy, in turns: the product in float32 (the
     # port's, as JAX's) against a bf16 GEMM with PyTorch's default split-K
     # reduction in bf16
@@ -2583,7 +2599,7 @@ def g_update_marks(kern):
     marks, real = [], steps_mod._Phases.g_update
 
     def g_update(self, *args, **kwargs):
-        marks.append((kern.launches, kern.backward_launches))
+        marks.append((counter("launches"), counter("backward_launches")))
         return real(self, *args, **kwargs)
     steps_mod._Phases.g_update = g_update
     try:
@@ -2664,12 +2680,12 @@ def bf16_train(dev):
         with g_update_marks(kern) as marks:
             t0 = time.perf_counter()
             for i in range(BF16_TIMED):
-                start = (kern.launches, kern.backward_launches)
+                start = (counter("launches"), counter("backward_launches"))
                 losses.append([float(v) for v in one(1 + i)])
                 torch.cuda.synchronize()
                 marks[i] = (marks[i][0] - start[0], marks[i][1] - start[1])
             ms = (time.perf_counter() - t0) / BF16_TIMED * 1e3
-        fwd, bwd, plain = (kern.launches, kern.backward_launches,
+        fwd, bwd, plain = (counter("launches"), counter("backward_launches"),
                            fused.plain_calls)
         per_step = {"d_update_forward": marks[0][0],
                     "d_update_backward": marks[0][1],
@@ -2926,15 +2942,14 @@ def ffhq_cfg():
 
 def reset_train_counts():
     from stylegan_torch.ops import fused
-    from stylegan_torch.ops.kernels import epilogue as kern
-    kern.launches = kern.backward_launches = fused.plain_calls = 0
+    zero("launches", "backward_launches")
+    fused.plain_calls = 0
 
 
 def train_counts():
     from stylegan_torch.ops import fused
-    from stylegan_torch.ops.kernels import epilogue as kern
-    return {"forward_calls": kern.launches,
-            "backward_calls": kern.backward_launches,
+    return {"forward_calls": counter("launches"),
+            "backward_calls": counter("backward_launches"),
             "plain_calls": fused.plain_calls}
 
 
@@ -3548,8 +3563,9 @@ def spatial_rank(rank, device, n, artifact):
             slab = fn(zs[i], i)
             torch.cuda.synchronize()
         ms = (time.perf_counter() - t0) / SPATIAL_REQUESTS * 1e3
-        counts = {"partial": kern.partial_launches,
-                  "apply": kern.apply_launches, "unsplit": kern.launches,
+        counts = {"partial": counter("partial_launches"),
+                  "apply": counter("apply_launches"),
+                  "unsplit": counter("launches"),
                   "plain": fused.plain_calls}
         peak = torch.cuda.max_memory_allocated(device)
         full = gather_rows(slab, mesh)
@@ -3589,7 +3605,6 @@ def spatial_ranks(dev):
     one-process forward's and spatial_hbm_estimate, ms per request (a
     correctness and memory run: the ranks share one card); the 2-rank
     artifact exported here, in one process, and checked on the ranks."""
-    from stylegan_torch.ops.kernels import epilogue as kern
     from stylegan_torch.parallel import spatial_hbm_estimate, spawn
     from stylegan_torch.serving import export_generator, make_serving_fn
 
@@ -4125,21 +4140,20 @@ def spatial_step_fn(cfg, gen_cfg, dis_cfg, depth, mesh):
 
 def spatial_train_counts():
     from stylegan_torch.ops import fused
-    from stylegan_torch.ops.kernels import epilogue as kern
-    return {"forward": kern.launches, "partial": kern.partial_launches,
-            "apply": kern.apply_launches,
-            "backward": kern.backward_launches,
-            "backward_partial": kern.backward_partial_launches,
-            "backward_apply": kern.backward_apply_launches,
+    return {"forward": counter("launches"),
+            "partial": counter("partial_launches"),
+            "apply": counter("apply_launches"),
+            "backward": counter("backward_launches"),
+            "backward_partial": counter("backward_partial_launches"),
+            "backward_apply": counter("backward_apply_launches"),
             "plain": fused.plain_calls}
 
 
 def reset_spatial_train_counts():
     from stylegan_torch.ops import fused
-    from stylegan_torch.ops.kernels import epilogue as kern
-    kern.launches = kern.partial_launches = kern.apply_launches = 0
-    kern.backward_launches = kern.backward_partial_launches = 0
-    kern.backward_apply_launches = fused.plain_calls = 0
+    zero("launches", "partial_launches", "apply_launches", "backward_launches",
+         "backward_partial_launches", "backward_apply_launches")
+    fused.plain_calls = 0
 
 
 def spatial_train_rank(rank, device, out_dir):
@@ -4548,10 +4562,10 @@ def expected_evidence_calls(kern, dev, per_depth):
 
 def evidence_counts():
     from stylegan_torch.ops import fused
-    from stylegan_torch.ops.kernels import epilogue as kern
-    return {"forward_calls": kern.launches, "forward_cuda": kern.cuda_launches,
-            "backward_calls": kern.backward_launches,
-            "backward_cuda": kern.backward_cuda_launches,
+    return {"forward_calls": counter("launches"),
+            "forward_cuda": counter("cuda_launches"),
+            "backward_calls": counter("backward_launches"),
+            "backward_cuda": counter("backward_cuda_launches"),
             "plain_calls": fused.plain_calls}
 
 
@@ -4699,7 +4713,7 @@ def evidence_latency(dev):
     res = ml.measure(ml.flagship_config(1024), dev, log=log)
     requests = len(ml.BATCHES) * (1 + ml.TRIALS * ml.ITERS)
     want = {"launches": requests * PER_FORWARD, "plain_calls": 0}
-    got = {"launches": kern.launches, "plain_calls": fused.plain_calls}
+    got = {"launches": counter("launches"), "plain_calls": fused.plain_calls}
     if got != want:
         fail(f"measure_latency: epilogue calls {got}, want {want}")
     for b, r in res.items():
@@ -4749,7 +4763,7 @@ def evidence_gate(dev, tmp):
         fail(f"fidelity gate exited {code}: {gate}")
     want = {"launches": EV_GATE_SAMPLES // EV_GATE_BATCH * PER_FORWARD,
             "plain_calls": 0}
-    got = {"launches": kern.launches, "plain_calls": fused.plain_calls}
+    got = {"launches": counter("launches"), "plain_calls": fused.plain_calls}
     if got != want:
         fail(f"fidelity gate: epilogue calls {got}, want {want}")
     rep = {"pass": gate["pass"], "fid": fid, "stages": {

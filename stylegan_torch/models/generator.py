@@ -27,6 +27,7 @@ from torch import nn
 
 from ..ops import truncate_dlatents, update_moving_average
 from ..parallel.distributed import broadcast_
+from ..utils.profiling import span
 from .configs import GeneratorConfig
 from .mapping import GMapping
 from .synthesis import GSynthesis, stream_seed
@@ -100,39 +101,47 @@ class Generator(nn.Module):
         holds the global batch's first sample, where `latents` is a shard of
         it): train mode's W average is updated from that sample's W on every
         rank, as the forward on the global batch updates it."""
-        cfg = self.cfg
-        if cfg.conditional:
-            if labels is None:
-                raise ValueError("Conditional generation requires labels")
-            emb = embed_labels(self.class_embedding.weight, labels)
-            latents = torch.cat([latents, emb.to(latents.dtype)], dim=1)
+        with span("g.forward"):
+            cfg = self.cfg
+            if cfg.conditional:
+                if labels is None:
+                    raise ValueError("Conditional generation requires labels")
+                emb = embed_labels(self.class_embedding.weight, labels)
+                latents = torch.cat([latents, emb.to(latents.dtype)], dim=1)
 
-        dlatents = self.g_mapping(latents)
+            with span("g.mapping"):
+                dlatents = self.g_mapping(latents)
 
-        new_avg = self.truncation.avg_latent if cfg.use_truncation else None
-        if train:
-            if cfg.use_truncation:
-                w0 = dlatents[0, 0].detach()
-                if avg_from is not None:
-                    w0 = w0.clone()
-                    broadcast_([w0], avg_from)
-                new_avg = update_moving_average(new_avg, w0,
-                                                cfg.dlatent_avg_beta)
-            if cfg.style_mixing_prob is not None and cfg.style_mixing_prob > 0:
-                if mixing is None:
-                    if seed is None:
-                        raise ValueError("train mode needs a seed or mixing=")
-                    mixing = draw_mixing(seed, latents.shape, depth,
-                                         cfg.style_mixing_prob,
-                                         latents.device, latents.dtype)
-                latents2, cutoff = mixing
-                dlatents = mix_styles(dlatents, self.g_mapping(latents2),
-                                      cutoff)
-            if cfg.use_truncation:
-                dlatents = truncate_dlatents(dlatents, new_avg.detach(),
-                                             cfg.truncation_psi,
-                                             cfg.truncation_cutoff)
+            new_avg = (self.truncation.avg_latent if cfg.use_truncation
+                       else None)
+            if train:
+                if cfg.use_truncation:
+                    w0 = dlatents[0, 0].detach()
+                    if avg_from is not None:
+                        w0 = w0.clone()
+                        broadcast_([w0], avg_from)
+                    new_avg = update_moving_average(new_avg, w0,
+                                                    cfg.dlatent_avg_beta)
+                if cfg.style_mixing_prob is not None \
+                        and cfg.style_mixing_prob > 0:
+                    if mixing is None:
+                        if seed is None:
+                            raise ValueError(
+                                "train mode needs a seed or mixing=")
+                        mixing = draw_mixing(seed, latents.shape, depth,
+                                             cfg.style_mixing_prob,
+                                             latents.device, latents.dtype)
+                    latents2, cutoff = mixing
+                    with span("g.mapping"):
+                        dlatents2 = self.g_mapping(latents2)
+                    dlatents = mix_styles(dlatents, dlatents2, cutoff)
+                if cfg.use_truncation:
+                    dlatents = truncate_dlatents(dlatents, new_avg.detach(),
+                                                 cfg.truncation_psi,
+                                                 cfg.truncation_cutoff)
 
-        images = self.g_synthesis(dlatents, depth=depth, alpha=alpha,
-                                  seed=seed, noises=noises, spatial=spatial)
-        return GeneratorOutput(images=images, avg_latent=new_avg)
+            with span("g.synthesis"):
+                images = self.g_synthesis(dlatents, depth=depth, alpha=alpha,
+                                          seed=seed, noises=noises,
+                                          spatial=spatial)
+            return GeneratorOutput(images=images, avg_latent=new_avg)

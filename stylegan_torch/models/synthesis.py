@@ -32,6 +32,7 @@ from ..ops import (EqualizedConv2d, EqualizedLinear, add_noise, instance_norm,
                    upscale2d)
 from ..ops.fused import fused_epilogue
 from ..parallel import halo
+from ..utils.profiling import span
 from .configs import SynthesisConfig
 
 _GAIN = math.sqrt(2)
@@ -241,8 +242,9 @@ class GSynthesis(nn.Module):
             elif seed is None:
                 raise ValueError("synthesis needs a seed when use_noise=True")
             else:
-                n = make_noise(seed, layer_idx, batch, res, dlatents.device,
-                               dlatents.dtype)
+                with span("g.noise"):
+                    n = make_noise(seed, layer_idx, batch, res,
+                                   dlatents.device, dlatents.dtype)
             if halo.splits(res, spatial) and n.shape[1] == res:
                 n = halo.take_rows(n, spatial)
             return n

@@ -96,6 +96,8 @@ from pathlib import Path
 
 import torch
 
+from ...utils.profiling import counters
+
 _PKG = Path(__file__).resolve().parents[2]
 SOURCE = _PKG / "csrc" / "epilogue.cu"
 SOURCES = (SOURCE, _PKG / "csrc" / "epilogue_plan.h")
@@ -110,22 +112,16 @@ BWD_KERNELS_BY_PATH = {1: ("onepass_bwd_kernel",),
                        2: ("bwd_sums_kernel", "bwd_dx_kernel")}
 BWD_KERNEL_NAMES = BWD_KERNELS_BY_PATH[1] + BWD_KERNELS_BY_PATH[2]
 
-# Calls of epilogue_forward that launched the kernels (one per call), and the
-# CUDA launches they made (the plan's `launches`: 1 on path 1, 2 on path 2);
-# the same two counts for epilogue_backward; and the autograd backward's
-# calls whose incoming gradient was not contiguous NHWC, so that it had to be
-# copied before the kernels could read it.
-launches = 0
-cuda_launches = 0
-backward_launches = 0
-backward_cuda_launches = 0
-backward_g_copies = 0
-# Launches of the split-plane entries (one CUDA launch each), forward and
-# backward.
-partial_launches = 0
-apply_launches = 0
-backward_partial_launches = 0
-backward_apply_launches = 0
+# The counts this module keeps in utils.profiling.counters, each under
+# "epilogue.<name>": `launches`, the calls of epilogue_forward that launched
+# the kernels (one per call), and `cuda_launches`, the CUDA launches they made
+# (the plan's `launches`: 1 on path 1, 2 on path 2); the same two,
+# `backward_launches` and `backward_cuda_launches`, for epilogue_backward;
+# `backward_g_copies`, the autograd backward's calls whose incoming gradient
+# was not contiguous NHWC, so that it had to be copied before the kernels could
+# read it; and the launches of the split-plane entries (one CUDA launch each),
+# `partial_launches`, `apply_launches`, `backward_partial_launches` and
+# `backward_apply_launches`.
 
 _lib = None
 _plans: dict = {}        # (is_bf16, B, rows, C, aligned) -> Plan
@@ -416,7 +412,6 @@ def _ptr(t):
 
 def _launch(x, noise_weight, noise, style, out, saved=None):
     """One ctypes call on x's device, which is the current one."""
-    global launches, cuda_launches
     b, h, w, c = x.shape
     rows, is_bf16 = h * w, int(x.dtype == torch.bfloat16)
     aligned = int((x.data_ptr() | out.data_ptr()) % 16 == 0)
@@ -435,8 +430,8 @@ def _launch(x, noise_weight, noise, style, out, saved=None):
         # its tickets may be left counting: the next call makes a new one
         _workspaces.pop(ws_key, None)
         raise RuntimeError(f"epilogue kernel launch failed: cudaError {err}")
-    launches += 1
-    cuda_launches += plan.launches
+    counters["epilogue.launches"] += 1
+    counters["epilogue.cuda_launches"] += plan.launches
 
 
 def make_bwd_plan(lib, is_bf16: int, b: int, rows: int, c: int,
@@ -482,7 +477,6 @@ def epilogue_backward(g, x, noise_weight, noise, style, saved,
 def _launch_backward(g, x, noise_weight, noise, style, saved, dx, dnw, dn,
                      dstyle):
     """One ctypes call on x's device, which is the current one."""
-    global backward_launches, backward_cuda_launches
     b, h, w, c = x.shape
     rows, is_bf16 = h * w, int(x.dtype == torch.bfloat16)
     aligned = int((g.data_ptr() | x.data_ptr() | _ptr(dx)) % 16 == 0)
@@ -502,8 +496,8 @@ def _launch_backward(g, x, noise_weight, noise, style, saved, dx, dnw, dn,
         _bwd_workspaces.pop(ws_key, None)
         raise RuntimeError(
             f"epilogue backward kernel launch failed: cudaError {err}")
-    backward_launches += 1
-    backward_cuda_launches += plan.launches
+    counters["epilogue.backward_launches"] += 1
+    counters["epilogue.backward_cuda_launches"] += plan.launches
 
 
 # --------------------------------------------------------------------------
@@ -552,7 +546,6 @@ def epilogue_partial(x: torch.Tensor, noise_weight: torch.Tensor,
 
 
 def _launch_partial(x, noise_weight, noise, partial):
-    global partial_launches
     b, h, w, c = x.shape
     key, plan = _cached_plan(_partial_plans, make_partial_plan, x,
                              int(x.data_ptr() % 16 == 0))
@@ -567,7 +560,7 @@ def _launch_partial(x, noise_weight, noise, partial):
         _partial_workspaces.pop(ws_key, None)
         raise RuntimeError(f"epilogue K1-partial launch failed: cudaError "
                            f"{err}")
-    partial_launches += 1
+    counters["epilogue.partial_launches"] += 1
 
 
 def epilogue_apply(x: torch.Tensor, noise_weight: torch.Tensor,
@@ -585,7 +578,6 @@ def epilogue_apply(x: torch.Tensor, noise_weight: torch.Tensor,
 
 
 def _launch_apply(x, noise_weight, noise, style, stats, out):
-    global apply_launches
     b, h, w, c = x.shape
     key, plan = _cached_plan(_split_plans, make_split_plan, x,
                              int((x.data_ptr() | out.data_ptr()) % 16 == 0))
@@ -595,7 +587,7 @@ def _launch_apply(x, noise_weight, noise, style, stats, out):
         c, plan, _stream(x.device))
     if err != 0:
         raise RuntimeError(f"epilogue K2-apply launch failed: cudaError {err}")
-    apply_launches += 1
+    counters["epilogue.apply_launches"] += 1
 
 
 # --------------------------------------------------------------------------
@@ -662,7 +654,6 @@ def epilogue_backward_partial(g: torch.Tensor, x: torch.Tensor,
 
 
 def _launch_backward_partial(g, x, noise_weight, noise, saved, sums, dstyle):
-    global backward_partial_launches
     b, h, w, c = x.shape
     key, plan = _cached_plan(_bwd_partial_plans, make_bwd_partial_plan, x,
                              int((g.data_ptr() | x.data_ptr()) % 16 == 0))
@@ -677,7 +668,7 @@ def _launch_backward_partial(g, x, noise_weight, noise, saved, sums, dstyle):
         _bwd_partial_workspaces.pop(ws_key, None)
         raise RuntimeError(f"epilogue K3-partial launch failed: cudaError "
                            f"{err}")
-    backward_partial_launches += 1
+    counters["epilogue.backward_partial_launches"] += 1
 
 
 def epilogue_backward_apply(g, x, noise_weight, noise, style, saved, sums,
@@ -704,7 +695,6 @@ def epilogue_backward_apply(g, x, noise_weight, noise, style, saved, sums,
 
 def _launch_backward_apply(g, x, noise_weight, noise, style, saved, sums,
                            rows, dx, dnw, dn):
-    global backward_apply_launches
     b, h, w, c = x.shape
     key, plan = _cached_plan(
         _bwd_apply_plans, make_bwd_apply_plan, x,
@@ -722,7 +712,7 @@ def _launch_backward_apply(g, x, noise_weight, noise, style, saved, sums,
         _bwd_apply_workspaces.pop(ws_key, None)
         raise RuntimeError(f"epilogue K3-apply launch failed: cudaError "
                            f"{err}")
-    backward_apply_launches += 1
+    counters["epilogue.backward_apply_launches"] += 1
 
 
 def bytes_moved_backward_partial(x: torch.Tensor) -> int:
@@ -927,11 +917,10 @@ class _KernelEpilogue(torch.autograd.Function):
                 "the epilogue's CUDA backward is once differentiable: a "
                 "second derivative through it (create_graph=True) is not "
                 "implemented")
-        global backward_g_copies
         x, noise_weight, noise, style, saved = ctx.saved_tensors
         # autograd may hand g in another layout; the kernel reads NHWC rows
         if not g.is_contiguous():
-            backward_g_copies += 1
+            counters["epilogue.backward_g_copies"] += 1
             g = g.contiguous()
         needs = list(ctx.needs_input_grad)
         grads = iter(epilogue_backward_op(g, x, noise_weight, noise, style,

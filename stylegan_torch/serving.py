@@ -60,6 +60,7 @@ from .models.synthesis import layer_resolution, make_noise
 from .ops import fused  # noqa: F401  (the artifact's epilogue ops)
 from .ops.precision import get_precision, set_precision
 from .parallel import halo
+from .utils.profiling import span
 
 # What load_exported needs to draw a request's inputs, stored beside the
 # program.
@@ -82,11 +83,14 @@ def make_serving_fn(gen_cfg, generator, *, depth: int,
 
     @torch.inference_mode()
     def serve(z, seed, labels=None):
-        z = torch.as_tensor(z, dtype=torch.float32, device=device)
-        if labels is not None:
-            labels = torch.as_tensor(labels, dtype=torch.long, device=device)
-        return generator(z, depth=depth, alpha=1.0, seed=int(seed),
-                         train=train_quirks, labels=labels).images
+        with span("serve.request"):
+            with span("serve.input"):
+                z = torch.as_tensor(z, dtype=torch.float32, device=device)
+            if labels is not None:
+                labels = torch.as_tensor(labels, dtype=torch.long,
+                                         device=device)
+            return generator(z, depth=depth, alpha=1.0, seed=int(seed),
+                             train=train_quirks, labels=labels).images
 
     if gen_cfg.conditional:
         return lambda z, seed, labels: serve(z, seed, labels)

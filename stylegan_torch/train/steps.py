@@ -69,6 +69,7 @@ from ..ops import avg_pool2d, upscale2d
 from ..parallel.distributed import average_gradients, broadcast_, pmean
 from ..parallel.halo import SpatialContext
 from ..parallel.mesh import Mesh, Mesh2D
+from ..utils.profiling import span
 from .state import TrainState
 
 GP_STREAM = 0x6B    # the gradient penalty's stream of a repeat's seed
@@ -260,8 +261,10 @@ class _Phases:
         _zero_grads(discriminator)
         loss = self.dis_loss(self.dis_fn(discriminator, alpha, labels),
                              reals_cur, fakes, seed, gp_eps)
-        self.backward(loss, discriminator)
-        d_optimizer.step()
+        with span("train.d.backward"):
+            self.backward(loss, discriminator)
+        with span("train.d.optim"):
+            d_optimizer.step()
         return _wide(loss)
 
     def d_phase(self, generator, discriminator, d_optimizer, reals_cur, z,
@@ -269,11 +272,12 @@ class _Phases:
         """d_repeats D updates, repeat `rep` drawing from stream_seed(seed,
         rep) (or gp_eps[rep]); returns the mean loss."""
         total = 0.0
-        for rep in range(d_repeats):
-            total = total + self.d_update(
-                generator, discriminator, d_optimizer, reals_cur, z,
-                stream_seed(seed, rep), alpha, labels, noises, mixing,
-                None if gp_eps is None else gp_eps[rep])
+        with span("train.d"):
+            for rep in range(d_repeats):
+                total = total + self.d_update(
+                    generator, discriminator, d_optimizer, reals_cur, z,
+                    stream_seed(seed, rep), alpha, labels, noises, mixing,
+                    None if gp_eps is None else gp_eps[rep])
         return total / d_repeats
 
     def reg_update(self, discriminator, d_optimizer, reals_cur, alpha,
@@ -282,11 +286,15 @@ class _Phases:
         phase): the gradient of 0.5 * gamma * sum ||dD/dx||^2 alone, through
         the same optimizer (its hyperparameters corrected by the caller,
         state.lazy_reg_adam_correction)."""
-        _zero_grads(discriminator)
-        dis_fn = self.dis_fn(discriminator, alpha, labels)
-        self.backward(r1_penalty(dis_fn, reals_cur, self.mesh)
-                      * (self.reg_gamma * 0.5), discriminator)
-        d_optimizer.step()
+        with span("train.reg"):
+            _zero_grads(discriminator)
+            dis_fn = self.dis_fn(discriminator, alpha, labels)
+            loss = (r1_penalty(dis_fn, reals_cur, self.mesh)
+                    * (self.reg_gamma * 0.5))
+            with span("train.reg.backward"):
+                self.backward(loss, discriminator)
+            with span("train.reg.optim"):
+                d_optimizer.step()
 
     def g_update(self, generator, discriminator, g_optimizer, shadow,
                  reals_cur, z, seed, alpha, labels, noises, mixing,
@@ -294,19 +302,23 @@ class _Phases:
         """One G update, then EMA into `shadow` (when given).  Returns the
         loss (detached).  `out` given (reuse_g_fwd) is the forward whose
         graph the loss's backward runs through."""
-        with _frozen(discriminator):
-            if out is None:
-                out = self.g_forward(generator, z, seed, alpha, labels,
-                                     noises, mixing)
-            _zero_grads(generator)
-            loss = self.gen_loss_fn(
-                self.dis_fn(discriminator, alpha, labels), reals_cur,
-                out.images, self.mesh)
-            self.backward(loss, generator)
-        g_optimizer.step()
-        _with_avg(generator, out.avg_latent, self.avg_mesh)
-        if shadow is not None:
-            ema_update(shadow, generator, ema_decay)
+        with span("train.g"):
+            with _frozen(discriminator):
+                if out is None:
+                    out = self.g_forward(generator, z, seed, alpha, labels,
+                                         noises, mixing)
+                _zero_grads(generator)
+                loss = self.gen_loss_fn(
+                    self.dis_fn(discriminator, alpha, labels), reals_cur,
+                    out.images, self.mesh)
+                with span("train.g.backward"):
+                    self.backward(loss, generator)
+            with span("train.g.optim"):
+                g_optimizer.step()
+        with span("train.ema"):
+            _with_avg(generator, out.avg_latent, self.avg_mesh)
+            if shadow is not None:
+                ema_update(shadow, generator, ema_decay)
         return _wide(loss)
 
 
@@ -365,11 +377,14 @@ def _fused_update(phases, state, reals_cur, z, seed, alpha, labels, noises,
     shadow = state.g_shadow if use_ema else None
     if reuse:
         seed0 = stream_seed(seed, 0)
-        out = phases.g_forward(G, z, seed0, alpha, labels, noises, mixing)
-        d_loss = phases.d_update(G, D, state.d_optimizer, reals_cur, z,
-                                 seed0, alpha, labels, noises, mixing,
-                                 None if gp_eps is None else gp_eps[0],
-                                 fakes=out.images.detach())
+        with span("train.g_forward"):
+            out = phases.g_forward(G, z, seed0, alpha, labels, noises,
+                                   mixing)
+        with span("train.d"):
+            d_loss = phases.d_update(G, D, state.d_optimizer, reals_cur, z,
+                                     seed0, alpha, labels, noises, mixing,
+                                     None if gp_eps is None else gp_eps[0],
+                                     fakes=out.images.detach())
         if phases.reg_gamma is not None:
             phases.reg_update(D, state.d_optimizer, reals_cur, alpha, labels)
         g_loss = phases.g_update(G, D, state.g_optimizer, shadow, reals_cur,

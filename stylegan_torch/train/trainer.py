@@ -86,7 +86,7 @@ from ..parallel.distributed import (broadcast_, global_shard, host_count,
                                     host_index, replicate)
 from ..parallel.mesh import (Mesh, Mesh2D, compatible_mesh_size, create_mesh,
                              create_mesh_2d)
-from ..utils.profiling import MetricsWriter
+from ..utils.profiling import MetricsWriter, span
 from .state import create_train_state, lazy_reg_adam_correction
 from .steps import (build_d_step, build_g_step, build_sample_fn,
                     build_spatial_train_step, build_train_step)
@@ -409,25 +409,27 @@ class StyleGAN:
         fetch=False returns the two losses as device tensors and does not
         wait for the device: nothing here reads a device value, so steps
         queue back to back until the caller reads one."""
-        mesh, global_batch = self._call_mesh(len(images))
-        self._ensure_placement(mesh)
-        with_r1 = (self._update_count % self.r1_interval) == 0
-        self._update_count += 1
-        step = self._get_step(depth, with_r1, mesh)
-        reals = self._tensor(images, self.activations_dtype)
-        # every rank draws the global z and keeps its rows: the z streams
-        # stay equal, and the global z is the one-process run's
-        z = self._draw_z(global_batch)
-        if mesh is not None:
-            z = global_shard(_data_axis(mesh), z)
-        # the update count, which a full-state resume restores, seeds the
-        # step's noise and style mixing
-        seed = stream_seed(self.seed, _STEP, self._update_count)
-        _, metrics = step(self.state, reals, z, seed, float(alpha),
-                          self._labels(labels))
-        if not fetch:
-            return metrics["d_loss"], metrics["g_loss"]
-        return float(metrics["d_loss"]), float(metrics["g_loss"])
+        with span("train.step"):
+            mesh, global_batch = self._call_mesh(len(images))
+            self._ensure_placement(mesh)
+            with_r1 = (self._update_count % self.r1_interval) == 0
+            self._update_count += 1
+            step = self._get_step(depth, with_r1, mesh)
+            with span("train.input"):
+                reals = self._tensor(images, self.activations_dtype)
+                # every rank draws the global z and keeps its rows: the z
+                # streams stay equal, and the global z is the one-process run's
+                z = self._draw_z(global_batch)
+                if mesh is not None:
+                    z = global_shard(_data_axis(mesh), z)
+            # the update count, which a full-state resume restores, seeds the
+            # step's noise and style mixing
+            seed = stream_seed(self.seed, _STEP, self._update_count)
+            _, metrics = step(self.state, reals, z, seed, float(alpha),
+                              self._labels(labels))
+            if not fetch:
+                return metrics["d_loss"], metrics["g_loss"]
+            return float(metrics["d_loss"]), float(metrics["g_loss"])
 
     def sample(self, depth, alpha, num_samples=None, z=None, labels=None,
                update_shadow_avg=True):

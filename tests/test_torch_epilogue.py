@@ -15,10 +15,16 @@ from stylegan_tpu.ops.fused import _reference_epilogue as jax_reference
 from stylegan_tpu.ops.pallas.epilogue import pallas_epilogue
 from stylegan_torch.ops import fused
 from stylegan_torch.ops.kernels import epilogue as kern
+from stylegan_torch.utils.profiling import counters
 
 # (2, 4, 4, 512): widest C; (1, 128, 128, 8): four 4096-row Pallas tiles
 SHAPES = [(2, 4, 4, 512), (2, 8, 8, 64), (2, 64, 64, 16), (1, 128, 128, 8)]
 F32_TOL = dict(atol=1e-5, rtol=1e-4)
+
+
+def count(name):
+    """The epilogue's counter `name`."""
+    return counters["epilogue." + name]
 
 
 def _inputs(shape, seed=0):
@@ -173,8 +179,8 @@ def _stub(monkeypatch, err=0, stream=1234, capturing=False):
     monkeypatch.setattr(kern, "_capturing", lambda: capturing)
     monkeypatch.setattr(kern, "_plans", {})
     monkeypatch.setattr(kern, "_workspaces", {})
-    monkeypatch.setattr(kern, "launches", 0)
-    monkeypatch.setattr(kern, "cuda_launches", 0)
+    monkeypatch.setitem(counters, "epilogue.launches", 0)
+    monkeypatch.setitem(counters, "epilogue.cuda_launches", 0)
     return stub
 
 
@@ -197,7 +203,7 @@ def test_kernel_wrapper_plans_once_and_makes_one_call(monkeypatch):
     assert bool((ws[4000:] == 0).all())
     assert all(a[0] == x.data_ptr() and a[7:11] == (0, 2, 64, 32)
                and a[11] is plan and a[-1] == 1234 for a in stub.forwards)
-    assert (kern.launches, kern.cuda_launches) == (3, 6)
+    assert (count("launches"), count("cuda_launches")) == (3, 6)
     # another shape makes its own plan and workspace; another stream its
     # own workspace, with the same plan
     x2, nw2, noise2, style2 = map(torch.from_numpy, _inputs((2, 4, 4, 32)))
@@ -232,7 +238,7 @@ def test_kernel_wrapper_capture_takes_its_own_workspace(monkeypatch):
     assert eager.data_ptr() not in captured
     assert captured == [w.data_ptr() for w in seen]
     assert list(kern._workspaces.values()) == [eager]
-    assert (kern.launches, kern.cuda_launches) == (3, 6)
+    assert (count("launches"), count("cuda_launches")) == (3, 6)
 
 
 def test_kernel_wrapper_failed_launch_drops_its_workspace(monkeypatch):
@@ -243,7 +249,7 @@ def test_kernel_wrapper_failed_launch_drops_its_workspace(monkeypatch):
     with pytest.raises(RuntimeError, match="cudaError 700"):
         kern._launch(x, nw, noise, style, torch.empty_like(x))
     assert kern._workspaces == {} and len(kern._plans) == 1
-    assert (kern.launches, kern.cuda_launches) == (0, 0)
+    assert (count("launches"), count("cuda_launches")) == (0, 0)
 
 
 def test_kernel_names_cover_both_paths():

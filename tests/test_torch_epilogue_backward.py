@@ -18,10 +18,16 @@ import jax
 from stylegan_tpu.ops.fused import _reference_epilogue as jax_reference
 from stylegan_torch.ops import fused
 from stylegan_torch.ops.kernels import epilogue as kern
+from stylegan_torch.utils.profiling import counters
 
 TOL = dict(atol=1e-4, rtol=1e-4)
 NAMES = ("x", "noise_weight", "noise", "style")
 SHAPES = [(2, 4, 4, 64), (2, 8, 8, 32), (1, 16, 16, 16), (3, 5, 7, 12)]
+
+
+def count(name):
+    """The epilogue's counter `name`."""
+    return counters["epilogue." + name]
 
 
 def _inputs(shape, seed=0):
@@ -87,11 +93,11 @@ def test_autograd_function_on_the_cpu_takes_the_plain_versions():
     the plain VJP (counted as plain calls), and gives autograd's gradients;
     no kernel is launched."""
     ins, g = _inputs((2, 8, 8, 16), seed=2)
-    before = (fused.plain_calls, kern.launches, kern.backward_launches)
+    before = (fused.plain_calls, count("launches"), count("backward_launches"))
     leaves = [torch.from_numpy(a).requires_grad_(True) for a in ins]
     fused.fused_epilogue(*leaves).backward(torch.from_numpy(g))
     assert fused.plain_calls == before[0] + 2
-    assert (kern.launches, kern.backward_launches) == before[1:]
+    assert (count("launches"), count("backward_launches")) == before[1:]
     ref = [torch.from_numpy(a).requires_grad_(True) for a in ins]
     y = fused.add_noise(ref[0], ref[1], ref[2])
     y = fused.style_modulate(fused.instance_norm(fused.leaky_relu(y)), ref[3])
@@ -140,9 +146,9 @@ def stub(monkeypatch):
         monkeypatch.setattr(kern, name, {})
     for name in ("backward_launches", "backward_cuda_launches",
                  "backward_g_copies"):
-        monkeypatch.setattr(kern, name, 0)
-    monkeypatch.setattr(kern, "launches", 0)
-    monkeypatch.setattr(kern, "cuda_launches", 0)
+        monkeypatch.setitem(counters, f"epilogue.{name}", 0)
+    monkeypatch.setitem(counters, "epilogue.launches", 0)
+    monkeypatch.setitem(counters, "epilogue.cuda_launches", 0)
     # CPU tensors stand in for CUDA ones past the wrapper's device check
     check = kern._check_inputs
 
@@ -174,8 +180,8 @@ def test_backward_wrapper_hands_the_library_its_arguments(stub, needs):
         if d is not None:
             assert d.shape == ref.shape and d.dtype == ref.dtype
     assert stub.bwd_plans == [(0, 2, 64, 16, 1, int(needs[2]))]
-    assert len(stub.backwards) == 2 and kern.backward_launches == 2
-    assert kern.backward_cuda_launches == 4
+    assert len(stub.backwards) == 2 and count("backward_launches") == 2
+    assert count("backward_cuda_launches") == 4
     ws, = kern._bwd_workspaces.values()
     assert bool((ws[96:] == 0).all()) and ws.numel() == 128
     for args, outs in zip(stub.backwards, calls):
@@ -207,13 +213,13 @@ def test_autograd_backward_hands_the_kernels_what_autograd_needs(stub):
     (args,) = stub.backwards
     assert args[8] == 0                          # no dnoise
     assert stub.bwd_plans[-1][-1] == 0           # planned without dnoise
-    assert kern.backward_launches == 1
+    assert count("backward_launches") == 1
     # the copy of g is counted, and handed to the kernels as contiguous NHWC
-    assert kern.backward_g_copies == 1
+    assert count("backward_g_copies") == 1
     assert args[0] != g_strided.data_ptr()
     with torch.no_grad():
         kern._KernelEpilogue.backward(ctx, g_strided.contiguous())
-    assert kern.backward_g_copies == 1 and kern.backward_launches == 2
+    assert count("backward_g_copies") == 1 and count("backward_launches") == 2
 
 
 @pytest.mark.parametrize("path", [1, 2])
@@ -226,9 +232,9 @@ def test_backward_wrapper_counts_the_plans_cuda_launches(stub, path):
     g, saved = torch.from_numpy(g), torch.zeros(2, 8, 2)
     for _ in range(3):
         kern.epilogue_backward(g, x, nw, noise, style, saved)
-    assert kern.backward_launches == 3
-    assert kern.backward_cuda_launches == 3 * path
-    assert kern.launches == kern.cuda_launches == 0
+    assert count("backward_launches") == 3
+    assert count("backward_cuda_launches") == 3 * path
+    assert count("launches") == count("cuda_launches") == 0
 
 
 def test_kernel_backward_refuses_a_second_derivative(stub):
@@ -242,9 +248,9 @@ def test_kernel_backward_refuses_a_second_derivative(stub):
     with pytest.raises(RuntimeError, match="once differentiable"):
         torch.autograd.grad(kern.kernel_epilogue(*leaves).sum(), leaves[0],
                             create_graph=True)
-    assert kern.backward_launches == 0
+    assert count("backward_launches") == 0
     torch.autograd.grad(kern.kernel_epilogue(*leaves).sum(), leaves[0])
-    assert kern.backward_launches == 1
+    assert count("backward_launches") == 1
 
 
 def test_cpu_epilogue_differentiates_twice():
@@ -262,8 +268,8 @@ def test_backward_wrapper_failed_launch_raises_and_drops_workspace(stub):
     t = [torch.from_numpy(a) for a in (g, x, nw, noise, style)]
     with pytest.raises(RuntimeError, match="cudaError 700"):
         kern.epilogue_backward(*t, torch.zeros(1, 8, 2))
-    assert kern._bwd_workspaces == {} and kern.backward_launches == 0
-    assert kern.backward_cuda_launches == 0
+    assert kern._bwd_workspaces == {} and count("backward_launches") == 0
+    assert count("backward_cuda_launches") == 0
 
 
 def test_forward_hands_the_saved_stats_pointer(stub):

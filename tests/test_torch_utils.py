@@ -1,11 +1,10 @@
 """The port's copies of the JAX package's host utilities: the feedback grid
 writer (stylegan_torch/io/image.py) gives the same PNG pixels as
-stylegan_tpu/io/image.py, and the run logger, source snapshot, metrics
-stream and step timer (stylegan_torch/utils/) behave as the JAX package's."""
+stylegan_tpu/io/image.py, and the run logger, source snapshot and metrics
+stream (stylegan_torch/utils/) behave as the JAX package's."""
 
 import json
 import logging
-import time
 
 import numpy as np
 import pytest
@@ -13,12 +12,10 @@ from PIL import Image
 
 from stylegan_tpu.io import image as jimage
 from stylegan_tpu.train.trainer import adjust01 as jax_adjust01
-from stylegan_tpu.utils import profiling as jprofiling
 from stylegan_torch.io import image as timage
 from stylegan_torch.train import adjust01
 from stylegan_torch.train.trainer import StyleGAN
-from stylegan_torch.utils import (MetricsWriter, StepTimer, make_logger,
-                                  snapshot_sources)
+from stylegan_torch.utils import MetricsWriter, make_logger, snapshot_sources
 
 
 @pytest.mark.parametrize("n,res,channels,scale,normalize", [
@@ -92,22 +89,6 @@ def test_metrics_writer_appends_json_lines(tmp_path):
     rows = [json.loads(line) for line in path.read_text().splitlines()]
     assert len(rows) == 2 and rows[0]["d_loss"] == 0.5
     assert rows[0]["imgs_per_sec"] is None and "time" in rows[0]
-
-
-def test_step_timer_equals_jax(monkeypatch):
-    ticks = iter([0.0, 0.5, 0.75, 1.5, 1.75, 2.0, 2.5, 2.5, 3.0, 4.0])
-    clock = {"t": 0.0}
-
-    def perf_counter():
-        return clock["t"]
-    monkeypatch.setattr(time, "perf_counter", perf_counter)
-    ours, theirs = StepTimer(0.8), jprofiling.StepTimer(0.8)
-    assert ours.images_per_sec(4) is None
-    for t in ticks:
-        clock["t"] = t
-        assert ours.tick() == theirs.tick()
-        assert ours.images_per_sec(4) == theirs.images_per_sec(4)
-    assert ours.ema_step_time is not None
 
 
 def test_trace_writes_a_chrome_trace(tmp_path):

@@ -2170,7 +2170,9 @@ def export_project_run(dev, per_forward, serve_img_s, train, tmp):
     calls, plain = counter("launches"), fused.plain_calls
     # requests replay bit for bit with cuDNN's default algorithms: the
     # exported program against make_serving_fn for each request, and one
-    # request served twice; the differences are reported either way
+    # request served twice; the differences are reported either way (on
+    # the host, where make_serving_fn's serve returns its images)
+    outs = [out.cpu() for out in outs]
     replays = [serve(zs[i], i) for i in range(REQUESTS)]
     again = serve(zs[0], 0)
     equal = [bool(torch.equal(out, want)) for out, want in zip(outs, replays)]
@@ -3516,7 +3518,8 @@ def spatial_one_rank(dev):
         gen = spatial_generator(rank_dev)
         z = spatial_z(BATCH, gen.cfg.latent_size)
         mesh = create_spatial_mesh(1)
-        got = build_spatial_sample_fn(gen.cfg, gen, mesh, depth=DEPTH)(z, 5)
+        got = build_spatial_sample_fn(gen.cfg, gen, mesh,
+                                      depth=DEPTH)(z, 5).cpu()
         want = make_serving_fn(gen.cfg, gen, depth=DEPTH,
                                device=rank_dev)(z, 5)
         if not torch.equal(got, want):

@@ -3,7 +3,7 @@ into a ``torch.export`` artifact (the port's counterpart of
 ``stylegan_tpu/serving.py``).
 
     serve = make_serving_fn(gen_cfg, generator, depth=8)
-    images = serve(z, seed)          # (B, H, W, 3) in [-1, 1]
+    images = serve(z, seed)          # (B, H, W, 3) in [-1, 1], on the host
 
     # offline, once
     blob = export_generator(gen_cfg, generator, depth=8, batch_size=8)
@@ -20,6 +20,13 @@ the fused upscale included, which runs as a sub-pixel convolution
 (``ops/linear.py``) because cuDNN's transposed convolutions do not.  Eval
 semantics by default (no style mixing, no train-branch truncation);
 `train_quirks=True` gives the reference's train-mode sampling.
+
+`make_serving_fn`'s serve hands the images to the host: on the card it
+copies them into page-locked host memory (PyTorch's caching host
+allocator, so a request whose caller dropped an earlier result reuses that
+block) and returns only once the copy has completed.  A caller that keeps
+many results keeps that much page-locked memory, which cannot be swapped.
+`load_exported`'s serve returns the images on its device.
 
 The artifact holds the traced generator at one (batch, depth), its weights
 baked in.  It differs from the JAX package's StableHLO file, which is
@@ -60,7 +67,7 @@ from .models.synthesis import layer_resolution, make_noise
 from .ops import fused  # noqa: F401  (the artifact's epilogue ops)
 from .ops.precision import get_precision, set_precision
 from .parallel import halo
-from .utils.profiling import span
+from .utils.profiling import counters, span
 
 # What load_exported needs to draw a request's inputs, stored beside the
 # program.
@@ -70,10 +77,16 @@ PLATFORMS = ("cuda", "cpu")
 
 def make_serving_fn(gen_cfg, generator, *, depth: int,
                     train_quirks: bool = False, device=None):
-    """Returns serve(z, seed[, labels]) -> images on `device`.
+    """Returns serve(z, seed[, labels]) -> images in host memory.
 
     device: CUDA unless the caller passes 'cpu'; raises when CUDA is missing
-    and the CPU was not asked for.  The generator is moved there.
+    and the CPU was not asked for.  The generator is moved there and runs
+    the forward there.  On CUDA serve copies the images into a page-locked
+    host tensor with the forward's shape, dtype and strides, and returns it
+    after the copy has completed; a caller that keeps many results keeps
+    that much page-locked host memory (the same bytes as a pageable copy,
+    but they cannot be swapped).  On the CPU it returns the forward's
+    images.
     z: (B, latent) float32 (tensor or array); seed: int; labels: (B,) int64,
     only when gen_cfg.conditional.  Applies the process precision policy
     (float32 convs without TF32 unless set_precision('default'))."""
@@ -89,12 +102,32 @@ def make_serving_fn(gen_cfg, generator, *, depth: int,
             if labels is not None:
                 labels = torch.as_tensor(labels, dtype=torch.long,
                                          device=device)
-            return generator(z, depth=depth, alpha=1.0, seed=int(seed),
-                             train=train_quirks, labels=labels).images
+            images = generator(z, depth=depth, alpha=1.0, seed=int(seed),
+                               train=train_quirks, labels=labels).images
+            with span("serve.output"):
+                return _to_host(images)
 
     if gen_cfg.conditional:
         return lambda z, seed, labels: serve(z, seed, labels)
     return lambda z, seed: serve(z, seed)
+
+
+def _to_host(images: torch.Tensor) -> torch.Tensor:
+    """`images` in host memory, their copy completed.  A CUDA tensor is
+    copied in one DMA on its stream into a page-locked tensor of the same
+    strides; the counters take the request (``serve.host_copies``) and,
+    when the caching host allocator had to create a block for it,
+    ``serve.host_allocs``."""
+    if images.device.type != "cuda":
+        return images
+    allocs = torch.cuda.host_memory_stats()["num_host_alloc"]
+    host = torch.empty_like(images, device="cpu", pin_memory=True)
+    counters["serve.host_allocs"] += (
+        torch.cuda.host_memory_stats()["num_host_alloc"] - allocs)
+    counters["serve.host_copies"] += 1
+    host.copy_(images, non_blocking=True)
+    torch.cuda.current_stream(images.device).synchronize()
+    return host
 
 
 def _noise_layers(gen_cfg, depth: int) -> int:

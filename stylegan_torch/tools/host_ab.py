@@ -9,7 +9,8 @@ seeded FFHQ-1024 models and train step, as phases 3 and 5(b) build them)
 and prints one JSON line: the card's name and power limit; serving img/s
 at batch 8, 1024^2, float32, in REPS windows of REQUESTS requests
 (each ending in a synchronize, after a warm-up request), through
-make_serving_fn and through the bare generator forward; ms per depth-8,
+make_serving_fn (its images handed to the host) and through the bare
+generator forward (its images left on the card); ms per depth-8,
 batch-2 logistic + R1 train step in windows of STEPS; and the host's
 microseconds per epilogue call at a 8x4x4x512 plane, where the launch is
 all host time: an inference call, and a forward plus backward under

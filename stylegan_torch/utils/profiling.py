@@ -9,8 +9,11 @@
 * ``trace(logdir)`` — context manager around ``torch.profiler`` that writes
   a Chrome/Perfetto trace JSON (CPU ops, and the card's kernels when CUDA is
   available) into `logdir`, with the spans recorded meanwhile.
-* ``counters`` — the program's event counts (``epilogue.launches``, ...),
-  one ``collections.Counter``.
+* ``counters`` — the program's event counts (``epilogue.launches``, ...;
+  ``serve.host_copies``, the served requests handed to the host through
+  page-locked memory, and ``serve.host_allocs``, those whose page-locked
+  block the caching host allocator had to create), one
+  ``collections.Counter``.
 * ``MetricsWriter`` — JSONL metrics stream (one dict per line) that tools can
   tail; doubles as the trainer's machine-readable log.
 
@@ -18,8 +21,9 @@ The spans, by the layer they bound: ``train.step`` (root), ``train.input``
 (the reals' copy and z), ``train.d``, ``train.reg``, ``train.g_forward``,
 ``train.g`` and ``train.ema``, with ``.backward`` and ``.optim`` children in
 the D, R1 and G phases; ``g.forward`` (root when called alone),
-``g.mapping``, ``g.synthesis`` and ``g.noise``; ``serve.request`` (root)
-and ``serve.input``.
+``g.mapping``, ``g.synthesis`` and ``g.noise``; ``serve.request`` (root),
+``serve.input`` (z's copy) and ``serve.output`` (the images' hand-off to
+the host).
 """
 
 from __future__ import annotations

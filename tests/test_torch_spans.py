@@ -203,7 +203,8 @@ def _generator(cfg):
 def test_a_forward_gives_its_mapping_synthesis_and_noise_spans(depth):
     """A forward alone: g.forward, root, holds g.mapping and g.synthesis;
     the synthesis holds one g.noise a layer, 2(depth + 1).  Through
-    make_serving_fn the request is the root, z's copy its input."""
+    make_serving_fn the request is the root, z's copy its input, the
+    images' hand-off to the host its last child."""
     cfg = small_cfg()
     gen = _generator(cfg)
     z = torch.randn(2, 32, generator=torch.Generator().manual_seed(1))
@@ -218,7 +219,8 @@ def test_a_forward_gives_its_mapping_synthesis_and_noise_spans(depth):
         serve(z.numpy(), 3)
     spans = rec.spans
     assert spans[0][:2] == ("serve.request", None)
-    assert _children(spans, 0) == ["serve.input", "g.forward"]
+    assert _children(spans, 0) == ["serve.input", "g.forward",
+                                   "serve.output"]
 
 
 def test_a_span_holds_the_profiled_op_on_the_profilers_clock(tmp_path):

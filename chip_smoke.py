@@ -222,7 +222,18 @@ Phases, each fatal on failure:
            --skip_golden: pass, FID a finite float, PPL skipped.  It
            prints its seconds.
 
-`python3 chip_smoke.py --only 8 9 10 11 12 13` runs the build and just
+14. stylegan2 StyleGAN2 config F at 1024^2, batch 8 (configs/torch/
+           sample_ffhq_1024_stylegan2.yaml, seeded random weights): (a) the
+           epilogue2 kernel against its plain version at the forward's 17
+           planes, two calls bitwise equal, the 17 calls timed against
+           their bytes bound; (b) make_serving_fn's images against
+           plainref/stylegan2.py on the card (image_gap under 1e-4), 17
+           epilogue2 calls and CUDA launches a forward; (c) ms a request
+           (median of 12) and the kernels that take the most; (d) a
+           torch.export artifact against make_serving_fn.  It prints its
+           seconds.
+
+`python3 chip_smoke.py --only 8 9 10 11 12 13 14` runs the build and just
 those phases (to try a change; no result lines).
 
 The last two lines are {"kernels": [...]} with the kernels' measurements and
@@ -747,8 +758,9 @@ def random_state_dict(generator, seed=0):
             scale = 1.0
         else:                     # biases, noise weights, the W average
             scale = 0.2
-        sd[name] = torch.from_numpy(
-            rs.standard_normal(tuple(t.shape), dtype=np.float32) * scale)
+        sd[name] = torch.from_numpy(np.asarray(
+            rs.standard_normal(tuple(t.shape), dtype=np.float32) * scale,
+            dtype=np.float32))
     return sd
 
 
@@ -4776,11 +4788,156 @@ def evidence_gate(dev, tmp):
     return rep
 
 
+# --------------------------------------------------------------------------
+# Phase 14: StyleGAN2 config F (serving)
+# --------------------------------------------------------------------------
+
+SG2_CONFIG = os.path.join(REPO, "configs", "torch",
+                          "sample_ffhq_1024_stylegan2.yaml")
+SG2_REQUESTS = 12
+# the forward against plainref/stylegan2.py in float32 with TF32 off: the
+# widest pixel gap over the reference images' largest magnitude (the
+# benchmark's image_gap) and the op-level bar of the CPU tests
+SG2_IMAGE_GAP = 1e-4
+SG2_OP_TOL = 1e-5
+
+
+def sg2_generator(dev, seed=3):
+    from stylegan_torch.config import apply_runtime_knobs, get_default_cfg
+    from stylegan_torch.models import Generator, generator_config_from_cfg
+    cfg = get_default_cfg()
+    cfg.merge_from_file(SG2_CONFIG)
+    cfg.freeze()
+    apply_runtime_knobs(cfg)
+    gen_cfg = generator_config_from_cfg(cfg)
+    gen = Generator(gen_cfg)
+    sd = random_state_dict(gen, seed)
+    gen.load_state_dict(sd)
+    return gen_cfg, gen.requires_grad_(False).eval().to(dev), sd
+
+
+def sg2_epilogue_kernel(dev, shapes):
+    """(a) The epilogue2 kernel against its plain version at the forward's
+    17 planes, two calls bitwise equal; the 17 calls timed by CUDA events
+    against their bytes bound."""
+    from stylegan_torch.ops.kernels import epilogue2 as k2
+    from stylegan_torch.ops.modconv import _reference_epilogue2
+    g = torch.Generator(device=dev).manual_seed(14)
+    worst, calls, bound = 0.0, [], 0
+    for h, c in shapes:
+        args = (torch.randn((BATCH, c, h, h), generator=g, device=dev),
+                torch.randn((BATCH, 1, h, h), generator=g, device=dev),
+                torch.randn((c,), generator=g, device=dev),
+                torch.randn((), generator=g, device=dev))
+        out = k2.epilogue2_forward(*args)
+        if not torch.equal(out, k2.epilogue2_forward(*args)):
+            fail(f"epilogue2 not bitwise repeatable at {h}x{c}")
+        ref = _reference_epilogue2(*args)
+        worst = max(worst, float((out - ref).abs().max() / ref.abs().max()))
+        calls.append(args)
+        bound += k2.bytes_moved(args[0])
+    if worst > SG2_OP_TOL:
+        fail(f"epilogue2 kernel vs plain: {worst:.3g} > {SG2_OP_TOL}")
+    torch.cuda.synchronize()
+    ms = cuda_time_ms(lambda: [k2.epilogue2_forward(*a) for a in calls])
+    bound_ms = bound / HBM_BYTES_PER_S * 1e3
+    return {"max_rel_err": worst, "calls_17_ms": round(ms, 4),
+            "bound_ms": round(bound_ms, 4), "share": round(bound_ms / ms, 4)}
+
+
+def sg2_top_kernels(serve, z, n=2, top=8):
+    """The device ms a request of the kernels that take the most, over `n`
+    profiled requests (summed durations: kernels that overlap count
+    twice)."""
+    from torch.profiler import ProfilerActivity, profile
+    serve(z, 99)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for i in range(n):
+            serve(z, 99 + i)
+    rows = sorted(((e.key[:90], e.device_time_total / 1e3 / n)
+                   for e in prof.key_averages() if e.device_time_total > 0),
+                  key=lambda r: -r[1])
+    return [[k, round(v, 3)] for k, v in rows[:top]]
+
+
+def sg2_request_ms(serve, z, n):
+    times = []
+    for i in range(n):
+        t = time.perf_counter()
+        serve(z, 100 + i)
+        times.append((time.perf_counter() - t) * 1e3)
+    return sorted(times)[len(times) // 2]
+
+
+def phase_stylegan2(dev):
+    """StyleGAN2 config F at 1024^2, batch 8 (configs/torch/
+    sample_ffhq_1024_stylegan2.yaml, seeded random weights): (a) the
+    epilogue2 kernel against its plain version and its bytes bound; (b)
+    make_serving_fn's images against plainref/stylegan2.py on the card, and
+    the epilogue2 counters (17 calls and CUDA launches a forward); (c) ms a
+    request and the kernels that take the most; (d) a torch.export artifact
+    against make_serving_fn."""
+    sys.path.insert(0, REPO)
+    from plainref import stylegan2 as plain
+    from stylegan_torch.serving import (export_generator, load_exported,
+                                        make_serving_fn)
+    from stylegan_torch.utils.profiling import counters
+    t0 = time.perf_counter()
+    gen_cfg, gen, sd = sg2_generator(dev)
+    arch = {"resolution": 1024, "latent_size": 512, "dlatent_size": 512,
+            "mapping_layers": 8, "mapping_fmaps": 512,
+            "mapping_lrmul": 0.01, "fmap_base": 16384, "fmap_decay": 1.0,
+            "fmap_max": 512, "num_channels": 3,
+            "resample_filter": [1, 3, 3, 1]}
+    shapes = [(plain.noise_res(i), cout) for i, (_, cout, _) in
+              enumerate(plain.conv_channels(arch))]
+    out = {"kernel": sg2_epilogue_kernel(dev, shapes)}
+    log(json.dumps({"phase14_kernel": out["kernel"]}))
+
+    serve = make_serving_fn(gen_cfg, gen, depth=DEPTH, device=dev)
+    z = torch.randn((BATCH, 512), generator=torch.Generator().manual_seed(5))
+    counters["epilogue2.launches"] = counters["epilogue2.cuda_launches"] = 0
+    images = serve(z, 7)
+    calls = (counters["epilogue2.launches"],
+             counters["epilogue2.cuda_launches"])
+    if calls != (17, 17):
+        fail(f"epilogue2 calls and CUDA launches a forward: {calls}")
+    p = {k: v.to(dev) for k, v in sd.items()}
+    with torch.no_grad():
+        ref = plain.generator(p, arch, z.to(dev), 7)
+    got = images.to(dev)
+    gap = float((got - ref).abs().max() / ref.abs().max())
+    rms = float(torch.linalg.vector_norm(got - ref)
+                / torch.linalg.vector_norm(ref))
+    if gap > SG2_IMAGE_GAP:
+        fail(f"StyleGAN2 forward vs plainref: image_gap {gap:.3g}")
+    out["forward"] = {"image_gap": gap, "image_rms_gap": rms,
+                      "epilogue2_calls": calls[0],
+                      "epilogue2_cuda_launches": calls[1],
+                      "parameters": sum(v.numel() for v in sd.values())}
+    log(json.dumps({"phase14_forward": out["forward"]}))
+
+    sg2_request_ms(serve, z, 3)
+    out["serve"] = {"ms_per_request": round(
+        sg2_request_ms(serve, z, SG2_REQUESTS), 3),
+        "top_kernels_ms": sg2_top_kernels(serve, z)}
+    log(json.dumps({"phase14_serve": out["serve"]}))
+
+    blob = export_generator(gen_cfg, gen, depth=DEPTH, batch_size=BATCH)
+    exported = load_exported(blob, device=dev)(z, 7)
+    out["export"] = {"bytes": len(blob), "image_gap_vs_serve": float(
+        (exported.to(dev) - got).abs().max() / got.abs().max())}
+    log(json.dumps({"phase14_export": out["export"]}))
+    out["seconds"] = round(time.perf_counter() - t0, 1)
+    log(f"phase 14: {out['seconds']} s")
+    return out
+
+
 def main(argv=None):
     import argparse
     parser = argparse.ArgumentParser()
     parser.add_argument("--only", type=int, nargs="+", default=None,
-                        help="run only these of the phases 8-13 after the "
+                        help="run only these of the phases 8-14 after the "
                         "build (to try a change; prints no result line)")
     only = parser.parse_args(argv).only
     if not torch.cuda.is_available():
@@ -4807,7 +4964,8 @@ def main(argv=None):
              10: lambda: phase_parallel(dev, {"ms_per_step": None}),
              11: lambda: phase_spatial(dev),
              12: lambda: phase_spatial_train(dev, {}),
-             13: lambda: phase_evidence(dev)}[n]()
+             13: lambda: phase_evidence(dev),
+             14: lambda: phase_stylegan2(dev)}[n]()
             log(f"phase {n} alone: {time.perf_counter() - t0:.1f} s")
         return 0
 
@@ -4838,6 +4996,7 @@ def main(argv=None):
     p12 = phase_spatial_train(dev, train)
     k3s, d8 = p12["kernels"], p12["depth8"]
     p13 = phase_evidence(dev)
+    p14 = phase_stylegan2(dev)
     ev = p13["kernels"]
     ev_calls = {k: p13[k]["calls"] for k in ("progressive", "conditional")}
     ev_b128 = {d: ev[f"batch{EVIDENCE_TIMED_BATCH}_{d}"]
@@ -5069,6 +5228,7 @@ def main(argv=None):
                                 if k != "kernels"}}))
     log(json.dumps({"phase13": {k: v for k, v in p13.items()
                                 if k != "kernels"}}))
+    log(json.dumps({"phase14": p14}))
     log(card)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

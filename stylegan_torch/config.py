@@ -206,6 +206,12 @@ def get_default_cfg() -> ConfigNode:
     c.model.gen.blur_filter = [1, 2, 1]
     c.model.gen.truncation_psi = 0.7
     c.model.gen.truncation_cutoff = 8
+    # the port's own keys (no JAX counterpart): 'stylegan1', or 'stylegan2'
+    # (config F's skip generator, serving only; blur_filter is then its
+    # resample filter); the synthesis's fmap_base (8192 in StyleGAN1's
+    # FFHQ networks, 16384 in StyleGAN2's config F)
+    c.model.gen.architecture = "stylegan1"
+    c.model.gen.fmap_base = 8192
 
     # discriminator (reference config.py:72-74)
     c.model.dis = ConfigNode()

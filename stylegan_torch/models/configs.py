@@ -21,6 +21,9 @@ from dataclasses import dataclass, field, replace
 from typing import Optional, Tuple
 
 
+ARCHITECTURES = ("stylegan1", "stylegan2")
+
+
 def _nf(stage: int, fmap_base: int, fmap_decay: float, fmap_max: int) -> int:
     return min(int(fmap_base / (2.0 ** (stage * fmap_decay))), fmap_max)
 
@@ -36,6 +39,9 @@ class MappingConfig:
     mapping_nonlinearity: str = "lrelu"
     use_wscale: bool = True
     normalize_latents: bool = True
+    # StyleGAN2's dense layers: sqrt(2) * lrelu(dense(x)) in place of
+    # StyleGAN1's lrelu(sqrt(2) * dense(x)); the two differ by the bias
+    gain_after_act: bool = False
 
     def layer_dims(self) -> Tuple[Tuple[int, int], ...]:
         dims = []
@@ -100,6 +106,9 @@ class GeneratorConfig:
     style_mixing_prob: Optional[float] = 0.9
     mapping: MappingConfig = field(default_factory=MappingConfig)
     synthesis: SynthesisConfig = field(default_factory=SynthesisConfig)
+    # 'stylegan1' (GSynthesis) or 'stylegan2' (config F's skip generator,
+    # GSynthesis2; serving only)
+    architecture: str = "stylegan1"
 
     @property
     def num_layers(self) -> int:
@@ -169,7 +178,20 @@ def generator_config_from_args(structure, resolution, num_channels,
     latent = int(g.get("latent_size", latent_size))
     eff_latent = latent * 2 if conditional else latent
     num_layers = (int(math.log2(resolution)) - 1) * 2
+    architecture = str(g.get("architecture", "stylegan1"))
+    if architecture not in ARCHITECTURES:
+        raise ValueError(f"unknown architecture {architecture!r}: "
+                         f"{ARCHITECTURES}")
+    if architecture == "stylegan2":
+        if conditional:
+            raise ValueError("architecture 'stylegan2' has no conditional "
+                             "variant in the port")
+        if blur is None or len(blur) != 4:
+            raise ValueError(f"architecture 'stylegan2' takes its resample "
+                             f"filter from model.gen.blur_filter, 4 taps "
+                             f"(config F: [1, 3, 3, 1]), got {blur}")
     return GeneratorConfig(
+        architecture=architecture,
         resolution=int(resolution),
         latent_size=latent,
         conditional=bool(conditional),
@@ -182,10 +204,12 @@ def generator_config_from_args(structure, resolution, num_channels,
             latent_size=eff_latent,
             dlatent_broadcast=num_layers,
             mapping_layers=int(g.get("mapping_layers", 8)),
+            gain_after_act=architecture == "stylegan2",
         ),
         synthesis=SynthesisConfig(
             resolution=int(resolution),
             num_channels=int(num_channels),
+            fmap_base=int(g.get("fmap_base", 8192)),
             blur_filter=blur,
             structure=str(structure),
         ),

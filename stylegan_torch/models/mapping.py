@@ -3,7 +3,9 @@ counterpart of ``stylegan_tpu/models/mapping.py``).
 
 A stack of equalized-LR dense layers with lrmul=0.01 and leaky-relu, with
 optional PixelNorm on the input latents and broadcast of W over the synthesis
-layers.
+layers.  StyleGAN1's layer is lrelu(sqrt(2) * lrmul * x W / sqrt(fan_in) +
+lrmul * b); StyleGAN2's (``gain_after_act``, NVlabs/stylegan2 G_mapping)
+sqrt(2) * lrelu(lrmul * x W / sqrt(fan_in) + lrmul * b).
 """
 
 from __future__ import annotations
@@ -27,9 +29,10 @@ class GMapping(nn.Module):
                  generator: Optional[torch.Generator] = None):
         super().__init__()
         self.cfg = cfg
+        gain = 1.0 if cfg.gain_after_act else _GAIN
         self.map = nn.ModuleDict({
             f"dense{i}": EqualizedLinear(
-                fin, fout, gain=_GAIN, use_wscale=cfg.use_wscale,
+                fin, fout, gain=gain, use_wscale=cfg.use_wscale,
                 lrmul=cfg.mapping_lrmul, generator=generator)
             for i, (fin, fout) in enumerate(cfg.layer_dims())})
 
@@ -40,6 +43,8 @@ class GMapping(nn.Module):
         act = leaky_relu if cfg.mapping_nonlinearity == "lrelu" else torch.relu
         for layer in self.map.values():
             x = act(layer(x))
+            if cfg.gain_after_act:
+                x = x * _GAIN
         if cfg.dlatent_broadcast is not None:
             x = x[:, None, :].expand(x.shape[0], cfg.dlatent_broadcast,
                                      x.shape[-1])

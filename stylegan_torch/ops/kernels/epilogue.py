@@ -194,20 +194,21 @@ def _nvcc() -> str:
     return os.path.join(CUDA_HOME, "bin", "nvcc")
 
 
-def build() -> tuple[str, str]:
-    """Compile the kernel library if these sources have not been built yet.
+def build(sources=SOURCES, name: str = "epilogue") -> tuple[str, str]:
+    """Compile the kernel library `name` from `sources` (its ``.cu`` files
+    and the headers they include) if they have not been built yet.
 
     Returns (path of the shared library, nvcc's report: registers, shared
     memory and spills per kernel; empty when the library was cached)."""
-    digest = hashlib.sha256(b"".join(p.read_bytes() for p in SOURCES))
-    so = BUILD_DIR / f"libepilogue-{digest.hexdigest()[:16]}.so"
+    digest = hashlib.sha256(b"".join(p.read_bytes() for p in sources))
+    so = BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
     if so.exists():
         return str(so), ""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
     cmd = [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
            "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-           "-o", str(tmp), str(SOURCE)]
+           "-o", str(tmp), *(str(p) for p in sources if p.suffix == ".cu")]
     r = subprocess.run(cmd, capture_output=True, text=True)
     if r.returncode != 0:
         raise RuntimeError(f"nvcc failed ({r.returncode}):\n{r.stderr}")

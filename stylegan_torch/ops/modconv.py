@@ -1,0 +1,140 @@
+"""StyleGAN2's modulated convolution, its resampling and its layer epilogue
+(NVlabs/stylegan2 ``training/networks_stylegan2.py::modulated_conv2d_layer``
+and ``dnnlib/tflib/ops/upfirdn_2d.py``), on contiguous NCHW tensors.
+
+* The style of a layer: s = A w / sqrt(dlatent) + b_A + 1 (`modulation`).
+* The weight: w' = W s[ci] / sqrt(ci k^2); demodulated, w'' = w' d with
+  d = rsqrt(sum over (ci, kh, kw) of w'^2 + 1e-8) per sample and output
+  channel (`demodulation`, which sums s^2 against the kernel's squares
+  per input channel: the same sum, taken as one small product).
+* The convolution with w'' runs in the fused form (`modulate_weight`,
+  `modulated_conv2d`): the per-sample kernels as one grouped convolution
+  (groups = batch), as the TF original and stylegan2-ada-pytorch run
+  inference.  It beat the scaled form, conv(x * s) with the shared kernel
+  and `* d` after it, on the card (PERF.md).
+* The up-convolution: a stride-2 transposed convolution of the spatially
+  flipped kernel (the TF original's flip, so that converted kernels load
+  as they are), (2H+1) wide, then the 4x4 FIR at gain 4 with one pixel of
+  padding a side, as a depthwise convolution: 2H wide.  The skip
+  output's upsample is the FIR alone at up 2, padding (2, 1), as a
+  depthwise transposed convolution (`skip_upsample`).
+* The layer epilogue: sqrt(2) * lrelu(x + strength * noise + b, 0.2)
+  (`layer_epilogue`), through the ``stylegan_torch::epilogue2`` op: the
+  CUDA kernel on the card (``ops/kernels/epilogue2.py``), the plain version
+  `_reference_epilogue2` on the CPU, which this module registers.
+
+The convolutions are cuDNN's on the card; a transposed convolution there
+need not sum in a fixed order, so a replayed StyleGAN2 request may differ
+from the first in its last bits.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+
+from ..utils.profiling import counters
+from .kernels.epilogue import needs_grad
+from .kernels.epilogue2 import check_inputs, epilogue2_op
+from .linear import equalized_scales
+
+SQRT2 = math.sqrt(2.0)
+
+
+def fir_kernel(taps, device=None) -> torch.Tensor:
+    """The 2-D filter of 1-D `taps`, normalised to sum 1."""
+    k = torch.as_tensor(taps, dtype=torch.float32, device=device)
+    k = k[:, None] * k[None, :]
+    return k / k.sum()
+
+
+def modulation(affine, w: torch.Tensor) -> torch.Tensor:
+    """s = affine(w) + 1, (B, cin); `affine` an EqualizedLinear of gain 1."""
+    return affine(w) + 1.0
+
+
+def weight_scale(weight: torch.Tensor) -> float:
+    """The equalized learning rate's 1 / sqrt(cin k^2) of a kernel."""
+    _, cin, kh, kw = weight.shape
+    return equalized_scales(1.0, cin * kh * kw, 1.0, True)[1]
+
+
+def demodulation(weight: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
+    """d = rsqrt(sum_ci s[b, ci]^2 * sum_k W[o, ci, k]^2 / (ci k^2) + 1e-8),
+    (B, cout)."""
+    sq = weight.square().sum((2, 3)) * weight_scale(weight) ** 2
+    return torch.rsqrt(s.square() @ sq.t() + 1e-8)
+
+
+def _fir(x: torch.Tensor, fir: torch.Tensor) -> torch.Tensor:
+    """The (2H+1) up-convolution's output through the FIR at gain 4,
+    padding 1 a side: (2H)."""
+    c = x.shape[1]
+    k = (fir * 4).flip(0, 1)[None, None].expand(c, 1, *fir.shape)
+    return F.conv2d(x, k, padding=1, groups=c)
+
+
+def modulate_weight(weight: torch.Tensor, s: torch.Tensor,
+                    d: Optional[torch.Tensor]) -> torch.Tensor:
+    """The per-sample kernels (B, cout, cin, k, k): `weight`
+    (cout, cin, k, k) scaled by 1 / sqrt(cin k^2), the styles `s` (B, cin)
+    and the demodulation factors `d` (B, cout) or None."""
+    ww = (weight * weight_scale(weight))[None] * s[:, None, :, None, None]
+    return ww if d is None else ww * d[:, :, None, None, None]
+
+
+def modulated_conv2d(x: torch.Tensor, ww: torch.Tensor, *,
+                     up: bool = False,
+                     fir: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The modulated convolution in its fused form: x (B, cin, H, W) with
+    the per-sample kernels `ww` (`modulate_weight`) as one grouped
+    convolution (groups = B), SAME padding; with `up` the up-convolution
+    and its FIR.  Returns contiguous NCHW."""
+    b, cin, h, w = x.shape
+    cout, k = ww.shape[1], ww.shape[-1]
+    x = x.contiguous().reshape(1, b * cin, h, w)
+    if up:
+        wt = ww.flip(3, 4).transpose(1, 2).reshape(b * cin, cout, k, k)
+        y = F.conv_transpose2d(x, wt, stride=2, groups=b)
+        return _fir(y.reshape(b, cout, 2 * h + 1, 2 * w + 1), fir)
+    y = F.conv2d(x, ww.reshape(b * cout, cin, k, k), padding=k // 2,
+                 groups=b)
+    return y.reshape(b, cout, h, w)
+
+
+def skip_upsample(y: torch.Tensor, fir: torch.Tensor) -> torch.Tensor:
+    """upfirdn(y, fir * 4, up 2, padding (2, 1)): the skip output at twice
+    the size, as a depthwise transposed convolution."""
+    c = y.shape[1]
+    k = (fir * 4)[None, None].expand(c, 1, *fir.shape)
+    return F.conv_transpose2d(y, k, stride=2, padding=1, groups=c)
+
+
+def _reference_epilogue2(x, noise, bias, strength):
+    """The epilogue's plain version."""
+    x = x + noise * strength + bias[None, :, None, None]
+    return F.leaky_relu(x, 0.2) * SQRT2
+
+
+epilogue2_op.register_kernel("cpu")(_reference_epilogue2)
+
+
+def layer_epilogue(x: torch.Tensor, noise: torch.Tensor, bias: torch.Tensor,
+                   strength: torch.Tensor) -> torch.Tensor:
+    """sqrt(2) * lrelu(x + strength * noise + bias, 0.2) of x (B, C, H, W),
+    noise (B, 1, H, W), bias (C,), strength 0-d.  Through the op without a
+    gradient to record (the kernel on the card); on the CPU under autograd
+    the plain version, differentiable; on the card under autograd it
+    raises (the kernel has no backward)."""
+    counters["epilogue2.launches"] += 1
+    if needs_grad(x, noise, bias, strength):
+        if x.device.type == "cuda":
+            raise RuntimeError("StyleGAN2's epilogue kernel has no backward: "
+                               "the port serves StyleGAN2 and does not train "
+                               "it")
+        check_inputs(x, noise, bias, strength)
+        return _reference_epilogue2(x, noise, bias, strength)
+    return epilogue2_op(x, noise, bias, strength)

@@ -64,6 +64,7 @@ from torch.export.passes import move_to_device_pass
 from . import resolve_device
 from .models.generator import draw_mixing
 from .models.synthesis import layer_resolution, make_noise
+from .models.synthesis2 import noise_resolution
 from .ops import fused  # noqa: F401  (the artifact's epilogue ops)
 from .ops.precision import get_precision, set_precision
 from .parallel import halo
@@ -132,11 +133,19 @@ def _to_host(images: torch.Tensor) -> torch.Tensor:
 
 def _noise_layers(gen_cfg, depth: int) -> int:
     """The synthesis layers whose noise a forward at `depth` reads."""
+    if gen_cfg.architecture == "stylegan2":
+        return 2 * depth + 1
     if not gen_cfg.synthesis.use_noise:
         return 0
     if gen_cfg.synthesis.structure == "fixed":
         return gen_cfg.num_layers
     return 2 * (depth + 1)
+
+
+def _noise_resolution(architecture: str):
+    """Layer index -> its noise map's resolution, by architecture."""
+    return noise_resolution if architecture == "stylegan2" \
+        else layer_resolution
 
 
 class _Served(nn.Module):
@@ -182,7 +191,8 @@ def _regroup(ep, group_name: str):
 def _draws(meta: dict, seed: int, batch: int, device):
     """(noise maps, and with mixing (latents2, cutoff)) of one request, as
     the generator draws them from `seed` (synthesis.py, generator.py)."""
-    noises = [make_noise(seed, i, batch, layer_resolution(i), device)
+    res = _noise_resolution(meta.get("architecture", "stylegan1"))
+    noises = [make_noise(seed, i, batch, res(i), device)
               for i in range(meta["noise_layers"])]
     if not meta["mixes"]:
         return noises, {}
@@ -218,6 +228,9 @@ def export_generator(gen_cfg, generator, *, depth: int, batch_size: int,
         raise ValueError(f"unknown platforms {unknown or platforms}: "
                          f"{PLATFORMS}")
     if spatial_devices > 1:
+        if gen_cfg.architecture == "stylegan2":
+            raise ValueError("spatial export does not support architecture "
+                             "'stylegan2' (it has no spatial path)")
         if gen_cfg.conditional:
             raise ValueError("spatial export does not support conditional "
                              "models (same restriction as generate_samples "
@@ -226,6 +239,7 @@ def export_generator(gen_cfg, generator, *, depth: int, batch_size: int,
     device = next(generator.parameters()).device
     meta = {"depth": depth, "platforms": list(platforms),
             "conditional": bool(gen_cfg.conditional),
+            "architecture": gen_cfg.architecture,
             "noise_layers": _noise_layers(gen_cfg, depth),
             "mixes": bool(train_quirks and gen_cfg.style_mixing_prob),
             "style_mixing_prob": gen_cfg.style_mixing_prob,

@@ -91,6 +91,53 @@ def generator_forward_flops(resolution: int, *, latent_size: int = 512,
     return f
 
 
+def stylegan2_forward_flops(resolution: int, *, latent_size: int = 512,
+                            dlatent_size: int = 512, mapping_layers: int = 8,
+                            mapping_fmaps: int = 512, num_channels: int = 3,
+                            fmap_base: int = 16384, fmap_decay: float = 1.0,
+                            fmap_max: int = 512, fir_taps: int = 4
+                            ) -> tuple[int, int]:
+    """(all, conv) per-image forward FLOPs of StyleGAN2's skip generator
+    (``models/synthesis2.py``) at full resolution, as the TF original
+    computes it; default args = config F, 1024 -> 150.67 GFLOP (148.52 of it
+    the modulated 3x3 convolutions and toRGBs).
+
+    * a modulated 3x3 conv: 2 * H * W * 9 * Cin * Cout; toRGB the same at
+      1x1 with C outputs;
+    * the up-convolution as the transposed 3x3 (9 taps for each input
+      pixel): 2 * (H/2)^2 * 9 * Cin * Cout, then its FIR as upfirdn_2d
+      applies it, a depthwise 2-D filter of fir_taps^2 taps on each output
+      value: 2 * H^2 * 16 * Cout;
+    * the skip output's upsample: the (fir_taps / 2)^2 taps of the
+      zero-stuffed plane that are not zero, 2 * H^2 * 4 * C;
+    * dense layers 2 * in * out: the mapping and each layer's style affine
+      (dlatent -> Cin);
+    * `conv` is the part under a convolution: everything but the dense
+      layers.  The element-wise work (modulation, demodulation, the layer
+      epilogue) is not counted, as StyleGAN1's epilogue is not."""
+    def nf(s):
+        return _nf(s, fmap_base, fmap_decay, fmap_max)
+    rlog2 = int(math.log2(resolution))
+    dense = 0
+    for i in range(mapping_layers):
+        fin = latent_size if i == 0 else mapping_fmaps
+        fout = dlatent_size if i == mapping_layers - 1 else mapping_fmaps
+        dense += 2 * fin * fout
+    c1 = nf(1)
+    conv = 2 * 16 * 9 * c1 * c1 + 2 * 16 * c1 * num_channels
+    dense += 2 * dlatent_size * (c1 + c1)
+    for r in range(3, rlog2 + 1):
+        h = 2 ** r
+        cin, cout = nf(r - 2), nf(r - 1)
+        conv += 2 * (h // 2) ** 2 * 9 * cin * cout          # transposed 3x3
+        conv += 2 * h * h * fir_taps ** 2 * cout              # its FIR
+        conv += 2 * h * h * 9 * cout * cout                   # 3x3
+        conv += 2 * h * h * cout * num_channels               # toRGB
+        conv += 2 * h * h * (fir_taps // 2) ** 2 * num_channels  # skip
+        dense += 2 * dlatent_size * (cin + cout + cout)
+    return conv + dense, conv
+
+
 def discriminator_forward_flops(resolution: int, *, num_channels: int = 3,
                                 fmap_base: int = 8192, fmap_decay: float = 1.0,
                                 fmap_max: int = 512,

@@ -29,6 +29,11 @@ from stylegan_torch.models import configs as tcfg
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 RES = 32
 LAYOUT_ONLY = {"packed", "fold_blur", "remat"}   # JAX-only TPU layout knobs
+# the port's own StyleGAN2 keys and fields (no JAX counterpart), at the
+# values that give StyleGAN1
+PORT_ONLY_KEYS = {"model.gen.architecture": "stylegan1",
+                  "model.gen.fmap_base": 8192}
+PORT_ONLY_FIELDS = {"architecture": "stylegan1", "gain_after_act": False}
 
 
 def _cfgs(conditional=False, const_input=True):
@@ -129,8 +134,9 @@ def test_default_cfg_schema_matches_jax():
                 out[prefix + k] = v
         return out
     mine, theirs = flat(get_default_cfg()), flat(jax_default_cfg())
-    assert set(mine) == set(theirs)
-    assert {k for k in mine if mine[k] != theirs[k]} == {"device"}
+    assert set(mine) == set(theirs) | set(PORT_ONLY_KEYS)
+    assert {k: mine[k] for k in PORT_ONLY_KEYS} == PORT_ONLY_KEYS
+    assert {k for k in theirs if mine[k] != theirs[k]} == {"device"}
 
 
 YAMLS = sorted(glob.glob(os.path.join(REPO, "configs", "*.yaml")))
@@ -152,5 +158,7 @@ def test_yaml_gives_the_jax_generator_config(path):
                                                            "synthesis"}
         assert {f.name for f in dataclasses.fields(t)} - fields \
             - {"mapping", "synthesis"} <= LAYOUT_ONLY
-        for f in fields:
+        for f in fields - set(PORT_ONLY_FIELDS):
             assert getattr(m, f) == getattr(t, f), (name, f)
+        for f in fields & set(PORT_ONLY_FIELDS):
+            assert getattr(m, f) == PORT_ONLY_FIELDS[f], (name, f)

@@ -241,12 +241,16 @@ def test_serving_fn_refuses_missing_cuda(monkeypatch, linear_models):
 
 def test_port_config_dataclass_defaults_match_jax():
     """Every field and default of the port's dataclasses equals the JAX
-    one's; the JAX-only fields are its TPU execution-layout knobs."""
+    one's; the JAX-only fields are its TPU execution-layout knobs, the
+    port-only ones select StyleGAN2 and default to StyleGAN1."""
     layout_only = {"packed", "fold_blur", "remat"}
+    port_only = {"architecture": "stylegan1", "gain_after_act": False}
     for name in ("MappingConfig", "SynthesisConfig", "GeneratorConfig"):
         j, t = getattr(jcfg, name)(), getattr(tcfg, name)()
         jf = {f.name for f in dataclasses.fields(j)}
         tf = {f.name for f in dataclasses.fields(t)}
-        assert tf <= jf and jf - tf <= layout_only
-        for f in tf - {"mapping", "synthesis"}:
+        assert tf - set(port_only) <= jf and jf - tf <= layout_only
+        for f in tf - {"mapping", "synthesis"} - set(port_only):
             assert getattr(t, f) == getattr(j, f), (name, f)
+        for f in tf & set(port_only):
+            assert getattr(t, f) == port_only[f], (name, f)

@@ -118,3 +118,28 @@ def test_port_tools_are_scanned_and_import_no_jax():
                        capture_output=True, text=True, timeout=120)
     assert r.returncode == 0, r.stderr
     assert r.stdout.strip() == "[]", r.stdout
+
+
+def test_plainref_imports_no_jax_and_nothing_of_either_package():
+    """plainref/ (the plain references the port is held to) names neither
+    JAX, the JAX package, nor the port, and importing it loads none of
+    them."""
+    paths = sorted(glob.glob(os.path.join(REPO, "plainref", "*.py")))
+    assert os.path.join(REPO, "plainref", "stylegan2.py") in paths
+    for path in paths:
+        with open(path) as f:
+            names = list(_imported_names(ast.parse(f.read(), path)))
+        bad = [n for n in names
+               if n.split(".")[0] in FORBIDDEN + ("stylegan_torch",)]
+        assert not bad, (path, bad)
+    code = ("import sys\n"
+            "import plainref.stylegan2\n"
+            f"bad = {FORBIDDEN + ('stylegan_torch',)!r}\n"
+            "print(sorted({m.split('.')[0] for m in sys.modules} "
+            "& set(bad)))\n")
+    env = dict(os.environ)
+    env.pop("PYTHONPATH", None)
+    r = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0, r.stderr
+    assert r.stdout.strip() == "[]", r.stdout

@@ -1,0 +1,358 @@
+"""StyleGAN2 config F on the port's serving path, held to the plain
+reference (plainref/stylegan2.py) on seeded random weights at 32^2
+(fmap_base 512, batch 2) on the CPU: the whole generator, each op alone
+(the modulated conv with and without demodulation, the up-convolution, the
+skip upsample, the epilogue against its equation), the mapping's gain placement, and one fault (a
+dropped demodulation) that the comparison catches.  Besides: the
+benchmark's copy of the reference and its frozen counts, the published
+parameter count, the serving entry points, and the refusals of what does
+not support StyleGAN2."""
+
+import json
+import math
+import os
+
+import pytest
+import torch
+import torch.nn.functional as F
+
+from plainref import stylegan2 as plain
+from stylegan_torch.config import get_default_cfg
+from stylegan_torch.models import (Generator, GMapping, MappingConfig,
+                                   generator_config_from_cfg)
+from stylegan_torch.models import synthesis2
+from stylegan_torch.ops import modconv
+from stylegan_torch.utils.profiling import counters
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+RES, FMAP_BASE, BATCH = 32, 512, 2
+ARCH = {"resolution": RES, "latent_size": 512, "dlatent_size": 512,
+        "mapping_layers": 8, "mapping_fmaps": 512, "mapping_lrmul": 0.01,
+        "fmap_base": FMAP_BASE, "fmap_decay": 1.0, "fmap_max": 512,
+        "num_channels": 3, "resample_filter": [1, 3, 3, 1]}
+# the port's float32 parity bars at op level; the whole generator's images
+# (17 layers deep at 1024^2, 7 here) at the same relative bar over their
+# largest magnitude
+ATOL, RTOL = 1e-5, 1e-4
+
+
+def _cfg(res=RES, fmap_base=FMAP_BASE, **gen):
+    c = get_default_cfg()
+    c.merge_from_other_cfg({"dataset": {"resolution": res}, "model": {
+        "gen": {"architecture": "stylegan2", "fmap_base": fmap_base,
+                "blur_filter": [1, 3, 3, 1], "mapping_layers": 8,
+                "truncation_psi": -1.0, **gen}}})
+    return c
+
+
+def _weights(seed=1):
+    """Every tensor of the layout drawn at its layer's scale (1/lrmul for
+    the mapping, 1 for kernels and the constant, 0.2 for biases and noise
+    strengths)."""
+    g = torch.Generator().manual_seed(seed)
+    out = {}
+    for k, shape in plain.shapes(ARCH).items():
+        if k.endswith("weight") and len(shape) >= 2:
+            scale = 100.0 if k.startswith("g_mapping") else 1.0
+        elif k.endswith("const"):
+            scale = 1.0
+        else:
+            scale = 0.2
+        out[k] = torch.randn(shape, generator=g) * scale
+    return out
+
+
+@pytest.fixture(scope="module")
+def model():
+    gen = Generator(generator_config_from_cfg(_cfg()))
+    p = _weights()
+    gen.load_state_dict(p, strict=True)
+    return gen.eval(), p
+
+
+@pytest.mark.parametrize("seed", [11, 2 ** 40 + 3])
+def test_generator_matches_the_reference(model, seed):
+    gen, p = model
+    z = torch.randn(BATCH, 512, generator=torch.Generator().manual_seed(2))
+    with torch.no_grad():
+        got = gen(z, depth=RES.bit_length() - 3, seed=seed).images
+    ref = plain.generator(p, ARCH, z, seed)
+    assert got.shape == (BATCH, RES, RES, 3)
+    torch.testing.assert_close(got, ref, rtol=RTOL,
+                               atol=ATOL * float(ref.abs().max()))
+
+
+def test_state_dict_is_the_reference_layout(model):
+    gen, _ = model
+    got = {k: tuple(v.shape) for k, v in gen.state_dict().items()}
+    assert got == plain.shapes(ARCH)
+
+
+def test_config_f_has_the_published_parameter_count():
+    c = get_default_cfg()
+    c.merge_from_file(os.path.join(REPO, "configs", "torch",
+                                   "sample_ffhq_1024_stylegan2.yaml"))
+    gen_cfg = generator_config_from_cfg(c)
+    assert gen_cfg.architecture == "stylegan2"
+    assert gen_cfg.synthesis.fmap_base == 16384
+    with torch.device("meta"):
+        gen = Generator(gen_cfg)
+    assert sum(t.numel() for t in gen.parameters()) == 30_370_060
+    assert len(gen.g_synthesis.layers) == 17
+    assert len(gen.g_synthesis.to_rgb) == 9
+
+
+def _layer_inputs(seed, cin=64, cout=32, h=8):
+    g = torch.Generator().manual_seed(seed)
+    p = {"l.weight": torch.randn(cout, cin, 3, 3, generator=g),
+         "l.affine.weight": torch.randn(cin, 512, generator=g),
+         "l.affine.bias": torch.randn(cin, generator=g) * 0.2}
+    x = torch.randn(BATCH, cin, h, h, generator=g)
+    w = torch.randn(BATCH, 512, generator=g)
+    return p, x, w
+
+
+def _port_modconv(p, x, w, demodulate, up):
+    from stylegan_torch.ops import EqualizedLinear
+    affine = EqualizedLinear(512, x.shape[1], gain=1.0, use_wscale=True)
+    affine.load_state_dict({"weight": p["l.affine.weight"],
+                            "bias": p["l.affine.bias"]})
+    s = modconv.modulation(affine, w)
+    weight = p["l.weight"]
+    d = modconv.demodulation(weight, s) if demodulate else None
+    return modconv.modulated_conv2d(x, modconv.modulate_weight(weight, s, d),
+                                    up=up, fir=modconv.fir_kernel([1, 3, 3, 1]))
+
+
+@pytest.mark.parametrize("cin,cout", [(64, 32), (16, 48)])
+@pytest.mark.parametrize("up", [False, True], ids=["same", "up"])
+@pytest.mark.parametrize("demodulate", [True, False],
+                         ids=["demod", "no_demod"])
+def test_modulated_conv_matches_the_reference(demodulate, up, cin, cout):
+    p, x, w = _layer_inputs(3, cin, cout)
+    got = _port_modconv(p, x, w, demodulate, up)
+    ref = plain.modulated_conv(p, "l", x, w, demodulate=demodulate, up=up,
+                               f=plain.fir([1, 3, 3, 1]))
+    assert got.shape == ref.shape == (BATCH, cout) + ((16, 16) if up
+                                                      else (8, 8))
+    torch.testing.assert_close(got, ref, rtol=RTOL, atol=ATOL)
+
+
+@pytest.mark.parametrize("up", [False, True], ids=["same", "up"])
+def test_a_dropped_demodulation_fails_the_comparison(up):
+    p, x, w = _layer_inputs(4)
+    ref = plain.modulated_conv(p, "l", x, w, up=up,
+                               f=plain.fir([1, 3, 3, 1]))
+    got = _port_modconv(p, x, w, False, up)
+    with pytest.raises(AssertionError):
+        torch.testing.assert_close(got, ref, rtol=RTOL, atol=ATOL)
+
+
+def test_the_up_convolution_is_the_flipped_transposed_conv_and_fir():
+    """The TF form written out: zeros inserted, the unflipped kernel
+    correlated (the transposed conv of the flipped one), then the FIR."""
+    g = torch.Generator().manual_seed(5)
+    x = torch.randn(1, 3, 5, 5, generator=g)
+    k = torch.randn(4, 3, 3, 3, generator=g)
+    fir = modconv.fir_kernel([1, 3, 3, 1])
+    got = modconv._fir(F.conv_transpose2d(
+        x, k.flip(2, 3).transpose(0, 1), stride=2), fir)
+    stuffed = torch.zeros(1, 3, 9, 9)
+    stuffed[:, :, ::2, ::2] = x
+    wide = F.conv2d(F.pad(stuffed, [2, 2, 2, 2]), k)
+    assert wide.shape[-1] == 11
+    ref = plain.upfirdn(wide, plain.fir([1, 3, 3, 1]) * 4, 1, 1, 1)
+    torch.testing.assert_close(got, ref, rtol=RTOL, atol=ATOL)
+
+
+def test_skip_upsample_matches_upfirdn():
+    y = torch.randn(BATCH, 3, 8, 8, generator=torch.Generator()
+                    .manual_seed(6))
+    got = modconv.skip_upsample(y, modconv.fir_kernel([1, 3, 3, 1]))
+    ref = plain.skip_upsample(y, plain.fir([1, 3, 3, 1]))
+    assert got.shape == (BATCH, 3, 16, 16)
+    torch.testing.assert_close(got, ref, rtol=RTOL, atol=ATOL)
+
+
+@pytest.mark.parametrize("strength", [0.3, -1.7])
+def test_epilogue_cpu_path_is_its_equation(strength):
+    g = torch.Generator().manual_seed(7)
+    x = torch.randn(BATCH, 16, 8, 8, generator=g)
+    noise = torch.randn(BATCH, 1, 8, 8, generator=g)
+    bias = torch.randn(16, generator=g)
+    st = torch.tensor(strength)
+    before = dict(counters)
+    got = modconv.layer_epilogue(x, noise, bias, st)
+    v = x + strength * noise + bias[None, :, None, None]
+    ref = math.sqrt(2) * torch.where(v < 0, 0.2 * v, v)
+    torch.testing.assert_close(got, ref, rtol=RTOL, atol=ATOL)
+    assert counters["epilogue2.launches"] - before.get(
+        "epilogue2.launches", 0) == 1
+    assert counters["epilogue2.cuda_launches"] == before.get(
+        "epilogue2.cuda_launches", 0)
+
+
+def test_epilogue_op_checks_its_inputs():
+    from stylegan_torch.ops.kernels import epilogue2 as k2
+    x = torch.zeros(2, 4, 8, 8)
+    with pytest.raises(ValueError, match="noise"):
+        k2.check_inputs(x, torch.zeros(2, 8, 8, 1).permute(0, 3, 1, 2)[:1],
+                        torch.zeros(4), torch.zeros(()))
+    with pytest.raises(ValueError, match="CUDA"):
+        k2.epilogue2_forward(x, torch.zeros(2, 1, 8, 8), torch.zeros(4),
+                             torch.zeros(()))
+    with pytest.raises(ValueError, match="x must be contiguous"):
+        k2.check_inputs(x.contiguous(memory_format=torch.channels_last),
+                        torch.zeros(2, 1, 8, 8), torch.zeros(4),
+                        torch.zeros(()))
+
+
+def test_mapping_places_the_gain_after_the_activation():
+    """StyleGAN2's layer sqrt(2) * lrelu(y) against StyleGAN1's
+    lrelu(sqrt(2) * y') on the same weights: equal where every bias is
+    zero, not on a non-zero bias."""
+    torch.manual_seed(8)
+    cfgs = [MappingConfig(mapping_layers=2, gain_after_act=a)
+            for a in (False, True)]
+    one, two = GMapping(cfgs[0]), GMapping(cfgs[1])
+    two.load_state_dict(one.state_dict())
+    z = torch.randn(BATCH, 512)
+    with torch.no_grad():
+        torch.testing.assert_close(one(z), two(z), rtol=1e-5, atol=1e-6)
+        for layer in list(one.map.values()) + list(two.map.values()):
+            layer.bias.fill_(3.0)
+        a, b = one(z), two(z)
+    assert not torch.allclose(a, b, rtol=1e-3, atol=1e-3)
+    p = {f"g_mapping.{k}": v for k, v in two.state_dict().items()}
+    arch = dict(ARCH, mapping_layers=2)
+    torch.testing.assert_close(b, plain.mapping(p, arch, z), rtol=RTOL,
+                               atol=ATOL)
+
+
+def test_counters_and_noise_layers(model):
+    gen, _ = model
+    before = dict(counters)
+    with torch.no_grad():
+        gen(torch.randn(BATCH, 512), depth=3, seed=1)
+    assert counters["epilogue2.launches"] - before.get(
+        "epilogue2.launches", 0) == 2 * 5 - 3
+    assert counters["epilogue2.cuda_launches"] == before.get(
+        "epilogue2.cuda_launches", 0)
+    from stylegan_torch.serving import _noise_layers
+    assert _noise_layers(gen.cfg, 3) == len(gen.g_synthesis.layers) == 7
+    assert [synthesis2.noise_resolution(i) for i in range(7)] == \
+        [plain.noise_res(i) for i in range(7)] == [4, 8, 8, 16, 16, 32, 32]
+
+
+def test_pinned_noise_is_the_seeded_draw(model):
+    from stylegan_torch.models.synthesis import make_noise
+    gen, _ = model
+    z = torch.randn(BATCH, 512)
+    noises = [make_noise(9, i, BATCH, synthesis2.noise_resolution(i), "cpu")
+              for i in range(7)]
+    with torch.no_grad():
+        a = gen(z, depth=3, seed=9).images
+        b = gen(z, depth=3, noises=noises).images
+    assert torch.equal(a, b)
+
+
+def test_serving_is_deterministic_and_exports(model):
+    from stylegan_torch.serving import (export_generator, load_exported,
+                                        make_serving_fn)
+    gen, _ = model
+    serve = make_serving_fn(gen.cfg, gen, depth=3, device="cpu")
+    z = torch.randn(BATCH, 512)
+    a, b, c = serve(z, 5), serve(z, 5), serve(z, 6)
+    assert torch.equal(a, b) and not torch.equal(a, c)
+    blob = export_generator(gen.cfg, gen, depth=3, batch_size=BATCH,
+                            platforms=("cpu",))
+    assert torch.equal(load_exported(blob, device="cpu")(z, 5), a)
+
+
+def test_generate_samples_cli(tmp_path, model):
+    from stylegan_torch.cli import generate_samples
+    gen, p = model
+    yaml = tmp_path / "sg2.yaml"
+    yaml.write_text(
+        "dataset: {resolution: 32}\n"
+        "model:\n  gen: {architecture: 'stylegan2', fmap_base: 512, "
+        "mapping_layers: 8, blur_filter: [1, 3, 3, 1], "
+        "truncation_psi: -1.}\n")
+    weights = tmp_path / "g.pth"
+    torch.save(p, weights)
+    out = tmp_path / "out"
+    args = generate_samples.parse_arguments([
+        "--config", str(yaml), "--generator_file", str(weights),
+        "--num_samples", "2", "--output_dir", str(out), "--device", "cpu",
+        "--seed", "3"])
+    generate_samples.main(args)
+    assert sorted(os.listdir(out)) == ["1.png", "2.png"]
+
+
+def test_the_trainer_refuses_stylegan2():
+    from stylegan_torch.train.trainer import StyleGAN
+    g_args = {"architecture": "stylegan2", "fmap_base": 512,
+              "blur_filter": [1, 3, 3, 1]}
+    with pytest.raises(ValueError, match="trains architecture 'stylegan1' "
+                       "only"):
+        StyleGAN("fixed", 32, 3, 512, g_args, {}, {}, {}, loss="logistic",
+                 device="cpu")
+
+
+def test_spatial_export_and_serving_refuse_stylegan2(model):
+    from stylegan_torch.parallel.mesh import Mesh
+    from stylegan_torch.parallel.spatial import build_spatial_sample_fn
+    from stylegan_torch.serving import export_generator
+    gen, _ = model
+    with pytest.raises(ValueError, match="does not support architecture "
+                       "'stylegan2'"):
+        export_generator(gen.cfg, gen, depth=3, batch_size=BATCH,
+                         platforms=("cpu",), spatial_devices=2)
+    with pytest.raises(ValueError, match="does not support architecture "
+                       "'stylegan2'"):
+        build_spatial_sample_fn(gen.cfg, gen, Mesh.__new__(Mesh), depth=3)
+
+
+def test_unknown_architecture_and_wrong_filter_are_refused():
+    with pytest.raises(ValueError, match="unknown architecture"):
+        generator_config_from_cfg(_cfg(architecture="stylegan3"))
+    with pytest.raises(ValueError, match="resample filter"):
+        generator_config_from_cfg(_cfg(blur_filter=[1, 2, 1]))
+
+
+def test_flops_equal_the_benchmark_counts():
+    from gpubench import counts2
+    from stylegan_torch.utils.flops import stylegan2_forward_flops
+    config = json.loads(open(os.path.join(
+        REPO, "gpubench", "configs", "stylegan2f-ffhq1024-f32.json")).read())
+    arch = config["architecture"]
+    assert stylegan2_forward_flops(1024) == counts2.serve_image(arch)
+    for res, base in ((32, 512), (256, 4096), (1024, 16384)):
+        a = dict(arch, resolution=res, fmap_base=base)
+        assert stylegan2_forward_flops(res, fmap_base=base) == \
+            counts2.serve_image(a)
+    total, conv = counts2.serve_image(arch)
+    assert round(total / 1e9, 2) == 150.67 and round(conv / 1e9, 2) == 150.66
+
+
+def test_epilogue_bytes_equal_the_benchmark_counts():
+    from gpubench import counts2
+    from stylegan_torch.ops.kernels import epilogue2 as k2
+    for b, h, c in ((8, 1024, 32), (8, 4, 512), (1, 64, 512)):
+        x = torch.empty((b, c, h, h), device="meta")
+        assert k2.bytes_moved(x) == counts2.epilogue2_bytes(b, h, h, c, 4)
+    assert len(counts2.epilogue2_shapes(dict(ARCH, resolution=1024,
+                                             fmap_base=16384))) == 17
+
+
+def test_the_benchmark_copy_of_the_reference_is_plainref(model):
+    from gpubench.reference import nets2
+    _, p = model
+    assert nets2.shapes(ARCH) == plain.shapes(ARCH)
+    z = torch.randn(BATCH, 512, generator=torch.Generator().manual_seed(12))
+    with torch.no_grad():
+        a = nets2.generator(p, ARCH, z, 4)
+        b = plain.generator(p, ARCH, z, 4)
+    assert torch.equal(a, b)
+    assert nets2.draw_noises(4, ARCH, 1, "cpu")[3].shape == (1, 1, 16, 16)
+

@@ -226,12 +226,18 @@ Phases, each fatal on failure:
            sample_ffhq_1024_stylegan2.yaml, seeded random weights): (a) the
            epilogue2 kernel against its plain version at the forward's 17
            planes, two calls bitwise equal, the 17 calls timed against
-           their bytes bound; (b) make_serving_fn's images against
+           their bytes bound; the up-layers' kernel (the FIR inside the
+           epilogue) against its plain version in float64 at the 8
+           up-layer planes, two calls bitwise equal, the 8 calls timed
+           against their bytes bound, beside the pair it replaces (the
+           depthwise FIR, then the epilogue2 kernel: library_ms) and the
+           plain version in float32; (b) make_serving_fn's images against
            plainref/stylegan2.py on the card (image_gap under 1e-4), 17
-           epilogue2 calls and CUDA launches a forward; (c) ms a request
-           (median of 12) and the kernels that take the most; (d) a
-           torch.export artifact against make_serving_fn.  It prints its
-           seconds.
+           epilogue2 calls a forward, 8 launches of the up-layers' kernel
+           and 17 of the two kernels; (c) ms a request (median of 12) and
+           the kernels that take the most, and no depthwise convolution
+           kernel; (d) a torch.export artifact against make_serving_fn.
+           It prints its seconds.
 
 `python3 chip_smoke.py --only 8 9 10 11 12 13 14` runs the build and just
 those phases (to try a change; no result lines).
@@ -4845,10 +4851,54 @@ def sg2_epilogue_kernel(dev, shapes):
             "bound_ms": round(bound_ms, 4), "share": round(bound_ms / ms, 4)}
 
 
+def sg2_epilogue_up_kernel(dev, shapes):
+    """(a) The up-layers' kernel against its plain version (the FIR, then
+    the epilogue) in float64 at the forward's 8 up-layer planes (y of
+    (BATCH, C, 2H+1, 2H+1)), two calls bitwise equal; the 8 calls timed by
+    CUDA events against their bytes bound, beside the pair they replace
+    (the depthwise FIR and the epilogue2 kernel, the main path before the
+    fusion: library_ms) and the plain version in float32."""
+    from stylegan_torch.ops.kernels import epilogue2 as k2
+    from stylegan_torch.ops.modconv import (_fir, _reference_epilogue2_up,
+                                            fir_kernel)
+    g = torch.Generator(device=dev).manual_seed(20)
+    fir = fir_kernel([1, 3, 3, 1], device=dev)
+    worst, calls, bound = 0.0, [], 0
+    for side, c in shapes:
+        args = (torch.randn((BATCH, c, side + 1, side + 1), generator=g,
+                            device=dev), fir,
+                torch.randn((BATCH, 1, side, side), generator=g, device=dev),
+                torch.randn((c,), generator=g, device=dev),
+                torch.randn((), generator=g, device=dev))
+        out = k2.epilogue2_up_forward(*args)
+        if not torch.equal(out, k2.epilogue2_up_forward(*args)):
+            fail(f"epilogue2_up not bitwise repeatable at {side}x{c}")
+        ref = _reference_epilogue2_up(*(t.double() for t in args))
+        worst = max(worst, float((out.double() - ref).abs().max()
+                                 / ref.abs().max()))
+        del out, ref
+        calls.append(args)
+        bound += k2.bytes_moved_up(args[0])
+    if worst > SG2_OP_TOL:
+        fail(f"epilogue2_up kernel vs plain: {worst:.3g} > {SG2_OP_TOL}")
+    torch.cuda.synchronize()
+    ms = cuda_time_ms(lambda: [k2.epilogue2_up_forward(*a) for a in calls])
+    library_ms = cuda_time_ms(lambda: [
+        k2.epilogue2_forward(_fir(a[0], a[1]), *a[2:]) for a in calls])
+    plain_ms = cuda_time_ms(lambda: [_reference_epilogue2_up(*a)
+                                     for a in calls])
+    bound_ms = bound / HBM_BYTES_PER_S * 1e3
+    return {"max_rel_err_vs_f64": worst, "calls_8_ms": round(ms, 4),
+            "bound_ms": round(bound_ms, 4), "share": round(bound_ms / ms, 4),
+            "library_ms": round(library_ms, 4),
+            "plain_ms": round(plain_ms, 4)}
+
+
 def sg2_top_kernels(serve, z, n=2, top=8):
     """The device ms a request of the kernels that take the most, over `n`
     profiled requests (summed durations: kernels that overlap count
-    twice)."""
+    twice); fails if a depthwise convolution kernel ran (the up-layers'
+    FIR is inside their epilogue kernel)."""
     from torch.profiler import ProfilerActivity, profile
     serve(z, 99)
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
@@ -4857,6 +4907,9 @@ def sg2_top_kernels(serve, z, n=2, top=8):
     rows = sorted(((e.key[:90], e.device_time_total / 1e3 / n)
                    for e in prof.key_averages() if e.device_time_total > 0),
                   key=lambda r: -r[1])
+    depthwise = [k for k, _ in rows if "conv_depthwise2d" in k]
+    if depthwise:
+        fail(f"a StyleGAN2 request ran a depthwise convolution: {depthwise}")
     return [[k, round(v, 3)] for k, v in rows[:top]]
 
 
@@ -4872,11 +4925,14 @@ def sg2_request_ms(serve, z, n):
 def phase_stylegan2(dev):
     """StyleGAN2 config F at 1024^2, batch 8 (configs/torch/
     sample_ffhq_1024_stylegan2.yaml, seeded random weights): (a) the
-    epilogue2 kernel against its plain version and its bytes bound; (b)
-    make_serving_fn's images against plainref/stylegan2.py on the card, and
-    the epilogue2 counters (17 calls and CUDA launches a forward); (c) ms a
-    request and the kernels that take the most; (d) a torch.export artifact
-    against make_serving_fn."""
+    epilogue2 kernel against its plain version and its bytes bound, the
+    up-layers' kernel against its plain version, its bytes bound and the
+    pair it replaces; (b) make_serving_fn's images against
+    plainref/stylegan2.py on the card, and the epilogue2 counters (17 calls
+    a forward, 8 launches of the up-layers' kernel and 17 of the two
+    kernels, counted where each launches); (c) ms a request
+    and the kernels that take the most; (d) a torch.export artifact against
+    make_serving_fn."""
     sys.path.insert(0, REPO)
     from plainref import stylegan2 as plain
     from stylegan_torch.serving import (export_generator, load_exported,
@@ -4891,17 +4947,22 @@ def phase_stylegan2(dev):
             "resample_filter": [1, 3, 3, 1]}
     shapes = [(plain.noise_res(i), cout) for i, (_, cout, _) in
               enumerate(plain.conv_channels(arch))]
-    out = {"kernel": sg2_epilogue_kernel(dev, shapes)}
+    out = {"kernel": sg2_epilogue_kernel(dev, shapes),
+           "kernel_up": sg2_epilogue_up_kernel(dev, shapes[1::2])}
     log(json.dumps({"phase14_kernel": out["kernel"]}))
+    log(json.dumps({"phase14_kernel_up": out["kernel_up"]}))
 
     serve = make_serving_fn(gen_cfg, gen, depth=DEPTH, device=dev)
     z = torch.randn((BATCH, 512), generator=torch.Generator().manual_seed(5))
-    counters["epilogue2.launches"] = counters["epilogue2.cuda_launches"] = 0
+    names = ("epilogue2.launches", "epilogue2.up_launches",
+             "epilogue2.cuda_launches")
+    for name in names:
+        counters[name] = 0
     images = serve(z, 7)
-    calls = (counters["epilogue2.launches"],
-             counters["epilogue2.cuda_launches"])
-    if calls != (17, 17):
-        fail(f"epilogue2 calls and CUDA launches a forward: {calls}")
+    calls = tuple(counters[name] for name in names)
+    if calls != (17, 8, 17):
+        fail(f"epilogue2 calls, up-layer kernel launches and both kernels' "
+             f"launches a forward: {calls}")
     p = {k: v.to(dev) for k, v in sd.items()}
     with torch.no_grad():
         ref = plain.generator(p, arch, z.to(dev), 7)
@@ -4913,7 +4974,8 @@ def phase_stylegan2(dev):
         fail(f"StyleGAN2 forward vs plainref: image_gap {gap:.3g}")
     out["forward"] = {"image_gap": gap, "image_rms_gap": rms,
                       "epilogue2_calls": calls[0],
-                      "epilogue2_cuda_launches": calls[1],
+                      "epilogue2_up_launches": calls[1],
+                      "epilogue2_cuda_launches": calls[2],
                       "parameters": sum(v.numel() for v in sd.values())}
     log(json.dumps({"phase14_forward": out["forward"]}))
 

@@ -5,7 +5,9 @@ arXiv:1912.04958; NVlabs/stylegan2 ``G_synthesis_stylegan2`` with
 * A learned 4x4 constant, then per resolution a 3x3 modulated
   up-convolution (not at 4x4) and a 3x3 modulated convolution, each
   followed by the layer epilogue sqrt(2) * lrelu(x + strength * noise + b,
-  0.2) (``ops/modconv.py``): 2 log2(res) - 3 layers (17 at 1024^2).
+  0.2) (``ops/modconv.py``): 2 log2(res) - 3 layers (17 at 1024^2), of
+  which log2(res) - 2 (8) are up-layers, whose epilogue applies the
+  up-convolution's FIR too (`layer_epilogue_up`).
 * 2 log2(res) - 2 W inputs (18): layer i takes W[i]; the toRGB at
   resolution 2^k takes W[2k - 3], the index of the next block's first
   layer.
@@ -38,8 +40,8 @@ from torch import nn
 
 from ..ops import EqualizedLinear
 from ..ops.modconv import (demodulation, fir_kernel, layer_epilogue,
-                           modulate_weight, modulated_conv2d, modulation,
-                           skip_upsample)
+                           layer_epilogue_up, modulate_weight,
+                           modulated_conv2d, modulation, skip_upsample)
 from ..utils.profiling import span
 from .configs import SynthesisConfig
 from .synthesis import make_noise
@@ -134,7 +136,11 @@ class GSynthesis2(nn.Module):
 
         def layer(i, x):
             m = self.layers[i]
-            y = modulated_conv2d(x, kernels[i], up=i % 2 == 1, fir=self.fir)
+            if i % 2 == 1:
+                y = modulated_conv2d(x, kernels[i], up=True)
+                return layer_epilogue_up(y, self.fir, noise(i), m.bias,
+                                         m.noise_strength)
+            y = modulated_conv2d(x, kernels[i])
             return layer_epilogue(y, noise(i), m.bias, m.noise_strength)
 
         def to_rgb(j, x):

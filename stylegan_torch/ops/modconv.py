@@ -14,18 +14,26 @@ and ``dnnlib/tflib/ops/upfirdn_2d.py``), on contiguous NCHW tensors.
   and `* d` after it, on the card (PERF.md).
 * The up-convolution: a stride-2 transposed convolution of the spatially
   flipped kernel (the TF original's flip, so that converted kernels load
-  as they are), (2H+1) wide, then the 4x4 FIR at gain 4 with one pixel of
-  padding a side, as a depthwise convolution: 2H wide.  The skip
-  output's upsample is the FIR alone at up 2, padding (2, 1), as a
-  depthwise transposed convolution (`skip_upsample`).
-* The layer epilogue: sqrt(2) * lrelu(x + strength * noise + b, 0.2)
-  (`layer_epilogue`), through the ``stylegan_torch::epilogue2`` op: the
-  CUDA kernel on the card (``ops/kernels/epilogue2.py``), the plain version
-  `_reference_epilogue2` on the CPU, which this module registers.
+  as they are), (2H+1) wide (`modulated_conv2d` with `up`), then the 4x4
+  FIR at gain 4 with one pixel of padding a side: 2H wide (`_fir`, a
+  depthwise convolution).  The skip output's upsample is the FIR alone at
+  up 2, padding (2, 1), as a depthwise transposed convolution
+  (`skip_upsample`).
+* The layer epilogue: sqrt(2) * lrelu(x + strength * noise + b, 0.2).  A
+  same-size layer's (`layer_epilogue`) goes through the
+  ``stylegan_torch::epilogue2`` op; an up-layer's (`layer_epilogue_up`)
+  takes the up-convolution's (2H+1)^2 output and applies the FIR first,
+  through the ``stylegan_torch::epilogue2_up`` op, so that the FIR's
+  (2H)^2 plane is never written.  Each op is a CUDA kernel on the card
+  (``ops/kernels/epilogue2.py``) and its plain version on the CPU
+  (`_reference_epilogue2`, after `_fir` for the up-layers), which this
+  module registers.
 
 The convolutions are cuDNN's on the card; a transposed convolution there
 need not sum in a fixed order, so a replayed StyleGAN2 request may differ
-from the first in its last bits.
+from the first in its last bits.  ``epilogue2.launches`` in
+``utils.profiling.counters`` counts every layer epilogue's calls, on either
+device; ``ops/kernels/epilogue2.py`` counts its kernels' launches.
 """
 
 from __future__ import annotations
@@ -38,7 +46,8 @@ import torch.nn.functional as F
 
 from ..utils.profiling import counters
 from .kernels.epilogue import needs_grad
-from .kernels.epilogue2 import check_inputs, epilogue2_op
+from .kernels.epilogue2 import (check_inputs, check_inputs_up, epilogue2_op,
+                                epilogue2_up_op)
 from .linear import equalized_scales
 
 SQRT2 = math.sqrt(2.0)
@@ -87,19 +96,19 @@ def modulate_weight(weight: torch.Tensor, s: torch.Tensor,
 
 
 def modulated_conv2d(x: torch.Tensor, ww: torch.Tensor, *,
-                     up: bool = False,
-                     fir: Optional[torch.Tensor] = None) -> torch.Tensor:
+                     up: bool = False) -> torch.Tensor:
     """The modulated convolution in its fused form: x (B, cin, H, W) with
     the per-sample kernels `ww` (`modulate_weight`) as one grouped
-    convolution (groups = B), SAME padding; with `up` the up-convolution
-    and its FIR.  Returns contiguous NCHW."""
+    convolution (groups = B), SAME padding; with `up` the transposed
+    up-convolution, (B, cout, 2H+1, 2W+1), whose FIR `layer_epilogue_up`
+    applies.  Returns contiguous NCHW."""
     b, cin, h, w = x.shape
     cout, k = ww.shape[1], ww.shape[-1]
     x = x.contiguous().reshape(1, b * cin, h, w)
     if up:
         wt = ww.flip(3, 4).transpose(1, 2).reshape(b * cin, cout, k, k)
         y = F.conv_transpose2d(x, wt, stride=2, groups=b)
-        return _fir(y.reshape(b, cout, 2 * h + 1, 2 * w + 1), fir)
+        return y.reshape(b, cout, 2 * h + 1, 2 * w + 1)
     y = F.conv2d(x, ww.reshape(b * cout, cin, k, k), padding=k // 2,
                  groups=b)
     return y.reshape(b, cout, h, w)
@@ -119,22 +128,49 @@ def _reference_epilogue2(x, noise, bias, strength):
     return F.leaky_relu(x, 0.2) * SQRT2
 
 
+def _reference_epilogue2_up(y, fir, noise, bias, strength):
+    """The up-layer epilogue's plain version: the FIR, then the epilogue."""
+    return _reference_epilogue2(_fir(y, fir), noise, bias, strength)
+
+
+@epilogue2_up_op.register_kernel("cpu")
+def _(y, fir, noise, bias, strength):
+    check_inputs_up(y, fir, noise, bias, strength)
+    return _reference_epilogue2_up(y, fir, noise, bias, strength)
+
+
 epilogue2_op.register_kernel("cpu")(_reference_epilogue2)
+
+
+def _dispatch(op, plain, check, *args):
+    """Through `op` without a gradient to record (the kernel on the card);
+    on the CPU under autograd `plain`, differentiable; on the card under
+    autograd raise (the kernels have no backward)."""
+    counters["epilogue2.launches"] += 1
+    if needs_grad(*args):
+        if args[0].device.type == "cuda":
+            raise RuntimeError("StyleGAN2's epilogue kernel has no backward: "
+                               "the port serves StyleGAN2 and does not train "
+                               "it")
+        check(*args)
+        return plain(*args)
+    return op(*args)
 
 
 def layer_epilogue(x: torch.Tensor, noise: torch.Tensor, bias: torch.Tensor,
                    strength: torch.Tensor) -> torch.Tensor:
     """sqrt(2) * lrelu(x + strength * noise + bias, 0.2) of x (B, C, H, W),
-    noise (B, 1, H, W), bias (C,), strength 0-d.  Through the op without a
-    gradient to record (the kernel on the card); on the CPU under autograd
-    the plain version, differentiable; on the card under autograd it
-    raises (the kernel has no backward)."""
-    counters["epilogue2.launches"] += 1
-    if needs_grad(x, noise, bias, strength):
-        if x.device.type == "cuda":
-            raise RuntimeError("StyleGAN2's epilogue kernel has no backward: "
-                               "the port serves StyleGAN2 and does not train "
-                               "it")
-        check_inputs(x, noise, bias, strength)
-        return _reference_epilogue2(x, noise, bias, strength)
-    return epilogue2_op(x, noise, bias, strength)
+    noise (B, 1, H, W), bias (C,), strength 0-d (`_dispatch`)."""
+    return _dispatch(epilogue2_op, _reference_epilogue2, check_inputs, x,
+                     noise, bias, strength)
+
+
+def layer_epilogue_up(y: torch.Tensor, fir: torch.Tensor, noise: torch.Tensor,
+                      bias: torch.Tensor, strength: torch.Tensor
+                      ) -> torch.Tensor:
+    """sqrt(2) * lrelu(FIR(y) + strength * noise + bias, 0.2) of an
+    up-convolution's y (B, C, 2H+1, 2H+1), fir (4, 4) (`fir_kernel`),
+    noise (B, 1, 2H, 2H), bias (C,), strength 0-d: (B, C, 2H, 2H)
+    (`_dispatch`)."""
+    return _dispatch(epilogue2_up_op, _reference_epilogue2_up,
+                     check_inputs_up, y, fir, noise, bias, strength)

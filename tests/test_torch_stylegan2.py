@@ -1,12 +1,19 @@
 """StyleGAN2 config F on the port's serving path, held to the plain
 reference (plainref/stylegan2.py) on seeded random weights at 32^2
 (fmap_base 512, batch 2) on the CPU: the whole generator, each op alone
-(the modulated conv with and without demodulation, the up-convolution, the
-skip upsample, the epilogue against its equation), the mapping's gain placement, and one fault (a
-dropped demodulation) that the comparison catches.  Besides: the
-benchmark's copy of the reference and its frozen counts, the published
-parameter count, the serving entry points, and the refusals of what does
-not support StyleGAN2."""
+(the modulated conv with and without demodulation, the up-convolution and
+its FIR, the skip upsample, the epilogue against its equation, the
+up-layers' epilogue against the FIR and the epilogue), the mapping's gain
+placement, and one fault (a dropped demodulation) that the comparison
+catches.  Besides: the benchmark's copy of the reference and its frozen
+counts, the published parameter count, the serving entry points, and the
+refusals of what does not support StyleGAN2.
+
+The tests marked ``card`` hold the CUDA kernels to their plain versions on
+an NVIDIA GPU and skip without one.  The file imports no JAX, so they run
+without tests/conftest.py:
+``python -m pytest tests/test_torch_stylegan2.py -q -m card --noconftest``.
+"""
 
 import json
 import math
@@ -15,6 +22,7 @@ import os
 import pytest
 import torch
 import torch.nn.functional as F
+from torch._subclasses.fake_tensor import FakeTensorMode
 
 from plainref import stylegan2 as plain
 from stylegan_torch.config import get_default_cfg
@@ -34,6 +42,10 @@ ARCH = {"resolution": RES, "latent_size": 512, "dlatent_size": 512,
 # (17 layers deep at 1024^2, 7 here) at the same relative bar over their
 # largest magnitude
 ATOL, RTOL = 1e-5, 1e-4
+# a kernel on the card against its plain version: the widest gap over the
+# plain version's largest magnitude (chip_smoke.py's SG2_OP_TOL)
+SG2_OP_TOL = 1e-5
+FIR = [1, 3, 3, 1]
 
 
 def _cfg(res=RES, fmap_base=FMAP_BASE, **gen):
@@ -120,8 +132,9 @@ def _port_modconv(p, x, w, demodulate, up):
     s = modconv.modulation(affine, w)
     weight = p["l.weight"]
     d = modconv.demodulation(weight, s) if demodulate else None
-    return modconv.modulated_conv2d(x, modconv.modulate_weight(weight, s, d),
-                                    up=up, fir=modconv.fir_kernel([1, 3, 3, 1]))
+    y = modconv.modulated_conv2d(x, modconv.modulate_weight(weight, s, d),
+                                 up=up)
+    return modconv._fir(y, modconv.fir_kernel(FIR)) if up else y
 
 
 @pytest.mark.parametrize("cin,cout", [(64, 32), (16, 48)])
@@ -150,19 +163,101 @@ def test_a_dropped_demodulation_fails_the_comparison(up):
 
 def test_the_up_convolution_is_the_flipped_transposed_conv_and_fir():
     """The TF form written out: zeros inserted, the unflipped kernel
-    correlated (the transposed conv of the flipped one), then the FIR."""
+    correlated (the transposed conv of the flipped one), then the FIR.  The
+    port splits it: the up-convolution (`modulated_conv2d` with `up`, the
+    (2H+1)^2 plane) and the FIR inside the up-layers' epilogue
+    (`layer_epilogue_up`, here with no noise and no bias)."""
     g = torch.Generator().manual_seed(5)
     x = torch.randn(1, 3, 5, 5, generator=g)
     k = torch.randn(4, 3, 3, 3, generator=g)
-    fir = modconv.fir_kernel([1, 3, 3, 1])
-    got = modconv._fir(F.conv_transpose2d(
-        x, k.flip(2, 3).transpose(0, 1), stride=2), fir)
+    fir = modconv.fir_kernel(FIR)
+    y = modconv.modulated_conv2d(x, k[None], up=True)
     stuffed = torch.zeros(1, 3, 9, 9)
     stuffed[:, :, ::2, ::2] = x
     wide = F.conv2d(F.pad(stuffed, [2, 2, 2, 2]), k)
-    assert wide.shape[-1] == 11
-    ref = plain.upfirdn(wide, plain.fir([1, 3, 3, 1]) * 4, 1, 1, 1)
-    torch.testing.assert_close(got, ref, rtol=RTOL, atol=ATOL)
+    assert y.shape == wide.shape == (1, 4, 11, 11)
+    torch.testing.assert_close(y, wide, rtol=RTOL, atol=ATOL)
+    ref = plain.upfirdn(wide, plain.fir(FIR) * 4, 1, 1, 1)
+    torch.testing.assert_close(modconv._fir(y, fir), ref, rtol=RTOL,
+                               atol=ATOL)
+    with torch.no_grad():
+        got = modconv.layer_epilogue_up(y, fir, torch.zeros(1, 1, 10, 10),
+                                        torch.zeros(4), torch.zeros(()))
+    torch.testing.assert_close(got, math.sqrt(2) * F.leaky_relu(ref, 0.2),
+                               rtol=RTOL, atol=ATOL)
+
+
+def _up_inputs(b, c, h, seed=0, device="cpu"):
+    """An up-layer's epilogue inputs: y (b, c, 2h+1, 2h+1), the FIR, noise
+    (b, 1, 2h, 2h), bias (c,), strength; drawn on `device`."""
+    g = torch.Generator(device=device).manual_seed(seed)
+
+    def draw(*shape):
+        return torch.randn(shape, generator=g, device=device)
+    return (draw(b, c, 2 * h + 1, 2 * h + 1),
+            modconv.fir_kernel(FIR, device=device), draw(b, 1, 2 * h, 2 * h),
+            draw(c), torch.tensor(-0.7, device=device))
+
+
+@pytest.mark.parametrize("b,c,h", [(2, 16, 4), (1, 3, 2), (1, 7, 8),
+                                   (3, 5, 1), (2, 1, 16)])
+def test_epilogue_up_op_is_the_fir_then_the_epilogue(b, c, h):
+    """The up-layers' op on the CPU is the plain composition, bitwise, and
+    the equation written out, with no kernel launch counted; under
+    autograd the wrapper is the plain composition and differentiable."""
+    args = _up_inputs(b, c, h, seed=b * 100 + c)
+    y, fir, noise, bias, st = args
+    want = modconv._reference_epilogue2(modconv._fir(y, fir), noise, bias, st)
+    before = dict(counters)
+    with torch.no_grad():
+        got = modconv.layer_epilogue_up(*args)
+    assert got.shape == (b, c, 2 * h, 2 * h)
+    assert torch.equal(got, want)
+    assert torch.equal(torch.ops.stylegan_torch.epilogue2_up(*args), want)
+    assert [counters[k] - before.get(k, 0) for k in (
+        "epilogue2.launches", "epilogue2.up_launches",
+        "epilogue2.cuda_launches")] == [1, 0, 0]
+    v = plain.upfirdn(y, plain.fir(FIR) * 4, 1, 1, 1) + st * noise \
+        + bias[None, :, None, None]
+    torch.testing.assert_close(got, math.sqrt(2) * torch.where(v < 0, 0.2 * v,
+                                                               v),
+                               rtol=RTOL, atol=ATOL)
+    yg = y.clone().requires_grad_(True)
+    out = modconv.layer_epilogue_up(yg, fir, noise, bias, st)
+    assert torch.equal(out.detach(), want)
+    out.sum().backward()
+    assert yg.grad is not None and yg.grad.shape == y.shape
+
+
+def test_epilogue_up_fake_gives_the_fir_shape():
+    args = _up_inputs(2, 6, 8)
+    with FakeTensorMode() as mode:
+        out = torch.ops.stylegan_torch.epilogue2_up(
+            *(mode.from_tensor(t) for t in args))
+        assert (out.shape, out.dtype) == ((2, 6, 16, 16), torch.float32)
+    meta = [t.to("meta") for t in args]
+    assert torch.ops.stylegan_torch.epilogue2_up(*meta).shape == (2, 6, 16,
+                                                                   16)
+
+
+def test_epilogue_up_op_refuses_what_is_not_an_up_plane():
+    from stylegan_torch.ops.kernels import epilogue2 as k2
+    y, fir, noise, bias, st = _up_inputs(2, 4, 4)
+    for bad in (y[..., :-1, :-1].contiguous(), y[..., :-1].contiguous(),
+                y[..., :1, :1].contiguous(), y[..., :-2].contiguous()):
+        with pytest.raises(ValueError, match="up-convolution"):
+            k2.check_inputs_up(bad, fir, noise, bias, st)
+        with pytest.raises(ValueError, match="up-convolution"):
+            torch.ops.stylegan_torch.epilogue2_up(bad, fir, noise, bias, st)
+    with pytest.raises(ValueError, match="noise"):
+        k2.check_inputs_up(y, fir, noise[..., :-1, :-1].contiguous(), bias,
+                           st)
+    with pytest.raises(ValueError, match="fir"):
+        k2.check_inputs_up(y, fir[:3], noise, bias, st)
+    with pytest.raises(ValueError, match="y must be contiguous"):
+        k2.check_inputs_up(y.transpose(2, 3), fir, noise, bias, st)
+    with pytest.raises(ValueError, match="CUDA"):
+        k2.epilogue2_up_forward(y, fir, noise, bias, st)
 
 
 def test_skip_upsample_matches_upfirdn():
@@ -229,15 +324,25 @@ def test_mapping_places_the_gain_after_the_activation():
                                atol=ATOL)
 
 
-def test_counters_and_noise_layers(model):
+def test_counters_and_noise_layers(model, monkeypatch):
+    """2 log2(res) - 3 layer epilogues a forward, log2(res) - 2 of them
+    the up-layers' (17 and 8 at 1024^2); no kernel launch on the CPU."""
     gen, _ = model
+    up_calls = []
+
+    def counted(*args):
+        up_calls.append(args[0].shape)
+        return modconv.layer_epilogue_up(*args)
+    monkeypatch.setattr(synthesis2, "layer_epilogue_up", counted)
     before = dict(counters)
     with torch.no_grad():
         gen(torch.randn(BATCH, 512), depth=3, seed=1)
-    assert counters["epilogue2.launches"] - before.get(
-        "epilogue2.launches", 0) == 2 * 5 - 3
-    assert counters["epilogue2.cuda_launches"] == before.get(
-        "epilogue2.cuda_launches", 0)
+    log2 = RES.bit_length() - 1
+    assert [counters[k] - before.get(k, 0) for k in (
+        "epilogue2.launches", "epilogue2.up_launches",
+        "epilogue2.cuda_launches")] == [2 * log2 - 3, 0, 0]
+    assert [s[-1] for s in up_calls] == [2 ** k + 1 for k in range(3, log2
+                                                                   + 1)]
     from stylegan_torch.serving import _noise_layers
     assert _noise_layers(gen.cfg, 3) == len(gen.g_synthesis.layers) == 7
     assert [synthesis2.noise_resolution(i) for i in range(7)] == \
@@ -266,7 +371,13 @@ def test_serving_is_deterministic_and_exports(model):
     assert torch.equal(a, b) and not torch.equal(a, c)
     blob = export_generator(gen.cfg, gen, depth=3, batch_size=BATCH,
                             platforms=("cpu",))
-    assert torch.equal(load_exported(blob, device="cpu")(z, 5), a)
+    exported = load_exported(blob, device="cpu")
+    assert torch.equal(exported(z, 5), a)
+    targets = [n.target for n in exported.exported.graph.nodes
+               if n.op == "call_function"]
+    ops = torch.ops.stylegan_torch
+    assert (targets.count(ops.epilogue2.default),
+            targets.count(ops.epilogue2_up.default)) == (4, 3)
 
 
 def test_generate_samples_cli(tmp_path, model):
@@ -356,3 +467,54 @@ def test_the_benchmark_copy_of_the_reference_is_plainref(model):
     assert torch.equal(a, b)
     assert nets2.draw_noises(4, ARCH, 1, "cpu")[3].shape == (1, 1, 16, 16)
 
+
+
+@pytest.fixture
+def card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    return torch.device("cuda")
+
+
+# (output side, channels) of the 8 up-layers of a config F 1024^2 forward
+UP_LAYERS_1024 = [(8, 512), (16, 512), (32, 512), (64, 512), (128, 256),
+                  (256, 128), (512, 64), (1024, 32)]
+# (b, c, h) of (b, c, 2h+1, 2h+1) planes off the main path, each with an
+# output side not a multiple of 4 (scalar stores): fewer planes than a
+# block's group, one column tile, two column tiles, a single 2x2 output
+UP_RAGGED = [(3, 5, 3), (2, 3, 33), (1, 2, 65), (1, 1, 1)]
+
+
+def _held_to_the_plain_version(args):
+    """The kernel's output twice (bitwise equal) against the plain version
+    in float64: the widest gap over the plain version's largest
+    magnitude."""
+    from stylegan_torch.ops.kernels import epilogue2 as k2
+    names = ("epilogue2.up_launches", "epilogue2.cuda_launches")
+    before = [counters[k] for k in names]
+    out = k2.epilogue2_up_forward(*args)
+    again = k2.epilogue2_up_forward(*args)
+    torch.cuda.synchronize()
+    assert [counters[k] - n for k, n in zip(names, before)] == [2, 2]
+    assert torch.equal(out, again)
+    ref = modconv._reference_epilogue2_up(*(t.double() for t in args))
+    return float((out.double() - ref).abs().max() / ref.abs().max())
+
+
+@pytest.mark.card
+@pytest.mark.parametrize("batch", [8, 1])
+def test_on_the_card_the_up_kernel_is_its_plain_version(card, batch):
+    """At the 8 up-layer planes of a 1024^2 forward: bitwise repeatable,
+    within SG2_OP_TOL of the FIR and the epilogue in float64."""
+    for side, c in UP_LAYERS_1024:
+        gap = _held_to_the_plain_version(
+            _up_inputs(batch, c, side // 2, seed=side, device=card))
+        assert gap <= SG2_OP_TOL, (side, c, gap)
+
+
+@pytest.mark.card
+@pytest.mark.parametrize("b,c,h", UP_RAGGED)
+def test_on_the_card_the_up_kernel_takes_ragged_planes(card, b, c, h):
+    gap = _held_to_the_plain_version(
+        _up_inputs(b, c, h, seed=h, device=card))
+    assert gap <= SG2_OP_TOL

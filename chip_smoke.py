@@ -1,7 +1,13 @@
 #!/usr/bin/env python3
-"""Smoke run of the PyTorch/CUDA port (stylegan_torch) on one NVIDIA card.
+"""On-card correctness check of the PyTorch/CUDA port (stylegan_torch) on
+one NVIDIA card, with device timings of its hand-written kernels.
 
     python3 chip_smoke.py
+
+It holds the CUDA kernels and the served and trained networks to their plain
+versions, the CPU and float64, counts the kernels' calls and launches, and
+times each kernel against its bytes bound.  End-to-end speed (img/s, ms a
+request or a step, MFU, idle shares) is gpubench's: python3 -m gpubench.run.
 
 Phases, each fatal on failure:
 
@@ -26,11 +32,10 @@ Phases, each fatal on failure:
            batch 8 at 1024^2 through make_serving_fn, check shapes, finiteness
            and 18 kernel calls per forward, and hold the first 2 images of a
            request to the same generator on the CPU (plain path, TF32 off) at
-           max |diff| <= 1e-2; profile one more forward (torch.profiler) and
-           write its device-time table by kernel to build/chip_smoke/; each
-           epilogue kernel must show in it as many launches as the wrapper
-           made (26 per forward), each with device time;
-4. cli     save the weights as a JAX-package .npz and run
+           max |diff| <= 1e-2; profile one more forward (torch.profiler): each
+           epilogue kernel must show in it as many launches as the plans
+           make (26 per forward), each with device time;
+4. cli     save the same weights as a JAX-package .npz and run
            `python -m stylegan_torch.cli.generate_samples` on them;
 5. train   (a) the epilogue's backward kernels against autograd of the plain
            version at the 9 epilogue shapes, batch 2 and 8, float32 and
@@ -39,34 +44,28 @@ Phases, each fatal on failure:
            (graph replay, cold L2, eager; the plain VJP in float32) against
            the bytes bound; and at batch 1 as projection asks it (dx and
            dstyle only, the plan without dnoise), timed, with its plan;
-           (b) FFHQ-1024 training at
-           depth 8, batch 2 (sched.batch_sizes[8]), loss logistic with R1,
-           alpha 0.5, seeded random weights and seeded numpy reals: a warm-up
-           step, 3 timed steps (ms per step, img/s, peak memory, finite
-           losses), 36 forward and 18 backward epilogue kernel calls per step
-           with the CUDA launches the plans make, no call of the plain
-           version, the backward calls whose incoming gradient had to be
-           copied to NHWC, a profiled step (device time by op into
-           build/chip_smoke/, each epilogue kernel as often as the plans
-           launch it), then one relativistic-hinge step; (c) one depth-5
-           step of the same model on the card and on the CPU with the draws
-           pinned (and on the CPU in float64 as the ground truth): losses,
-           gradients and weights within the stated bars;
+           (b) FFHQ-1024 training at depth 8, batch 2 (sched.batch_sizes[8]),
+           loss logistic with R1, alpha 0.5, seeded random weights and seeded
+           numpy reals: 3 steps (finite losses, peak memory), 36 forward and
+           18 backward epilogue kernel calls per step with the CUDA launches
+           the plans make, no call of the plain version, the backward calls
+           whose incoming gradient had to be copied to NHWC, a profiled step
+           (each epilogue kernel as often as the plans launch it), then one
+           relativistic-hinge step; (c) one depth-5 step of the same model on
+           the card and on the CPU with the draws pinned (and on the CPU in
+           float64 as the ground truth): losses, gradients and weights within
+           the stated bars;
 6. trainer (a) progressive FFHQ-1024 training through StyleGAN.train (the
            yaml with one epoch per depth) from 24 seeded 1024^2 PNGs in two
-           folders: the decoder in use (native or PIL) and the loader's
-           decode rate; depths 7 (batch 4) and 8 (batch 2), fade 50%, grids
-           at least twice per depth (2051x2051x3), the five checkpoint files
-           of tags 7_1 and 8_1, finite losses, 32/16 (depth 7) and 36/18
-           (depth 8) forward/backward epilogue calls per step plus the
-           feedback forwards, no plain call, every batch on the card bitwise
-           equal to the loader's numpy batch (the pinned ring), and the
-           depth-8 windowed img/s of metrics.jsonl beside phase 5(b)'s bare
-           step, with the host's ms per step in those windows (waiting for
-           the loader, the pinned copy, train_on_batch, the wait for the
-           device) and the same trainer's steps on a batch already on the
-           card with no loader running; (b) restore_full_state into a fresh trainer, bitwise (every
-           tensor, moment and step, update_count), one more step with
+           folders: the decoder in use (native or PIL); depths 7 (batch 4)
+           and 8 (batch 2), fade 50%, grids at least twice per depth
+           (2051x2051x3), the five checkpoint files of tags 7_1 and 8_1,
+           finite losses and throughput windows at depth 8 in metrics.jsonl,
+           32/16 (depth 7) and 36/18 (depth 8) forward/backward epilogue
+           calls per step plus the feedback forwards, no plain call, every
+           batch on the card bitwise equal to the loader's numpy batch (the
+           pinned ring); (b) restore_full_state into a fresh trainer, bitwise
+           (every tensor, moment and step, update_count), one more step with
            fetch=False under CUDA's sync debug mode set to error; the train
            CLI (--start_depth 8 and the five _8_1 files, 4 images) in a
            subprocess, and the sample CLI on its GAN_GEN_SHADOW_8_1.npz;
@@ -93,70 +92,59 @@ Phases, each fatal on failure:
            non-zero noise weights, eval mode, float32 with TF32 off):
            (a) one served request under utils.profiling.trace, whose trace
            JSON (build/chip_smoke/serve_trace/) must list each epilogue
-           kernel as often as the wrapper launched it; (b) mfu_fields of
-           phase 3's img/s and phase 5(b)'s step against the card's float32
-           peak, beside its name and power limit; (c) export_generator at
-           batch 8 on the card: size, export and load wall time, 3
-           requests through load_exported, each bitwise equal to
-           make_serving_fn, and one request served twice bitwise equal,
-           with cuDNN's default algorithms (the fused upscale runs as a
-           sub-pixel convolution where no gradient is recorded),
+           kernel as often as the wrapper launched it; (b) export_generator
+           at batch 8 on the card: 3 requests through load_exported, each
+           bitwise equal to make_serving_fn, and one request served twice
+           bitwise equal, with cuDNN's default algorithms (the fused upscale
+           runs as a sub-pixel convolution where no gradient is recorded),
            18 nodes of the forward op and 18 kernel calls per request, no
-           plain call, img/s beside phase 3's; a batch-2 depth-5 artifact
-           exported on the card and run on the CPU within 1e-2; (d) project
-           at 1024^2, W+, 100 steps on the generator's own image of a W near
-           w_avg: 18 x 101 forward and 18 x 100 backward kernel calls, no
-           plain call, the loss curve falling, ms per step, the device's
-           busy share in one profiled step; (e) 5 steps at
-           depth 5 on the card, the CPU and the CPU in float64 with pinned
-           draws: the losses at w_avg, the first step's gradient and W
-           after the 5 steps (bars stated at CHECK_W_FACTOR); (f) the
-           project and export_generator --check CLIs and generate_samples
-           --input on (d)'s w.npy, as subprocesses on the card;
+           plain call; a batch-2 depth-5 artifact exported on the card and
+           run on the CPU within 1e-2; (c) project at 1024^2, W+, 100 steps
+           on the generator's own image of a W near w_avg: 18 x 101 forward
+           and 18 x 100 backward kernel calls, no plain call, the loss curve
+           falling; (d) 5 steps at depth 5 on the card, the CPU and the CPU in
+           float64 with pinned draws: the losses at w_avg, the first step's
+           gradient and W after the 5 steps (bars stated at CHECK_W_FACTOR);
+           (e) the project and export_generator --check CLIs and
+           generate_samples --input on (c)'s w.npy, as subprocesses on the
+           card;
 9. bf16    configs/sample_ffhq_1024_tpu_perf.yaml (bf16 activations, float32
            parameters): (a) phase 3's generator on bf16 z, batch 8 at
-           1024^2: img/s beside the float32 forward's, 18 kernel calls per
-           forward and no plain call, the drift from float32 on the same z
-           and pinned noise within tests/test_bf16.py's bars (mean |diff|
-           < 0.02, max < 0.25 of the span), two runs bitwise equal, and
-           img/s with the dense layers' float32 product (the port's, as
-           JAX's) and with a bf16 GEMM in their place, in turns;
-           (b) the perf config's trainer at depth 8, batch 2 (logistic,
-           lazy R1 at 16, remat, fused scoring on the off-steps): an R1
-           step and an off-step, 3 timed each after a warm-up, beside
-           phase 5(b)'s float32 step timed before and after them; each
-           step's epilogue calls in its D update (18 forward) and G
-           update (18 forward, 16 recomputed, 18 backward), no plain call,
-           one profiled step of each (device busy share, the kernels' time
-           inside it) and the MFU against the bf16 peak; float32
-           parameters after; (c) one depth-5 R1 step on the card and on
-           the CPU in bf16 and on the CPU in float64, draws pinned: losses
-           and each gradient within the bars at BF16_LOSS_RTOL; (d) the
-           train CLI on a copy of the perf yaml over 24 seeded 1024^2
-           PNGs, depths 7 and 8: finite losses, float32 checkpoints, the
-           depth-8 windowed img/s.  It prints its seconds.
+           1024^2: 18 kernel calls per forward and no plain call, the drift
+           from float32 on the same z and pinned noise within
+           tests/test_bf16.py's bars (mean |diff| < 0.02, max < 0.25 of the
+           span), two runs bitwise equal; (b) the perf config's trainer at
+           depth 8, batch 2 (logistic, lazy R1 at 16, remat, fused scoring on
+           the off-steps): 3 R1 steps and 3 off-steps, finite losses, each
+           step's epilogue calls in its D update (18 forward) and G update
+           (18 forward, 16 recomputed, 18 backward), no plain call, one
+           profiled step of each (the kernels as the plans launch them, and
+           their device time inside it); float32 parameters after; (c) one
+           depth-5 R1 step on the card and on the CPU in bf16 and on the CPU
+           in float64, draws pinned: losses and each gradient within the bars
+           at BF16_LOSS_RTOL; (d) the train CLI on a copy of the perf yaml
+           over 24 seeded 1024^2 PNGs, depths 7 and 8: finite losses, float32
+           checkpoints;
 10. parallel data parallelism on FFHQ-1024 (stylegan_torch/parallel, the
            mesh= step): (a) a world of one rank over NCCL, the mesh= step at
            depth 8, batch 2, logistic + R1: its first step's losses and
            gradients, under cuDNN's deterministic algorithms, bitwise equal
            to two runs of the mesh=None step on the same inputs and draws
            (a tensor that is not is named, and held to 10x the two plain
-           runs' spread), then 3 timed steps (ms per
-           step beside 5(b)'s), 36 forward and 18 backward kernel calls per
-           step, no plain call; (b) two ranks spawned on the one card over
-           gloo (NCCL refuses two ranks on one device), the same step at
-           global batch 4 (2 per rank), a warm-up and 3 steps: after each,
-           the two ranks' parameters, buffers (the W-average), Adam moments
-           and counts and EMA shadow bitwise equal (sha256), finite losses,
-           each rank's kernel calls as (a)'s, no plain call, ms per step of
-           two ranks sharing one card (a correctness run, not a scaling
-           figure); (c) the two ranks' depth-5 step against the one-process
-           step on the global batch with chunks=2 minibatch stddev, draws
-           pinned, on the card and on the CPU in float64: phase 5(c)'s
-           bars; (d) the train CLI under `torchrun --standalone
-           --nproc_per_node 1` (NCCL) on 8 seeded 1024^2 PNGs, depths 7-8:
-           finite losses, the checkpoint files written once.  It prints its
-           seconds.
+           runs' spread), then 3 steps with 36 forward and 18 backward
+           kernel calls per step, no plain call; (b) two ranks spawned on the
+           one card over gloo (NCCL refuses two ranks on one device), the
+           same step at global batch 4 (2 per rank), a first step and 3 more:
+           after each, the two ranks' parameters, buffers (the W-average),
+           Adam moments and counts and EMA shadow bitwise equal (sha256),
+           finite losses, each rank's kernel calls as (a)'s, no plain call
+           (two ranks sharing one card: a correctness run); (c) the two
+           ranks' depth-5 step against the one-process step on the global
+           batch with chunks=2 minibatch stddev, draws pinned, on the card
+           and on the CPU in float64: phase 5(c)'s bars; (d) the train CLI
+           under `torchrun --standalone --nproc_per_node 1` (NCCL) on 8
+           seeded 1024^2 PNGs, depths 7-8: finite losses, the checkpoint
+           files written once;
 11. spatial serving (stylegan_torch/parallel/spatial.py), each 1024^2
            image split by height over ranks: (a) the split epilogue
            (K1-partial, the rank-order merge, K2-apply) at the 9 shapes cut
@@ -171,14 +159,13 @@ Phases, each fatal on failure:
            rtol=1e-3, atol=1e-3 of the one-process forward, each rank's
            slab equal to its rows, each rank's kernel calls per request,
            peak memory beside the one-process forward's and
-           spatial_hbm_estimate, ms per request (a correctness and memory
-           run, not a scaling figure), a bf16 request within the drift bar;
-           (d) the 2-rank artifact, exported in one process, on both ranks
-           bitwise equal to the live spatial fn and to itself when served
-           twice; (e) generate_samples --spatial_devices 2 (its PNGs within
-           a level of the one-process --eval CLI's) and export_generator
-           --spatial_devices 2 --check (depth 5) as subprocesses.  It
-           prints its seconds.
+           spatial_hbm_estimate (a correctness and memory run), a bf16
+           request within the drift bar; (d) the 2-rank artifact, exported
+           in one process, on both ranks bitwise equal to the live spatial
+           fn and to itself when served twice; (e) generate_samples
+           --spatial_devices 2 (its PNGs within a level of the one-process
+           --eval CLI's) and export_generator --spatial_devices 2 --check
+           (depth 5) as subprocesses;
 12. spatial train the (data x spatial) train step
            (train/steps.py::build_spatial_train_step): (a) K3's split entries
            (K3-partial, the rank-order sum, K3-apply; csrc/epilogue.cu's
@@ -188,18 +175,16 @@ Phases, each fatal on failure:
            bitwise on repeat, each entry timed stage by stage (K3-partial
            also cold in L2) against its bytes bound and the launch floor,
            with the sums over one rank's calls of a 1024^2 G backward, one
-           line per case; (b) one
-           depth-5 step on (1 x 2) and (2 x 2) grids of gloo ranks sharing
-           the card, global batch 4, draws pinned: every rank's state
-           bitwise rank 0's, rank 0's within phase 5(c)'s bars of the
-           one-process step and float64; (c) depth-8 batch-2 logistic + R1
-           steps on the (1 x 2) grid: each rank's kernel calls per step
-           (counted from 0 just before the timed steps), no plain call, ms
-           per step and peak memory beside phase 5(b)'s one-process peak
-           (a correctness and memory run, not a scaling figure); (d) the
-           train CLI with parallel.spatial: 2, --num_devices 2 --device
-           cuda:0 on 8 seeded 1024^2 PNGs, depths 7-8 on (1 x 2) grids.
-           It prints its seconds.
+           line per case; (b) one depth-5 step on (1 x 2) and (2 x 2) grids
+           of gloo ranks sharing the card, global batch 4, draws pinned:
+           every rank's state bitwise rank 0's, rank 0's within phase 5(c)'s
+           bars of the one-process step and float64; (c) depth-8 batch-2
+           logistic + R1 steps on the (1 x 2) grid: each rank's kernel calls
+           per step (counted from 0 after the first step), no plain call,
+           finite losses and states equal on both ranks, each rank's peak
+           memory; (d) the train CLI with parallel.spatial: 2, --num_devices
+           2 --device cuda:0 on 8 seeded 1024^2 PNGs, depths 7-8 on (1 x 2)
+           grids;
 13. evidence the evidence tools (stylegan_torch/tools/): (a) K1+K2 and K3
            at the planes of the tools' schedules (the 128^2 progressive
            run's 128x{4,8,16}^2x512, 64x32^2x512, 32x64^2x256,
@@ -216,12 +201,11 @@ Phases, each fatal on failure:
            (c) the conditional tool at 32^2, batch 32, 24 steps: finite
            per-class SWD, the calls and launches, no plain call;
            (d) measure_latency's flagship 1024^2 generator at batch 1, 2, 4
-           and 8 (18 calls a request); (e) the fidelity gate on a synthetic
-           official pickle of the seeded FFHQ-1024 generator with a
-           seeded-init Inception .npz, 8 seeded 1024^2 PNGs and
-           --skip_golden: pass, FID a finite float, PPL skipped.  It
-           prints its seconds.
-
+           and 8 (18 calls a request, its latencies positive and finite);
+           (e) the fidelity gate on a synthetic official pickle of the
+           seeded FFHQ-1024 generator with a seeded-init Inception .npz, 8
+           seeded 1024^2 PNGs and --skip_golden: pass, FID a finite float,
+           PPL skipped;
 14. stylegan2 StyleGAN2 config F at 1024^2, batch 8 (configs/torch/
            sample_ffhq_1024_stylegan2.yaml, seeded random weights): (a) the
            epilogue2 kernel against its plain version at the forward's 17
@@ -234,13 +218,12 @@ Phases, each fatal on failure:
            plain version in float32; (b) make_serving_fn's images against
            plainref/stylegan2.py on the card (image_gap under 1e-4), 17
            epilogue2 calls a forward, 8 launches of the up-layers' kernel
-           and 17 of the two kernels; (c) ms a request (median of 12) and
-           the kernels that take the most, and no depthwise convolution
-           kernel; (d) a torch.export artifact against make_serving_fn.
-           It prints its seconds.
+           and 17 of the two kernels; (c) no depthwise convolution kernel in
+           a profiled request; (d) a torch.export artifact against
+           make_serving_fn.
 
-`python3 chip_smoke.py --only 8 9 10 11 12 13 14` runs the build and just
-those phases (to try a change; no result lines).
+Each phase prints its seconds.  `python3 chip_smoke.py --only 3 8 14` runs the
+build and just those phases (to try a change; no result lines).
 
 The last two lines are {"kernels": [...]} with the kernels' measurements and
 {"ok": true, "device": {...}}; the card's name and power limit precede them.
@@ -266,7 +249,6 @@ CONFIG = os.path.join(REPO, "configs", "sample_ffhq_1024.yaml")
 BATCH = 8
 DEPTH = 8                       # 1024^2
 REQUESTS = 3
-PROFILE_TABLE = os.path.join(REPO, "build", "chip_smoke", "profile.txt")
 COLD_BYTES = 128 << 20          # > 2x the H100's 50 MB L2
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM published HBM3 rate
 # (resolution, channels) of the 9 stages; each runs the epilogue twice
@@ -399,9 +381,7 @@ def phase_kernel(dev):
     g = torch.Generator(device=dev).manual_seed(0)
     summary = {"ms": 0.0, "call_ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
                "cold_ms": 0.0, "bf16_ms": 0.0, "bf16_cold_ms": 0.0,
-               "bf16_bound_ms": 0.0, "max_abs_err": 0.0,
-               # launches of each kernel in one float32 forward, by the plans
-               "per_forward": dict.fromkeys(kern.KERNEL_NAMES, 0)}
+               "bf16_bound_ms": 0.0, "max_abs_err": 0.0}
     for dtype in (torch.float32, torch.bfloat16):
         for res, c in EPILOGUE_SHAPES:
             args = epilogue_inputs(g, dev, dtype, res, c)
@@ -467,8 +447,6 @@ def phase_kernel(dev):
                 summary["plain_ms"] += 2 * plain_ms
                 summary["bound_ms"] += 2 * bound_ms
                 summary["max_abs_err"] = max(summary["max_abs_err"], err)
-                for name in kern.KERNELS_BY_PATH[plan["path"]]:
-                    summary["per_forward"][name] += 2
             else:
                 summary["bf16_ms"] += 2 * ms
                 summary["bf16_cold_ms"] += 2 * cold_ms
@@ -770,7 +748,18 @@ def random_state_dict(generator, seed=0):
     return sd
 
 
-def phase_slice(dev, per_forward):
+def forward_launches(kern, dev, batch=BATCH):
+    """Launches of each forward epilogue kernel in one float32 1024^2
+    forward, by the plans."""
+    want = dict.fromkeys(kern.KERNEL_NAMES, 0)
+    for res, c in EPILOGUE_SHAPES:
+        x = torch.empty((batch, res, res, c), device=dev)
+        for name in kern.KERNELS_BY_PATH[kern.plan_for(x)["path"]]:
+            want[name] += 2
+    return want
+
+
+def phase_slice(dev):
     from stylegan_torch.config import apply_runtime_knobs, get_default_cfg
     from stylegan_torch.models import Generator, generator_config_from_cfg
     from stylegan_torch.models.synthesis import layer_resolution, make_noise
@@ -796,17 +785,9 @@ def phase_slice(dev, per_forward):
     serve = make_serving_fn(gen_cfg, gen, depth=DEPTH, device=dev)
     rs = np.random.default_rng(1)
     zs = [rs.standard_normal((BATCH, gen_cfg.latent_size), dtype=np.float32)
-          for _ in range(REQUESTS + 1)]
-    serve(zs[-1], 1000)               # warm-up request, not counted
-    torch.cuda.synchronize()
-
+          for _ in range(REQUESTS)]
     zero("launches", "cuda_launches")
-    t0 = time.perf_counter()
-    outs = []
-    for i in range(REQUESTS):
-        outs.append(serve(zs[i], i))
-        torch.cuda.synchronize()
-    elapsed = time.perf_counter() - t0
+    outs = [serve(z, i) for i, z in enumerate(zs)]
     launches, cuda_launches = counter("launches"), counter("cuda_launches")
     for out in outs:
         if tuple(out.shape) != (BATCH, 1024, 1024, 3):
@@ -816,34 +797,29 @@ def phase_slice(dev, per_forward):
     if launches != 18 * REQUESTS:
         fail(f"epilogue kernel calls {launches}, want {18 * REQUESTS}")
     log(f"served {REQUESTS} requests of batch {BATCH} at 1024^2: "
-        f"{elapsed / REQUESTS * 1e3:.2f} ms per forward, "
-        f"{REQUESTS * BATCH / elapsed:.2f} img/s, {launches} epilogue calls "
-        f"({cuda_launches} CUDA launches), "
-        f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+        f"{launches} epilogue calls ({cuda_launches} CUDA launches)")
 
     # the same generator on the CPU, plain path, with the request's noise
     noises = [make_noise(0, i, BATCH, layer_resolution(i), dev)[:2].cpu()
               for i in range(gen_cfg.num_layers)]
     torch.set_num_threads(os.cpu_count() or 1)
-    t0 = time.perf_counter()
     with torch.inference_mode():
         want = cpu_gen(torch.from_numpy(zs[0][:2]), depth=DEPTH, alpha=1.0,
                        noises=noises).images
     err = float((outs[0][:2].cpu() - want).abs().max())
     log(f"card vs CPU, 2 images at 1024^2: max |diff| {err:.3e} "
-        f"(bar {CPU_TOL}; CPU forward {time.perf_counter() - t0:.1f} s)")
+        f"(bar {CPU_TOL})")
     if not err <= CPU_TOL:
         fail(f"card vs CPU max |diff| {err} > {CPU_TOL}")
 
-    epilogue_ms = profile_forward(serve, zs[0], PROFILE_TABLE, kern,
-                                  per_forward)
-    return (cpu_gen, launches, cuda_launches, REQUESTS * BATCH / elapsed,
-            epilogue_ms)
+    epilogue_ms = profile_forward(serve, zs[0], kern,
+                                  forward_launches(kern, dev))
+    return launches, cuda_launches, epilogue_ms
 
 
-def profile_forward(serve, z, path, kern, per_forward):
-    """Device time of one forward by kernel.  The epilogue's time is read
-    by the wrapper's kernel names; it is fresh only if the profiler shows
+def profile_forward(serve, z, kern, per_forward):
+    """The epilogue kernels' device time in one profiled forward, read by
+    the wrapper's kernel names; it is fresh only if the profiler shows
     each kernel as many times as the plans launch it per forward
     (`per_forward`), all of them the wrapper's CUDA launches, and each with
     device time."""
@@ -855,26 +831,18 @@ def profile_forward(serve, z, path, kern, per_forward):
         serve(z, 0)
         torch.cuda.synchronize()
     wrapper_launches = counter("cuda_launches")
-    events = prof.key_averages()
-    table = events.table(sort_by="cuda_time_total", row_limit=40)
-    kernels = [e for e in events if e.device_type == DeviceType.CUDA]
-    busy = sum(e.self_device_time_total for e in kernels) / 1e3
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA]
     by_name = {name: [e for e in kernels if name in e.key]
                for name in kern.KERNEL_NAMES}
     ms = {name: sum(e.self_device_time_total for e in es) / 1e3
           for name, es in by_name.items()}
     count = {name: sum(e.count for e in es) for name, es in by_name.items()}
     epilogue = sum(ms.values())
-    log(json.dumps({"profiled_forward_device_ms": busy,
-                    "epilogue_kernels_device_ms": epilogue,
+    log(json.dumps({"epilogue_kernels_device_ms": epilogue,
                     "epilogue_by_kernel_ms": ms,
                     "epilogue_launches_by_kernel": count,
                     "wrapper_cuda_launches": wrapper_launches}))
-    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
-    with open(path, "w") as f:
-        f.write(table)
-    log(f"profile table: {os.path.relpath(path, REPO)}")
-    log(table[:6000])
     if count != per_forward or sum(count.values()) != wrapper_launches:
         fail(f"the profiled forward shows epilogue launches {count}; the "
              f"plans make {per_forward}, the wrapper counted "
@@ -889,8 +857,6 @@ def profile_forward(serve, z, path, kern, per_forward):
 TRAIN_DEPTH = 8                 # 1024^2
 TRAIN_STEPS = 3
 CHECK_DEPTH = 5                 # 128^2: both kernel paths, fused resampling
-TRAIN_PROFILE_TABLE = os.path.join(REPO, "build", "chip_smoke",
-                                   "train_profile.txt")
 # card vs CPU after one step, and both against the same step in float64 on
 # the CPU.  Losses: float32 sums in another order over the network, as the
 # 1024^2 forward's 1e-2 image bar but relative.  Adam's first moments (b1 =
@@ -964,7 +930,7 @@ def expected_train_launches(kern, dev, batch):
 
 def phase_train(dev):
     """FFHQ-1024 training steps at depth 8 on the card; returns the
-    measurements for the report."""
+    kernel counts and losses for the report."""
     from stylegan_torch.config import apply_runtime_knobs, get_default_cfg
     from stylegan_torch.ops import fused
     from stylegan_torch.ops.kernels import epilogue as kern
@@ -987,32 +953,21 @@ def phase_train(dev):
         f"EMA {cfg.ema_decay}, alpha 0.5; G {n_g} and D {n_d} parameters")
 
     batches = [tuple(t.to(dev) for t in train_batch(gen_cfg, batch, 20 + i))
-               for i in range(TRAIN_STEPS + 3)]
-    t0 = time.perf_counter()
-    _, m = step(state, *batches[0], 0, alpha)         # warm-up, not counted
-    torch.cuda.synchronize()
-    log(f"train: warm-up step {time.perf_counter() - t0:.2f} s")
-
+               for i in range(TRAIN_STEPS + 2)]
     torch.cuda.reset_peak_memory_stats()
     zero("launches", "cuda_launches", "backward_launches",
          "backward_cuda_launches", "backward_g_copies")
     fused.plain_calls = 0
     losses = []
-    t0 = time.perf_counter()
     for i in range(TRAIN_STEPS):
-        _, m = step(state, *batches[1 + i], 1 + i, alpha)
-        torch.cuda.synchronize()
+        _, m = step(state, *batches[i], 1 + i, alpha)
         losses.append((m["d_loss"].item(), m["g_loss"].item()))
-    elapsed = time.perf_counter() - t0
     fwd, bwd = counter("launches"), counter("backward_launches")
     plain = fused.plain_calls
     bwd_cuda = counter("backward_cuda_launches")
     g_copies = counter("backward_g_copies")
     peak = torch.cuda.max_memory_allocated()
-    ms_step = elapsed / TRAIN_STEPS * 1e3
-    log(json.dumps({"train_ms_per_step": ms_step,
-                    "train_img_per_s": TRAIN_STEPS * batch / elapsed,
-                    "peak_memory_GiB": peak / 2 ** 30, "losses": losses,
+    log(json.dumps({"peak_memory_GiB": peak / 2 ** 30, "losses": losses,
                     "epilogue_forward_calls": fwd,
                     "epilogue_backward_calls": bwd,
                     "epilogue_backward_cuda_launches": bwd_cuda,
@@ -1030,8 +985,7 @@ def phase_train(dev):
         fail(f"train steps made {bwd_cuda} backward CUDA launches, the plans "
              f"{want_bwd_cuda}")
 
-    busy, wall, top, _ = profile_train_step(step, state, batches[-2],
-                                            alpha, kern, want)
+    profile_train_step(step, state, batches[-2], alpha, kern, want)
 
     # one relativistic-hinge step on the same state
     rh = train_step_fn(cfg, gen_cfg, dis_cfg, TRAIN_DEPTH,
@@ -1039,7 +993,6 @@ def phase_train(dev):
     zero("launches", "backward_launches")
     fused.plain_calls = 0
     _, m = rh(state, *batches[-1], 99, alpha)
-    torch.cuda.synchronize()
     rh_losses = (m["d_loss"].item(), m["g_loss"].item())
     log(json.dumps({"relativistic_hinge_losses": rh_losses,
                     "epilogue_forward_calls": counter("launches"),
@@ -1052,58 +1005,38 @@ def phase_train(dev):
         fail("relativistic-hinge step: wrong epilogue calls")
     del state, step, rh, gen, dis, batches
     torch.cuda.empty_cache()
-    return {"ms_per_step": ms_step, "img_per_s": TRAIN_STEPS * batch / elapsed,
-            "peak_memory_GiB": peak / 2 ** 30, "losses": losses,
+    return {"peak_memory_GiB": peak / 2 ** 30, "losses": losses,
             "forward_calls": fwd, "backward_calls": bwd,
             "backward_cuda_launches": bwd_cuda,
-            "backward_g_copies": g_copies, "device_busy_ms": busy,
-            "profiled_step_wall_ms": wall,
-            "device_busy_share": busy / wall,
-            "top_ops": top}
+            "backward_g_copies": g_copies}
 
 
-def profile_train_step(step, state, batch, alpha, kern, want,
-                       table_path=TRAIN_PROFILE_TABLE):
-    """Device time of one train step by op (table in build/chip_smoke/)
-    and that step's own wall time, whose ratio is the device's busy share;
-    each epilogue kernel must show as often as the plans launch it."""
+def profile_train_step(step, state, batch, alpha, kern, want):
+    """One profiled train step: each epilogue kernel must show as often as
+    the plans launch it (`want`), each with device time; returns the
+    kernels' device ms in the step by name."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile as tprofile
     with tprofile(activities=[ProfilerActivity.CPU,
                               ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
         step(state, *batch, 7, alpha)
         torch.cuda.synchronize()
-        wall = (time.perf_counter() - t0) * 1e3
-    events = prof.key_averages()
-    kernels = [e for e in events if e.device_type == DeviceType.CUDA]
-    busy = sum(e.self_device_time_total for e in kernels) / 1e3
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA]
     # by "::name<": PyTorch's multi_tensor_apply_kernel (the optimizers'
     # foreach ops) also contains "apply_kernel"
     count = {name: sum(e.count for e in kernels if f"::{name}<" in e.key)
              for name in want}
     ms = {name: sum(e.self_device_time_total for e in kernels
                     if f"::{name}<" in e.key) / 1e3 for name in want}
-    ops = sorted((e for e in events if e.device_type == DeviceType.CPU
-                  and e.key.startswith("aten::")),
-                 key=lambda e: -e.device_time_total)
-    top = [(e.key, e.device_time_total / 1e3, e.count) for e in ops[:12]]
-    table = events.table(sort_by="cuda_time_total", row_limit=50)
-    os.makedirs(os.path.dirname(table_path), exist_ok=True)
-    with open(table_path, "w") as f:
-        f.write(table)
-    log(json.dumps({"profiled_train_step_device_ms": busy,
-                    "profiled_train_step_wall_ms": wall,
-                    "epilogue_by_kernel_ms": ms,
-                    "epilogue_launches_by_kernel": count,
-                    "top_aten_ops_device_ms": top}))
-    log(f"train profile table: {os.path.relpath(table_path, REPO)}")
+    log(json.dumps({"epilogue_by_kernel_ms": ms,
+                    "epilogue_launches_by_kernel": count}))
     if count != want:
         fail(f"the profiled train step shows epilogue launches {count}; "
              f"the plans make {want}")
     if not all(ms[name] > 0 for name in want if want[name]):
         fail(f"the profiled train step shows no device time in {ms}")
-    return busy, wall, top, ms
+    return ms
 
 
 def phase_train_vs_cpu(dev):
@@ -1130,14 +1063,13 @@ def phase_train_vs_cpu(dev):
                                    dict(cfg.model.d_optim))
         step = train_step_fn(cfg, gen_cfg, dis_cfg, CHECK_DEPTH, cfg.loss)
         put = lambda t: t.to(device, dtype)
-        t0 = time.perf_counter()
         _, m = step(state, put(reals), put(z), 0,
                     torch.tensor(0.5, device=device, dtype=dtype),
                     noises=[put(n) for n in noises],
                     mixing=(put(latents2), MIXING_CUTOFF))
         results.append(step_result(m, state))
         log(f"train check on {device.type} {dtype}: losses "
-            f"{results[-1][0]}, {time.perf_counter() - t0:.1f} s")
+            f"{results[-1][0]}")
         del state, step, gen, dis
         torch.cuda.empty_cache()
     report = dict(check_vs_float64(cfg, *results, "card", "cpu"),
@@ -1252,7 +1184,6 @@ TRAINER_START_DEPTH = 7         # 512^2 at batch 4, then 1024^2 at batch 2
 TRAINER_FEEDBACK = 4            # grids at i = 1, 2, 4, 6 and 1, 4, 8, 12
 GRID_SIDE = 2 * 1024 + 3        # 2x2 samples at 1024^2, 1 px padding
 RESUME_IMAGES = 4
-NO_LOADER_STEPS = 6
 
 
 def write_pngs(root, n, res, seed):
@@ -1282,110 +1213,18 @@ def trainer_cfg(img_dir, output_dir):
     return cfg
 
 
-def phase_trainer(dev, bare_img_s):
+def phase_trainer(dev):
     """FFHQ-1024 progressive training through StyleGAN.train on the card
     from image files (depths 7 and 8), then its resume in process and
     through the CLIs; returns the measurements for the report."""
     tmp = tempfile.mkdtemp(prefix="chip_smoke_trainer_")
     try:
-        return trainer_run(dev, bare_img_s, tmp)
+        return trainer_run(dev, tmp)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
 
-@contextlib.contextmanager
-def host_spans(trainer, spans):
-    """While StyleGAN.train runs, append to `spans` each wait of its loop for
-    the next batch ("next": the loader, and the pinned copy inside it) and
-    each pinned copy ("copy"), on the host clock; yields the feedback points
-    as [depth, start of the sampling, end of the grid write]."""
-    from stylegan_torch.data import PinnedRing
-    from stylegan_torch.train import trainer as trainer_mod
-    real_prefetch, real_send = trainer_mod.device_prefetch, PinnedRing.send
-    real_grid, real_sample = trainer_mod.save_image_grid, trainer.sample
-    feedback = []
-
-    def prefetch(*a, **kw):
-        batches = real_prefetch(*a, **kw)
-        while True:
-            t0 = time.perf_counter()
-            batch = next(batches, None)
-            if batch is None:
-                return
-            spans.append(("next", t0, time.perf_counter()))
-            yield batch
-
-    def send(ring, arrays):
-        t0 = time.perf_counter()
-        out = real_send(ring, arrays)
-        spans.append(("copy", t0, time.perf_counter()))
-        return out
-
-    def sample(depth, alpha, **kw):
-        feedback.append([depth, time.perf_counter(), None])
-        return real_sample(depth, alpha, **kw)
-
-    def grid(*a, **kw):
-        real_grid(*a, **kw)
-        feedback[-1][2] = time.perf_counter()
-
-    trainer_mod.device_prefetch, PinnedRing.send = prefetch, send
-    trainer_mod.save_image_grid, trainer.sample = grid, sample
-    try:
-        yield feedback
-    finally:
-        trainer_mod.device_prefetch, PinnedRing.send = real_prefetch, real_send
-        trainer_mod.save_image_grid = real_grid
-        del trainer.sample
-
-
-def window_breakdown(spans, feedback, depth, n_windows):
-    """The host's ms per step in the throughput windows at `depth` (each from
-    a grid's end to the next feedback point's sampling, as the trainer times
-    them): waiting for the next batch (loader_wait, the pinned copy apart),
-    in train_on_batch (step: launches), and the rest (device_wait: the
-    feedback point's wait for the queued steps, and the loop itself)."""
-    points = [f for f in feedback if f[0] == depth]
-    windows = [(a[2], b[1]) for a, b in zip(points, points[1:])]
-    if len(windows) != n_windows:
-        fail(f"trainer: {len(windows)} timed windows at depth {depth}, "
-             f"metrics.jsonl has {n_windows}")
-
-    def within(kind):
-        return sum(max(0.0, min(t1, hi) - max(t0, lo))
-                   for k, t0, t1 in spans if k == kind for lo, hi in windows)
-    n = sum(1 for k, t0, _ in spans
-            if k == "step" and any(lo <= t0 <= hi for lo, hi in windows))
-    wall = sum(hi - lo for lo, hi in windows)
-    nxt, copy, launch = within("next"), within("copy"), within("step")
-    ms = 1e3 / n
-    return {"steps": n, "wall": wall * ms, "loader_wait": (nxt - copy) * ms,
-            "pinned_copy": copy * ms, "step": launch * ms,
-            "device_wait": (wall - nxt - launch) * ms}
-
-
-def steps_without_loader(trainer, images, depth):
-    """The trainer's steps on one batch already on the card, queued as its
-    loop queues them (fetch=False, one wait at the end), with no loader
-    running: img/s, and the host's ms per step in train_on_batch."""
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    host = 0.0
-    for _ in range(NO_LOADER_STEPS):
-        s0 = time.perf_counter()
-        d, g = trainer.train_on_batch(images, depth, 1.0, fetch=False)
-        host += time.perf_counter() - s0
-    losses = (float(d), float(g))
-    wall = time.perf_counter() - t0
-    if not all(math.isfinite(v) for v in losses):
-        fail(f"trainer: losses {losses} in the steps without the loader")
-    return {"steps": NO_LOADER_STEPS,
-            "img_per_s": NO_LOADER_STEPS * len(images) / wall,
-            "ms_per_step": wall / NO_LOADER_STEPS * 1e3,
-            "step_ms": host / NO_LOADER_STEPS * 1e3}
-
-
-def trainer_run(dev, bare_img_s, tmp):
+def trainer_run(dev, tmp):
     import yaml
     from PIL import Image
     from stylegan_torch.cli.train import build_trainer
@@ -1395,35 +1234,24 @@ def trainer_run(dev, bare_img_s, tmp):
     from stylegan_torch.utils import make_logger
 
     data_dir, out = os.path.join(tmp, "ffhq"), os.path.join(tmp, "run")
-    t_phase = t0 = time.perf_counter()
     write_pngs(data_dir, TRAINER_IMAGES, 1024, seed=40)
-    log(f"trainer: {TRAINER_IMAGES} PNGs at 1024^2 written in "
-        f"{time.perf_counter() - t0:.1f} s")
     cfg = trainer_cfg(data_dir, out)
     cfg.freeze()
     apply_runtime_knobs(cfg)          # float32, TF32 off
     dataset = make_dataset(cfg.dataset)
     decoder = native.decoder()
-    # the loader alone: decode + resize + batch, 4 threads, batch 4
-    t0 = time.perf_counter()
-    decoded = sum(len(b) for b in DataLoader(dataset, 4, cfg.num_works))
-    decode_rate = decoded / (time.perf_counter() - t0)
-    log(json.dumps({"trainer_decoder": decoder, "decode_img_per_s":
-                    decode_rate, "decode_workers": cfg.num_works,
+    log(json.dumps({"trainer_decoder": decoder,
                     "native_build_error": native.build_error}))
 
     trainer = build_trainer(cfg, dev)
     os.makedirs(out)
     logger = make_logger("chip_smoke_trainer", out, "log")
     steps = []              # (depth, images on the card, fwd, bwd calls)
-    spans = []              # (kind, start, end) on the host clock
     real_step = trainer.train_on_batch
 
     def step(images, depth, alpha, labels=None, fetch=True):
         f0, b0 = counter("launches"), counter("backward_launches")
-        t0 = time.perf_counter()
         result = real_step(images, depth, alpha, labels, fetch=fetch)
-        spans.append(("step", t0, time.perf_counter()))
         steps.append((depth, images.clone(), counter("launches") - f0,
                       counter("backward_launches") - b0))
         return result
@@ -1432,18 +1260,15 @@ def trainer_run(dev, bare_img_s, tmp):
     zero("launches", "cuda_launches", "backward_launches",
           "backward_cuda_launches", "backward_g_copies")
     fused.plain_calls = 0
-    t0 = time.perf_counter()
-    with host_spans(trainer, spans) as feedback:
-        trainer.train(dataset=dataset, num_workers=cfg.num_works,
-                      epochs=cfg.sched.epochs,
-                      batch_sizes=cfg.sched.batch_sizes,
-                      fade_in_percentage=cfg.sched.fade_in_percentage,
-                      logger=logger, output=out, num_samples=cfg.num_samples,
-                      start_depth=TRAINER_START_DEPTH,
-                      feedback_factor=cfg.feedback_factor,
-                      checkpoint_factor=cfg.checkpoint_factor)
+    trainer.train(dataset=dataset, num_workers=cfg.num_works,
+                  epochs=cfg.sched.epochs,
+                  batch_sizes=cfg.sched.batch_sizes,
+                  fade_in_percentage=cfg.sched.fade_in_percentage,
+                  logger=logger, output=out, num_samples=cfg.num_samples,
+                  start_depth=TRAINER_START_DEPTH,
+                  feedback_factor=cfg.feedback_factor,
+                  checkpoint_factor=cfg.checkpoint_factor)
     torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
     counts = {"forward": counter("launches"),
               "forward_cuda": counter("cuda_launches"),
               "backward": counter("backward_launches"),
@@ -1503,30 +1328,15 @@ def trainer_run(dev, bare_img_s, tmp):
             fail(f"trainer: the batches on the card at depth {d} differ from "
                  "the loader's")
     first = steps[0][1]
-    x8 = next(img for d, img, _, _ in steps if d == TRAINER_START_DEPTH + 1)
     step_counts = {d: sum(1 for s in steps if s[0] == d) for d in per_depth}
     del steps
 
-    # windowed img/s at depth 8 against the bare step of phase 5(b), and
-    # where the host's time in those windows went
-    d8 = [r["imgs_per_sec"] for r in rows
-          if r["depth"] == TRAINER_START_DEPTH + 1 and r["imgs_per_sec"]]
-    if not d8:
+    # the trainer's log holds throughput windows at depth 8
+    if not any(r["depth"] == TRAINER_START_DEPTH + 1 and r["imgs_per_sec"]
+               for r in rows):
         fail("trainer: no windowed img/s at depth 8")
-    trainer_img_s = sum(d8) / len(d8)
-    host_ms = window_breakdown(spans, feedback, TRAINER_START_DEPTH + 1,
-                               len(d8))
-    no_loader = steps_without_loader(trainer, x8, TRAINER_START_DEPTH + 1)
-    report = {"decoder": decoder, "decode_img_per_s": decode_rate,
-              "wall_s": wall, "steps": step_counts,
-              "grids": per_depth, "epilogue_calls": counts,
-              "depth8_windows_img_per_s": d8,
-              "depth8_img_per_s": trainer_img_s,
-              "bare_step_img_per_s": bare_img_s,
-              "trainer_over_bare": trainer_img_s / bare_img_s,
-              "depth8_host_ms_per_step": host_ms,
-              "depth8_no_loader": no_loader,
-              "trainer_over_no_loader": trainer_img_s / no_loader["img_per_s"]}
+    report = {"decoder": decoder, "steps": step_counts,
+              "grids": per_depth, "epilogue_calls": counts}
     log(json.dumps({"trainer": report}))
 
     # (b) resume: the full state into a fresh trainer, bitwise
@@ -1587,10 +1397,8 @@ def trainer_run(dev, bare_img_s, tmp):
                        ("--gen_optim_file", "GEN_OPTIM"),
                        ("--dis_optim_file", "DIS_OPTIM")):
         flags += [flag, os.path.join(mdir, f"GAN_{kind}_8_1.npz")]
-    t0 = time.perf_counter()
     run([sys.executable, "-m", "stylegan_torch.cli.train", "--config",
          cfg_path, "--start_depth", "8"] + flags, "train CLI")
-    cli_s = time.perf_counter() - t0
     shadow = os.path.join(out2, "models", "GAN_GEN_SHADOW_8_1.npz")
     if not os.path.exists(shadow):
         fail("train CLI wrote no GAN_GEN_SHADOW_8_1.npz")
@@ -1603,10 +1411,8 @@ def trainer_run(dev, bare_img_s, tmp):
         if img.shape != (1024, 1024, 3):
             fail(f"sample {i}.png from the resumed run has shape {img.shape}")
     log(f"resume: full state bitwise, one more step without a sync "
-        f"({d_loss:.4f}, "
-        f"{g_loss:.4f}); train CLI from the _8_1 files in {cli_s:.1f} s; "
+        f"({d_loss:.4f}, {g_loss:.4f}); train CLI from the _8_1 files; "
         "2 samples from its shadow")
-    report.update(resume_cli_s=cli_s, phase_s=time.perf_counter() - t_phase)
     return report
 
 
@@ -1620,14 +1426,15 @@ def run(cmd, what):
     return r
 
 
-def phase_cli(cpu_gen):
+def phase_cli():
+    """Phase 3's seeded generator saved as a JAX-package .npz, and the
+    sample CLI on it."""
     from PIL import Image
     from stylegan_torch.convert import save_generator_file
     with tempfile.TemporaryDirectory() as tmp:
         npz = os.path.join(tmp, "gen.npz")
-        save_generator_file(cpu_gen, npz)
+        save_generator_file(ffhq_generator(torch.device("cpu")), npz)
         out_dir = os.path.join(tmp, "samples")
-        t0 = time.perf_counter()
         run([sys.executable, "-m", "stylegan_torch.cli.generate_samples",
              "--config", CONFIG, "--generator_file", npz, "--num_samples",
              "2", "--output_dir", out_dir, "--seed", "0"], "generate_samples")
@@ -1635,14 +1442,14 @@ def phase_cli(cpu_gen):
             img = np.asarray(Image.open(os.path.join(out_dir, f"{i}.png")))
             if img.shape != (1024, 1024, 3):
                 fail(f"sample {i}.png has shape {img.shape}")
-        log(f"cli: 2 samples at 1024^2 in {time.perf_counter() - t0:.1f} s")
+        log("cli: 2 samples at 1024^2")
 
 
 # the batch sizes the tool CLIs give the epilogue kernel (phase 7): the
 # mixing figure's 3 and 5, the truncation figure's 6, eval_metrics' default
 # 16 and the grid's 10x4
 TOOL_BATCHES = (3, 5, 6, 16, 40)
-# projection's (phase 8(d)): one image, forward and backward
+# projection's (phase 8(c)): one image, forward and backward
 PROJECT_BATCH = 1
 
 
@@ -1824,7 +1631,6 @@ def tools_run(dev, tmp):
     from stylegan_torch.models.synthesis import layer_resolution, make_noise
     from stylegan_torch.ops import fused
 
-    t_phase = time.perf_counter()
     # FFHQ-1024 with truncation: seeded weights, noise weights included, and
     # the W average the mean of mapped W over a seeded batch
     cfg = get_default_cfg()
@@ -1845,8 +1651,6 @@ def tools_run(dev, tmp):
     np.savez(inception, **inception_v3_init(0))
     lpips = os.path.join(tmp, "lpips.npz")
     np.savez(lpips, **lpips_vgg_init(0))
-    log(f"tools: weights, {TOOL_IMAGES} PNGs and metric weights written in "
-        f"{time.perf_counter() - t_phase:.1f} s")
 
     def t(name):
         return os.path.join(tmp, name)
@@ -1883,21 +1687,17 @@ def tools_run(dev, tmp):
         ("eval_metrics_ppl_lpips", eval_metrics, metric + [
             "--metric", "ppl", "--lpips_weights", lpips], ppl_forwards),
     ]
-    launches, times = {}, {}
+    launches = {}
     for name, module, argv, forwards in runs:
-        torch.cuda.synchronize()
         zero("launches")
         fused.plain_calls = 0
-        t0 = time.perf_counter()
         out = module.main(module.parse_arguments(argv + ["--device",
                                                          dev.type]))
-        torch.cuda.synchronize()
-        times[name] = time.perf_counter() - t0
         launches[name] = counter("launches")
         check_tool_output(name, out, tmp, 2 ** (full + 2))
         want = forwards * PER_FORWARD
-        log(f"tools: {name} in {times[name]:.2f} s, {counter('launches')} "
-            f"epilogue calls (want {want}), {fused.plain_calls} plain")
+        log(f"tools: {name}, {counter('launches')} epilogue calls (want "
+            f"{want}), {fused.plain_calls} plain")
         if counter("launches") != want or fused.plain_calls:
             fail(f"{name}: {counter('launches')} kernel calls (want {want}), "
                  f"{fused.plain_calls} plain calls")
@@ -1939,7 +1739,7 @@ def tools_run(dev, tmp):
         "eval_metrics": m + ["stylegan_torch.cli.eval_metrics"] + plain_cfg
         + base + ["--num_samples", "4", "--batch", "4"],
     }
-    sub_s = run_all(cmds)
+    run_all(cmds)
     check_converted(gen, dis, tmp)
     res, res_small = 2 ** (full + 2), 2 ** (small + 2)
     for name, shape in (("sub_grid/grid.png", (res + 2, 2 * res + 3, 3)),
@@ -1980,9 +1780,8 @@ def tools_run(dev, tmp):
     log(f"tools: card vs CPU, mixing figure at {res_small}^2 max |diff| "
         f"{fig_err:.3e} (bar {CPU_TOL}); Inception features of 4 images "
         f"{inc_rel:.3e} relative (bar {INCEPTION_REL_TOL})")
-    return {"launches": launches, "cli_s": times, "subprocess_s": sub_s,
-            "mixing_card_vs_cpu": fig_err, "inception_card_vs_cpu": inc_rel,
-            "phase_s": time.perf_counter() - t_phase}
+    return {"launches": launches, "mixing_card_vs_cpu": fig_err,
+            "inception_card_vs_cpu": inc_rel}
 
 
 def check_tool_output(name, out, tmp, res):
@@ -2058,9 +1857,8 @@ def check_converted(gen, dis, tmp):
 
 
 PROJECT_STEPS = 100
-PROJECT_TIMED_STEPS = 10
 CHECK_STEPS = 5
-# phase 8(e): the card's projection against float64 on the CPU, as phase
+# phase 8(d): the card's projection against float64 on the CPU, as phase
 # 5(c) holds a train step.  The losses of steps 0 and 1, whose forward runs
 # at W = w_avg (the lr is 0 at step 0): float32 sums in another order over
 # the network, within 1e-3 relative of the CPU.  The first step's gradient
@@ -2076,12 +1874,12 @@ CHECK_W_FACTOR = 10.0
 CHECK_SAME_W_STEPS = 2
 
 
-def phase_export_project(dev, per_forward, serve_img_s, train):
-    """Phase 8: profiling, MFU, torch.export serving and W-space projection
-    at FFHQ-1024 on the card; returns the report."""
+def phase_export_project(dev):
+    """Phase 8: tracing, torch.export serving and W-space projection at
+    FFHQ-1024 on the card; returns the report."""
     tmp = tempfile.mkdtemp(prefix="chip_smoke_p8_")
     try:
-        return export_project_run(dev, per_forward, serve_img_s, train, tmp)
+        return export_project_run(dev, tmp)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
@@ -2093,7 +1891,7 @@ def reset_counts(kern, fused):
     fused.plain_calls = 0
 
 
-def export_project_run(dev, per_forward, serve_img_s, train, tmp):
+def export_project_run(dev, tmp):
     from PIL import Image
     from stylegan_torch.config import apply_runtime_knobs, get_default_cfg
     from stylegan_torch.convert import save_generator_file
@@ -2103,11 +1901,7 @@ def export_project_run(dev, per_forward, serve_img_s, train, tmp):
     from stylegan_torch.serving import (export_generator, load_exported,
                                         make_serving_fn)
     from stylegan_torch.utils import trace
-    from stylegan_torch.utils.flops import (device_peak_tflops,
-                                            generator_forward_flops,
-                                            mfu_fields, train_step_flops)
 
-    t_phase = time.perf_counter()
     cfg = get_default_cfg()
     cfg.merge_from_file(CONFIG)
     cfg.freeze()
@@ -2125,6 +1919,7 @@ def export_project_run(dev, per_forward, serve_img_s, train, tmp):
     serve = make_serving_fn(gen_cfg, gen, depth=DEPTH, device=dev)
     serve(zs[-1], 1000)
     torch.cuda.synchronize()
+    per_forward = forward_launches(kern, dev)
 
     # (a) one served request under utils.profiling.trace
     trace_dir = os.path.join(REPO, "build", "chip_smoke", "serve_trace")
@@ -2153,38 +1948,17 @@ def export_project_run(dev, per_forward, serve_img_s, train, tmp):
              f"{count}; the plans make {per_forward}, the wrapper counted "
              f"{wrapper}")
 
-    # (b) MFU of phase 3's serving and phase 5(b)'s step, float32 peak
-    peak = device_peak_tflops(dev, "float32")
-    report["mfu"] = {
-        "card": card_line(), "peak_tflops": peak, "precision": "float32",
-        "serving": mfu_fields(serve_img_s, generator_forward_flops(1024),
-                              peak),
-        "train_step": mfu_fields(train["img_per_s"], train_step_flops(
-            1024, loss=cfg.loss, with_r1=cfg.r1_gamma > 0), peak)}
-    log(json.dumps({"phase8_mfu": report["mfu"]}))
-
-    # (c) torch.export serving at batch 8, on the card
-    t0 = time.perf_counter()
+    # (b) torch.export serving at batch 8, on the card
     blob = export_generator(gen_cfg, gen, depth=DEPTH, batch_size=BATCH)
-    export_s = time.perf_counter() - t0
     path = os.path.join(tmp, "gen_b8.pt2")
     with open(path, "wb") as f:
         f.write(blob)
-    t0 = time.perf_counter()
     served = load_exported(path, device=dev)
-    load_s = time.perf_counter() - t0
     nodes = sum(n.op == "call_function"
                 and n.target is torch.ops.stylegan_torch.epilogue.default
                 for n in served.exported.graph.nodes)
-    served(zs[-1], 1000)              # warm-up request, not counted
-    torch.cuda.synchronize()
     reset_counts(kern, fused)
-    t0 = time.perf_counter()
-    outs = []
-    for i in range(REQUESTS):
-        outs.append(served(zs[i], i))
-        torch.cuda.synchronize()
-    elapsed = time.perf_counter() - t0
+    outs = [served(zs[i], i) for i in range(REQUESTS)]
     calls, plain = counter("launches"), fused.plain_calls
     # requests replay bit for bit with cuDNN's default algorithms: the
     # exported program against make_serving_fn for each request, and one
@@ -2199,9 +1973,8 @@ def export_project_run(dev, per_forward, serve_img_s, train, tmp):
                                    for out, want in zip(outs, replays)),
             "serve_vs_serve": float((again - replays[0]).abs().max())}
     report["export"] = {
-        "bytes": len(blob), "export_s": export_s, "load_s": load_s,
-        "graph_epilogue_nodes": nodes, "img_per_s": REQUESTS * BATCH / elapsed,
-        "phase3_img_per_s": serve_img_s, "epilogue_calls": calls,
+        "bytes": len(blob), "graph_epilogue_nodes": nodes,
+        "epilogue_calls": calls,
         "plain_calls": plain, "bitwise_equal_export_vs_serve": equal,
         "bitwise_equal_serve_vs_serve": replay_equal,
         "max_abs_diff": diff}
@@ -2234,22 +2007,22 @@ def export_project_run(dev, per_forward, serve_img_s, train, tmp):
         fail(f"depth-5 artifact, card vs CPU: max |diff| {err} > {CPU_TOL}")
     del on_card, on_cpu, small
 
-    # (d) projection at 1024^2, W+, on a target the generator makes from a
+    # (c) projection at 1024^2, W+, on a target the generator makes from a
     # W near w_avg with the projector's own pinned noises
     report["project"] = project_on_card(dev, gen_cfg, gen, kern, fused, tmp)
     w_path = report["project"].pop("w_path")
 
-    # (e) depth 5 on the card and the CPU, pinned draws, float64 truth
+    # (d) depth 5 on the card and the CPU, pinned draws, float64 truth
     report["project_vs_cpu"] = project_vs_cpu(dev, cfg)
 
-    # (f) the CLIs as subprocesses on the card
+    # (e) the CLIs as subprocesses on the card
     target = os.path.join(tmp, "target.png")
     Image.fromarray(np.random.default_rng(81).integers(
         0, 256, (1024, 1024, 3), dtype=np.uint8)).save(target)
 
     def t(name):
         return os.path.join(tmp, name)
-    times = run_all({
+    run_all({
         "project": [sys.executable, "-m", "stylegan_torch.cli.project",
                     "--config", CONFIG, "--generator_file", npz, "--target",
                     target, "--output_dir", t("proj"), "--num_steps", "5"],
@@ -2260,7 +2033,7 @@ def export_project_run(dev, per_forward, serve_img_s, train, tmp):
         "generate_samples_input": [
             sys.executable, "-m", "stylegan_torch.cli.generate_samples",
             "--config", CONFIG, "--generator_file", npz, "--input", w_path,
-            "--output", t("from_w.png")]}, label="phase 8")
+            "--output", t("from_w.png")]}, label="8(e)")
     for name in ("proj/projected.png", "proj/target.png", "from_w.png"):
         shape = np.asarray(Image.open(t(name))).shape
         if shape != (1024, 1024, 3):
@@ -2268,19 +2041,14 @@ def export_project_run(dev, per_forward, serve_img_s, train, tmp):
     if np.load(t("proj/w.npy")).shape != (gen_cfg.num_layers,
                                           gen_cfg.dlatent_size):
         fail("the project CLI's w.npy has the wrong shape")
-    report["cli_s"] = times
-    report["phase_s"] = time.perf_counter() - t_phase
-    log(f"phase 8: {report['phase_s']:.1f} s")
     return report
 
 
 def project_on_card(dev, gen_cfg, gen, kern, fused, tmp):
-    """Phase 8(d): 100 projection steps at 1024^2 with the exact epilogue
-    calls, the loss curve, ms per step and the w.npy it writes."""
-    from stylegan_torch.projection import (ProjectorConfig,
-                                           build_projection_step,
-                                           init_projection, project,
-                                           w_statistics)
+    """Phase 8(c): 100 projection steps at 1024^2 with the exact epilogue
+    calls, the loss curve and the w.npy it writes."""
+    from stylegan_torch.projection import (ProjectorConfig, init_projection,
+                                           project, w_statistics)
     pcfg = ProjectorConfig(num_steps=PROJECT_STEPS)
     seed = 5
     _, _, noises = init_projection(seed, gen_cfg, gen, pcfg)
@@ -2295,9 +2063,7 @@ def project_on_card(dev, gen_cfg, gen, kern, fused, tmp):
                                  noises=noises)[0]
     torch.cuda.synchronize()
     reset_counts(kern, fused)
-    t0 = time.perf_counter()
     dl, img, losses = project(seed, gen_cfg, gen, target, pcfg)
-    wall = time.perf_counter() - t0
     counts = {"forward_calls": counter("launches"),
               "forward_cuda_launches": counter("cuda_launches"),
               "backward_calls": counter("backward_launches"),
@@ -2319,33 +2085,7 @@ def project_on_card(dev, gen_cfg, gen, kern, fused, tmp):
         fail(f"projection loss {losses[0]} -> {losses[-1]}: no descent")
     w_path = os.path.join(tmp, "w.npy")
     np.save(w_path, dl)
-    # ms per step over a window of steps, after one warm step
-    state, w_std, noises = init_projection(seed, gen_cfg, gen, pcfg)
-    step = build_projection_step(gen_cfg, gen, pcfg, noises)
-    step(state, target, 10, w_std)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for t in range(PROJECT_TIMED_STEPS):
-        step(state, target, 11 + t, w_std)
-    torch.cuda.synchronize()
-    ms = (time.perf_counter() - t0) / PROJECT_TIMED_STEPS * 1e3
-    # one profiled step: its device time (kernels' self time) over its own
-    # wall time is the device's busy share, a lower bound (the profiler's
-    # host cost)
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile as tprofile
-    with tprofile(activities=[ProfilerActivity.CPU,
-                              ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        step(state, target, 11 + PROJECT_TIMED_STEPS, w_std)
-        torch.cuda.synchronize()
-        profiled_wall = (time.perf_counter() - t0) * 1e3
-    busy = sum(e.self_device_time_total for e in prof.key_averages()
-               if e.device_type == DeviceType.CUDA) / 1e3
-    report = {"steps": PROJECT_STEPS, "wall_s": wall, "ms_per_step": ms,
-              "profiled_step_device_ms": busy,
-              "profiled_step_wall_ms": profiled_wall,
-              "device_busy_share": busy / profiled_wall,
+    report = {"steps": PROJECT_STEPS,
               "losses_every_10": losses[::10] + [losses[-1]],
               "pixel_mse": float(np.mean((img - target.cpu().numpy()) ** 2)),
               **counts, "w_path": w_path}
@@ -2355,7 +2095,7 @@ def project_on_card(dev, gen_cfg, gen, kern, fused, tmp):
 
 
 def project_vs_cpu(dev, cfg):
-    """Phase 8(e): 5 projection steps of the FFHQ-1024 model's first 6
+    """Phase 8(d): 5 projection steps of the FFHQ-1024 model's first 6
     stages (128^2) on the card, on the CPU, and on the CPU in float64, with
     the z of w_statistics, the noise maps and each step's perturbation
     pinned: the losses and W within the bars above."""
@@ -2377,7 +2117,7 @@ def project_vs_cpu(dev, cfg):
     noises = [rs.standard_normal((1, layer_resolution(i), layer_resolution(i),
                                   1)) for i in range(n_layers)]
     perts = rs.standard_normal((CHECK_STEPS, n_layers, dl_size))
-    # the target: the same model's image of a W near w_avg (as phase 8(d))
+    # the target: the same model's image of a W near w_avg (as phase 8(c))
     ref = Generator(gen_cfg)
     ref.load_state_dict(sd, strict=True)
     ref.requires_grad_(False)
@@ -2401,7 +2141,6 @@ def project_vs_cpu(dev, cfg):
         state, w_std, pinned = init_projection(
             0, gen_cfg, gen, pcfg, z=put(z), noises=[put(n) for n in noises])
         step = build_projection_step(gen_cfg, gen, pcfg, pinned)
-        t0 = time.perf_counter()
         losses, moment = [], None
         for t in range(CHECK_STEPS):
             losses.append(float(step(state, put(target), t, w_std,
@@ -2409,8 +2148,7 @@ def project_vs_cpu(dev, cfg):
             if t == 0:     # a copy: Adam updates its moments in place
                 moment = state.optimizer.state[state.dlatents]["exp_avg"] \
                     .detach().cpu().double().clone()
-        log(f"projection check on {device.type} {dtype}: losses {losses}, "
-            f"{time.perf_counter() - t0:.1f} s")
+        log(f"projection check on {device.type} {dtype}: losses {losses}")
         runs.append((losses, moment, state.dlatents.detach().cpu().double()))
         del gen, state, step
     (lc, mc, wc), (lh, mh, wh), (l64, m64, w64) = runs
@@ -2453,11 +2191,8 @@ BF16_DRIFT_MEAN, BF16_DRIFT_MAX = 0.02, 0.25
 BF16_LOSS_RTOL = 5e-2
 BF16_GRAD_FACTOR, BF16_GRAD_FLOOR = 3.0, 1e-3
 BF16_CHECK_DEPTH = CHECK_DEPTH
-BF16_TIMED = 3                  # timed steps after a warm-up
-BF16_REQUESTS = 10              # timed requests of batch 8 (about 15 ms each)
+BF16_STEPS = 3                  # steps of each kind in 9(b)
 BF16_CLI_IMAGES = 24            # depth 7: 6 steps at batch 4, 8: 12 at 2
-BF16_PROFILE_TABLE = os.path.join(REPO, "build", "chip_smoke",
-                                  "bf16_{}_profile.txt")
 
 
 def perf_cfg(**overrides):
@@ -2475,41 +2210,23 @@ def phase_bf16(dev):
     """Phase 9: the bf16 forward, train steps, a depth-5 step against the
     CPU and float64, and the perf config through the train CLI; returns
     the report."""
-    t_phase = time.perf_counter()
     tmp = tempfile.mkdtemp(prefix="chip_smoke_p9_")
     try:
-        report = {"forward": bf16_forward(dev), "train": bf16_train(dev),
-                  "vs_cpu": bf16_vs_cpu(dev), "cli": bf16_cli(dev, tmp)}
+        return {"forward": bf16_forward(dev), "train": bf16_train(dev),
+                "vs_cpu": bf16_vs_cpu(dev), "cli": bf16_cli(dev, tmp)}
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
-    report["phase_s"] = time.perf_counter() - t_phase
-    log(f"phase 9: {report['phase_s']:.1f} s")
-    return report
-
-
-def time_requests(fn, n=BF16_REQUESTS):
-    """img/s of n requests of batch BATCH, each ending in a synchronize,
-    after one warm-up request."""
-    fn(1000)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for i in range(n):
-        fn(i)
-        torch.cuda.synchronize()
-    return n * BATCH / (time.perf_counter() - t0)
 
 
 def bf16_forward(dev):
     """9(a): phase 3's generator (float32 weights) on bf16 z, batch 8 at
-    1024^2: its img/s beside the float32 forward's, 18 kernel calls per
-    forward and no plain call, the drift from float32 on the same z and
-    pinned noise within tests/test_bf16.py's bars, two runs bitwise
-    equal, and the dense layers' float32 product against a bf16 GEMM
-    (img/s, in turns)."""
+    1024^2: 18 kernel calls per forward and no plain call, the drift from
+    float32 on the same z and pinned noise within tests/test_bf16.py's
+    bars, two runs bitwise equal."""
     from stylegan_torch.config import apply_runtime_knobs, get_default_cfg
     from stylegan_torch.models import Generator, generator_config_from_cfg
     from stylegan_torch.models.synthesis import layer_resolution
-    from stylegan_torch.ops import fused, linear
+    from stylegan_torch.ops import fused
     from stylegan_torch.ops.kernels import epilogue as kern
     from stylegan_torch.ops.precision import set_precision
 
@@ -2527,18 +2244,18 @@ def bf16_forward(dev):
         (BATCH, layer_resolution(i), layer_resolution(i), 1),
         dtype=np.float32)).to(dev) for i in range(gen_cfg.num_layers)]
 
-    def forward(dtype, seed=None, pinned=False):
+    def forward(dtype):
         with torch.inference_mode():
-            return gen(z.to(dtype), depth=DEPTH, alpha=1.0, seed=seed,
-                       noises=[n.to(dtype) for n in noises] if pinned
-                       else None).images
+            return gen(z.to(dtype), depth=DEPTH, alpha=1.0,
+                       noises=[n.to(dtype) for n in noises]).images
 
     set_precision("highest")          # the float32 reference: TF32 off
-    ref = forward(torch.float32, pinned=True)
-    f32_img_s = time_requests(lambda i: forward(torch.float32, i))
+    ref = forward(torch.float32)
     apply_runtime_knobs(perf_cfg())   # bf16: TF32 for the float32 ops
-    out = forward(torch.bfloat16, pinned=True)
-    again = forward(torch.bfloat16, pinned=True)
+    reset_counts(kern, fused)
+    out = forward(torch.bfloat16)
+    again = forward(torch.bfloat16)
+    calls, plain = counter("launches"), fused.plain_calls
     if out.dtype != torch.bfloat16 or tuple(out.shape) != (BATCH, 1024,
                                                            1024, 3):
         fail(f"bf16 forward: {out.dtype} {tuple(out.shape)}")
@@ -2552,40 +2269,12 @@ def bf16_forward(dev):
     replay = bool(torch.equal(out, again))
     del d, out, again, ref
 
-    reset_counts(kern, fused)
-    img_s = time_requests(lambda i: forward(torch.bfloat16, i))
-    calls, plain = counter("launches"), fused.plain_calls
-    # the dense layers' policy, in turns: the product in float32 (the
-    # port's, as JAX's) against a bf16 GEMM with PyTorch's default split-K
-    # reduction in bf16
-    dense = {"float32_product": [], "bf16_gemm": []}
-    port_linear = linear.linear_apply
-
-    def bf16_gemm(x, weight, bias=None, *, gain, use_wscale, lrmul):
-        _, w_mul = linear.equalized_scales(gain, weight.shape[1], lrmul,
-                                           use_wscale)
-        return torch.nn.functional.linear(
-            x, (weight * w_mul).to(x.dtype),
-            None if bias is None else (bias * lrmul).to(x.dtype))
-    for policy in ("float32_product", "bf16_gemm", "bf16_gemm",
-                   "float32_product"):
-        linear.linear_apply = (bf16_gemm if policy == "bf16_gemm"
-                               else port_linear)
-        try:
-            dense[policy].append(time_requests(
-                lambda i: forward(torch.bfloat16, i)))
-        finally:
-            linear.linear_apply = port_linear
-    report = {"img_per_s": img_s, "float32_img_per_s": f32_img_s,
-              "speedup": img_s / f32_img_s, "epilogue_calls": calls,
-              "plain_calls": plain, "drift": drift,
-              "bitwise_equal_two_runs": replay,
-              "dense_policy_img_per_s": dense}
+    report = {"epilogue_calls": calls, "plain_calls": plain, "drift": drift,
+              "bitwise_equal_two_runs": replay}
     log(json.dumps({"phase9_forward": report}))
-    want = PER_FORWARD * (BF16_REQUESTS + 1)
-    if calls != want or plain:
+    if calls != 2 * PER_FORWARD or plain:
         fail(f"bf16 forward: {calls} epilogue calls and {plain} plain calls "
-             f"over {BF16_REQUESTS + 1} forwards, want {want} and 0")
+             f"over 2 forwards, want {2 * PER_FORWARD} and 0")
     if not (drift["mean_abs"] < drift["mean_bar"]
             and drift["max_abs"] < drift["max_bar"]):
         fail(f"bf16 forward drift from float32 beyond the bars: {drift}")
@@ -2631,47 +2320,15 @@ def g_update_marks(kern):
 def bf16_train(dev):
     """9(b): the perf config's trainer (bf16, logistic with lazy R1 at 16,
     remat, fused scoring on the off-steps) at depth 8, batch 2, seeded
-    weights: an R1 step and an off-step, each 3 timed after a warm-up
-    through train_on_batch, beside phase 5(b)'s float32 step timed here
-    too; the epilogue calls of each step's D and G updates, no plain call;
-    one profiled step of each (device busy share, kernels as the plans
-    launch them) and the MFU against the bf16 peak."""
+    weights: BF16_STEPS R1 steps and off-steps through train_on_batch,
+    finite losses, the epilogue calls of each step's D and G updates, no
+    plain call; one profiled step of each (kernels as the plans launch
+    them, and their device time inside it); float32 parameters after."""
     from stylegan_torch.cli.train import build_trainer
-    from stylegan_torch.config import apply_runtime_knobs, get_default_cfg
+    from stylegan_torch.config import apply_runtime_knobs
+    from stylegan_torch.models import generator_config_from_cfg
     from stylegan_torch.ops import fused
     from stylegan_torch.ops.kernels import epilogue as kern
-    from stylegan_torch.ops.precision import set_precision
-    from stylegan_torch.train import create_train_state
-    from stylegan_torch.utils.flops import (device_peak_tflops, mfu_fields,
-                                            train_step_flops)
-
-    # phase 5(b)'s float32 step (TF32 off), timed and profiled in this
-    # phase, before and after the bf16 steps
-    cfg32 = get_default_cfg()
-    cfg32.merge_from_file(CONFIG)
-    cfg32.freeze()
-    gen_cfg, dis_cfg, gen, dis = train_models(cfg32, dev)
-    state32 = create_train_state(gen, dis, dict(cfg32.model.g_optim),
-                                 dict(cfg32.model.d_optim), use_ema=True)
-    step32 = train_step_fn(cfg32, gen_cfg, dis_cfg, TRAIN_DEPTH, cfg32.loss)
-    alpha = torch.tensor(0.5, device=dev)
-    batch = TRAIN_BATCH
-    reals, z = (t.to(dev) for t in train_batch(gen_cfg, batch, 20))
-
-    def f32_ms(seed):
-        set_precision("highest")
-        step32(state32, reals, z, seed, alpha)        # warm-up
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        for i in range(BF16_TIMED):
-            step32(state32, reals, z, seed + 1 + i, alpha)
-            torch.cuda.synchronize()
-        return (time.perf_counter() - t0) / BF16_TIMED * 1e3
-    f32_before = f32_ms(0)
-    busy32, wall32, _, _ = profile_train_step(
-        step32, state32, (reals, z), alpha, kern,
-        expected_train_launches(kern, dev, batch),
-        BF16_PROFILE_TABLE.format("float32_step"))
 
     cfg = perf_cfg()
     apply_runtime_knobs(cfg)
@@ -2680,53 +2337,43 @@ def bf16_train(dev):
     s.generator.load_state_dict(random_state_dict(s.generator, seed=10))
     s.discriminator.load_state_dict(random_state_dict(s.discriminator,
                                                       seed=11))
-    interval = trainer.r1_interval
+    alpha = torch.tensor(0.5, device=dev)
+    batch = TRAIN_BATCH
+    reals, _ = (t.to(dev) for t in train_batch(
+        generator_config_from_cfg(cfg), batch, 20))
     want = bf16_step_launches(kern, dev, batch)
-    peak = device_peak_tflops(dev, cfg.precision.activations)
-    report = {"r1_interval": interval,
-              "fuse_scores": trainer.fuse_scores, "peak_tflops": peak,
+    report = {"r1_interval": trainer.r1_interval,
+              "fuse_scores": trainer.fuse_scores,
               "precision": cfg.precision.activations}
     if not trainer.fuse_scores:
         fail("the perf config's trainer does not fuse the scoring")
     for name, with_r1 in (("r1_step", True), ("off_step", False)):
-        def one(i):
+        def one():
             trainer._update_count = 0 if with_r1 else 1  # the R1 phase
             return trainer.train_on_batch(reals, TRAIN_DEPTH, 0.5,
                                           fetch=False)
-        one(0)
-        torch.cuda.synchronize()
         reset_counts(kern, fused)
         losses = []
         with g_update_marks(kern) as marks:
-            t0 = time.perf_counter()
-            for i in range(BF16_TIMED):
+            for i in range(BF16_STEPS):
                 start = (counter("launches"), counter("backward_launches"))
-                losses.append([float(v) for v in one(1 + i)])
-                torch.cuda.synchronize()
+                losses.append([float(v) for v in one()])
                 marks[i] = (marks[i][0] - start[0], marks[i][1] - start[1])
-            ms = (time.perf_counter() - t0) / BF16_TIMED * 1e3
         fwd, bwd, plain = (counter("launches"), counter("backward_launches"),
                            fused.plain_calls)
         per_step = {"d_update_forward": marks[0][0],
                     "d_update_backward": marks[0][1],
-                    "g_update_forward": fwd // BF16_TIMED - marks[0][0],
-                    "g_update_backward": bwd // BF16_TIMED - marks[0][1]}
+                    "g_update_forward": fwd // BF16_STEPS - marks[0][0],
+                    "g_update_backward": bwd // BF16_STEPS - marks[0][1]}
         step = trainer._get_step(TRAIN_DEPTH, with_r1)
         z16 = torch.randn((batch, trainer.latent_size), device=dev,
                           dtype=torch.bfloat16)
-        busy, wall, top, kernel_ms = profile_train_step(
-            step, s, (reals.to(torch.bfloat16), z16), alpha, kern, want,
-            BF16_PROFILE_TABLE.format(name))
-        flops = train_step_flops(1024, loss=cfg.loss, with_r1=with_r1)
-        report[name] = {
-            "ms_per_step": ms, "img_per_s": batch * 1e3 / ms,
-            "speedup_vs_float32": f32_before / ms,
-            "device_speedup_vs_float32": busy32 / busy, "losses": losses,
-            "epilogue_calls_per_step": per_step, "plain_calls": plain,
-            "device_busy_ms": busy, "profiled_step_wall_ms": wall,
-            "device_busy_share": busy / wall, "top_ops": top[:6],
-            "epilogue_kernels_in_step_ms": kernel_ms,
-            **mfu_fields(batch * 1e3 / ms, flops, peak)}
+        kernel_ms = profile_train_step(
+            step, s, (reals.to(torch.bfloat16), z16), alpha, kern, want)
+        report[name] = {"losses": losses,
+                        "epilogue_calls_per_step": per_step,
+                        "plain_calls": plain,
+                        "epilogue_kernels_in_step_ms": kernel_ms}
         if not all(math.isfinite(v) for pair in losses for v in pair):
             fail(f"bf16 {name}: losses not finite: {losses}")
         if any(m != marks[0] for m in marks) or per_step != {
@@ -2735,36 +2382,6 @@ def bf16_train(dev):
                 "g_update_backward": PER_FORWARD} or plain:
             fail(f"bf16 {name}: epilogue calls per step {marks} "
                  f"({per_step}), {plain} plain calls")
-    # the same steps without remat (the yaml's ops.remat), host clock only
-    no_remat = build_trainer(perf_cfg(**{"ops.remat": False}), dev)
-    no_remat.state.generator.load_state_dict(s.generator.state_dict())
-    no_remat.state.discriminator.load_state_dict(s.discriminator.state_dict())
-    report["without_remat_ms_per_step"] = {}
-    for name, phase in (("r1_step", 0), ("off_step", 1)):
-        times = []
-        for i in range(BF16_TIMED + 1):
-            no_remat._update_count = phase
-            t0 = time.perf_counter()
-            no_remat.train_on_batch(reals, TRAIN_DEPTH, 0.5)
-            times.append((time.perf_counter() - t0) * 1e3)
-        report["without_remat_ms_per_step"][name] = sum(times[1:]) / \
-            BF16_TIMED
-    del no_remat
-    f32_after = f32_ms(10)
-    report["float32_phase5b_step"] = {
-        "ms_per_step_before_after": [f32_before, f32_after],
-        "device_busy_ms": busy32, "profiled_step_wall_ms": wall32,
-        "device_busy_share": busy32 / wall32}
-    del state32, step32, gen, dis, z
-    r1, off = report["r1_step"]["ms_per_step"], report["off_step"][
-        "ms_per_step"]
-    lazy_ms = (r1 + (interval - 1) * off) / interval
-    report["lazy_r1_mean_ms_per_step"] = lazy_ms
-    report["lazy_r1_mean"] = mfu_fields(
-        batch * 1e3 / lazy_ms, (train_step_flops(1024, loss=cfg.loss)
-                                + (interval - 1) * train_step_flops(
-                                    1024, loss=cfg.loss, with_r1=False))
-        / interval, peak)
     params = {p.dtype for m in (s.generator, s.discriminator, s.g_shadow)
               for p in m.parameters()}
     report["parameter_dtypes"] = sorted(str(d) for d in params)
@@ -2812,14 +2429,12 @@ def bf16_vs_cpu(dev):
                                 r1_gamma=cfg.r1_gamma * cfg.r1_interval,
                                 fuse_scores=True)
         put = lambda t: t.to(device, dtype)
-        t0 = time.perf_counter()
         _, m = step(state, put(reals), put(z), 0,
                     torch.tensor(0.5, device=device, dtype=params),
                     noises=[put(n) for n in noises],
                     mixing=(put(latents2), 5))
         losses = (m["d_loss"].item(), m["g_loss"].item())
-        log(f"bf16 check on {device.type} {dtype}: losses {losses}, "
-            f"{time.perf_counter() - t0:.1f} s")
+        log(f"bf16 check on {device.type} {dtype}: losses {losses}")
         dtypes = {p.dtype for mod in (state.generator, state.discriminator,
                                       state.g_shadow)
                   for p in mod.parameters()}
@@ -2868,7 +2483,7 @@ def bf16_cli(dev, tmp):
     """9(d): `python -m stylegan_torch.cli.train --config` a copy of the
     perf config on 24 seeded 1024^2 PNGs, depths 7 and 8 (one epoch each,
     4 feedback samples): finite losses in metrics.jsonl, a checkpoint that
-    reads back with float32 parameters, and the depth-8 windowed img/s."""
+    reads back with float32 parameters."""
     import yaml
     from stylegan_torch.convert import load_generator_file
     from stylegan_torch.models import Generator, generator_config_from_cfg
@@ -2884,10 +2499,8 @@ def bf16_cli(dev, tmp):
     path = os.path.join(tmp, "perf.yaml")
     with open(path, "w") as f:
         yaml.safe_dump(doc, f)
-    t0 = time.perf_counter()
     run([sys.executable, "-m", "stylegan_torch.cli.train", "--config", path,
          "--start_depth", str(TRAINER_START_DEPTH)], "train CLI (bf16)")
-    wall = time.perf_counter() - t0
     with open(os.path.join(out, "metrics.jsonl")) as f:
         rows = [json.loads(line) for line in f]
     with open(os.path.join(out, "log.txt")) as f:
@@ -2903,10 +2516,7 @@ def bf16_cli(dev, tmp):
     dtypes = {p.dtype for p in gen.parameters()}
     if dtypes != {torch.float32}:
         fail(f"bf16 train CLI: checkpoint parameters {dtypes}")
-    depth8 = [r["imgs_per_sec"] for r in rows
-              if r["depth"] == TRAINER_START_DEPTH + 1 and r["imgs_per_sec"]]
-    report = {"wall_s": wall, "feedback_rows": len(rows),
-              "depth8_windows_img_per_s": depth8,
+    report = {"feedback_rows": len(rows),
               "losses": [(r["d_loss"], r["g_loss"]) for r in rows]}
     log(json.dumps({"phase9_cli": report}))
     return report
@@ -2919,20 +2529,16 @@ PAR_OUT = os.path.join(REPO, "build", "chip_smoke", "parallel")
 PAR_CLI_IMAGES = 8
 
 
-def phase_parallel(dev, train):
+def phase_parallel(dev):
     """Phase 10: the data-parallel path (stylegan_torch/parallel, the mesh=
     step, the train CLI under torchrun) on FFHQ-1024, each part fatal."""
     from stylegan_torch.parallel import spawn
-    t_phase = time.perf_counter()
-    report = {"one_rank_nccl": parallel_one_rank(dev, train)}
+    report = {"one_rank_nccl": parallel_one_rank(dev)}
     shutil.rmtree(PAR_OUT, ignore_errors=True)
     os.makedirs(PAR_OUT)
-    t0 = time.perf_counter()
     spawn(parallel_rank, 2, (PAR_OUT,), backend="gloo", device="cuda:0",
           timeout=PAR_TIMEOUT, join_timeout=PAR_TIMEOUT)
-    log(f"parallel: two ranks on one card over gloo, "
-        f"{time.perf_counter() - t0:.1f} s")
-    report["two_ranks_gloo"] = parallel_two_ranks(train)
+    report["two_ranks_gloo"] = parallel_two_ranks()
     # the CLI's rank runs on the card while this process computes 10(c)
     # (one step on the card, one in float64 on the CPU)
     with tempfile.TemporaryDirectory(dir=os.path.dirname(PAR_OUT)) as tmp:
@@ -2946,8 +2552,6 @@ def phase_parallel(dev, train):
                 cli["proc"].wait()
             cli["log"].close()
     shutil.rmtree(PAR_OUT)
-    report["phase_s"] = time.perf_counter() - t_phase
-    log(f"phase 10: {report['phase_s']:.1f} s")
     return report
 
 
@@ -2999,7 +2603,7 @@ def cudnn_deterministic():
         torch.backends.cudnn.deterministic = before
 
 
-def parallel_one_rank(dev, train):
+def parallel_one_rank(dev):
     """10(a): a world of one rank over NCCL; the mesh= step at depth 8,
     batch 2, logistic + R1.  Its first step from the seeded state against
     two runs of the mesh=None step from the same state on the same inputs
@@ -3008,10 +2612,9 @@ def parallel_one_rank(dev, train):
     losses and gradients (Adam's first moments) bitwise equal; a tensor
     that is not is reported by name and held to within CHECK_GRAD_FACTOR
     times the two plain runs' spread plus 1e-5 of the scale; then
-    PAR_STEPS timed steps (cuDNN's default algorithms): ms per step beside
-    5(b)'s, 36 forward and 18 backward kernel calls per step, no plain
-    call; and `replicate` over the rank leaves the state's digests as they
-    were."""
+    PAR_STEPS steps (cuDNN's default algorithms): finite losses, 36 forward
+    and 18 backward kernel calls per step, no plain call; and `replicate`
+    over the rank leaves the state's digests as they were."""
     from stylegan_torch.models.synthesis import stream_seed
     from stylegan_torch.parallel import (create_mesh, initialize_distributed,
                                          replicate)
@@ -3046,15 +2649,12 @@ def parallel_one_rank(dev, train):
             if m is not None:
                 batches = [tuple(t.to(rank_dev) for t in train_batch(
                     gen_cfg, batch, 41 + i)) for i in range(PAR_STEPS)]
-                torch.cuda.synchronize()
                 reset_train_counts()
-                t0 = time.perf_counter()
                 losses = []
                 for i, b in enumerate(batches):
                     _, out = step(state, *b, 6 + i, alpha)
                     losses.append((out["d_loss"].item(),
                                    out["g_loss"].item()))
-                ms = (time.perf_counter() - t0) / PAR_STEPS * 1e3
                 counts = train_counts()
                 # NCCL takes only card tensors: Adam's step counts (on the
                 # host) travel through the card, and come back unchanged
@@ -3090,8 +2690,7 @@ def parallel_one_rank(dev, train):
     if not all(math.isfinite(v) for pair in losses for v in pair):
         fail(f"10(a): losses not finite: {losses}")
     check_train_counts(counts, PAR_STEPS, "10(a)")
-    report = {"backend": "nccl", "world": 1, "ms_per_step": ms,
-              "phase5b_ms_per_step": train["ms_per_step"],
+    report = {"backend": "nccl", "world": 1,
               "cudnn_deterministic_bitwise": not differ,
               "differ_from_plain": differ,
               "first_step_losses": {"mesh": lm, "plain": lp,
@@ -3129,8 +2728,8 @@ def state_digests(state):
 def parallel_rank(rank, device, out_dir):
     """One of the two ranks of 10(b) and 10(c), on the one card over gloo.
     (b): the mesh= step at depth 8, global batch PAR_BATCH, logistic + R1:
-    a warm-up and PAR_STEPS timed steps, the state's digests after each,
-    the kernel calls and ms per step into b_rank{rank}.json.  (c): one
+    a first step and PAR_STEPS more, the state's digests after each, the
+    kernel calls of the PAR_STEPS into b_rank{rank}.json.  (c): one
     depth-5 step on this rank's rows of pinned_inputs(cfg, PAR_BATCH, 70),
     rank 0's result into c_rank0.pt."""
     from stylegan_torch.parallel import create_mesh, global_shard, replicate
@@ -3147,22 +2746,17 @@ def parallel_rank(rank, device, out_dir):
     alpha = torch.tensor(0.5, device=device)
     batches = [tuple(global_shard(mesh, t).to(device) for t in train_batch(
         gen_cfg, PAR_BATCH, 50 + i)) for i in range(PAR_STEPS + 1)]
-    _, out = step(state, *batches[0], 0, alpha)         # warm-up
+    _, out = step(state, *batches[0], 0, alpha)
     digests = [state_digests(state)]
     reset_train_counts()
-    times, losses = [], []
+    losses = []
     for i in range(PAR_STEPS):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
         _, out = step(state, *batches[1 + i], 1 + i, alpha)
-        torch.cuda.synchronize()
-        times.append((time.perf_counter() - t0) * 1e3)
         losses.append((out["d_loss"].item(), out["g_loss"].item()))
         digests.append(state_digests(state))
     counts = train_counts()
     with open(os.path.join(out_dir, f"b_rank{rank}.json"), "w") as f:
-        json.dump({"ms_per_step": times, "losses": losses,
-                   "digests": digests, **counts}, f)
+        json.dump({"losses": losses, "digests": digests, **counts}, f)
     del state, step, gen, dis, batches
     torch.cuda.empty_cache()
 
@@ -3182,9 +2776,9 @@ def parallel_rank(rank, device, out_dir):
                    os.path.join(out_dir, "c_rank0.pt"))
 
 
-def parallel_two_ranks(train):
+def parallel_two_ranks():
     """10(b)'s verdict from the ranks' files: the same state digests after
-    the warm-up and after every step, finite losses, each rank's kernel
+    the first step and after every later one, finite losses, each rank's kernel
     calls as 10(a)'s, no plain call."""
     ranks = []
     for r in (0, 1):
@@ -3208,8 +2802,6 @@ def parallel_two_ranks(train):
     report = {"backend": "gloo", "world": 2, "global_batch": PAR_BATCH,
               "note": "two ranks sharing one card: a correctness run, not "
                       "a scaling figure",
-              "ms_per_step_by_rank": [r["ms_per_step"] for r in ranks],
-              "phase5b_ms_per_step": train["ms_per_step"],
               "losses": ranks[0]["losses"],
               "digests_equal_after_steps": len(ranks[0]["digests"]),
               "calls_by_rank": [{k: r[k] for k in ("forward_calls",
@@ -3277,8 +2869,7 @@ def parallel_cli_start(tmp):
          "--nproc_per_node", "1", "-m", "stylegan_torch.cli.train",
          "--config", path, "--start_depth", str(TRAINER_START_DEPTH)],
         cwd=REPO, stdout=log_file, stderr=subprocess.STDOUT, text=True)
-    return {"proc": proc, "log": log_file, "log_path": log_path, "out": out,
-            "t0": time.perf_counter()}
+    return {"proc": proc, "log": log_file, "log_path": log_path, "out": out}
 
 
 def parallel_cli_finish(cli):
@@ -3295,7 +2886,6 @@ def parallel_cli_finish(cli):
             fail(f"10(d): the train CLI under torchrun exited {rc}:\n"
                  f"{f.read()[-6000:]}")
     out = cli["out"]
-    wall = time.perf_counter() - cli["t0"]
     with open(os.path.join(out, "metrics.jsonl")) as f:
         rows = [json.loads(line) for line in f]
     with open(os.path.join(out, "log.txt")) as f:
@@ -3311,7 +2901,7 @@ def parallel_cli_finish(cli):
         "GEN", "DIS", "GEN_OPTIM", "DIS_OPTIM", "GEN_SHADOW"))
     if files != want:
         fail(f"10(d): checkpoint files {files}, want {want}")
-    report = {"wall_s": wall, "feedback_rows": len(rows),
+    report = {"feedback_rows": len(rows),
               "losses": [(r["d_loss"], r["g_loss"]) for r in rows],
               "checkpoints": len(files)}
     log(json.dumps({"phase10_cli": report}))
@@ -3320,16 +2910,14 @@ def parallel_cli_finish(cli):
 
 def run_all(cmds, label="tools"):
     """Start every command at once from the repo root; fail with the output
-    of any that fails; returns each one's wall time in s."""
-    procs, t0 = {}, time.perf_counter()
+    of any that fails."""
+    procs = {}
     for name, cmd in cmds.items():
         procs[name] = subprocess.Popen(cmd, cwd=REPO, stdout=subprocess.PIPE,
                                        stderr=subprocess.PIPE, text=True)
-    times = {}
     try:
         for name, p in procs.items():
             out, err = p.communicate(timeout=600)
-            times[name] = time.perf_counter() - t0
             if p.returncode != 0:
                 fail(f"{name} exited {p.returncode}:\n{out[-3000:]}\n"
                      f"{err[-3000:]}")
@@ -3338,10 +2926,8 @@ def run_all(cmds, label="tools"):
             if p.poll() is None:
                 p.kill()
                 p.wait()
-    log(f"{label}: {len(cmds)} CLI subprocesses on the card, concurrently, "
-        f"done in {max(times.values()):.1f} s: " + ", ".join(
-            f"{k} {v:.1f} s" for k, v in times.items()))
-    return times
+    log(f"{label}: {len(cmds)} CLI subprocesses on the card, concurrently: "
+        + ", ".join(cmds))
 
 
 # ------------------------------------------------------------------------
@@ -3364,7 +2950,6 @@ def phase_spatial(dev):
     the card over gloo against the one-process forward, with their kernel
     calls and peak memory, (d) the 2-rank artifact against the live fn,
     (e) the two CLIs as subprocesses."""
-    t_phase = time.perf_counter()
     shutil.rmtree(SPATIAL_OUT, ignore_errors=True)
     os.makedirs(SPATIAL_OUT)
     report = {"kernels": spatial_kernels(dev)}
@@ -3372,8 +2957,6 @@ def phase_spatial(dev):
     report["ranks"] = spatial_ranks(dev)
     report["cli"] = spatial_cli()
     shutil.rmtree(SPATIAL_OUT)
-    report["phase_s"] = time.perf_counter() - t_phase
-    log(f"phase 11: {report['phase_s']:.1f} s")
     return report
 
 
@@ -3506,7 +3089,7 @@ def spatial_times(kern, fused, args, n):
     return times
 
 
-def spatial_generator(dev):
+def ffhq_generator(dev):
     """FFHQ-1024's generator with phase 3's seeded weights, on `dev`."""
     from stylegan_torch.models import Generator, generator_config_from_cfg
     gen = Generator(generator_config_from_cfg(ffhq_cfg()))
@@ -3533,7 +3116,7 @@ def spatial_one_rank(dev):
     try:
         if torch.distributed.get_backend() != "nccl":
             fail(f"11(b): backend {torch.distributed.get_backend()}")
-        gen = spatial_generator(rank_dev)
+        gen = ffhq_generator(rank_dev)
         z = spatial_z(BATCH, gen.cfg.latent_size)
         mesh = create_spatial_mesh(1)
         got = build_spatial_sample_fn(gen.cfg, gen, mesh,
@@ -3555,8 +3138,8 @@ def spatial_one_rank(dev):
 
 def spatial_rank(rank, device, n, artifact):
     """A rank of 11(c)/(d), sharing the card over gloo: per batch, a
-    warm-up, then SPATIAL_REQUESTS timed requests with the kernel counts
-    and the peak memory; its slab against its rows of the gathered image;
+    warm-up, then SPATIAL_REQUESTS requests with the kernel counts and the
+    peak memory; its slab against its rows of the gathered image;
     rank 0 keeps the gathered images.  With `artifact` (n = 2): loaded
     here, its rows against the live fn's and a request served twice; and a
     bf16 request."""
@@ -3567,7 +3150,7 @@ def spatial_rank(rank, device, n, artifact):
     from stylegan_torch.serving import load_exported
 
     ffhq_cfg()                          # float32, TF32 off
-    gen = spatial_generator(device)
+    gen = ffhq_generator(device)
     mesh = create_spatial_mesh(n)
     fn = build_spatial_sample_fn(gen.cfg, gen, mesh, depth=DEPTH)
     rows = SPATIAL_RES // n
@@ -3579,11 +3162,8 @@ def spatial_rank(rank, device, n, artifact):
         torch.cuda.synchronize()
         reset_counts(kern, fused)
         torch.cuda.reset_peak_memory_stats(device)
-        t0 = time.perf_counter()
         for i in range(SPATIAL_REQUESTS):
             slab = fn(zs[i], i)
-            torch.cuda.synchronize()
-        ms = (time.perf_counter() - t0) / SPATIAL_REQUESTS * 1e3
         counts = {"partial": counter("partial_launches"),
                   "apply": counter("apply_launches"),
                   "unsplit": counter("launches"),
@@ -3593,12 +3173,10 @@ def spatial_rank(rank, device, n, artifact):
         if not torch.equal(slab, full[:, rank * rows:(rank + 1) * rows]):
             fail(f"11(c) rank {rank}/{n}: its slab differs from its rows of "
                  "the gathered image")
-        report[f"b{batch}"] = {"ms_per_request": ms, "calls": counts,
-                               "peak_bytes": peak}
+        report[f"b{batch}"] = {"calls": counts, "peak_bytes": peak}
         keep[f"b{batch}"] = full.cpu()
         del full, slab
     if artifact:
-        t0 = time.perf_counter()
         serve = load_exported(artifact, device=device, mesh=mesh)
         z = spatial_z(BATCH, gen.cfg.latent_size)
         got, again, live = serve(z, 3), serve(z, 3), fn(z, 3)
@@ -3606,9 +3184,7 @@ def spatial_rank(rank, device, n, artifact):
             fail(f"11(d) rank {rank}: the artifact differs from the live "
                  f"spatial fn by {float((got - live).abs().max())}, or "
                  "from itself")
-        report["artifact"] = {"bitwise_live": True, "replay_bitwise": True,
-                              "load_and_3_requests_s":
-                                  time.perf_counter() - t0}
+        report["artifact"] = {"bitwise_live": True, "replay_bitwise": True}
         z1 = spatial_z(1, gen.cfg.latent_size)
         keep["bf16"] = gather_rows(fn(z1.to(torch.bfloat16), 0), mesh).cpu()
     with open(os.path.join(SPATIAL_OUT, f"n{n}_rank{rank}.json"), "w") as f:
@@ -3623,53 +3199,44 @@ def spatial_ranks(dev):
     against the one-process forward (<= 1e-2 and JAX's 1e-3/1e-3), each
     rank's calls (K1-partial and K2-apply per split stage, the unsplit
     kernel per whole stage, no plain call), its peak memory beside the
-    one-process forward's and spatial_hbm_estimate, ms per request (a
-    correctness and memory run: the ranks share one card); the 2-rank
-    artifact exported here, in one process, and checked on the ranks."""
+    one-process forward's and spatial_hbm_estimate (a correctness and
+    memory run: the ranks share one card); the 2-rank artifact exported
+    here, in one process, and checked on the ranks."""
     from stylegan_torch.parallel import spatial_hbm_estimate, spawn
     from stylegan_torch.serving import export_generator, make_serving_fn
 
-    gen = spatial_generator(dev)
+    gen = ffhq_generator(dev)
     serve = make_serving_fn(gen.cfg, gen, depth=DEPTH, device=dev)
-    want, one_peak, one_ms = {}, {}, {}
+    want, one_peak = {}, {}
     for batch in SPATIAL_BATCHES:
         zs = [spatial_z(batch, gen.cfg.latent_size, i)
               for i in range(SPATIAL_REQUESTS + 1)]
         serve(zs[-1], 99)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats(dev)
-        t0 = time.perf_counter()
         for i in range(SPATIAL_REQUESTS):
             out = serve(zs[i], i)
-            torch.cuda.synchronize()
-        one_ms[batch] = (time.perf_counter() - t0) / SPATIAL_REQUESTS * 1e3
         one_peak[batch] = torch.cuda.max_memory_allocated(dev)
         want[f"b{batch}"] = out.cpu()
     with torch.inference_mode():
         want["bf16"] = gen(spatial_z(1, gen.cfg.latent_size).to(dev).to(
             torch.bfloat16), depth=DEPTH, alpha=1.0, seed=0).images.float() \
             .cpu()
-    t0 = time.perf_counter()
     artifact = os.path.join(SPATIAL_OUT, "spatial2.pt2")
     with open(artifact, "wb") as f:
         f.write(export_generator(gen.cfg, gen, depth=DEPTH, batch_size=BATCH,
                                  spatial_devices=2))
-    export_s = time.perf_counter() - t0
     del gen, serve, out
     torch.cuda.empty_cache()
 
     report = {"note": "ranks sharing one card over gloo: a correctness and "
                       "memory run, not a scaling figure",
-              "one_process": {f"b{b}": {"ms_per_request": one_ms[b],
-                                        "peak_bytes": one_peak[b]}
-                              for b in SPATIAL_BATCHES},
-              "export_s": export_s}
+              "one_process_peak_bytes": {f"b{b}": one_peak[b]
+                                         for b in SPATIAL_BATCHES}}
     for n in SPATIAL_RANKS:
-        t0 = time.perf_counter()
         spawn(spatial_rank, n, (n, artifact if n == 2 else None),
               backend="gloo", device="cuda:0", timeout=SPATIAL_TIMEOUT,
               join_timeout=SPATIAL_TIMEOUT)
-        wall = time.perf_counter() - t0
         ranks = []
         for r in range(n):
             with open(os.path.join(SPATIAL_OUT, f"n{n}_rank{r}.json")) as f:
@@ -3679,7 +3246,7 @@ def spatial_ranks(dev):
         want_calls = {"partial": 2 * split, "apply": 2 * split,
                       "unsplit": 2 * (len(EPILOGUE_SHAPES) - split),
                       "plain": 0}
-        rep = {"world": n, "wall_s": wall, "by_rank": ranks}
+        rep = {"world": n, "by_rank": ranks}
         for batch in SPATIAL_BATCHES:
             key = f"b{batch}"
             a, b = got[key], want[key]
@@ -3704,9 +3271,6 @@ def spatial_ranks(dev):
             rep[key] = {
                 "max_abs_diff": err, "bar": CPU_TOL,
                 "jax_tol": JAX_SPATIAL_TOL,
-                "ms_per_request_by_rank": [r[key]["ms_per_request"]
-                                           for r in ranks],
-                "one_process_ms": one_ms[batch],
                 "peak_bytes_by_rank": [r[key]["peak_bytes"] for r in ranks],
                 "one_process_peak_bytes": one_peak[batch],
                 "hbm_estimate_1024x16_f32": est,
@@ -3735,7 +3299,7 @@ def spatial_cli():
     level of 255 (the 1e-3 bar after rounding)."""
     from PIL import Image
     from stylegan_torch.convert import save_generator_file
-    gen = spatial_generator(torch.device("cpu"))
+    gen = ffhq_generator(torch.device("cpu"))
     npz = os.path.join(SPATIAL_OUT, "gen.npz")
     save_generator_file(gen, npz)
     del gen
@@ -3743,7 +3307,7 @@ def spatial_cli():
     common = ["--config", CONFIG, "--generator_file", npz]
     spatial = ["--spatial_devices", "2", "--device", "cuda:0"]
     dirs = {k: os.path.join(SPATIAL_OUT, k) for k in ("split", "one")}
-    times = run_all({
+    run_all({
         "generate_samples_spatial": base + [
             "stylegan_torch.cli.generate_samples"] + common + [
             "--num_samples", "2", "--seed", "3", "--output_dir",
@@ -3756,7 +3320,7 @@ def spatial_cli():
             "stylegan_torch.cli.export_generator"] + common + [
             "--output", os.path.join(SPATIAL_OUT, "cli.pt2"), "--batch", "2",
             "--out_depth", str(CHECK_DEPTH), "--check"] + spatial},
-        label="phase 11")
+        label="11(e)")
     worst = 0
     for i in (1, 2):
         a, b = (np.asarray(Image.open(os.path.join(dirs[k], f"{i}.png")))
@@ -3767,7 +3331,7 @@ def spatial_cli():
     if worst > 1:
         fail(f"11(e): the split CLI's PNGs differ from the one-process "
              f"CLI's by {worst} levels")
-    report = {"wall_s": times, "png_max_level_diff": worst}
+    report = {"png_max_level_diff": worst}
     log(json.dumps({"phase11_cli": report}))
     return report
 
@@ -3777,7 +3341,7 @@ def spatial_cli():
 
 SP_TRAIN_GRIDS = ((1, 2), (2, 2))   # (data, spatial) grids of 12(b)
 SP_TRAIN_WORLD = 4
-SP_TRAIN_STEPS = 2                  # timed depth-8 steps of 12(c)
+SP_TRAIN_STEPS = 2                  # depth-8 steps of 12(c)
 SP_TRAIN_SPLITS = (2, 4)            # slabs of one plane in 12(a)
 SP_TRAIN_BATCHES = (TRAIN_BATCH, 1)  # 12(a): the step's batch; batch 1
 SP_TRAIN_OUT = os.path.join(REPO, "build", "chip_smoke", "spatial_train")
@@ -3790,7 +3354,7 @@ SP_STEP_CALLS = {"forward": 4, "partial": 32, "apply": 32, "backward": 2,
                  "backward_partial": 16, "backward_apply": 16, "plain": 0}
 
 
-def phase_spatial_train(dev, train):
+def phase_spatial_train(dev):
     """Phase 12: the (data x spatial) train step on FFHQ-1024, each part
     fatal: (a) K3's split entries at every split shape, (b) a depth-5 step
     on (1 x 2) and (2 x 2) grids of gloo ranks sharing the card against
@@ -3798,40 +3362,26 @@ def phase_spatial_train(dev, train):
     grid with each rank's kernel calls and peak memory, (d) cli.train with
     parallel.spatial: 2 on the card."""
     from stylegan_torch.parallel import spawn
-    t_phase = time.perf_counter()
     shutil.rmtree(SP_TRAIN_OUT, ignore_errors=True)
     os.makedirs(SP_TRAIN_OUT)
-    parts_s = {}
     report = {"kernels": spatial_train_kernels(dev)}
-    one_peak = train.get("peak_memory_GiB") or one_process_peak_gib(dev)
-    parts_s["a"] = time.perf_counter() - t_phase
-    t0 = time.perf_counter()
     spawn(spatial_train_rank, SP_TRAIN_WORLD, (SP_TRAIN_OUT,),
           backend="gloo", device="cuda:0", timeout=PAR_TIMEOUT,
           join_timeout=PAR_TIMEOUT)
-    parts_s["ranks"] = time.perf_counter() - t0
-    log(f"spatial train: {SP_TRAIN_WORLD} ranks on one card over gloo, "
-        f"{parts_s['ranks']:.1f} s")
-    report["depth8"] = spatial_train_depth8(one_peak)
+    report["depth8"] = spatial_train_depth8()
     # the CLI's ranks run on the card while this process computes 12(b)'s
     # references (one float32 step on the card, one float64 on the CPU)
-    t0 = time.perf_counter()
     with tempfile.TemporaryDirectory(dir=SP_TRAIN_OUT) as tmp:
         cli = spatial_train_cli_start(tmp)
         try:
             report["vs_one_process"] = spatial_train_vs_one_process(dev)
-            parts_s["b_reference"] = time.perf_counter() - t0
             report["cli"] = spatial_train_cli_finish(cli)
         finally:
             if cli["proc"].poll() is None:
                 cli["proc"].kill()
                 cli["proc"].wait()
             cli["log"].close()
-    parts_s["b_and_d"] = time.perf_counter() - t0
     shutil.rmtree(SP_TRAIN_OUT)
-    report["parts_s"] = parts_s
-    report["phase_s"] = time.perf_counter() - t_phase
-    log(f"phase 12: {report['phase_s']:.1f} s")
     return report
 
 
@@ -4127,28 +3677,6 @@ def split_backward_times(kern, fused, args, cot, n, plain=False):
     return times
 
 
-def one_process_peak_gib(dev):
-    """Phase 5(b)'s one-process peak when phase 5 did not run (--only):
-    a warm-up and one depth-8 batch-2 step."""
-    from stylegan_torch.train import create_train_state
-    cfg = ffhq_cfg()
-    gen_cfg, dis_cfg, gen, dis = train_models(cfg, dev)
-    state = create_train_state(gen, dis, dict(cfg.model.g_optim),
-                               dict(cfg.model.d_optim), use_ema=cfg.use_ema)
-    step = train_step_fn(cfg, gen_cfg, dis_cfg, TRAIN_DEPTH, cfg.loss)
-    alpha = torch.tensor(0.5, device=dev)
-    reals, z = (t.to(dev) for t in train_batch(gen_cfg, TRAIN_BATCH, 90))
-    step(state, reals, z, 0, alpha)
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats(dev)
-    step(state, reals, z, 1, alpha)
-    torch.cuda.synchronize()
-    peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
-    del state, step, gen, dis
-    torch.cuda.empty_cache()
-    return peak
-
-
 def spatial_step_fn(cfg, gen_cfg, dis_cfg, depth, mesh):
     """The yaml's step over a (data, spatial) grid."""
     from stylegan_torch.train import build_spatial_train_step
@@ -4182,8 +3710,8 @@ def spatial_train_rank(rank, device, out_dir):
     grid of SP_TRAIN_GRIDS it is in, one depth-5 step on its data shard of
     pinned_inputs(cfg, PAR_BATCH, 80) (the noise maps and mixing latents
     its shard's), its state's digests; rank 0's result to b_{grid}.pt.
-    (c): on the (1, 2) grid, a warm-up and SP_TRAIN_STEPS depth-8 batch-2
-    steps, timed, with the kernel calls counted from 0 just before them and
+    (c): on the (1, 2) grid, a first step and SP_TRAIN_STEPS more at depth
+    8, batch 2, with the kernel calls counted from 0 just before them and
     read just after, and the peak memory; all into rank{rank}.json."""
     from stylegan_torch.parallel import create_mesh_2d
     from stylegan_torch.train import create_train_state
@@ -4227,19 +3755,15 @@ def spatial_train_rank(rank, device, out_dir):
         step = spatial_step_fn(cfg, gen_cfg, dis_cfg, TRAIN_DEPTH, mesh)
         batches = [tuple(t.to(device) for t in train_batch(
             gen_cfg, TRAIN_BATCH, 90 + i)) for i in range(SP_TRAIN_STEPS + 1)]
-        step(state, *batches[0], 0, alpha)          # warm-up
-        torch.cuda.synchronize()
+        step(state, *batches[0], 0, alpha)
         torch.cuda.reset_peak_memory_stats(device)
         reset_spatial_train_counts()
-        times, losses = [], []
+        losses = []
         for i in range(SP_TRAIN_STEPS):
-            t0 = time.perf_counter()
             _, m = step(state, *batches[1 + i], 1 + i, alpha)
-            torch.cuda.synchronize()
-            times.append((time.perf_counter() - t0) * 1e3)
             losses.append([m["d_loss"].item(), m["g_loss"].item()])
         report["depth8"] = {
-            "ms_per_step": times, "losses": losses,
+            "losses": losses,
             "calls": spatial_train_counts(),
             "peak_GiB": torch.cuda.max_memory_allocated(device) / 2 ** 30,
             "digests": state_digests(state)}
@@ -4306,11 +3830,10 @@ def spatial_train_vs_one_process(dev):
     return report
 
 
-def spatial_train_depth8(one_peak_gib):
+def spatial_train_depth8():
     """12(c)'s verdict: each (1 x 2) rank's kernel calls per step
     (SP_STEP_CALLS), finite losses equal on both ranks, the replicas'
-    digests equal, ms per step and peak memory beside the one-process
-    peak (two ranks share the card: not a scaling figure)."""
+    digests equal; each rank's peak memory (two ranks share the card)."""
     ranks = [r for r in spatial_train_ranks() if "depth8" in r]
     if len(ranks) != 2:
         fail(f"12(c): {len(ranks)} ranks reported")
@@ -4328,10 +3851,7 @@ def spatial_train_depth8(one_peak_gib):
     report = {"grid": [1, 2], "depth": TRAIN_DEPTH, "batch": TRAIN_BATCH,
               "note": "two ranks sharing one card over gloo: a correctness "
                       "and memory run, not a scaling figure",
-              "ms_per_step_by_rank": [r["depth8"]["ms_per_step"]
-                                      for r in ranks],
               "peak_GiB_by_rank": [r["depth8"]["peak_GiB"] for r in ranks],
-              "one_process_peak_GiB": one_peak_gib,
               "losses": ranks[0]["depth8"]["losses"],
               "calls_per_step": SP_STEP_CALLS,
               "calls_by_rank": [r["depth8"]["calls"] for r in ranks]}
@@ -4365,8 +3885,7 @@ def spatial_train_cli_start(tmp):
          "--start_depth", str(TRAINER_START_DEPTH), "--num_devices", "2",
          "--device", "cuda:0"], cwd=REPO, stdout=log_file,
         stderr=subprocess.STDOUT, text=True)
-    return {"proc": proc, "log": log_file, "log_path": log_path, "out": out,
-            "t0": time.perf_counter()}
+    return {"proc": proc, "log": log_file, "log_path": log_path, "out": out}
 
 
 def spatial_train_cli_finish(cli):
@@ -4377,7 +3896,6 @@ def spatial_train_cli_finish(cli):
         rc = cli["proc"].wait(timeout=600)
     except subprocess.TimeoutExpired:
         fail("12(d): the train CLI did not finish in 600 s")
-    wall = time.perf_counter() - cli["t0"]
     cli["log"].flush()
     if rc != 0:
         with open(cli["log_path"]) as f:
@@ -4398,7 +3916,7 @@ def spatial_train_cli_finish(cli):
         "GEN", "DIS", "GEN_OPTIM", "DIS_OPTIM", "GEN_SHADOW"))
     if files != want:
         fail(f"12(d): checkpoint files {files}, want {want}")
-    report = {"wall_s": wall, "feedback_rows": len(rows),
+    report = {"feedback_rows": len(rows),
               "losses": [(r["d_loss"], r["g_loss"]) for r in rows],
               "checkpoints": len(files)}
     log(json.dumps({"phase12_cli": report}))
@@ -4435,41 +3953,26 @@ def phase_evidence(dev):
     shortened conditional run, (d) measure_latency, (e) the fidelity gate
     on a synthetic official pickle."""
     from stylegan_torch.ops.precision import get_precision, set_precision
-    t_phase = time.perf_counter()
     precision = get_precision()   # the tools' trainers allow TF32
     tmp = tempfile.mkdtemp(prefix="chip_smoke_p13_")
-    parts_s, report = {}, {}
+    report = {}
     try:
-        t0 = time.perf_counter()
         report["kernels"] = evidence_kernels(dev)
-        parts_s["a"] = time.perf_counter() - t0
-        t0 = time.perf_counter()
         report["progressive"], verify = evidence_progressive(dev, tmp)
-        parts_s["b"] = time.perf_counter() - t0
         # the replay runs in its process while (c) and (e) run here; (d)
         # times requests, so it waits for the card to itself
-        t0 = time.perf_counter()
         try:
             report["conditional"] = evidence_conditional(dev, tmp)
-            parts_s["c"] = time.perf_counter() - t0
-            t1 = time.perf_counter()
             report["gate"] = evidence_gate(dev, tmp)
-            parts_s["e"] = time.perf_counter() - t1
             report["progressive"]["resume"] = evidence_resume_finish(verify)
         finally:
             if verify["proc"].poll() is None:
                 verify["proc"].kill()
                 verify["proc"].wait()
-        parts_s["b_resume_c_e"] = time.perf_counter() - t0
-        t0 = time.perf_counter()
         report["latency"] = evidence_latency(dev)
-        parts_s["d"] = time.perf_counter() - t0
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
         set_precision(precision)
-    report["parts_s"] = parts_s
-    report["phase_s"] = time.perf_counter() - t_phase
-    log(f"phase 13: {report['phase_s']:.1f} s")
     return report
 
 
@@ -4613,10 +4116,7 @@ def evidence_progressive(dev, tmp):
     steps = [int(s) for s in a.steps_per_depth.split(",")]
     batches = [int(b) for b in a.batches.split(",")]
     reset_counts(kern, fused)
-    t0 = time.perf_counter()
     summary = prog.main(args)
-    wall = time.perf_counter() - t0
-    torch.cuda.synchronize()
     history = summary_history(out)
     if summary["aborted"] or summary["total_steps"] != sum(steps):
         fail(f"progressive run: {summary}")
@@ -4643,8 +4143,7 @@ def evidence_progressive(dev, tmp):
         fail(f"progressive run: {len(expected['losses'])} losses recorded")
     rep = {"steps_per_depth": steps, "batches": batches,
            "total_steps": summary["total_steps"], "evals": len(history),
-           "wall_s": wall, "ms_per_step_incl_evals": wall * 1e3
-           / summary["total_steps"], "calls": counts,
+           "calls": counts,
            "swd_x1e3_avg": [h["swd_x1e3"]["avg"] for h in history],
            "final_depth_swd_avg_first": summary["final_depth_swd_avg_first"],
            "final_depth_swd_avg_last": summary["final_depth_swd_avg_last"]}
@@ -4655,8 +4154,7 @@ def evidence_progressive(dev, tmp):
         [sys.executable, "-m", "stylegan_torch.tools.train_progressive_run",
          *EV_PROG, "--out", out, "--device", "cuda", "--verify_resume"],
         cwd=REPO, stdout=subprocess.PIPE, stderr=logf, text=True)
-    return rep, {"proc": proc, "log": logf, "log_path": log_path, "out": out,
-                 "t0": time.perf_counter()}
+    return rep, {"proc": proc, "log": logf, "log_path": log_path, "out": out}
 
 
 def summary_history(out):
@@ -4682,7 +4180,6 @@ def evidence_resume_finish(verify):
         fail(f"--verify_resume: {check}")
     rep = {k: check[k] for k in ("steps_replayed", "max_abs_diff",
                                  "bit_identical", "deterministic")}
-    rep["wall_s"] = time.perf_counter() - verify["t0"]
     log(json.dumps({"evidence_resume": rep}))
     return rep
 
@@ -4700,10 +4197,7 @@ def evidence_conditional(dev, tmp):
     a = cond.parse_arguments(args)
     depth = int(math.log2(a.res)) - 2
     reset_counts(kern, fused)
-    t0 = time.perf_counter()
     summary = cond.main(args)
-    wall = time.perf_counter() - t0
-    torch.cuda.synchronize()
     history = summary_history(out)
     if summary["steps_completed"] != a.steps:
         fail(f"conditional run: {summary}")
@@ -4714,8 +4208,8 @@ def evidence_conditional(dev, tmp):
         (a.batch, torch.bfloat16, 2 * a.steps, a.steps),
         (32, torch.float32, EV_COND_EVAL_FORWARDS * len(history), 0)]},
         "conditional run")
-    rep = {"steps": a.steps, "evals": len(history), "wall_s": wall,
-           "calls": counts, "last": history[-1],
+    rep = {"steps": a.steps, "evals": len(history), "calls": counts,
+           "last": history[-1],
            "conditioning_separates": summary["conditioning_separates"]}
     log(json.dumps({"evidence_conditional": rep}))
     return rep
@@ -4766,7 +4260,7 @@ def evidence_gate(dev, tmp):
     write_pngs(images, EV_GATE_IMAGES, 1024, 13)
     out = os.path.join(tmp, "gate")
     reset_counts(kern, fused)
-    t0, code = time.perf_counter(), None
+    code = None
     try:    # the gate exits with its verdict
         gate_tool.main(["--pickle", pkl, "--images",
                         os.path.join(images, "00000"), "--inception",
@@ -4775,7 +4269,6 @@ def evidence_gate(dev, tmp):
                         "--skip_golden", "--device", "cuda"])
     except SystemExit as e:
         code = e.code
-    wall = time.perf_counter() - t0
     with open(os.path.join(out, "gate.json")) as f:
         gate = json.load(f)
     fid = gate["stages"]["fid"].get("fid")
@@ -4788,8 +4281,7 @@ def evidence_gate(dev, tmp):
     if got != want:
         fail(f"fidelity gate: epilogue calls {got}, want {want}")
     rep = {"pass": gate["pass"], "fid": fid, "stages": {
-        k: v.get("ok") for k, v in gate["stages"].items()}, "calls": got,
-        "wall_s": wall}
+        k: v.get("ok") for k, v in gate["stages"].items()}, "calls": got}
     log(json.dumps({"evidence_gate": rep}))
     return rep
 
@@ -4800,7 +4292,6 @@ def evidence_gate(dev, tmp):
 
 SG2_CONFIG = os.path.join(REPO, "configs", "torch",
                           "sample_ffhq_1024_stylegan2.yaml")
-SG2_REQUESTS = 12
 # the forward against plainref/stylegan2.py in float32 with TF32 off: the
 # widest pixel gap over the reference images' largest magnitude (the
 # benchmark's image_gap) and the op-level bar of the CPU tests
@@ -4894,32 +4385,16 @@ def sg2_epilogue_up_kernel(dev, shapes):
             "plain_ms": round(plain_ms, 4)}
 
 
-def sg2_top_kernels(serve, z, n=2, top=8):
-    """The device ms a request of the kernels that take the most, over `n`
-    profiled requests (summed durations: kernels that overlap count
-    twice); fails if a depthwise convolution kernel ran (the up-layers'
-    FIR is inside their epilogue kernel)."""
+def sg2_no_depthwise(serve, z):
+    """Fails if a depthwise convolution kernel ran in a profiled request
+    (the up-layers' FIR is inside their epilogue kernel)."""
     from torch.profiler import ProfilerActivity, profile
-    serve(z, 99)
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for i in range(n):
-            serve(z, 99 + i)
-    rows = sorted(((e.key[:90], e.device_time_total / 1e3 / n)
-                   for e in prof.key_averages() if e.device_time_total > 0),
-                  key=lambda r: -r[1])
-    depthwise = [k for k, _ in rows if "conv_depthwise2d" in k]
+        serve(z, 99)
+    depthwise = [e.key for e in prof.key_averages()
+                 if e.device_time_total > 0 and "conv_depthwise2d" in e.key]
     if depthwise:
         fail(f"a StyleGAN2 request ran a depthwise convolution: {depthwise}")
-    return [[k, round(v, 3)] for k, v in rows[:top]]
-
-
-def sg2_request_ms(serve, z, n):
-    times = []
-    for i in range(n):
-        t = time.perf_counter()
-        serve(z, 100 + i)
-        times.append((time.perf_counter() - t) * 1e3)
-    return sorted(times)[len(times) // 2]
 
 
 def phase_stylegan2(dev):
@@ -4930,15 +4405,14 @@ def phase_stylegan2(dev):
     pair it replaces; (b) make_serving_fn's images against
     plainref/stylegan2.py on the card, and the epilogue2 counters (17 calls
     a forward, 8 launches of the up-layers' kernel and 17 of the two
-    kernels, counted where each launches); (c) ms a request
-    and the kernels that take the most; (d) a torch.export artifact against
+    kernels, counted where each launches); (c) no depthwise convolution
+    kernel in a profiled request; (d) a torch.export artifact against
     make_serving_fn."""
     sys.path.insert(0, REPO)
     from plainref import stylegan2 as plain
     from stylegan_torch.serving import (export_generator, load_exported,
                                         make_serving_fn)
     from stylegan_torch.utils.profiling import counters
-    t0 = time.perf_counter()
     gen_cfg, gen, sd = sg2_generator(dev)
     arch = {"resolution": 1024, "latent_size": 512, "dlatent_size": 512,
             "mapping_layers": 8, "mapping_fmaps": 512,
@@ -4979,19 +4453,13 @@ def phase_stylegan2(dev):
                       "parameters": sum(v.numel() for v in sd.values())}
     log(json.dumps({"phase14_forward": out["forward"]}))
 
-    sg2_request_ms(serve, z, 3)
-    out["serve"] = {"ms_per_request": round(
-        sg2_request_ms(serve, z, SG2_REQUESTS), 3),
-        "top_kernels_ms": sg2_top_kernels(serve, z)}
-    log(json.dumps({"phase14_serve": out["serve"]}))
+    sg2_no_depthwise(serve, z)
 
     blob = export_generator(gen_cfg, gen, depth=DEPTH, batch_size=BATCH)
     exported = load_exported(blob, device=dev)(z, 7)
     out["export"] = {"bytes": len(blob), "image_gap_vs_serve": float(
         (exported.to(dev) - got).abs().max() / got.abs().max())}
     log(json.dumps({"phase14_export": out["export"]}))
-    out["seconds"] = round(time.perf_counter() - t0, 1)
-    log(f"phase 14: {out['seconds']} s")
     return out
 
 
@@ -4999,7 +4467,8 @@ def main(argv=None):
     import argparse
     parser = argparse.ArgumentParser()
     parser.add_argument("--only", type=int, nargs="+", default=None,
-                        help="run only these of the phases 8-14 after the "
+                        choices=range(2, 15), metavar="PHASE",
+                        help="run only these of the phases 2-14 after the "
                         "build (to try a change; prints no result line)")
     only = parser.parse_args(argv).only
     if not torch.cuda.is_available():
@@ -5017,48 +4486,43 @@ def main(argv=None):
             log("  nvcc:", line.strip())
     card = card_line()
     log(f"card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}")
+    phases = {
+        2: lambda: (phase_kernel(dev), *phase_kernel_batches(dev)),
+        3: lambda: phase_slice(dev),
+        4: phase_cli,
+        5: lambda: (phase_grad_kernel(dev), phase_grad_kernel_b1(dev),
+                    phase_train(dev), phase_train_vs_cpu(dev)),
+        6: lambda: phase_trainer(dev),
+        7: lambda: phase_tools(dev),
+        8: lambda: phase_export_project(dev),
+        9: lambda: phase_bf16(dev),
+        10: lambda: phase_parallel(dev),
+        11: lambda: phase_spatial(dev),
+        12: lambda: phase_spatial_train(dev),
+        13: lambda: phase_evidence(dev),
+        14: lambda: phase_stylegan2(dev)}
+    out = {}
+    for n in only or phases:
+        t0 = time.perf_counter()
+        out[n] = phases[n]()
+        log(f"phase {n}: {time.perf_counter() - t0:.1f} s")
     if only:
-        for n in only:
-            t0 = time.perf_counter()
-            {8: lambda: phase_export_project(dev, phase_kernel(dev)[
-                "per_forward"], 0.0, {"img_per_s": 0.0}),
-             9: lambda: phase_bf16(dev),
-             10: lambda: phase_parallel(dev, {"ms_per_step": None}),
-             11: lambda: phase_spatial(dev),
-             12: lambda: phase_spatial_train(dev, {}),
-             13: lambda: phase_evidence(dev),
-             14: lambda: phase_stylegan2(dev)}[n]()
-            log(f"phase {n} alone: {time.perf_counter() - t0:.1f} s")
         return 0
 
-    summary = phase_kernel(dev)
-    batches, b1 = phase_kernel_batches(dev)
-    grad = phase_grad_kernel(dev)
-    grad_b1 = phase_grad_kernel_b1(dev)
-    cpu_gen, launches, cuda_launches, img_s, profiled_ms = phase_slice(
-        dev, summary["per_forward"])
-    phase_cli(cpu_gen)
-    del cpu_gen
-    train = phase_train(dev)
-    check = phase_train_vs_cpu(dev)
-    trainer = phase_trainer(dev, train["img_per_s"])
-    calls = trainer["epilogue_calls"]
-    tools = phase_tools(dev)
-    p8 = phase_export_project(dev, summary["per_forward"], img_s, train)
-    proj = p8["project"]
-    p9 = phase_bf16(dev)
-    b9 = p9["train"]
-    p10 = phase_parallel(dev, train)
-    par_a, par_b = p10["one_rank_nccl"], p10["two_ranks_gloo"]
-    p11 = phase_spatial(dev)
+    summary, batches, b1 = out[2]
+    launches, cuda_launches, profiled_ms = out[3]
+    grad, grad_b1, train, _ = out[5]
+    calls = out[6]["epilogue_calls"]
+    tools, p8, p9 = out[7], out[8], out[9]
+    proj, b9 = p8["project"], p9["train"]
+    par_a, par_b = out[10]["one_rank_nccl"], out[10]["two_ranks_gloo"]
+    p11 = out[11]
     split, n2 = p11["kernels"], p11["ranks"]["n2"]
     split_calls = {f"n{n}": [r[f"b{BATCH}"]["calls"]
                              for r in p11["ranks"][f"n{n}"]["by_rank"]]
                    for n in SPATIAL_RANKS}
-    p12 = phase_spatial_train(dev, train)
-    k3s, d8 = p12["kernels"], p12["depth8"]
-    p13 = phase_evidence(dev)
-    p14 = phase_stylegan2(dev)
+    k3s, d8 = out[12]["kernels"], out[12]["depth8"]
+    p13 = out[13]
     ev = p13["kernels"]
     ev_calls = {k: p13[k]["calls"] for k in ("progressive", "conditional")}
     ev_b128 = {d: ev[f"batch{EVIDENCE_TIMED_BATCH}_{d}"]
@@ -5113,15 +4577,15 @@ def main(argv=None):
                   "over the 3 train steps, trainer_launches over phase 6's "
                   "StyleGAN.train run (its steps and feedback grids), "
                   "tools_launches over each in-process CLI run of phase 7, "
-                  "export_launches over phase 8(c)'s 3 requests through the "
-                  "exported program, project_launches over phase 8(d)'s "
+                  "export_launches over phase 8(b)'s 3 requests through the "
+                  "exported program, project_launches over phase 8(c)'s "
                   "projection (101 batch-1 forwards), "
-                  "bf16_forward_launches over phase 9(a)'s 11 bf16 "
+                  "bf16_forward_launches over phase 9(a)'s 2 bf16 "
                   "forwards, bf16_train_launches_per_step the D and G "
                   "updates' calls of one bf16 perf-config step (remat "
                   "recomputes 16 in G's backward), bf16_in_step_ms the "
                   "kernels' device time inside one profiled bf16 step, "
-                  "parallel_launches over phase 10's 3 timed data-parallel "
+                  "parallel_launches over phase 10's 3 data-parallel "
                   "steps at depth 8 (one rank over NCCL; each of two "
                   "ranks over gloo), "
                   "tool_batches_max_abs_err the float32 error at the 9 "
@@ -5168,12 +4632,12 @@ def main(argv=None):
                   "with g and x cold in L2, call_ms eager, bf16_* in "
                   "bfloat16; launches (calls) and cuda_launches over the 3 "
                   "train steps, trainer_launches over phase 6's "
-                  "StyleGAN.train run, project_launches over phase 8(d)'s "
+                  "StyleGAN.train run, project_launches over phase 8(c)'s "
                   "100 projection steps (dx and dstyle only), "
                   "bf16_train_launches per bf16 perf-config step of "
                   "phase 9(b), whose in-step times are in the forward's "
                   "bf16_in_step_ms; parallel_launches over phase 10's 3 "
-                  "timed data-parallel steps; evidence_launches over "
+                  "data-parallel steps; evidence_launches over "
                   "phase 13's shortened progressive and conditional runs, "
                   "evidence_batch128_ms as the forward's (train-step "
                   "gradients, no dnoise)",
@@ -5189,7 +4653,7 @@ def main(argv=None):
         "bound_by": "bytes", "library_ms": None,
         "shapes": "the forward kernel at projection's batch 1: the 18 "
                   "float32 calls of one 1024^2 forward, device time by "
-                  "CUDA graph replay (phase 2); launches over phase 8(d)'s "
+                  "CUDA graph replay (phase 2); launches over phase 8(c)'s "
                   "100-step projection",
     }, {
         "name": "epilogue_backward_batch1", "route": "cuda",
@@ -5204,7 +4668,7 @@ def main(argv=None):
         "shapes": "the backward kernels at projection's batch 1, dx and "
                   "dstyle only: the 18 float32 calls of one 1024^2 "
                   "backward, device time by CUDA graph replay (phase "
-                  "5(a)); launches over phase 8(d)'s 100 steps",
+                  "5(a)); launches over phase 8(c)'s 100 steps",
     }] + [{
         "name": f"epilogue_{entry}", "route": "cuda",
         "source": "stylegan_torch/csrc/epilogue.cu",
@@ -5274,23 +4738,6 @@ def main(argv=None):
                   f"{SP_TRAIN_STEPS} depth-8 steps on a (1 x 2) grid "
                   "(launches_by_rank: each rank's)",
     } for entry in ("partial", "apply")]
-    log(json.dumps({"serve_img_per_s": img_s, "batch": BATCH,
-                    "resolution": 1024, "dtype": "float32"}))
-    log(json.dumps({"train": {k: v for k, v in train.items()
-                              if k != "top_ops"},
-                    "card_vs_cpu": check}))
-    log(json.dumps({"trainer": trainer}))
-    log(json.dumps({"tools": tools}))
-    log(json.dumps({"phase8": p8}))
-    log(json.dumps({"phase9": p9}))
-    log(json.dumps({"phase10": p10}))
-    log(json.dumps({"phase11": {k: v for k, v in p11.items()
-                                if k != "kernels"}}))
-    log(json.dumps({"phase12": {k: v for k, v in p12.items()
-                                if k != "kernels"}}))
-    log(json.dumps({"phase13": {k: v for k, v in p13.items()
-                                if k != "kernels"}}))
-    log(json.dumps({"phase14": p14}))
     log(card)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

@@ -130,7 +130,7 @@ def _fused_upscale_conv(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     gives the same bits on the card; under autograd as cuDNN's transposed
     conv, whose backward is the cheaper of the two on the H100 (the
     depth-8 float32 train step took 8% longer with the sub-pixel form
-    throughout: tools/host_ab.py, PERF.md)."""
+    throughout: PERF.md)."""
     if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad):
         return _transposed_upscale_conv(x, w)
     return _subpixel_upscale_conv(x, w)

@@ -253,7 +253,8 @@ def test_kernel_wrapper_failed_launch_drops_its_workspace(monkeypatch):
 
 
 def test_kernel_names_cover_both_paths():
-    """chip_smoke.py reads the in-forward device time by these names."""
+    """chip_smoke.py counts each kernel's launches in a profiled forward,
+    and reads its device time there, by these names."""
     src = kern.SOURCE.read_text()
     for name in kern.KERNEL_NAMES:
         assert f"{name}(" in src

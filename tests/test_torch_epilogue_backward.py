@@ -299,8 +299,9 @@ def test_backward_wrapper_refuses_wrong_inputs():
 
 
 def test_backward_kernel_names_are_in_the_source():
-    """chip_smoke.py reads the backward's device time by these names, of
-    both paths, which share no substring with the forward's and are not
+    """chip_smoke.py counts the backward's launches in a profiled train
+    step, and reads their device time there, by these names, of both
+    paths, which share no substring with the forward's and are not
     substrings of one another."""
     src = kern.SOURCE.read_text()
     assert set(kern.BWD_KERNELS_BY_PATH) == {1, 2}

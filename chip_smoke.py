@@ -215,11 +215,18 @@ Phases, each fatal on failure:
            up-layer planes, two calls bitwise equal, the 8 calls timed
            against their bytes bound, beside the pair it replaces (the
            depthwise FIR, then the epilogue2 kernel: library_ms) and the
-           plain version in float32; (b) make_serving_fn's images against
-           plainref/stylegan2.py on the card (image_gap under 1e-4), 17
-           epilogue2 calls a forward, 8 launches of the up-layers' kernel
-           and 17 of the two kernels; (c) no depthwise convolution kernel in
-           a profiled request; (d) a torch.export artifact against
+           plain version in float32; the up-convolution kernel against its
+           plain version (the grouped transposed convolution) in float64 at
+           the 8 up-convolutions, two calls bitwise equal, the 8 calls timed
+           against their operations' bound at the float32 peak, beside
+           cuDNN's grouped conv_transpose2d (library_ms); (b)
+           make_serving_fn's images against plainref/stylegan2.py on the
+           card (image_gap under 1e-4), 17 epilogue2 calls a forward, 8
+           launches of the up-layers' kernel and 17 of the two kernels, 8
+           up-convolution launches, a repeated request bitwise equal to the
+           first; (c) no depthwise convolution and no cuDNN backward-data
+           (dgrad_engine) kernel in a profiled request, the up-convolution
+           kernel 8 times; (d) a torch.export artifact bitwise equal to
            make_serving_fn.
 
 Each phase prints its seconds.  `python3 chip_smoke.py --only 3 8 14` runs the
@@ -4297,6 +4304,12 @@ SG2_CONFIG = os.path.join(REPO, "configs", "torch",
 # benchmark's image_gap) and the op-level bar of the CPU tests
 SG2_IMAGE_GAP = 1e-4
 SG2_OP_TOL = 1e-5
+F32_FLOP_PER_S = 67e12          # H100 SXM published dense float32 rate
+# (input side, cin, cout) of the 8 up-convolutions of a config F 1024^2
+# forward
+SG2_UP_CONVS = [(4, 512, 512), (8, 512, 512), (16, 512, 512),
+                (32, 512, 512), (64, 512, 256), (128, 256, 128),
+                (256, 128, 64), (512, 64, 32)]
 
 
 def sg2_generator(dev, seed=3):
@@ -4385,16 +4398,67 @@ def sg2_epilogue_up_kernel(dev, shapes):
             "plain_ms": round(plain_ms, 4)}
 
 
-def sg2_no_depthwise(serve, z):
-    """Fails if a depthwise convolution kernel ran in a profiled request
-    (the up-layers' FIR is inside their epilogue kernel)."""
+def sg2_modconv_up_kernel(dev):
+    """(a) The up-convolution kernel against its plain version (the grouped
+    transposed convolution) in float64 at the forward's 8 up-convolutions
+    (x (BATCH, cin, H, H), per-sample kernels at a demodulated layer's
+    scale), two calls bitwise equal; the 8 calls timed by CUDA events
+    against their operations' bound at the float32 peak, beside the plain
+    version in float32, which is cuDNN's grouped conv_transpose2d, the
+    main path before the kernel (library_ms)."""
+    from stylegan_torch.ops.kernels import modconv_up as mu
+    g = torch.Generator(device=dev).manual_seed(22)
+    worst, calls, flops = 0.0, [], 0
+    for h, cin, cout in SG2_UP_CONVS:
+        x = torch.randn((BATCH, cin, h, h), generator=g, device=dev)
+        ww = torch.randn((BATCH, cout, cin, 3, 3), generator=g, device=dev) \
+            / (3 * math.sqrt(cin))
+        out = mu.modconv_up_forward(x, ww)
+        if not torch.equal(out, mu.modconv_up_forward(x, ww)):
+            fail(f"modconv_up not bitwise repeatable at {h}x{cin}->{cout}")
+        ref = mu._reference_modconv_up(x.double(), ww.double())
+        worst = max(worst, float((out.double() - ref).abs().max()
+                                 / ref.abs().max()))
+        del out, ref
+        calls.append((x, ww))
+        flops += mu.flops(x, ww)
+    if worst > SG2_OP_TOL:
+        fail(f"modconv_up kernel vs plain: {worst:.3g} > {SG2_OP_TOL}")
+    torch.cuda.synchronize()
+    ms = cuda_time_ms(lambda: [mu.modconv_up_forward(*a) for a in calls])
+    by_layer = [cuda_time_ms(lambda a=a: mu.modconv_up_forward(*a))
+                for a in calls]
+    library_ms = cuda_time_ms(lambda: [mu._reference_modconv_up(*a)
+                                       for a in calls])
+    bound_ms = flops / F32_FLOP_PER_S * 1e3
+    return {"max_rel_err_vs_f64": worst, "calls_8_ms": round(ms, 4),
+            "by_layer_ms": [round(v, 4) for v in by_layer],
+            "gflop": round(flops / 1e9, 3), "bound_ms": round(bound_ms, 4),
+            "share": round(bound_ms / ms, 4),
+            "library_ms": round(library_ms, 4)}
+
+
+def sg2_profiled_request(serve, z):
+    """(c) Fails if a depthwise convolution kernel (the up-layers' FIR is
+    inside their epilogue kernel) or cuDNN's backward-data kernel (the
+    up-convolution is the port's) ran in a profiled request, or if the
+    up-convolution kernel did not run once an up-layer; returns the
+    StyleGAN2 kernels' launches."""
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         serve(z, 99)
-    depthwise = [e.key for e in prof.key_averages()
-                 if e.device_time_total > 0 and "conv_depthwise2d" in e.key]
-    if depthwise:
-        fail(f"a StyleGAN2 request ran a depthwise convolution: {depthwise}")
+    kernels = [e for e in prof.key_averages() if e.device_time_total > 0]
+    for banned in ("conv_depthwise2d", "dgrad_engine"):
+        found = [e.key for e in kernels if banned in e.key]
+        if found:
+            fail(f"a StyleGAN2 request ran {banned}: {found}")
+    counts = {name: sum(e.count for e in kernels if name in e.key)
+              for name in ("modconv_up_kernel", "epilogue2_up_kernel",
+                           "epilogue2_kernel")}
+    if counts["modconv_up_kernel"] != 8:
+        fail(f"modconv_up_kernel ran {counts['modconv_up_kernel']} times in "
+             f"a request, want 8")
+    return counts
 
 
 def phase_stylegan2(dev):
@@ -4402,12 +4466,15 @@ def phase_stylegan2(dev):
     sample_ffhq_1024_stylegan2.yaml, seeded random weights): (a) the
     epilogue2 kernel against its plain version and its bytes bound, the
     up-layers' kernel against its plain version, its bytes bound and the
-    pair it replaces; (b) make_serving_fn's images against
-    plainref/stylegan2.py on the card, and the epilogue2 counters (17 calls
-    a forward, 8 launches of the up-layers' kernel and 17 of the two
-    kernels, counted where each launches); (c) no depthwise convolution
-    kernel in a profiled request; (d) a torch.export artifact against
-    make_serving_fn."""
+    pair it replaces, the up-convolution kernel against its plain version,
+    its operations' bound and cuDNN's grouped transposed convolution; (b)
+    make_serving_fn's images against plainref/stylegan2.py on the card,
+    the epilogue2 counters (17 calls a forward, 8 launches of the
+    up-layers' kernel and 17 of the two kernels, counted where each
+    launches), 8 up-convolution launches, and a repeated request bitwise
+    equal to the first; (c) no depthwise convolution and no cuDNN
+    backward-data kernel in a profiled request, the up-convolution kernel 8
+    times; (d) a torch.export artifact bitwise equal to make_serving_fn."""
     sys.path.insert(0, REPO)
     from plainref import stylegan2 as plain
     from stylegan_torch.serving import (export_generator, load_exported,
@@ -4422,21 +4489,25 @@ def phase_stylegan2(dev):
     shapes = [(plain.noise_res(i), cout) for i, (_, cout, _) in
               enumerate(plain.conv_channels(arch))]
     out = {"kernel": sg2_epilogue_kernel(dev, shapes),
-           "kernel_up": sg2_epilogue_up_kernel(dev, shapes[1::2])}
+           "kernel_up": sg2_epilogue_up_kernel(dev, shapes[1::2]),
+           "modconv_up": sg2_modconv_up_kernel(dev)}
     log(json.dumps({"phase14_kernel": out["kernel"]}))
     log(json.dumps({"phase14_kernel_up": out["kernel_up"]}))
+    log(json.dumps({"phase14_modconv_up": out["modconv_up"]}))
 
     serve = make_serving_fn(gen_cfg, gen, depth=DEPTH, device=dev)
     z = torch.randn((BATCH, 512), generator=torch.Generator().manual_seed(5))
     names = ("epilogue2.launches", "epilogue2.up_launches",
-             "epilogue2.cuda_launches")
+             "epilogue2.cuda_launches", "modconv.up_launches")
     for name in names:
         counters[name] = 0
     images = serve(z, 7)
     calls = tuple(counters[name] for name in names)
-    if calls != (17, 8, 17):
-        fail(f"epilogue2 calls, up-layer kernel launches and both kernels' "
-             f"launches a forward: {calls}")
+    if calls != (17, 8, 17, 8):
+        fail(f"epilogue2 calls, up-layer kernel launches, both kernels' "
+             f"launches and up-convolution launches a forward: {calls}")
+    if not torch.equal(serve(z, 7), images):
+        fail("a repeated StyleGAN2 request gave other bits")
     p = {k: v.to(dev) for k, v in sd.items()}
     with torch.no_grad():
         ref = plain.generator(p, arch, z.to(dev), 7)
@@ -4450,15 +4521,19 @@ def phase_stylegan2(dev):
                       "epilogue2_calls": calls[0],
                       "epilogue2_up_launches": calls[1],
                       "epilogue2_cuda_launches": calls[2],
+                      "modconv_up_launches": calls[3],
                       "parameters": sum(v.numel() for v in sd.values())}
     log(json.dumps({"phase14_forward": out["forward"]}))
 
-    sg2_no_depthwise(serve, z)
+    out["profiled_kernels"] = sg2_profiled_request(serve, z)
+    log(json.dumps({"phase14_profiled_kernels": out["profiled_kernels"]}))
 
     blob = export_generator(gen_cfg, gen, depth=DEPTH, batch_size=BATCH)
     exported = load_exported(blob, device=dev)(z, 7)
-    out["export"] = {"bytes": len(blob), "image_gap_vs_serve": float(
-        (exported.to(dev) - got).abs().max() / got.abs().max())}
+    if not torch.equal(exported.to(dev), got):
+        fail("the exported StyleGAN2 program and make_serving_fn gave other "
+             "bits")
+    out["export"] = {"bytes": len(blob)}
     log(json.dumps({"phase14_export": out["export"]}))
     return out
 
@@ -4523,6 +4598,7 @@ def main(argv=None):
                    for n in SPATIAL_RANKS}
     k3s, d8 = out[12]["kernels"], out[12]["depth8"]
     p13 = out[13]
+    p14 = out[14]
     ev = p13["kernels"]
     ev_calls = {k: p13[k]["calls"] for k in ("progressive", "conditional")}
     ev_b128 = {d: ev[f"batch{EVIDENCE_TIMED_BATCH}_{d}"]
@@ -4737,7 +4813,26 @@ def main(argv=None):
                   "launches rank 0's over phase 12(c)'s "
                   f"{SP_TRAIN_STEPS} depth-8 steps on a (1 x 2) grid "
                   "(launches_by_rank: each rank's)",
-    } for entry in ("partial", "apply")]
+    } for entry in ("partial", "apply")] + [{
+        "name": "modconv_up", "route": "cuda",
+        "source": "stylegan_torch/csrc/modconv_up.cu",
+        "replaces": None,
+        "launches": p14["forward"]["modconv_up_launches"],
+        "profiled_launches": p14["profiled_kernels"]["modconv_up_kernel"],
+        "max_rel_err_vs_f64": p14["modconv_up"]["max_rel_err_vs_f64"],
+        "ms": p14["modconv_up"]["calls_8_ms"],
+        "by_layer_ms": p14["modconv_up"]["by_layer_ms"],
+        "bound_ms": p14["modconv_up"]["bound_ms"], "bound_by": "operations",
+        "plain_ms": p14["modconv_up"]["library_ms"],
+        "library_ms": p14["modconv_up"]["library_ms"],
+        "shapes": "StyleGAN2-F's 8 up-convolutions of one batch-8 1024^2 "
+                  "forward (4^2..512^2 in), float32 on the CUDA cores; ms "
+                  "eager device time by CUDA events, bound_ms their "
+                  "360.6 GFLOP at 67 TFLOP/s; plain_ms and library_ms the "
+                  "plain version, cuDNN's grouped conv_transpose2d, which "
+                  "the port ran before; launches over phase 14(b)'s "
+                  "forward, profiled_launches in 14(c)'s request",
+    }]
     log(card)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

@@ -25,8 +25,12 @@ State-dict keys: ``const``; ``layers.{i}.weight`` (cout, cin, 3, 3),
 OIHW and not flipped; the up-convolution flips them as TF does.
 
 The modulated convolutions run in the fused form on NCHW planes (module
-docstring of ``ops/modconv.py``).  All styles, demodulation factors and
-per-sample kernels are computed first, under the span ``g.modulate``.
+docstring of ``ops/modconv.py``): on the card the 3x3 same-size layers'
+and the toRGBs' grouped convolutions, and the skip upsample's depthwise
+transposed convolution, are cuDNN's; the up-convolution is the port's own
+kernel (``stylegan_torch::modconv_up``, ``csrc/modconv_up.cu``).  All
+styles, demodulation factors and per-sample kernels are computed first,
+under the span ``g.modulate``.
 Eval only: the whole resolution (`depth` the last), no
 progressive growing, no spatial split, no gradient on the card.
 """

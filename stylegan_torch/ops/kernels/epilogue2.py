@@ -7,7 +7,9 @@ FIR of its (2H+1)^2 output, applied inside the kernel.  The source is
 compiled with ``nvcc`` for ``sm_90a`` into a library of its own
 (``build/stylegan_torch/libepilogue2-<sources hash>.so``, by
 ``epilogue.build``) at first use and called through ``ctypes`` on
-PyTorch's current stream, one launch a call.
+PyTorch's current stream, one launch a call.  The library holds StyleGAN2's
+up-convolution too (``csrc/modconv_up.cu``, bound by
+``ops/kernels/modconv_up.py``).
 
 It reaches PyTorch as two ``torch.library`` ops, each with a fake that
 checks the inputs and gives the output's shape, for ``torch.export``:
@@ -43,7 +45,7 @@ import torch
 from ...utils.profiling import counters
 from .epilogue import _PKG, _on_device, _stream, build
 
-SOURCES = (_PKG / "csrc" / "epilogue2.cu",)
+SOURCES = (_PKG / "csrc" / "epilogue2.cu", _PKG / "csrc" / "modconv_up.cu")
 
 _lib = None
 

@@ -14,11 +14,11 @@ and ``dnnlib/tflib/ops/upfirdn_2d.py``), on contiguous NCHW tensors.
   and `* d` after it, on the card (PERF.md).
 * The up-convolution: a stride-2 transposed convolution of the spatially
   flipped kernel (the TF original's flip, so that converted kernels load
-  as they are), (2H+1) wide (`modulated_conv2d` with `up`), then the 4x4
-  FIR at gain 4 with one pixel of padding a side: 2H wide (`_fir`, a
-  depthwise convolution).  The skip output's upsample is the FIR alone at
-  up 2, padding (2, 1), as a depthwise transposed convolution
-  (`skip_upsample`).
+  as they are), (2H+1) wide (`modulated_conv2d` with `up`, through the
+  ``stylegan_torch::modconv_up`` op), then the 4x4 FIR at gain 4 with one
+  pixel of padding a side: 2H wide (`_fir`, a depthwise convolution).  The
+  skip output's upsample is the FIR alone at up 2, padding (2, 1), as a
+  depthwise transposed convolution (`skip_upsample`).
 * The layer epilogue: sqrt(2) * lrelu(x + strength * noise + b, 0.2).  A
   same-size layer's (`layer_epilogue`) goes through the
   ``stylegan_torch::epilogue2`` op; an up-layer's (`layer_epilogue_up`)
@@ -29,11 +29,17 @@ and ``dnnlib/tflib/ops/upfirdn_2d.py``), on contiguous NCHW tensors.
   (`_reference_epilogue2`, after `_fir` for the up-layers), which this
   module registers.
 
-The convolutions are cuDNN's on the card; a transposed convolution there
-need not sum in a fixed order, so a replayed StyleGAN2 request may differ
-from the first in its last bits.  ``epilogue2.launches`` in
+On the card the up-convolution is the port's own kernel
+(``ops/kernels/modconv_up.py``: the four sub-pixel phases, the whole batch
+in one launch, each output summed in one fixed order); its CPU
+implementation, which that module registers, is the plain version, the
+grouped transposed convolution (``_reference_modconv_up`` there).  The
+other convolutions are cuDNN's: the same-size layers' and toRGBs' grouped
+convolutions and the skip upsample's depthwise transposed convolution.  ``epilogue2.launches`` in
 ``utils.profiling.counters`` counts every layer epilogue's calls, on either
-device; ``ops/kernels/epilogue2.py`` counts its kernels' launches.
+device; ``ops/kernels/epilogue2.py`` counts its kernels' launches and
+``ops/kernels/modconv_up.py`` the up-convolution's
+(``modconv.up_launches``).
 """
 
 from __future__ import annotations
@@ -48,6 +54,7 @@ from ..utils.profiling import counters
 from .kernels.epilogue import needs_grad
 from .kernels.epilogue2 import (check_inputs, check_inputs_up, epilogue2_op,
                                 epilogue2_up_op)
+from .kernels import modconv_up as _up
 from .linear import equalized_scales
 
 SQRT2 = math.sqrt(2.0)
@@ -101,14 +108,23 @@ def modulated_conv2d(x: torch.Tensor, ww: torch.Tensor, *,
     the per-sample kernels `ww` (`modulate_weight`) as one grouped
     convolution (groups = B), SAME padding; with `up` the transposed
     up-convolution, (B, cout, 2H+1, 2W+1), whose FIR `layer_epilogue_up`
-    applies.  Returns contiguous NCHW."""
+    applies: through the ``stylegan_torch::modconv_up`` op where no
+    gradient is recorded (the port's kernel on the card; x and `ww`
+    contiguous float32 3x3), else on the CPU the plain version,
+    differentiable, and on the card an error (the kernel has no backward).
+    Returns contiguous NCHW."""
+    if up:
+        if needs_grad(x, ww):
+            if x.device.type == "cuda":
+                raise RuntimeError("StyleGAN2's up-convolution kernel has no "
+                                   "backward: the port serves StyleGAN2 and "
+                                   "does not train it")
+            _up.check_inputs(x, ww)
+            return _up._reference_modconv_up(x, ww)
+        return _up.modconv_up_op(x, ww)
     b, cin, h, w = x.shape
     cout, k = ww.shape[1], ww.shape[-1]
     x = x.contiguous().reshape(1, b * cin, h, w)
-    if up:
-        wt = ww.flip(3, 4).transpose(1, 2).reshape(b * cin, cout, k, k)
-        y = F.conv_transpose2d(x, wt, stride=2, groups=b)
-        return y.reshape(b, cout, 2 * h + 1, 2 * w + 1)
     y = F.conv2d(x, ww.reshape(b * cout, cin, k, k), padding=k // 2,
                  groups=b)
     return y.reshape(b, cout, h, w)

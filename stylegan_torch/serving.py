@@ -17,7 +17,9 @@ same bits, on the card as on the CPU, as the JAX package's does.  On the
 card that holds for the same card, driver and cuDNN (another cuDNN may pick
 other algorithms): every op of the forward sums in a fixed order there,
 the fused upscale included, which runs as a sub-pixel convolution
-(``ops/linear.py``) because cuDNN's transposed convolutions do not.  Eval
+(``ops/linear.py``) because cuDNN's transposed convolutions do not, and
+StyleGAN2's up-convolution, the port's own kernel
+(``ops/kernels/modconv_up.py``).  Eval
 semantics by default (no style mixing, no train-branch truncation);
 `train_quirks=True` gives the reference's train-mode sampling.
 
@@ -31,9 +33,10 @@ many results keeps that much page-locked memory, which cannot be swapped.
 The artifact holds the traced generator at one (batch, depth), its weights
 baked in.  It differs from the JAX package's StableHLO file, which is
 self-contained: it needs ``stylegan_torch.ops`` importable, for the
-registration of the epilogue's ``stylegan_torch::`` ops that its graph
-calls (``serving`` imports it), and on the card the kernel library, which
-``ops/kernels/epilogue.py`` builds from the repo's sources at first use.  It
+registration of the ``stylegan_torch::`` ops that its graph calls (the
+epilogues', StyleGAN2's up-convolution; ``serving`` imports it), and on the
+card the kernel libraries, which ``ops/kernels/epilogue.py`` builds from
+the repo's sources at first use.  It
 needs no model code, config or checkpoint.  The request's draws stay
 outside the traced graph: the per-layer noise maps (and, with train quirks,
 the mixing latents and cutoff) are inputs of the program, drawn by

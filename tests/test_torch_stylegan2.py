@@ -2,15 +2,17 @@
 reference (plainref/stylegan2.py) on seeded random weights at 32^2
 (fmap_base 512, batch 2) on the CPU: the whole generator, each op alone
 (the modulated conv with and without demodulation, the up-convolution and
-its FIR, the skip upsample, the epilogue against its equation, the
-up-layers' epilogue against the FIR and the epilogue), the mapping's gain
-placement, and one fault (a dropped demodulation) that the comparison
-catches.  Besides: the benchmark's copy of the reference and its frozen
-counts, the published parameter count, the serving entry points, and the
-refusals of what does not support StyleGAN2.
+its FIR, the up-convolution's op against the grouped transposed convolution,
+the skip upsample, the epilogue against its equation, the up-layers'
+epilogue against the FIR and the epilogue), the mapping's gain placement,
+and one fault (a dropped demodulation) that the comparison catches.
+Besides: the benchmark's copy of the reference and its frozen counts, the
+published parameter count, the serving entry points, and the refusals of
+what does not support StyleGAN2.
 
-The tests marked ``card`` hold the CUDA kernels to their plain versions on
-an NVIDIA GPU and skip without one.  The file imports no JAX, so they run
+The tests marked ``card`` hold the CUDA kernels (the up-layers' epilogue,
+the up-convolution) to their plain versions on an NVIDIA GPU and skip
+without one.  The file imports no JAX, so they run
 without tests/conftest.py:
 ``python -m pytest tests/test_torch_stylegan2.py -q -m card --noconftest``.
 """
@@ -260,6 +262,128 @@ def test_epilogue_up_op_refuses_what_is_not_an_up_plane():
         k2.epilogue2_up_forward(y, fir, noise, bias, st)
 
 
+def _conv_up_inputs(b, cin, cout, h, w=None, seed=0, device="cpu",
+                    dtype=torch.float32):
+    """An up-convolution's x (b, cin, h, w) and per-sample kernels ww
+    (b, cout, cin, 3, 3) at a demodulated layer's scale."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    w = h if w is None else w
+    x = torch.randn((b, cin, h, w), generator=g, device=device)
+    ww = torch.randn((b, cout, cin, 3, 3), generator=g, device=device)
+    return x.to(dtype), (ww / (3 * math.sqrt(cin))).to(dtype)
+
+
+def _transposed_conv_by_sample(x, ww):
+    """Each sample's transposed convolution of its flipped kernel, stride 2."""
+    return torch.cat([F.conv_transpose2d(x[i:i + 1], ww[i].flip(2, 3)
+                                         .transpose(0, 1), stride=2)
+                      for i in range(x.shape[0])])
+
+
+@pytest.mark.parametrize("b,cin,cout,h,w", [
+    (2, 16, 8, 4, 4), (3, 24, 40, 5, 5), (2, 72, 8, 7, 7), (1, 5, 3, 1, 1),
+    (2, 9, 33, 6, 11)])
+def test_up_convolution_op_is_the_grouped_transposed_conv(b, cin, cout, h, w):
+    """The op's CPU path: the flipped per-sample kernels as one grouped
+    transposed convolution, bitwise; each sample's transposed convolution
+    in float64; no kernel launch counted."""
+    x, ww = _conv_up_inputs(b, cin, cout, h, w, seed=cin + h)
+    before = counters["modconv.up_launches"]
+    with torch.no_grad():
+        got = modconv.modulated_conv2d(x, ww, up=True)
+    assert got.shape == (b, cout, 2 * h + 1, 2 * w + 1)
+    wt = ww.flip(3, 4).transpose(1, 2).reshape(b * cin, cout, 3, 3)
+    grouped = F.conv_transpose2d(x.reshape(1, b * cin, h, w), wt, stride=2,
+                                 groups=b).reshape(got.shape)
+    assert torch.equal(got, grouped)
+    assert torch.equal(torch.ops.stylegan_torch.modconv_up(x, ww), grouped)
+    torch.testing.assert_close(
+        got.double(), _transposed_conv_by_sample(x.double(), ww.double()),
+        rtol=RTOL, atol=ATOL)
+    assert counters["modconv.up_launches"] == before
+
+
+def test_up_convolution_fake_gives_the_transposed_shape():
+    x, ww = _conv_up_inputs(2, 6, 5, 8, 3)
+    with FakeTensorMode() as mode:
+        out = torch.ops.stylegan_torch.modconv_up(mode.from_tensor(x),
+                                                  mode.from_tensor(ww))
+        assert (out.shape, out.dtype) == ((2, 5, 17, 7), torch.float32)
+    assert torch.ops.stylegan_torch.modconv_up(
+        x.to("meta"), ww.to("meta")).shape == (2, 5, 17, 7)
+
+
+def test_up_convolution_refuses_what_the_kernel_does_not_take():
+    from stylegan_torch.ops.kernels import modconv_up as mu
+    x, ww = _conv_up_inputs(2, 4, 3, 5)
+    bad = [((x.double(), ww), "x must be 4-D float32"),
+           ((x, ww.double()), "ww must be 5-D float32"),
+           ((x.transpose(2, 3), ww), "x must be contiguous"),
+           ((x, ww.transpose(3, 4)), "ww must be contiguous"),
+           ((x[:1].contiguous(), ww), "ww must be"),
+           ((x, ww[:, :, :3].contiguous()), "ww must be"),
+           ((x, ww[..., :2, :2].contiguous()), "ww must be"),
+           ((x[0], ww), "x must be 4-D")]
+    for args, match in bad:
+        with pytest.raises(ValueError, match=match):
+            mu.check_inputs(*args)
+        with pytest.raises(ValueError, match=match):
+            torch.ops.stylegan_torch.modconv_up(*args)
+        with pytest.raises(ValueError, match=match):
+            modconv.modulated_conv2d(*args, up=True)
+    with pytest.raises(ValueError, match="CUDA"):
+        mu.modconv_up_forward(x, ww)
+
+
+def test_up_convolution_cpu_path_is_differentiable():
+    """Under autograd on the CPU the wrapper is the plain version, with the
+    gradients of the per-sample transposed convolutions."""
+    x, ww = _conv_up_inputs(2, 6, 4, 5, seed=9)
+    xa, wa = x.clone().requires_grad_(True), ww.clone().requires_grad_(True)
+    xb, wb = x.clone().requires_grad_(True), ww.clone().requires_grad_(True)
+    before = counters["modconv.up_launches"]
+    got = modconv.modulated_conv2d(xa, wa, up=True)
+    want = _transposed_conv_by_sample(xb, wb)
+    torch.testing.assert_close(got, want, rtol=RTOL, atol=ATOL)
+    g = torch.randn(got.shape, generator=torch.Generator().manual_seed(3))
+    (got * g).sum().backward()
+    (want * g).sum().backward()
+    torch.testing.assert_close(xa.grad, xb.grad, rtol=RTOL, atol=ATOL)
+    torch.testing.assert_close(wa.grad, wb.grad, rtol=RTOL, atol=ATOL)
+    assert counters["modconv.up_launches"] == before
+
+
+def test_a_forward_calls_the_up_convolution_op_at_each_up_layer(
+        model, monkeypatch):
+    """log2(res) - 2 up-convolutions a forward, each through the op, whose
+    CPU kernel launches nothing."""
+    gen, _ = model
+    calls, op = [], modconv._up.modconv_up_op
+
+    def counted(x, ww):
+        calls.append((tuple(x.shape), tuple(ww.shape)))
+        return op(x, ww)
+    monkeypatch.setattr(modconv._up, "modconv_up_op", counted)
+    before = counters["modconv.up_launches"]
+    with torch.no_grad():
+        gen(torch.randn(BATCH, 512), depth=3, seed=1)
+    assert counters["modconv.up_launches"] == before
+    log2 = RES.bit_length() - 1
+    assert [x[-1] for x, _ in calls] == [2 ** k for k in range(2, log2)]
+    assert all(w[0] == BATCH and w[3:] == (3, 3) for _, w in calls)
+
+
+def test_the_export_calls_the_up_convolution_op(model):
+    from stylegan_torch.serving import export_generator, load_exported
+    gen, _ = model
+    blob = export_generator(gen.cfg, gen, depth=3, batch_size=BATCH,
+                            platforms=("cpu",))
+    exported = load_exported(blob, device="cpu")
+    targets = [n.target for n in exported.exported.graph.nodes
+               if n.op == "call_function"]
+    assert targets.count(torch.ops.stylegan_torch.modconv_up.default) == 3
+
+
 def test_skip_upsample_matches_upfirdn():
     y = torch.randn(BATCH, 3, 8, 8, generator=torch.Generator()
                     .manual_seed(6))
@@ -456,6 +580,48 @@ def test_epilogue_bytes_equal_the_benchmark_counts():
                                              fmap_base=16384))) == 17
 
 
+def test_the_up_convolution_roofline_reads_the_kernels_of_the_trace(
+        tmp_path):
+    """The benchmark's `modconv_up_roofline.serve2`: its FLOPs are the
+    kernel's own count at config F's 8 up-layers; it reads the summed
+    `modconv_up_kernel*` kernels of the device stretch's trace against the
+    stretch's images, and nothing where no such kernel ran (a tree without
+    the kernel) or no trace was kept."""
+    from gpubench import cells, counts2, drive
+    from stylegan_torch.ops.kernels import modconv_up as mu
+    cell = cells.load_cell("stylegan2f-ffhq1024-f32.serve2-b8")
+    arch = cell.config["architecture"]
+    reader = cells.module(cells.BENCH / "metrics"
+                          / "modconv_up_roofline.serve2.py")
+    per_image = reader.up_flops(arch)
+    assert per_image == sum(
+        mu.flops(torch.empty((1, cin, h, h), device="meta"),
+                 torch.empty((1, cout, cin, 3, 3), device="meta"))
+        for h, cin, cout in UP_CONVS_1024)
+    assert round(per_image / 1e9, 2) == 45.07
+
+    def kernel(name, dur, cat="kernel"):
+        return {"ph": "X", "cat": cat, "name": name, "ts": 0, "dur": dur}
+    events = [kernel("void modconv_up_kernel<3>(float const*)", 4000.0),
+              kernel("void modconv_up_kernel<1>(float const*)", 1000.0),
+              kernel("stylegan_torch::modconv_up", 9000.0, "cpu_op"),
+              kernel("sm80_xmma_fprop_implicit_gemm_f32", 7000.0)]
+    path = tmp_path / "cell.device.json"
+    path.write_text(json.dumps({"traceEvents": events}))
+    run = drive.Run(entry="serve", config=cell.config,
+                    unit_flops=[tuple(8 * f for f in
+                                      counts2.serve_image(arch))] * 6,
+                    trace={"traced": (2, 6), "units": 2},
+                    peaks={"float32": 67e12})
+    run.span_trace = path
+    want = 100.0 * 2 * 8 * per_image / 5e-3 / 67e12
+    assert reader.read(run) == pytest.approx(want, rel=1e-12)
+    path.write_text(json.dumps({"traceEvents": events[2:]}))
+    assert reader.read(run) is None
+    run.span_trace = tmp_path / "absent.json"
+    assert reader.read(run) is None
+
+
 def test_the_benchmark_copy_of_the_reference_is_plainref(model):
     from gpubench.reference import nets2
     _, p = model
@@ -518,3 +684,55 @@ def test_on_the_card_the_up_kernel_takes_ragged_planes(card, b, c, h):
     gap = _held_to_the_plain_version(
         _up_inputs(b, c, h, seed=h, device=card))
     assert gap <= SG2_OP_TOL
+
+
+# (input side, cin, cout) of the 8 up-convolutions of a config F 1024^2
+# forward
+UP_CONVS_1024 = [(4, 512, 512), (8, 512, 512), (16, 512, 512),
+                 (32, 512, 512), (64, 512, 256), (128, 256, 128),
+                 (256, 128, 64), (512, 64, 32)]
+# (b, cin, cout, h, w) off the main path: cin, cout and the planes not
+# multiples of the kernel's tiles, a single pixel, non-square planes
+UP_CONVS_RAGGED = [(3, 24, 40, 5, 5), (2, 72, 8, 7, 7), (1, 5, 3, 1, 1),
+                   (2, 9, 33, 16, 17), (1, 4, 3, 31, 33), (1, 3, 70, 2, 9)]
+
+
+def _up_conv_held_to_the_plain_version(x, ww):
+    """The kernel's output twice (bitwise equal, two launches counted)
+    against the plain version in float64: the widest gap over the plain
+    version's largest magnitude."""
+    from stylegan_torch.ops.kernels import modconv_up as mu
+    before = counters["modconv.up_launches"]
+    out = mu.modconv_up_forward(x, ww)
+    again = mu.modconv_up_forward(x, ww)
+    torch.cuda.synchronize()
+    assert counters["modconv.up_launches"] - before == 2
+    assert torch.equal(out, again)
+    ref = mu._reference_modconv_up(x.double(), ww.double())
+    return float((out.double() - ref).abs().max() / ref.abs().max())
+
+
+@pytest.mark.card
+@pytest.mark.parametrize("batch", [8, 1])
+def test_on_the_card_the_up_convolution_is_its_plain_version(card, batch):
+    """At the 8 up-convolutions of a 1024^2 forward: bitwise repeatable,
+    within SG2_OP_TOL of the grouped transposed convolution in float64."""
+    for h, cin, cout in UP_CONVS_1024:
+        x, ww = _conv_up_inputs(batch, cin, cout, h, seed=h, device=card)
+        gap = _up_conv_held_to_the_plain_version(x, ww)
+        assert gap <= SG2_OP_TOL, (h, cin, cout, gap)
+
+
+@pytest.mark.card
+@pytest.mark.parametrize("b,cin,cout,h,w", UP_CONVS_RAGGED)
+def test_on_the_card_the_up_convolution_takes_ragged_shapes(card, b, cin,
+                                                            cout, h, w):
+    x, ww = _conv_up_inputs(b, cin, cout, h, w, seed=cin, device=card)
+    assert _up_conv_held_to_the_plain_version(x, ww) <= SG2_OP_TOL
+
+
+@pytest.mark.card
+def test_on_the_card_the_up_convolution_refuses_autograd(card):
+    x, ww = _conv_up_inputs(1, 4, 3, 5, device=card)
+    with pytest.raises(RuntimeError, match="no backward"):
+        modconv.modulated_conv2d(x, ww.requires_grad_(True), up=True)

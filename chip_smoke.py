@@ -228,6 +228,20 @@ Phases, each fatal on failure:
            (dgrad_engine) kernel in a profiled request, the up-convolution
            kernel 8 times; (d) a torch.export artifact bitwise equal to
            make_serving_fn.
+15. stylegan3 StyleGAN3-T at 1024^2, batch 8 (configs/torch/
+           sample_ffhq_1024_stylegan3t.yaml, seeded random weights): (a) the
+           filtered leaky ReLU kernel against its plain version (the
+           upfirdn2d chain) in float64 at the forward's 14 filtered layers,
+           two calls bitwise equal, the 14 calls timed against their bound
+           (gpubench/counts3.py: operations at the float32 peak or bytes at
+           the HBM rate, whichever is longer, by call) and beside the plain
+           chain in float32; (b) make_serving_fn's images against
+           plainref/stylegan3.py on the card (image_gap under 1e-4), 15
+           filtered calls and 14 kernel launches a forward; (c) a repeated
+           request bitwise equal to the first, and a torch.export artifact
+           bitwise equal to make_serving_fn; (d) no depthwise or transposed
+           convolution kernel in a profiled request, the filtered kernel 14
+           times.
 
 Each phase prints its seconds.  `python3 chip_smoke.py --only 3 8 14` runs the
 build and just those phases (to try a change; no result lines).
@@ -4538,12 +4552,188 @@ def phase_stylegan2(dev):
     return out
 
 
+SG3_CONFIG = os.path.join(REPO, "configs", "torch",
+                          "sample_ffhq_1024_stylegan3t.yaml")
+# the forward against plainref/stylegan3.py (image_gap) and the kernel
+# against its plain version in float64 (the CPU tests' op-level bar)
+SG3_IMAGE_GAP = 1e-4
+SG3_OP_TOL = 1e-5
+# the reference's `arch`: the benchmark configuration's, which a CPU test
+# holds equal to the yaml's and to models/synthesis3.py's constants
+SG3_ARCH = os.path.join(REPO, "gpubench", "configs",
+                        "stylegan3t-ffhq1024-f32.json")
+
+
+def sg3_generator(dev, seed=3):
+    """StyleGAN3-T at 1024^2 with random_state_dict's draws, but its
+    buffers as the generator initialises them (the frequencies, phases,
+    transform and magnitude EMAs), the style affines' biases about 1 and
+    the input's transform affine at (1, 0, 0, 0) plus 0.2 n; and the
+    reference's `arch`."""
+    from stylegan_torch.config import apply_runtime_knobs, get_default_cfg
+    from stylegan_torch.models import Generator, generator_config_from_cfg
+    cfg = get_default_cfg()
+    cfg.merge_from_file(SG3_CONFIG)
+    cfg.freeze()
+    apply_runtime_knobs(cfg)
+    gen_cfg = generator_config_from_cfg(cfg)
+    gen = Generator(gen_cfg, generator=torch.Generator().manual_seed(seed))
+    own = gen.state_dict()
+    sd = random_state_dict(gen, seed)
+    for k in sd:
+        if k.endswith(("freqs", "phases", "transform", "magnitude_ema")):
+            sd[k] = own[k].clone()
+        elif k.endswith("input.affine.weight"):
+            sd[k] = sd[k] * 0.2
+        elif k.endswith("affine.bias"):
+            sd[k] = own[k] + (0 if "input" in k else sd[k])
+    gen.load_state_dict(sd)
+    with open(SG3_ARCH) as f:
+        arch = json.load(f)["architecture"]
+    return gen_cfg, gen.requires_grad_(False).eval().to(dev), sd, arch
+
+
+def sg3_kernel(dev, specs, arch):
+    """(a) The filtered leaky ReLU kernel against its plain version in
+    float64 (a sample at a time) at the forward's 14 filtered layers (x the
+    convolution's (BATCH, cout, s + 2, s + 2) output), two calls bitwise
+    equal; the 14 calls timed by CUDA events against their bound (counts3,
+    by call the larger of operations at the float32 peak and bytes at the
+    HBM rate) and beside the plain chain in float32."""
+    from gpubench import counts3
+    from stylegan_torch.ops.kernels import filtered_lrelu as fl
+    g = torch.Generator(device=dev).manual_seed(23)
+    worst, calls = 0.0, []
+    for s in specs:
+        args = (torch.randn((BATCH, s.out_channels, s.in_size + 2,
+                             s.in_size + 2), generator=g, device=dev),
+                torch.as_tensor(s.up_filter, dtype=torch.float32, device=dev),
+                torch.as_tensor(s.down_filter, dtype=torch.float32,
+                                device=dev),
+                torch.randn((s.out_channels,), generator=g, device=dev) * 0.2,
+                s.up, s.down, s.pad_lo, s.pad_hi, math.sqrt(2), 0.2, 256.0)
+        out = fl.filtered_lrelu_forward(*args)
+        if not torch.equal(out, fl.filtered_lrelu_forward(*args)):
+            fail(f"filtered_lrelu not bitwise repeatable at {s.out_size}x"
+                 f"{s.out_channels}")
+        gap = scale = 0.0
+        for i in range(BATCH):
+            ref = fl._reference_filtered_lrelu(
+                args[0][i:i + 1].double(), *(a.double() for a in args[1:4]),
+                *args[4:])
+            gap = max(gap, float((out[i:i + 1].double() - ref).abs().max()))
+            scale = max(scale, float(ref.abs().max()))
+            del ref
+        worst = max(worst, gap / scale)
+        del out
+        calls.append(args)
+    if worst > SG3_OP_TOL:
+        fail(f"filtered_lrelu kernel vs plain: {worst:.3g} > {SG3_OP_TOL}")
+    bound = counts3.filtered_lrelu_calls(arch, BATCH)
+    if [f for f, _ in bound] != [
+            fl.flops(a[0], *a[4:8], a[1].numel(), a[2].numel())
+            for a in calls]:
+        fail("phase 15's filtered calls are not counts3's")
+    torch.cuda.synchronize()
+    ms = cuda_time_ms(lambda: [fl.filtered_lrelu_forward(*a) for a in calls])
+    by_layer = [cuda_time_ms(lambda a=a: fl.filtered_lrelu_forward(*a))
+                for a in calls]
+    plain_ms = cuda_time_ms(lambda: [fl._reference_filtered_lrelu(*a)
+                                     for a in calls], iters=3, warmup=1)
+    bound_ms = sum(max(f / F32_FLOP_PER_S, b / HBM_BYTES_PER_S)
+                   for f, b in bound) * 1e3
+    return {"max_rel_err_vs_f64": worst, "calls_14_ms": round(ms, 4),
+            "by_layer_ms": [round(v, 4) for v in by_layer],
+            "gflop": round(sum(f for f, _ in bound) / 1e9, 3),
+            "gbytes": round(sum(b for _, b in bound) / 1e9, 3),
+            "bound_ms": round(bound_ms, 4), "share": round(bound_ms / ms, 4),
+            "plain_ms": round(plain_ms, 4)}
+
+
+def sg3_profiled_request(serve, z):
+    """(d) Fails if a depthwise or transposed convolution kernel ran in a
+    profiled request (the filters are inside the filtered kernel), or if
+    that kernel did not run once a filtered layer; returns its launches."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        serve(z, 99)
+    kernels = [e for e in prof.key_averages() if e.device_time_total > 0]
+    for banned in ("conv_depthwise2d", "dgrad", "conv_transpose"):
+        found = [e.key for e in kernels if banned in e.key.lower()]
+        if found:
+            fail(f"a StyleGAN3 request ran {banned}: {found}")
+    n = sum(e.count for e in kernels if "filtered_lrelu_kernel" in e.key)
+    if n != 14:
+        fail(f"filtered_lrelu_kernel ran {n} times in a request, want 14")
+    return {"filtered_lrelu_kernel": n}
+
+
+def phase_stylegan3(dev):
+    """StyleGAN3-T at 1024^2, batch 8 (configs/torch/
+    sample_ffhq_1024_stylegan3t.yaml, seeded random weights): (a) the
+    filtered leaky ReLU kernel against its plain version, its bound and the
+    plain chain; (b) make_serving_fn's images against plainref/stylegan3.py
+    on the card, 15 filtered calls and 14 kernel launches a forward; (c) a
+    repeated request bitwise equal to the first, an export bitwise equal to
+    make_serving_fn; (d) no depthwise or transposed convolution in a
+    profiled request, the filtered kernel 14 times."""
+    sys.path.insert(0, REPO)
+    from plainref import stylegan3 as plain
+    from stylegan_torch.models.synthesis3 import schedule
+    from stylegan_torch.serving import (export_generator, load_exported,
+                                        make_serving_fn)
+    from stylegan_torch.utils.profiling import counters
+    gen_cfg, gen, sd, arch = sg3_generator(dev)
+    specs = [s for s in schedule(gen_cfg.synthesis)[1] if not s.is_torgb]
+    out = {"kernel": sg3_kernel(dev, specs, arch)}
+    log(json.dumps({"phase15_kernel": out["kernel"]}))
+
+    serve = make_serving_fn(gen_cfg, gen, depth=DEPTH, device=dev)
+    z = torch.randn((BATCH, 512), generator=torch.Generator().manual_seed(5))
+    names = ("filtered_lrelu.launches", "filtered_lrelu.cuda_launches")
+    for name in names:
+        counters[name] = 0
+    images = serve(z, 7)
+    calls = tuple(counters[name] for name in names)
+    if calls != (15, 14):
+        fail(f"filtered lrelu calls and kernel launches a forward: {calls}")
+    if not torch.equal(serve(z, 7), images):
+        fail("a repeated StyleGAN3 request gave other bits")
+    p = {k: v.to(dev) for k, v in sd.items()}
+    with torch.no_grad():
+        ref = torch.cat([plain.generator(p, arch, z[i:i + 1].to(dev))
+                         for i in range(BATCH)])
+    got = images.to(dev)
+    gap = float((got - ref).abs().max() / ref.abs().max())
+    rms = float(torch.linalg.vector_norm(got - ref)
+                / torch.linalg.vector_norm(ref))
+    if gap > SG3_IMAGE_GAP:
+        fail(f"StyleGAN3 forward vs plainref: image_gap {gap:.3g}")
+    out["forward"] = {"image_gap": gap, "image_rms_gap": rms,
+                      "filtered_lrelu_calls": calls[0],
+                      "filtered_lrelu_cuda_launches": calls[1],
+                      "parameters": sum(t.numel() for t in gen.parameters())}
+    log(json.dumps({"phase15_forward": out["forward"]}))
+
+    blob = export_generator(gen_cfg, gen, depth=DEPTH, batch_size=BATCH)
+    exported = load_exported(blob, device=dev)(z, 7)
+    if not torch.equal(exported.to(dev), got):
+        fail("the exported StyleGAN3 program and make_serving_fn gave other "
+             "bits")
+    out["export"] = {"bytes": len(blob)}
+    log(json.dumps({"phase15_export": out["export"]}))
+
+    out["profiled_kernels"] = sg3_profiled_request(serve, z)
+    log(json.dumps({"phase15_profiled_kernels": out["profiled_kernels"]}))
+    return out
+
+
 def main(argv=None):
     import argparse
     parser = argparse.ArgumentParser()
     parser.add_argument("--only", type=int, nargs="+", default=None,
-                        choices=range(2, 15), metavar="PHASE",
-                        help="run only these of the phases 2-14 after the "
+                        choices=range(2, 16), metavar="PHASE",
+                        help="run only these of the phases 2-15 after the "
                         "build (to try a change; prints no result line)")
     only = parser.parse_args(argv).only
     if not torch.cuda.is_available():
@@ -4575,7 +4765,8 @@ def main(argv=None):
         11: lambda: phase_spatial(dev),
         12: lambda: phase_spatial_train(dev),
         13: lambda: phase_evidence(dev),
-        14: lambda: phase_stylegan2(dev)}
+        14: lambda: phase_stylegan2(dev),
+        15: lambda: phase_stylegan3(dev)}
     out = {}
     for n in only or phases:
         t0 = time.perf_counter()
@@ -4598,7 +4789,7 @@ def main(argv=None):
                    for n in SPATIAL_RANKS}
     k3s, d8 = out[12]["kernels"], out[12]["depth8"]
     p13 = out[13]
-    p14 = out[14]
+    p14, p15 = out[14], out[15]
     ev = p13["kernels"]
     ev_calls = {k: p13[k]["calls"] for k in ("progressive", "conditional")}
     ev_b128 = {d: ev[f"batch{EVIDENCE_TIMED_BATCH}_{d}"]
@@ -4832,6 +5023,25 @@ def main(argv=None):
                   "plain version, cuDNN's grouped conv_transpose2d, which "
                   "the port ran before; launches over phase 14(b)'s "
                   "forward, profiled_launches in 14(c)'s request",
+    }, {
+        "name": "filtered_lrelu", "route": "cuda",
+        "source": "stylegan_torch/csrc/filtered_lrelu.cu",
+        "replaces": None,
+        "launches": p15["forward"]["filtered_lrelu_cuda_launches"],
+        "profiled_launches": p15["profiled_kernels"]["filtered_lrelu_kernel"],
+        "max_rel_err_vs_f64": p15["kernel"]["max_rel_err_vs_f64"],
+        "ms": p15["kernel"]["calls_14_ms"],
+        "by_layer_ms": p15["kernel"]["by_layer_ms"],
+        "bound_ms": p15["kernel"]["bound_ms"],
+        "bound_by": "operations or bytes, by call",
+        "plain_ms": p15["kernel"]["plain_ms"], "library_ms": None,
+        "shapes": "StyleGAN3-T's 14 filtered leaky ReLUs of one batch-8 "
+                  "1024^2 forward (36^2..1044^2 out), float32; ms eager "
+                  "device time by CUDA events, bound_ms the larger of each "
+                  "call's filter taps at 67 TFLOP/s and its bytes at "
+                  "3.35 TB/s, summed; plain_ms the upfirdn2d chain in "
+                  "PyTorch; launches over phase 15(b)'s forward, "
+                  "profiled_launches in 15(d)'s request",
     }]
     log(card)
     log(json.dumps({"kernels": kernels}))

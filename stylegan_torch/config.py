@@ -206,12 +206,18 @@ def get_default_cfg() -> ConfigNode:
     c.model.gen.blur_filter = [1, 2, 1]
     c.model.gen.truncation_psi = 0.7
     c.model.gen.truncation_cutoff = 8
-    # the port's own keys (no JAX counterpart): 'stylegan1', or 'stylegan2'
+    # the port's own keys (no JAX counterpart): 'stylegan1', 'stylegan2'
     # (config F's skip generator, serving only; blur_filter is then its
-    # resample filter); the synthesis's fmap_base (8192 in StyleGAN1's
-    # FFHQ networks, 16384 in StyleGAN2's config F)
+    # resample filter) or 'stylegan3' (StyleGAN3-T, serving only); the
+    # synthesis's fmap_base (8192 in StyleGAN1's FFHQ networks, 16384 in
+    # StyleGAN2's config F)
     c.model.gen.architecture = "stylegan1"
     c.model.gen.fmap_base = 8192
+    # StyleGAN3's widths (architecture 'stylegan3', serving only;
+    # NVlabs/stylegan3 SynthesisNetwork's channel_base and channel_max,
+    # StyleGAN3-T's values): read by no other architecture
+    c.model.gen.channel_base = 32768
+    c.model.gen.channel_max = 512
 
     # discriminator (reference config.py:72-74)
     c.model.dis = ConfigNode()

@@ -18,10 +18,10 @@ from __future__ import annotations
 
 import math
 from dataclasses import dataclass, field, replace
-from typing import Optional, Tuple
+from typing import ClassVar, Optional, Tuple
 
 
-ARCHITECTURES = ("stylegan1", "stylegan2")
+ARCHITECTURES = ("stylegan1", "stylegan2", "stylegan3")
 
 
 def _nf(stage: int, fmap_base: int, fmap_decay: float, fmap_max: int) -> int:
@@ -94,6 +94,33 @@ class SynthesisConfig:
 
 
 @dataclass(frozen=True)
+class Synthesis3Config:
+    """StyleGAN3's synthesis network (NVlabs/stylegan3
+    ``networks_stylegan3.py::SynthesisNetwork``; the defaults are
+    StyleGAN3-T's, ``train.py --cfg=stylegan3-t``).  Its other arguments
+    are StyleGAN3-T's, constants of ``models/synthesis3.py``."""
+    dlatent_size: int = 512
+    num_channels: int = 3
+    resolution: int = 1024
+    channel_base: int = 32768
+    channel_max: int = 512
+    # W inputs: the input layer's, the 14 layers' and toRGB's
+    num_ws: ClassVar[int] = 16
+
+    @property
+    def resolution_log2(self) -> int:
+        r = int(math.log2(self.resolution))
+        assert self.resolution == 2 ** r and self.resolution >= 4
+        return r
+
+    @property
+    def depth(self) -> int:
+        """log2(res) - 1, as StyleGAN1's: `depth - 1` is the full
+        resolution, the only one StyleGAN3 generates."""
+        return self.resolution_log2 - 1
+
+
+@dataclass(frozen=True)
 class GeneratorConfig:
     resolution: int = 1024
     latent_size: int = 512
@@ -106,8 +133,9 @@ class GeneratorConfig:
     style_mixing_prob: Optional[float] = 0.9
     mapping: MappingConfig = field(default_factory=MappingConfig)
     synthesis: SynthesisConfig = field(default_factory=SynthesisConfig)
-    # 'stylegan1' (GSynthesis) or 'stylegan2' (config F's skip generator,
-    # GSynthesis2; serving only)
+    # 'stylegan1' (GSynthesis), 'stylegan2' (config F's skip generator,
+    # GSynthesis2) or 'stylegan3' (StyleGAN3-T, GSynthesis3, whose
+    # `synthesis` is a Synthesis3Config); the last two serving only
     architecture: str = "stylegan1"
 
     @property
@@ -166,6 +194,10 @@ class DiscriminatorConfig:
         return self.num_channels * 2 if self.conditional else self.num_channels
 
 
+# StyleGAN3's keys of model.gen: the widths, Synthesis3Config's fields
+SYNTHESIS3_KEYS = ("channel_base", "channel_max")
+
+
 def generator_config_from_args(structure, resolution, num_channels,
                                latent_size, conditional, n_classes,
                                g_args) -> GeneratorConfig:
@@ -182,10 +214,15 @@ def generator_config_from_args(structure, resolution, num_channels,
     if architecture not in ARCHITECTURES:
         raise ValueError(f"unknown architecture {architecture!r}: "
                          f"{ARCHITECTURES}")
+    if architecture != "stylegan1" and conditional:
+        raise ValueError(f"architecture {architecture!r} has no conditional "
+                         f"variant in the port")
+    if architecture == "stylegan3":
+        synthesis = Synthesis3Config(
+            resolution=int(resolution), num_channels=int(num_channels),
+            **{k: int(g[k]) for k in SYNTHESIS3_KEYS if k in g})
+        num_layers = synthesis.num_ws
     if architecture == "stylegan2":
-        if conditional:
-            raise ValueError("architecture 'stylegan2' has no conditional "
-                             "variant in the port")
         if blur is None or len(blur) != 4:
             raise ValueError(f"architecture 'stylegan2' takes its resample "
                              f"filter from model.gen.blur_filter, 4 taps "
@@ -204,9 +241,10 @@ def generator_config_from_args(structure, resolution, num_channels,
             latent_size=eff_latent,
             dlatent_broadcast=num_layers,
             mapping_layers=int(g.get("mapping_layers", 8)),
-            gain_after_act=architecture == "stylegan2",
+            gain_after_act=architecture != "stylegan1",
         ),
-        synthesis=SynthesisConfig(
+        synthesis=synthesis if architecture == "stylegan3" else
+        SynthesisConfig(
             resolution=int(resolution),
             num_channels=int(num_channels),
             fmap_base=int(g.get("fmap_base", 8192)),

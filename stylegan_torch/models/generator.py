@@ -32,6 +32,10 @@ from .configs import GeneratorConfig
 from .mapping import GMapping
 from .synthesis import GSynthesis, stream_seed
 from .synthesis2 import GSynthesis2
+from .synthesis3 import GSynthesis3
+
+SYNTHESES = {"stylegan1": GSynthesis, "stylegan2": GSynthesis2,
+             "stylegan3": GSynthesis3}
 
 
 class GeneratorOutput(NamedTuple):
@@ -75,17 +79,17 @@ def mix_styles(dlatents: torch.Tensor, dlatents2: torch.Tensor,
 class Generator(nn.Module):
     """State-dict keys ``g_mapping.*``, ``g_synthesis.*``,
     ``truncation.avg_latent`` and ``class_embedding.weight``.  The
-    synthesis is StyleGAN1's (``GSynthesis``) or, for
-    ``cfg.architecture == 'stylegan2'``, config F's (``GSynthesis2``)."""
+    synthesis is picked by ``cfg.architecture``: StyleGAN1's
+    (``GSynthesis``), StyleGAN2 config F's (``GSynthesis2``) or
+    StyleGAN3-T's (``GSynthesis3``)."""
 
     def __init__(self, cfg: GeneratorConfig, *,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
         self.cfg = cfg
         self.g_mapping = GMapping(cfg.mapping, generator=generator)
-        synthesis = (GSynthesis2 if cfg.architecture == "stylegan2"
-                     else GSynthesis)
-        self.g_synthesis = synthesis(cfg.synthesis, generator=generator)
+        self.g_synthesis = SYNTHESES[cfg.architecture](cfg.synthesis,
+                                                       generator=generator)
         if cfg.use_truncation:
             self.truncation = Truncation(cfg.dlatent_size)
         if cfg.conditional:

@@ -1,6 +1,8 @@
 """StyleGAN2's modulated convolution, its resampling and its layer epilogue
 (NVlabs/stylegan2 ``training/networks_stylegan2.py::modulated_conv2d_layer``
-and ``dnnlib/tflib/ops/upfirdn_2d.py``), on contiguous NCHW tensors.
+and ``dnnlib/tflib/ops/upfirdn_2d.py``), on contiguous NCHW tensors; and
+StyleGAN3's per-sample kernels (`modulate_weight3`), whose convolution is
+`modulated_conv2d` with padding k - 1.
 
 * The style of a layer: s = A w / sqrt(dlatent) + b_A + 1 (`modulation`).
 * The weight: w' = W s[ci] / sqrt(ci k^2); demodulated, w'' = w' d with
@@ -102,15 +104,40 @@ def modulate_weight(weight: torch.Tensor, s: torch.Tensor,
     return ww if d is None else ww * d[:, :, None, None, None]
 
 
+def modulate_weight3(weight: torch.Tensor, s: torch.Tensor,
+                     input_gain: torch.Tensor, *,
+                     demodulate: bool = True) -> torch.Tensor:
+    """StyleGAN3's per-sample kernels (B, cout, cin, k, k)
+    (NVlabs/stylegan3 ``networks_stylegan3.py::modulated_conv2d``): where
+    the layer demodulates, `weight` (cout, cin, k, k) pre-normalised,
+    w * rsqrt(mean over (ci, kh, kw) of w^2) per output channel, and the
+    styles `s` (B, cin) over the whole tensor, s * rsqrt(mean of s^2), then
+    w' = w s[ci] demodulated by d = rsqrt(sum over (ci, kh, kw) of w'^2 +
+    1e-8) (as `demodulation` takes the sum, without the equalized scale);
+    toRGB's, without demodulation, w s (its caller scales s); both times
+    `input_gain`, the layer's rsqrt(magnitude_ema) (0-d)."""
+    if demodulate:
+        weight = weight * weight.square().mean((1, 2, 3),
+                                               keepdim=True).rsqrt()
+        s = s * s.square().mean().rsqrt()
+    ww = weight[None] * s[:, None, :, None, None]
+    if demodulate:
+        d = torch.rsqrt(s.square() @ weight.square().sum((2, 3)).t() + 1e-8)
+        ww = ww * d[:, :, None, None, None]
+    return ww * input_gain
+
+
 def modulated_conv2d(x: torch.Tensor, ww: torch.Tensor, *,
-                     up: bool = False) -> torch.Tensor:
+                     up: bool = False,
+                     padding: Optional[int] = None) -> torch.Tensor:
     """The modulated convolution in its fused form: x (B, cin, H, W) with
     the per-sample kernels `ww` (`modulate_weight`) as one grouped
-    convolution (groups = B), SAME padding; with `up` the transposed
-    up-convolution, (B, cout, 2H+1, 2W+1), whose FIR `layer_epilogue_up`
-    applies: through the ``stylegan_torch::modconv_up`` op where no
-    gradient is recorded (the port's kernel on the card; x and `ww`
-    contiguous float32 3x3), else on the CPU the plain version,
+    convolution (groups = B), SAME padding (`padding`, k // 2, unless given:
+    StyleGAN3's k - 1 gives (B, cout, H + 2, W + 2) at k = 3); with `up`
+    the transposed up-convolution, (B, cout, 2H+1, 2W+1), whose FIR
+    `layer_epilogue_up` applies: through the ``stylegan_torch::modconv_up``
+    op where no gradient is recorded (the port's kernel on the card; x and
+    `ww` contiguous float32 3x3), else on the CPU the plain version,
     differentiable, and on the card an error (the kernel has no backward).
     Returns contiguous NCHW."""
     if up:
@@ -125,9 +152,9 @@ def modulated_conv2d(x: torch.Tensor, ww: torch.Tensor, *,
     b, cin, h, w = x.shape
     cout, k = ww.shape[1], ww.shape[-1]
     x = x.contiguous().reshape(1, b * cin, h, w)
-    y = F.conv2d(x, ww.reshape(b * cout, cin, k, k), padding=k // 2,
-                 groups=b)
-    return y.reshape(b, cout, h, w)
+    y = F.conv2d(x, ww.reshape(b * cout, cin, k, k),
+                 padding=k // 2 if padding is None else padding, groups=b)
+    return y.reshape(b, cout, *y.shape[2:])
 
 
 def skip_upsample(y: torch.Tensor, fir: torch.Tensor) -> torch.Tensor:

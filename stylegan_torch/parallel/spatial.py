@@ -61,14 +61,14 @@ def build_spatial_sample_fn(gen_cfg, generator, mesh: Mesh, *, depth: int,
     activation path), else cast to float32.  Conditional models are not
     supported on this path.  The output resolution 2^(depth+2) must divide
     by 4n (at least 4 output rows per rank), as in the JAX package.  Eval
-    semantics unless `train_semantics`.  Architecture 'stylegan2' is
-    refused.  The generator stays on its device; applies the process
-    precision policy, as make_serving_fn does."""
+    semantics unless `train_semantics`.  Architectures 'stylegan2' and
+    'stylegan3' are refused.  The generator stays on its device; applies
+    the process precision policy, as make_serving_fn does."""
     from ..ops.precision import get_precision, set_precision
 
-    if gen_cfg.architecture == "stylegan2":
-        raise ValueError("the spatial path does not support architecture "
-                         "'stylegan2'")
+    if gen_cfg.architecture != "stylegan1":
+        raise ValueError(f"the spatial path does not support architecture "
+                         f"{gen_cfg.architecture!r}")
     res = 2 ** (depth + 2)
     check_shards(res, mesh.size)
     if gen_cfg.conditional:

@@ -138,6 +138,8 @@ def _noise_layers(gen_cfg, depth: int) -> int:
     """The synthesis layers whose noise a forward at `depth` reads."""
     if gen_cfg.architecture == "stylegan2":
         return 2 * depth + 1
+    if gen_cfg.architecture == "stylegan3":
+        return 0
     if not gen_cfg.synthesis.use_noise:
         return 0
     if gen_cfg.synthesis.structure == "fixed":
@@ -231,9 +233,10 @@ def export_generator(gen_cfg, generator, *, depth: int, batch_size: int,
         raise ValueError(f"unknown platforms {unknown or platforms}: "
                          f"{PLATFORMS}")
     if spatial_devices > 1:
-        if gen_cfg.architecture == "stylegan2":
-            raise ValueError("spatial export does not support architecture "
-                             "'stylegan2' (it has no spatial path)")
+        if gen_cfg.architecture != "stylegan1":
+            raise ValueError(f"spatial export does not support architecture "
+                             f"{gen_cfg.architecture!r} (it has no spatial "
+                             f"path)")
         if gen_cfg.conditional:
             raise ValueError("spatial export does not support conditional "
                              "models (same restriction as generate_samples "

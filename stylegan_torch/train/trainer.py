@@ -179,10 +179,10 @@ class StyleGAN:
         if self.gen_cfg.architecture != "stylegan1":
             raise ValueError(
                 f"the trainer trains architecture 'stylegan1' only, got "
-                f"{self.gen_cfg.architecture!r}: StyleGAN2 is served "
-                f"(serving.make_serving_fn), and training it needs its "
-                f"residual discriminator, path-length regularisation and "
-                f"lazy R1, which the port does not have")
+                f"{self.gen_cfg.architecture!r}: StyleGAN2 and StyleGAN3 "
+                f"are served (serving.make_serving_fn), and training them "
+                f"needs StyleGAN2's residual discriminator, path-length "
+                f"regularisation and lazy R1, which the port does not have")
         self.dis_cfg = discriminator_config_from_args(
             structure, resolution, num_channels, conditional, n_classes,
             d_args)

@@ -29,10 +29,13 @@ from stylegan_torch.models import configs as tcfg
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 RES = 32
 LAYOUT_ONLY = {"packed", "fold_blur", "remat"}   # JAX-only TPU layout knobs
-# the port's own StyleGAN2 keys and fields (no JAX counterpart), at the
-# values that give StyleGAN1
+# the port's own StyleGAN2 and StyleGAN3 keys and fields (no JAX
+# counterpart), at their defaults (StyleGAN1's, and StyleGAN3-T's widths,
+# which no other architecture reads)
 PORT_ONLY_KEYS = {"model.gen.architecture": "stylegan1",
-                  "model.gen.fmap_base": 8192}
+                  "model.gen.fmap_base": 8192,
+                  "model.gen.channel_base": 32768,
+                  "model.gen.channel_max": 512}
 PORT_ONLY_FIELDS = {"architecture": "stylegan1", "gain_after_act": False}
 
 

@@ -550,7 +550,7 @@ def test_spatial_export_and_serving_refuse_stylegan2(model):
 
 def test_unknown_architecture_and_wrong_filter_are_refused():
     with pytest.raises(ValueError, match="unknown architecture"):
-        generator_config_from_cfg(_cfg(architecture="stylegan3"))
+        generator_config_from_cfg(_cfg(architecture="stylegan4"))
     with pytest.raises(ValueError, match="resample filter"):
         generator_config_from_cfg(_cfg(blur_filter=[1, 2, 1]))
 
